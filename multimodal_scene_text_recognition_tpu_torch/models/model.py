@@ -1,0 +1,97 @@
+"""Model assembly: TPS -> ResNet-31 -> semantics -> encoder -> decoder
+(JAX counterpart: models/model.py), greedy inference only."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..config import ModelConfig
+from .decoders import TransformerDecoder
+from .encoders import TransformerEncoder
+from .layers import BatchNorm2d
+from .resnet import ResNet31, to_column_sequence
+from .semantic import LinearEmbedding
+from .transformation import TPSTransform
+
+
+class SceneTextModel(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if not cfg.decode_fused or cfg.decode_early_stop:
+            raise NotImplementedError(
+                "the port serves greedy decode through the fused decode kernel "
+                "only (decode_fused=True, decode_early_stop=False)")
+        self.cfg = cfg
+        dtype = getattr(torch, cfg.compute_dtype)
+        if cfg.use_tps:
+            self.transformation = TPSTransform(
+                cfg.num_fiducial, cfg.img_h, cfg.img_w, cfg.input_channels, dtype)
+        self.feature_extractor = ResNet31(cfg.input_channels, cfg.hidden_dim, dtype=dtype)
+        self.semantic = LinearEmbedding(cfg.num_obj_classes, cfg.embed_dim)
+        self.encoder = TransformerEncoder(cfg.hidden_dim, cfg.num_heads, cfg.ff_dim,
+                                          cfg.enc_layers, cfg.num_cols)
+        self.decoder = TransformerDecoder(
+            cfg.num_classes, cfg.embed_dim, cfg.hidden_dim, cfg.num_heads, cfg.ff_dim,
+            cfg.dec_layers, cfg.max_text_length, dtype)
+
+    def set_use_kernels(self, on: bool) -> None:
+        """On CUDA tensors, run the hand-written kernels (the default) or
+        their plain PyTorch versions, which the chip check compares them
+        against.  CPU tensors always take the plain versions."""
+        if self.cfg.use_tps:
+            self.transformation.use_kernels = on
+        self.decoder.use_kernels = on
+
+    def rectify(self, image: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, 1] float32 -> rectified [B, H, W, 1] float32 (the crop
+        itself when ``use_tps`` is off)."""
+        return self.transformation(image) if self.cfg.use_tps else image
+
+    def features(self, rectified: torch.Tensor) -> torch.Tensor:
+        """Backbone: [B, H, W, 1] -> column features [B, W', hidden] f32."""
+        feats = self.feature_extractor(rectified.permute(0, 3, 1, 2))
+        return to_column_sequence(feats)
+
+    def decode_from_columns(self, cols: torch.Tensor, overlap: torch.Tensor) -> torch.Tensor:
+        """Semantics + encoder + greedy decoder from column features."""
+        # the semantic vectors feed only the fusion sites, all off in the
+        # served configuration; computed for parity with the JAX forward
+        self.semantic(overlap)
+        return self.decoder.greedy_decode(self.encoder(cols))
+
+    def forward(self, image: torch.Tensor, overlap: torch.Tensor) -> torch.Tensor:
+        """image [B, H, W, 1] float32 in [0, 1], overlap [B, n] int ids ->
+        greedy logits [B, max_text_length, num_classes] float32."""
+        return self.decode_from_columns(self.features(self.rectify(image)), overlap)
+
+
+@torch.no_grad()
+def init_random(model: SceneTextModel, generator: torch.Generator) -> None:
+    """Fill every parameter and statistic from ``generator``: matrices and
+    conv kernels ~ N(0, 1/fan_in), embedding tables ~ N(0, 1), norms at
+    identity, other biases zero, the fiducial head at the identity warp."""
+    norm_params = set()
+    for mod in model.modules():
+        if isinstance(mod, (nn.LayerNorm, BatchNorm2d)):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            norm_params |= {id(mod.weight), id(mod.bias)}
+        if isinstance(mod, BatchNorm2d):
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
+        if isinstance(mod, nn.Embedding):
+            mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator))
+            norm_params.add(id(mod.weight))
+    for p in model.parameters():
+        if id(p) in norm_params:
+            continue
+        if p.dim() >= 2:
+            std = 1.0 / math.sqrt(p[0].numel())
+            p.copy_(torch.randn(p.shape, generator=generator) * std)
+        else:
+            p.zero_()
+    if model.cfg.use_tps:
+        model.transformation.loc_net.init_identity_head()

@@ -1,0 +1,132 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These need an NVIDIA GPU and nvcc and skip elsewhere.  They import no JAX, so
+they also run where JAX is not installed:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from multimodal_scene_text_recognition_tpu_torch.ops import fused_decode as fd
+from multimodal_scene_text_recognition_tpu_torch.ops import grid_sample as gs
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("B,H,W,Ho,Wo", [(3, 32, 100, 32, 100), (5, 7, 9, 4, 6), (2, 1, 1, 3, 3)])
+def test_grid_sample_kernel_matches_plain(dev, B, H, W, Ho, Wo):
+    """atol 1e-5 (float32, the same taps; only FMA contraction differs),
+    on grids with integer coordinates, the far edges and points far outside
+    [-1, 1]; (2, 1, 1) is the degenerate one-pixel image."""
+    rng = np.random.default_rng(B * 100 + H)
+    img = torch.from_numpy(rng.random((B, H, W, 1), dtype=np.float32)).to(dev)
+    g = ((rng.random((B, Ho, Wo, 2)) * 2 - 1) * 3).astype(np.float32)
+    g[:, 0, 0] = [1.0, 1.0]
+    g[:, -1, -1] = [-1.0, -1.0]
+    if W > 1 and H > 1:
+        g[:, 0, 1:] = np.stack([2.0 * (np.arange(1, Wo) % W) / (W - 1) - 1.0,
+                                np.zeros(Wo - 1)], -1)
+    grid = torch.from_numpy(g).to(dev)
+    out = gs.grid_sample(img, grid)
+    ref = gs.grid_sample_plain(img, grid)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+def test_grid_sample_kernel_backward_is_plain_vjp(dev):
+    rng = np.random.default_rng(1)
+    img = torch.from_numpy(rng.random((2, 8, 10, 1), dtype=np.float32)).to(dev)
+    grid = torch.from_numpy(((rng.random((2, 8, 10, 2)) * 2 - 1) * 0.9).astype(np.float32)).to(dev)
+    grads = []
+    for f in (gs.grid_sample, gs.grid_sample_plain):
+        i, g = img.clone().requires_grad_(True), grid.clone().requires_grad_(True)
+        (f(i, g) ** 2).sum().backward()
+        grads.append((i.grad, g.grad))
+    torch.testing.assert_close(grads[0][0], grads[1][0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(grads[0][1], grads[1][1], atol=1e-5, rtol=0)
+
+
+def test_grid_sample_wrapper_refuses_bad_inputs(dev):
+    img = torch.zeros(2, 8, 10, 1, device=dev)
+    grid = torch.zeros(2, 8, 10, 2, device=dev)
+    with pytest.raises(TypeError):
+        gs.grid_sample_cuda(img.double(), grid)
+    with pytest.raises(ValueError):
+        gs.grid_sample_cuda(torch.zeros(2, 8, 10, 3, device=dev), grid)
+    with pytest.raises(ValueError):
+        gs.grid_sample_cuda(img.transpose(1, 2), grid)
+
+
+def _decode_inputs(dev, B, seed, L=2, E=64, F=128, C=97, T=6, Tm=8):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=None, base=0.0):
+        s = 1.0 / np.sqrt(shape[-2]) if scale is None else scale
+        return torch.from_numpy((base + s * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+    w = fd.FusedDecodeWeights(
+        w_qkv=t(L, E, 3 * E), b_qkv=t(L, 3 * E, scale=0.1), w_out=t(L, E, E),
+        b_out=t(L, E, scale=0.1), cw_q=t(L, E, E), cb_q=t(L, E, scale=0.1),
+        cw_o=t(L, E, E), cb_o=t(L, E, scale=0.1), ff1_w=t(L, E, F),
+        ff1_b=t(L, F, scale=0.1), ff2_w=t(L, F, E), ff2_b=t(L, E, scale=0.1),
+        n1_s=t(L, E, scale=0.1, base=1.0), n1_b=t(L, E, scale=0.1),
+        n2_s=t(L, E, scale=0.1, base=1.0), n2_b=t(L, E, scale=0.1),
+        n3_s=t(L, E, scale=0.1, base=1.0), n3_b=t(L, E, scale=0.1),
+        fn_s=t(E, scale=0.1, base=1.0), fn_b=t(E, scale=0.1),
+        head_w=t(E, C, scale=0.5), head_b=t(C, scale=0.1), emb=t(C, E, scale=1.0),
+        pe=t(T, E, scale=1.0))
+    return w, t(L, B, Tm, E, scale=1.0), t(L, B, Tm, E, scale=1.0)
+
+
+@pytest.mark.parametrize("B", [1, 13, 300])
+def test_fused_decode_kernel_matches_plain(dev, B):
+    """One row per CTA, from one CTA to more than two per SM.
+    float32: logits atol 1e-4 (summation order only) and identical tokens;
+    bfloat16: at least 95% of tokens identical."""
+    w, ck, cv = _decode_inputs(dev, B, seed=B)
+    kw = dict(num_heads=4, steps=6, go_id=0, eps=1e-5)
+    for dt in (torch.float32, torch.bfloat16):
+        wd = fd.cast_weights(w, dt)
+        ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
+        out = fd.fused_greedy_decode_cuda(wd, ckd, cvd, **kw)
+        ref = fd.fused_greedy_decode_plain(wd, ckd, cvd, **kw)
+        assert torch.isfinite(out).all()
+        agree = (out.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        if dt == torch.float32:
+            torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+            assert agree == 1.0
+        else:
+            assert agree >= 0.95
+
+
+def test_fused_decode_dispatch_launches_kernel_on_cuda(dev):
+    w, ck, cv = _decode_inputs(dev, 4, seed=0)
+    before = fd.fused_greedy_decode_cuda.launches
+    out = fd.fused_greedy_decode(w, ck, cv, num_heads=4, steps=6, dtype=torch.bfloat16)
+    assert out.shape == (4, 6, 97) and out.device.type == "cuda"
+    assert fd.fused_greedy_decode_cuda.launches == before + 1
+
+
+def test_fused_decode_wrapper_refuses_bad_inputs(dev):
+    w, ck, cv = _decode_inputs(dev, 4, seed=1)
+    w32 = fd.cast_weights(w, torch.float32)
+    kw = dict(num_heads=4, steps=6)
+    with pytest.raises(ValueError):  # cross K/V of another type
+        fd.fused_greedy_decode_cuda(w32, ck.bfloat16(), cv.bfloat16(), **kw)
+    with pytest.raises(ValueError):  # a non-contiguous table
+        fd.fused_greedy_decode_cuda(w32._replace(w_out=w32.w_out.transpose(1, 2)), ck, cv, **kw)
+    with pytest.raises(ValueError):  # heads that do not divide E
+        fd.fused_greedy_decode_cuda(w32, ck, cv, num_heads=5, steps=6)
+    with pytest.raises(ValueError):  # more steps than positional rows
+        fd.fused_greedy_decode_cuda(w32, ck, cv, num_heads=4, steps=7)
