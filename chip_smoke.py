@@ -6,10 +6,16 @@
 Builds the port's CUDA kernels from source, holds each against its plain
 PyTorch version on the card, serves the trained flagship recognizer through
 ``api.get_model`` -> ``Recognizer`` at B=192, and checks that the served run
-went through both kernels, with where the time of one served call goes
-(stage times and the card's idle share).  Every phase prints one flushed line with the
-elapsed seconds; any failure raises and the script exits non-zero.  A
-watchdog turns a hang into a printed failure (exit code 3).
+went through the decode and warp kernels, with where the time of one served
+call goes (stage times and the card's idle share).  Then trains the
+flagship through ``api.get_trainer`` for a few steps at B=192, once with the
+kernels and once with their plain versions from the same weights and
+dropout seed, and checks that the two agree and that the training run went
+through the warp and BatchNorm-backward kernels; K3 is held against its
+plain version at every BatchNorm shape of the step.  Every phase prints one
+flushed line with the elapsed seconds; any failure raises and the script
+exits non-zero.  A watchdog turns a hang into a printed failure (exit code
+3).
 
 Output: per-phase lines, the ``nvidia-smi`` name/power-limit line, one JSON
 line ``{"kernels": [...]}`` before the last, and as the last line
@@ -46,6 +52,29 @@ PEAK_F32_FLOPS = 67e12
 # products) it was 0.127-0.161 off with every token still equal, so the
 # limit sits between the two.
 BF16_LOGIT_TOL = 0.1
+# K3 vs its plain version: max over channels of |kernel - plain| over the
+# sum of |terms| (at least 1).  Both sum float32 in another order: 2.7e-9 to
+# 3.2e-8 on an H100; one element left out of the ragged shape's 231 per
+# channel would be ~4e-3 off.
+BN_TOL = 1e-6
+BN_SHAPES = (((192, 64, 32, 100), torch.bfloat16), ((192, 512, 4, 26), torch.bfloat16),
+             ((192, 128, 16, 50), torch.float32), ((3, 96, 7, 11), torch.bfloat16))
+TRAIN_STEPS = 3
+# Kernel vs plain training runs (same weights, batch and dropout masks),
+# relative differences.  A step's gradient is bitwise repeatable on the card,
+# but in bf16 a rounding-level change flips roundings that the backward
+# spreads: on an H100 the kernels' float32-level differences from their plain
+# versions (K2 ~1e-7, K3 ~1e-8) moved the first step's loss by 9.7e-5 (K2's
+# forward) and its gradient norm by 6.2e-3 (K3 alone: loss unchanged, norm
+# 3.9e-4).  After the first AdamW update the runs part faster: Adam's first
+# steps move every parameter by about the learning rate whatever the size of
+# its gradient, and the gradient norms of steps 2 and 3 parted by 4-12% (two
+# plain runs, which differ from step 2 on through the backward's
+# nondeterministic ops, by 0.9-4.5% at step 3; the phase prints both).  So
+# the gradient norm is held at step 1 only, the loss at every step (measured
+# 6.2e-5 and 5.4e-4 to 6.7e-4 at steps 2 and 3).
+TRAIN_LOSS_TOL = (1e-3, 5e-3, 5e-3)
+TRAIN_NORM_TOL = 3e-2
 
 T0 = time.time()
 PHASE = ["start"]
@@ -83,6 +112,24 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Mean device time in ms of one ``fn()`` call: the summed durations of
+    the kernels it launches, by ``torch.profiler``.  CUDA events over
+    back-to-back calls also count the host's launch cost wherever a call's
+    device work is shorter than it (tens of microseconds here)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy_us / 1e3 / iters
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -142,21 +189,106 @@ def check_grid_sample(gs):
     lib = torch.nn.functional.grid_sample(nchw, grid, mode="bilinear",
                                           padding_mode="border", align_corners=True)
     lib_err = (lib.permute(0, 2, 3, 1) - ref).abs().max().item()
-    ms = cuda_ms(lambda: gs.grid_sample_cuda(img, grid), 200, warmup=5)
-    plain_ms = cuda_ms(lambda: gs.grid_sample_plain(img, grid), 10)
-    library_ms = cuda_ms(lambda: torch.nn.functional.grid_sample(
-        nchw, grid, mode="bilinear", padding_mode="border", align_corners=True), 200, warmup=5)
+    calls = (lambda: gs.grid_sample_cuda(img, grid), lambda: gs.grid_sample_plain(img, grid),
+             lambda: torch.nn.functional.grid_sample(
+                 nchw, grid, mode="bilinear", padding_mode="border", align_corners=True))
+    ms, plain_ms, library_ms = (device_ms(f) for f in calls)
+    events = [cuda_ms(f, n, warmup=3) for f, n in zip(calls, (200, 10, 200))]
     N = H * W
     bound_ms, bound_by = bound(B * (H * W + 3 * N) * 4, B * N * 20, PEAK_F32_FLOPS)
-    log(f"grid_sample: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    log(f"grid_sample, device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"F.grid_sample {library_ms:.4f} ms (max |diff| {lib_err:.2e}), "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
+        f"bound {bound_ms:.4f} ms ({bound_by}); by CUDA events over back-to-back calls "
+        f"{events[0]:.4f} / {events[1]:.4f} / {events[2]:.4f} ms")
     return dict(name="grid_sample", route="cuda",
                 source="multimodal_scene_text_recognition_tpu_torch/kernels/grid_sample.cu",
                 replaces="multimodal_scene_text_recognition_tpu/ops/grid_sample.py:105",
                 jax="ops/grid_sample.py::_grid_sample_kernel",
                 max_abs_err=err, max_abs_err_f32=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                ms_events=events[0], plain_ms_events=events[1], library_ms_events=events[2])
+
+
+def bn_inputs(shape, dtype, seed: int):
+    """x (a per-channel offset on unit noise), dy, both channels-last as the
+    backbone's convs hand them over, and x's float32 batch mean and rstd, on
+    the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    C, cl = shape[1], torch.channels_last
+    x = (torch.randn(shape, generator=g, device="cuda")
+         + torch.randn((1, C, 1, 1), generator=g, device="cuda")).to(dtype).contiguous(
+             memory_format=cl)
+    dy = torch.randn(shape, generator=g, device="cuda").to(dtype).contiguous(memory_format=cl)
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    rstd = torch.rsqrt(xf.var(dim=(0, 2, 3), unbiased=False) + 1e-5)
+    return x, dy, mean, rstd
+
+
+def library_bn_sums(x, dy, mean, rstd):
+    """(dgamma, dbeta) by one PyTorch call, the yardstick of K3 (never on
+    the port's path)."""
+    _, dgamma, dbeta = torch.ops.aten.native_batch_norm_backward(
+        dy, x, torch.ones_like(mean), None, None, mean, rstd, True, 1e-5,
+        [False, True, True])
+    return dgamma, dbeta
+
+
+def bn_check(bn, shape, dtype, seed: int) -> dict:
+    """K3 against its plain version at one shape: twice, bit-equal from run
+    to run, within BN_TOL of the sum of |terms| per channel (raises
+    otherwise).  Then the device ms of the kernel, the plain version and the
+    library call, the kernel's ms by CUDA events, and the bound (x and dy
+    read once, mean and rstd read, dgamma and dbeta written)."""
+    x, dy, mean, rstd = bn_inputs(shape, dtype, seed)
+    got = bn.bn_bwd_sums_cuda(x, dy, mean, rstd)
+    again = bn.bn_bwd_sums_cuda(x, dy, mean, rstd)
+    ref = bn.bn_bwd_sums_plain(x, dy, mean, rstd)
+    lib = library_bn_sums(x, dy, mean, rstd)
+    torch.cuda.synchronize()
+    dyf = dy.float()
+    xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
+    scales = ((dyf * xhat).abs().sum(dim=(0, 2, 3)), dyf.abs().sum(dim=(0, 2, 3)))
+    del dyf, xhat
+    out = dict(err_abs=max((a - b).abs().max().item() for a, b in zip(got, ref)),
+               err=max(((a - b).abs() / sc.clamp(min=1.0)).max().item()
+                       for a, b, sc in zip(got, ref, scales)),
+               lib_err=max(((a - b).abs() / sc.clamp(min=1.0)).max().item()
+                           for a, b, sc in zip(lib, ref, scales)),
+               repeat=all(torch.equal(a, b) for a, b in zip(got, again)))
+    if not (out["err"] <= BN_TOL and out["repeat"]):
+        raise AssertionError(f"bn_bwd_reduce disagrees with its plain version at {shape} "
+                             f"{dtype}: {out}")
+    kernel = lambda: bn.bn_bwd_sums_cuda(x, dy, mean, rstd)  # noqa: E731
+    out["ms"] = device_ms(kernel)
+    out["plain_ms"] = device_ms(lambda: bn.bn_bwd_sums_plain(x, dy, mean, rstd))
+    out["library_ms"] = device_ms(lambda: library_bn_sums(x, dy, mean, rstd))
+    n = x.numel()
+    out["bound_ms"], out["bound_by"] = bound(2 * n * x.element_size() + 4 * shape[1] * 4,
+                                             4 * n, PEAK_F32_FLOPS)
+    out["events_ms"] = cuda_ms(kernel, 50, warmup=3)
+    return out
+
+
+def bn_line(shape, dtype, r: dict) -> str:
+    return (f"{list(shape)} {str(dtype)[6:]}: error {r['err']:.3e} of sum |terms| (limit "
+            f"{BN_TOL:g}; library call {r['lib_err']:.3e}), max |diff| {r['err_abs']:.3e}, "
+            f"repeatable {r['repeat']}; device time: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, native_batch_norm_backward {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); kernel by CUDA events "
+            f"{r['events_ms']:.4f} ms")
+
+
+def check_bn_bwd_reduce(bn):
+    """K3 against its plain version on the flagship's shapes at B=192 and a
+    ragged one, with the kernel's, plain version's, library call's and
+    bound's ms at each shape; the worst errors."""
+    worst = worst_abs = 0.0
+    for i, (shape, dtype) in enumerate(BN_SHAPES):
+        r = bn_check(bn, shape, dtype, seed=i)
+        log("bn_bwd_reduce " + bn_line(shape, dtype, r))
+        worst, worst_abs = max(worst, r["err"]), max(worst_abs, r["err_abs"])
+    return worst, worst_abs
 
 
 def decode_cost(w, ck, T, dt_bytes):
@@ -251,8 +383,8 @@ def stage_times(model, rec, crops, reps: int = 10):
     return {n: statistics.median(v[1:]) for n, v in samples.items()}
 
 
-def kernel_profile(rec, crops, calls: int = 3):
-    """``torch.profiler`` over ``calls`` warm recognize calls: device time
+def kernel_profile(fn, calls: int):
+    """``torch.profiler`` over ``calls`` warm calls of ``fn()``: device time
     per kernel name (the largest 12), the wall time of the calls, and the
     share of it with no kernel running (the card's idle share)."""
     from torch.profiler import ProfilerActivity, profile
@@ -261,7 +393,7 @@ def kernel_profile(rec, crops, calls: int = 3):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            rec.recognize(crops)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     per_name, spans = {}, []
@@ -280,9 +412,165 @@ def kernel_profile(rec, crops, calls: int = 3):
             busy_us += t - last
             last = t
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:12]
+    bn_ms = {part: sum(v for k, v in per_name.items() if f"bn_bwd_{part}" in k)
+             for part in ("partial", "finalize")}
     return {"calls": calls, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-            "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+            "idle_share": 1.0 - busy_us / 1e3 / wall_ms, "bn_bwd_reduce_ms": bn_ms,
             "kernels_ms": {k[:80]: v for k, v in top}}
+
+
+def make_train_batch(n: int, seed: int, chars: str):
+    """One batch in the wire format: uint8 crops, label rows of seeded
+    random words, overlap ids in [0, 100)."""
+    from multimodal_scene_text_recognition_tpu_torch.charset import AttnCodec
+
+    rng = np.random.default_rng(seed)
+    letters = list("abcdefghijklmnopqrstuvwxyz0123456789")
+    words = ["".join(rng.choice(letters, rng.integers(3, 11))) for _ in range(n)]
+    text, _ = AttnCodec(chars).encode(words)
+    return {"image": np.stack(make_crops(n, seed))[..., None], "text": text,
+            "overlap": rng.integers(0, 100, (n, 15)).astype(np.int32)}
+
+
+def train_run(api, bn, gs, batch, use_kernels: bool, steps: int = TRAIN_STEPS,
+              warp_kernel: bool = None):
+    """``steps`` steps of the trained flagship (``TrainConfig()`` defaults,
+    dropout 0.1) with the kernels or their plain versions (``warp_kernel``
+    sets K2 apart); the per-step metrics, the K3 and K2 counts after each
+    step, and the (shape, dtype) of each BatchNorm input of the first step."""
+    from multimodal_scene_text_recognition_tpu_torch.models.layers import BatchNorm2d
+
+    trainer = api.get_trainer(BUNDLE)
+    trainer.model.set_use_kernels(use_kernels)
+    if warp_kernel is not None:
+        trainer.model.transformation.use_kernels = warp_kernel
+    shapes = []
+    hooks = [m.register_forward_hook(lambda mod, inp, out: shapes.append(
+        (tuple(inp[0].shape), inp[0].dtype))) for m in trainer.model.modules()
+        if isinstance(m, BatchNorm2d)]
+    bn.bn_bwd_sums_cuda.launches = 0
+    gs.grid_sample_cuda.launches = 0
+    metrics, counts = [], []
+    for _ in range(steps):
+        m = trainer(batch)
+        metrics.append({k: v.item() for k, v in m.items()})
+        counts.append((bn.bn_bwd_sums_cuda.launches, gs.grid_sample_cuda.launches))
+    for h in hooks:
+        h.remove()
+    return trainer, metrics, counts, shapes[:len(shapes) // steps]
+
+
+def rel_diffs(a, b):
+    """Per step, the relative differences of the loss and the gradient norm
+    of run ``a`` from run ``b``."""
+    return [(abs(x["loss"] - y["loss"]) / abs(y["loss"]),
+             abs(x["grad_norm"] - y["grad_norm"]) / abs(y["grad_norm"])) for x, y in zip(a, b)]
+
+
+def train_phase(api, bn, gs):
+    """Train bf16 at B=192 with the kernels, then with their plain versions
+    from the same weights and dropout seed; compare, count, time."""
+    from multimodal_scene_text_recognition_tpu_torch.config import FLAGSHIP
+
+    batch = make_train_batch(B, 4321, FLAGSHIP.chars)
+    torch.cuda.reset_peak_memory_stats()
+    trainer, kmetrics, kcounts, shapes = train_run(api, bn, gs, batch, use_kernels=True)
+    log(f"train with kernels: {kmetrics}; K3/K2 launches after each step {kcounts}")
+    per_step = len(shapes)
+    want = [(per_step * (i + 1), i + 1) for i in range(TRAIN_STEPS)]
+    if per_step != 36 or kcounts != want:
+        raise AssertionError(f"training launched K3/K2 {kcounts} with {per_step} BatchNorms "
+                             f"a step; expected {want} with 36")
+
+    step_ms = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer(batch)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    ms_step = statistics.median(step_ms)
+    prof = kernel_profile(lambda: trainer(batch), calls=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the profiler's own host cost stretches the profiled step's wall time;
+    # the busy time over the unprofiled step's time is the other estimate
+    prof["idle_share_of_unprofiled_step"] = 1.0 - prof["device_busy_ms"] / ms_step
+    log(f"train step: median {ms_step:.2f} ms of {step_ms} ({B / ms_step * 1e3:.1f} crops/s), "
+        f"profile of one step: wall {prof['wall_ms']:.2f} ms, kernels busy "
+        f"{prof['device_busy_ms']:.2f} ms, idle share {prof['idle_share']:.4f} "
+        f"({prof['idle_share_of_unprofiled_step']:.4f} of the unprofiled step), K3 in the "
+        f"step {prof['bn_bwd_reduce_ms']} ms; peak memory {peak_gb:.1f} GB")
+    if prof["device_busy_ms"] <= 0:
+        raise AssertionError("the profiler saw no kernel run on the card during a train step")
+    del trainer
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for name, kw in (("plain", dict(use_kernels=False)),
+                     ("plain again", dict(use_kernels=False)),
+                     ("K3 alone", dict(use_kernels=True, warp_kernel=False, steps=1))):
+        trainer, runs[name], counts, _ = train_run(api, bn, gs, batch, **kw)
+        del trainer
+        torch.cuda.empty_cache()
+        log(f"train, {name}: {runs[name]}; K3/K2 launches {counts}")
+        if name != "K3 alone" and any(c != (0, 0) for c in counts):
+            raise AssertionError(f"the plain training run launched a kernel: {counts}")
+    pmetrics = runs["plain"]
+    for m in kmetrics + pmetrics:
+        if not np.isfinite([m["loss"], m["grad_norm"]]).all():
+            raise AssertionError(f"non-finite training metrics: {m}")
+    diffs = rel_diffs(kmetrics, pmetrics)
+    floor = rel_diffs(runs["plain again"], pmetrics)
+    k3_alone = rel_diffs(runs["K3 alone"], pmetrics)[0]
+    log(f"train, relative (loss, grad norm) by step: plain run to run {floor}; K3 alone "
+        f"at step 1 {k3_alone}")
+    loss_diffs = [d[0] for d in diffs]
+    norm_diff = diffs[0][1]
+    log(f"train kernels vs plain, relative: loss {[f'{d:.3e}' for d in loss_diffs]} by step "
+        f"(limits {TRAIN_LOSS_TOL}), step-1 grad norm {norm_diff:.3e} (limit "
+        f"{TRAIN_NORM_TOL:g}; steps 2-3: {[f'{d[1]:.3e}' for d in diffs[1:]]})")
+    if not (all(d <= t for d, t in zip(loss_diffs, TRAIN_LOSS_TOL))
+            and norm_diff <= TRAIN_NORM_TOL):
+        raise AssertionError(f"kernel and plain training runs disagree: {diffs}")
+
+    # K3 held against its plain version at each of the step's BatchNorm
+    # shapes, and its cost per step
+    tally = {}
+    for key in shapes:
+        tally[key] = tally.get(key, 0) + 1
+    totals, bound_by, worst, worst_abs = np.zeros(5), set(), 0.0, 0.0
+    for i, ((shape, dtype), n) in enumerate(tally.items()):
+        r = bn_check(bn, shape, dtype, 100 + i)
+        log(f"  K3 x{n} at " + bn_line(shape, dtype, r))
+        bound_by.add(r["bound_by"])
+        totals += n * np.array([r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                               "events_ms")])
+        worst, worst_abs = max(worst, r["err"]), max(worst_abs, r["err_abs"])
+    nbytes = sum(2 * int(np.prod(s)) * (2 if d == torch.bfloat16 else 4) for s, d in shapes)
+    log(f"K3 per train step ({per_step} launches, {nbytes / 1e9:.3f} GB of x and dy), device "
+        f"time: kernel {totals[0]:.4f} ms, plain {totals[1]:.4f} ms, library {totals[2]:.4f} ms, "
+        f"bound {totals[3]:.4f} ms; kernel by CUDA events {totals[4]:.4f} ms, in the profiled "
+        f"step {prof['bn_bwd_reduce_ms']} ms")
+    summary = {"batch": B, "steps": TRAIN_STEPS, "loss_kernels": [m["loss"] for m in kmetrics],
+               "loss_plain": [m["loss"] for m in pmetrics],
+               "grad_norm_kernels": [m["grad_norm"] for m in kmetrics],
+               "grad_norm_plain": [m["grad_norm"] for m in pmetrics],
+               "rel_loss_diff": loss_diffs, "rel_grad_norm_diff_step1": norm_diff,
+               "rel_diff_by_step": diffs, "plain_run_to_run": floor,
+               "k3_alone_step1": k3_alone,
+               "ms_per_step": ms_step, "crops_per_s": B / ms_step * 1e3,
+               "profile": prof, "peak_memory_gb": peak_gb}
+    k3 = dict(name="bn_bwd_reduce", route="cuda",
+              source="multimodal_scene_text_recognition_tpu_torch/kernels/bn_bwd_reduce.cu",
+              replaces="multimodal_scene_text_recognition_tpu/ops/batchnorm.py:41",
+              jax="ops/batchnorm.py::_bn_bwd_reduce_kernel",
+              launches=kcounts[-1][0], launches_per_step=per_step,
+              ms=totals[0], plain_ms=totals[1], library_ms=totals[2], bound_ms=totals[3],
+              bound_by="/".join(sorted(bound_by)), per="train step (all 36 launches)",
+              ms_events=totals[4], ms_in_profiled_step=sum(prof["bn_bwd_reduce_ms"].values()),
+              step_bytes=nbytes, max_abs_err=worst_abs, max_err_of_sum_terms=worst)
+    return summary, k3, kcounts[-1][1]
 
 
 def main() -> int:
@@ -309,6 +597,7 @@ def main() -> int:
     from multimodal_scene_text_recognition_tpu_torch.config import FLAGSHIP
     from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
     from multimodal_scene_text_recognition_tpu_torch.kernels import build
+    from multimodal_scene_text_recognition_tpu_torch.ops import batchnorm as bn
     from multimodal_scene_text_recognition_tpu_torch.ops import fused_decode as fd
     from multimodal_scene_text_recognition_tpu_torch.ops import grid_sample as gs
 
@@ -324,6 +613,9 @@ def main() -> int:
 
     phase("grid_sample vs plain")
     k2 = check_grid_sample(gs)
+
+    phase("bn_bwd_reduce vs plain")
+    bn_err, bn_err_abs = check_bn_bwd_reduce(bn)
 
     phase("load model")
     model = api.get_model(BUNDLE)
@@ -364,7 +656,7 @@ def main() -> int:
         f"10 warm calls, CUDA events)")
     stages = stage_times(model, rec, crops)
     log("stage ms (median of 10): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    prof = kernel_profile(rec, crops)
+    prof = kernel_profile(lambda: rec.recognize(crops), calls=3)
     if prof["device_busy_ms"] <= 0:
         raise AssertionError("the profiler saw no kernel run on the card")
     log(f"profile of {prof['calls']} calls: wall {prof['wall_ms']:.2f} ms, kernels busy "
@@ -383,14 +675,23 @@ def main() -> int:
     if agree32 != 1.0:
         raise AssertionError(f"f32 end-to-end agreement {agree32} < 1")
 
+    phase("train bf16")
+    del model32, rec32
+    torch.cuda.empty_cache()
+    train, k3, k2_train = train_phase(api, bn, gs)
+    k3["max_abs_err"] = max(k3["max_abs_err"], bn_err_abs)
+    k3["max_err_of_sum_terms"] = max(k3["max_err_of_sum_terms"], bn_err)
+    k2["launches_train"] = k2_train
+
     phase("report")
     log(f"done in {time.time() - T0:.1f} s")
     print(json.dumps({"e2e": {"bf16_string_agreement": agree16,
                               "f32_string_agreement": agree32,
                               "crops_per_s": crops_s, "ms_per_call": ms_call, "batch": B,
-                              "stage_ms": stages, "profile": prof}}), flush=True)
+                              "stage_ms": stages, "profile": prof},
+                      "train": train}), flush=True)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     timer.cancel()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -1,5 +1,5 @@
-"""Entry point: build the served model, with the trained weights or random
-ones (JAX counterpart: api.get_model)."""
+"""Entry points: the served model and the trainer of the flagship, with the
+trained weights or random ones (JAX counterpart: api.get_model)."""
 
 from __future__ import annotations
 
@@ -8,13 +8,16 @@ from typing import Optional
 import torch
 
 from . import convert
-from .config import FLAGSHIP, ModelConfig
+from .config import FLAGSHIP, ModelConfig, TrainConfig
 from .models.model import SceneTextModel, init_random
+from .train.steps import TrainStep
 
 
 def get_model(bundle_path: Optional[str] = None, cfg: Optional[ModelConfig] = None,
-              device: str = "cuda", seed: int = 0) -> SceneTextModel:
-    """The flagship recognizer (bf16, fused decode) in eval mode on ``device``.
+              device: str = "cuda", seed: int = 0, train: bool = False) -> SceneTextModel:
+    """The flagship recognizer (bf16, fused decode) on ``device``: in eval
+    mode with gradients off, or with ``train=True`` in train mode with
+    gradients on.
 
     ``bundle_path``: a JAX ``.params.npz`` bundle, loaded strictly (every
     weight of the model must come from it).  Without one the weights are
@@ -34,4 +37,16 @@ def get_model(bundle_path: Optional[str] = None, cfg: Optional[ModelConfig] = No
                               strict=True)
     else:
         init_random(model, torch.Generator().manual_seed(seed))
+    if train:
+        return model.train().requires_grad_(True)
     return model.eval().requires_grad_(False)
+
+
+def get_trainer(bundle_path: Optional[str] = None, cfg: Optional[ModelConfig] = None,
+                train_cfg: Optional[TrainConfig] = None, device: str = "cuda",
+                seed: int = 0) -> TrainStep:
+    """A :class:`~.train.steps.TrainStep` over :func:`get_model` (the same
+    arguments, in train mode) with ``train_cfg`` (default ``TrainConfig()``):
+    call it on a batch to take one optimizer step."""
+    model = get_model(bundle_path, cfg, device=device, seed=seed, train=True)
+    return TrainStep(model, train_cfg or TrainConfig())

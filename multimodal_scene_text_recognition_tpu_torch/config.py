@@ -1,11 +1,12 @@
-"""Model configuration: the fields of the JAX package's ``ModelConfig`` that
-the greedy serving path reads, with the same defaults (JAX counterpart:
-core/config.py)."""
+"""Model and training configuration: the fields of the JAX package's
+``ModelConfig`` and ``TrainConfig`` that the greedy serving path and the
+train step read, with the same defaults (JAX counterpart: core/config.py)."""
 
 from __future__ import annotations
 
 import string
 from dataclasses import dataclass
+from typing import Optional
 
 # 94 printable characters: string.printable minus the 6 trailing whitespace
 # controls.
@@ -34,6 +35,12 @@ class ModelConfig:
     max_text_length: int = 25
     chars: str = DEFAULT_CHARS
     compute_dtype: str = "bfloat16"
+    # dropout of the encoder and decoder in train mode
+    dropout: float = 0.1
+    # the default of the train-mode BatchNorm backward reduction on CUDA
+    # tensors: the CUDA kernel (ops/batchnorm.py), or with False its plain
+    # version; SceneTextModel.set_use_kernels switches it at run time
+    fused_bn: bool = True
 
     @property
     def num_classes(self) -> int:
@@ -44,6 +51,26 @@ class ModelConfig:
     def num_cols(self) -> int:
         # encoder column count: backbone width for a 100-wide crop
         return self.img_w // 4 + 1
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimisation settings the train step reads (train/state.py,
+    train/steps.py)."""
+
+    batch_size: int = 192
+    lr: float = 1e-4
+    weight_decay: float = 0.01
+    grad_clip_norm: float = 2.0
+    # StepLR: lr * lr_gamma ** (steps after warmup // lr_step_size); None = constant
+    lr_step_size: Optional[int] = None
+    lr_gamma: float = 0.1
+    # linear warmup from 0 over this many steps (0 = none)
+    warmup_steps: int = 0
+    seed: int = 999
+    # the loss ignores [GO] targets and counts [PAD] ones; False masks [PAD] too
+    loss_counts_pad: bool = True
+    label_smoothing: float = 0.0
 
 
 # The flagship that serving runs: bf16 compute, whole-loop fused decode.

@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX package's flat parameter bundle -> the port's
+"""Weight bridge: the JAX package's flat parameter bundle <-> the port's
 ``state_dict``.
 
 A bundle (``train/checkpoint.save_params_bundle`` in the JAX package, e.g.
@@ -36,6 +36,7 @@ _LEAF = {
     "var": "running_var",
 }
 _TRANSPOSED = {"kernel", "w_qkv", "w_out"}
+_EMBEDDINGS = ("emb", "embed")
 META_KEYS = ("__step__",)
 
 
@@ -75,3 +76,36 @@ def load_bundle(path: str) -> Dict[str, np.ndarray]:
     """Read a ``.params.npz`` bundle with numpy alone."""
     with np.load(path) as data:
         return {k: data[k] for k in data.files}
+
+
+
+def _bundle_leaf(path: str, leaf: str, t: torch.Tensor) -> str:
+    """The JAX leaf name of the port entry ``<path>.<leaf>``.  ``weight``
+    is ambiguous: a norm's scale (one dimension), an embedding table (the
+    modules named ``emb`` and ``embed``, as in the JAX tree) or a kernel."""
+    if leaf != "weight":
+        return next(k for k, v in _LEAF.items() if v == leaf)
+    if t.dim() == 1:
+        return "scale"
+    return "embedding" if path.rsplit(".", 1)[-1] in _EMBEDDINGS else "kernel"
+
+
+def state_dict_to_bundle(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`bundle_to_state_dict`: a port ``state_dict``
+    as float32 ``{dotted key: array}`` in the JAX package's layout, which
+    ``np.savez`` writes as a bundle the JAX package loads.  An entry with no
+    counterpart raises."""
+    port_leaves = sorted(set(_LEAF.values()), key=len, reverse=True)
+    out: Dict[str, np.ndarray] = {}
+    for name, t in state_dict.items():
+        leaf = next((k for k in port_leaves if name.endswith("." + k)), None)
+        if leaf is None:
+            raise KeyError(f"state_dict entry {name!r} has no counterpart in a bundle")
+        path = name[: -len(leaf) - 1]
+        jleaf = _bundle_leaf(path, leaf, t)
+        collection = "batch_stats" if jleaf in ("mean", "var") else "params"
+        arr = t.detach().cpu().float().numpy()
+        if jleaf in _TRANSPOSED:  # OIHW -> HWIO, [out, in] -> [in, out]
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        out[f"{collection}.{path}.{jleaf}"] = np.ascontiguousarray(arr)
+    return out

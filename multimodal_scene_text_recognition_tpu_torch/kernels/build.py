@@ -26,7 +26,7 @@ KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("fused_decode", "grid_sample")
+SOURCES = ("fused_decode", "grid_sample", "bn_bwd_reduce")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _running: Set[subprocess.Popen] = set()  # compilers in flight, for kill_running

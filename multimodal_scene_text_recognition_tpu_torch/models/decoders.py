@@ -1,11 +1,12 @@
-"""Transformer decoder, greedy serving path (JAX counterpart:
-models/decoders.py ``TransformerDecoder``).
+"""Transformer decoder (JAX counterpart: models/decoders.py
+``TransformerDecoder``).
 
-The memory projection ``hid_to_emb`` and the per-layer cross-attention K/V
-run once in float32; the whole 25-step greedy loop is one launch of the
-fused decode kernel (ops/fused_decode.py) in the compute type.  The
-teacher-forced forward, the scan stepper, early stop and beam search are
-not ported yet.
+Serving: the memory projection ``hid_to_emb`` and the per-layer
+cross-attention K/V run once in float32; the whole 25-step greedy loop is
+one launch of the fused decode kernel (ops/fused_decode.py) in the compute
+type.  Training: one teacher-forced causal pass in float32, as the JAX
+package trains its decoder.  The scan stepper, early stop and beam search
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,14 +15,16 @@ import torch
 from torch import nn
 
 from ..charset import GO_ID
-from ..ops.attention import qkv_projections
+from ..ops.attention import causal_mask, qkv_projections
 from ..ops.fused_decode import cast_weights, fused_greedy_decode, stack_decoder_weights
+from .encoders import Drop
 from .layers import EPS, MultiHeadAttention, layer_norm, positional_rows
 
 
 class DecoderLayer(nn.Module):
-    """Parameters of one decoder layer (self-attention, cross-attention,
-    ReLU FF, three layernorms); the kernel runs its arithmetic."""
+    """One decoder layer (self-attention, cross-attention, ReLU FF, three
+    layernorms).  Serving runs its arithmetic in the fused kernel; the
+    forward here is the teacher-forced pass (JAX ``dec_layer_full``)."""
 
     def __init__(self, E: int, num_heads: int, ff_dim: int):
         super().__init__()
@@ -32,6 +35,14 @@ class DecoderLayer(nn.Module):
         self.norm1 = layer_norm(E)
         self.norm2 = layer_norm(E)
         self.norm3 = layer_norm(E)
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor, mask: torch.Tensor,
+                drop: Drop) -> torch.Tensor:
+        """x [B, T, E] targets, memory [B, Tm, E], additive causal mask [T, T]."""
+        x = self.norm1(x + drop(self.self_attn(x, x, mask)))
+        x = self.norm2(x + drop(self.cross_attn(x, memory)))
+        f = self.linear2(drop(torch.relu(self.linear1(x))))
+        return self.norm3(x + drop(f))
 
 
 class TransformerDecoder(nn.Module):
@@ -84,6 +95,19 @@ class TransformerDecoder(nn.Module):
                     self.emb.weight, pe), dtype)
             hit = self._fused[dtype] = (key, w)
         return hit[1]
+
+    def teacher_forced(self, enc_out: torch.Tensor, text: torch.Tensor,
+                       drop: Drop) -> torch.Tensor:
+        """Training pass: enc_out [B, Tm, memory_dim] float32, text [B, T]
+        input ids (starting with [GO]) -> logits [B, T, C] float32."""
+        memory = self.hid_to_emb(enc_out)
+        T = text.shape[1]
+        pe = positional_rows(self.max_text_length + 1, self.d_model, text.device)
+        x = drop(self.emb(text) + pe[:T])
+        mask = causal_mask(T, text.device)
+        for layer in self.layers():
+            x = layer(x, memory, mask, drop)
+        return self.emb_to_classes(self.final_norm(x))
 
     def greedy_decode(self, enc_out: torch.Tensor) -> torch.Tensor:
         """enc_out [B, Tm, memory_dim] -> logits [B, max_text_length, C] f32."""

@@ -16,8 +16,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attend, qkv_projections
+from ..ops.batchnorm import bn_train
 
 EPS = 1e-5  # torch's LayerNorm/BatchNorm default, used throughout
+BN_MOMENTUM = 0.9  # running statistic = 0.9 * old + 0.1 * batch
+
+
+def nchw_channels_last(img: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] images -> [B, C, H, W] in the channels-last memory
+    format: the same memory (a view, no copy, where the image is
+    contiguous).  The convs of the backbone and the loc-net keep this
+    format (cuDNN's tensor-core layout on the card), and so the BatchNorm
+    backward kernel reads it."""
+    return img.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
 
 def layer_norm(E: int) -> nn.LayerNorm:
@@ -25,9 +36,15 @@ def layer_norm(E: int) -> nn.LayerNorm:
 
 
 class BatchNorm2d(nn.Module):
-    """Eval-mode BatchNorm over NCHW in float32:
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, cast back to the
-    input's type."""
+    """BatchNorm over [B, C, H, W] in float32, output cast back to the input's type.
+
+    Eval: ``(x - running_mean) * (rsqrt(running_var + eps) * scale) + bias``.
+    Train: :func:`ops.batchnorm.bn_train` over the batch, then the running
+    statistics move to ``0.9 * old + 0.1 * batch`` with the *biased* batch
+    variance (the JAX package's rule; ``nn.BatchNorm2d`` would take the
+    unbiased one).  ``use_kernels`` picks the backward reduction on CUDA
+    tensors: the kernel, or its plain version.
+    """
 
     def __init__(self, C: int):
         super().__init__()
@@ -35,11 +52,30 @@ class BatchNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.empty(C))
         self.register_buffer("running_mean", torch.empty(C))
         self.register_buffer("running_var", torch.empty(C))
+        self.use_kernels = True
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            y, mean, var = bn_train(x, self.weight, self.bias, EPS,
+                                    plain=not self.use_kernels)
+            with torch.no_grad():
+                for stat, batch in ((self.running_mean, mean), (self.running_var, var)):
+                    stat.copy_(BN_MOMENTUM * stat + (1.0 - BN_MOMENTUM) * batch)
+            return y
         mul = torch.rsqrt(self.running_var + EPS) * self.weight
         y = (x.float() - self.running_mean[:, None, None]) * mul[:, None, None]
         return (y + self.bias[:, None, None]).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
+    """Keep each element with probability ``1 - p`` and scale it by
+    ``1 / (1 - p)`` (flax's ``nn.Dropout``), drawing the mask from
+    ``generator``, which lies on ``x``'s device."""
+    if p == 0.0:
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
 
 
 class Conv2d(nn.Conv2d):

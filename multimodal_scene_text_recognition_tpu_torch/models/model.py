@@ -1,9 +1,12 @@
 """Model assembly: TPS -> ResNet-31 -> semantics -> encoder -> decoder
-(JAX counterpart: models/model.py), greedy inference only."""
+(JAX counterpart: models/model.py): greedy inference, and the
+teacher-forced training pass."""
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -11,7 +14,7 @@ from torch import nn
 from ..config import ModelConfig
 from .decoders import TransformerDecoder
 from .encoders import TransformerEncoder
-from .layers import BatchNorm2d
+from .layers import BatchNorm2d, dropout, nchw_channels_last
 from .resnet import ResNet31, to_column_sequence
 from .semantic import LinearEmbedding
 from .transformation import TPSTransform
@@ -36,23 +39,31 @@ class SceneTextModel(nn.Module):
         self.decoder = TransformerDecoder(
             cfg.num_classes, cfg.embed_dim, cfg.hidden_dim, cfg.num_heads, cfg.ff_dim,
             cfg.dec_layers, cfg.max_text_length, dtype)
+        self.set_use_kernels(True)
+        for mod in self.modules():  # cfg.fused_bn is K3's default
+            if isinstance(mod, BatchNorm2d):
+                mod.use_kernels = cfg.fused_bn
 
     def set_use_kernels(self, on: bool) -> None:
-        """On CUDA tensors, run the hand-written kernels (the default) or
-        their plain PyTorch versions, which the chip check compares them
-        against.  CPU tensors always take the plain versions."""
+        """On CUDA tensors, run the hand-written kernels or their plain
+        PyTorch versions, which the chip check compares them against: the
+        warp (K2), the fused decode (K1) and every BatchNorm's backward
+        reduction (K3).  CPU tensors always take the plain versions."""
         if self.cfg.use_tps:
             self.transformation.use_kernels = on
         self.decoder.use_kernels = on
+        for mod in self.modules():
+            if isinstance(mod, BatchNorm2d):
+                mod.use_kernels = on
 
-    def rectify(self, image: torch.Tensor) -> torch.Tensor:
+    def rectify(self, image: torch.Tensor, train: bool = False) -> torch.Tensor:
         """[B, H, W, 1] float32 -> rectified [B, H, W, 1] float32 (the crop
         itself when ``use_tps`` is off)."""
-        return self.transformation(image) if self.cfg.use_tps else image
+        return self.transformation(image, train) if self.cfg.use_tps else image
 
-    def features(self, rectified: torch.Tensor) -> torch.Tensor:
+    def features(self, rectified: torch.Tensor, train: bool = False) -> torch.Tensor:
         """Backbone: [B, H, W, 1] -> column features [B, W', hidden] f32."""
-        feats = self.feature_extractor(rectified.permute(0, 3, 1, 2))
+        feats = self.feature_extractor(nchw_channels_last(rectified), train)
         return to_column_sequence(feats)
 
     def decode_from_columns(self, cols: torch.Tensor, overlap: torch.Tensor) -> torch.Tensor:
@@ -62,10 +73,25 @@ class SceneTextModel(nn.Module):
         self.semantic(overlap)
         return self.decoder.greedy_decode(self.encoder(cols))
 
-    def forward(self, image: torch.Tensor, overlap: torch.Tensor) -> torch.Tensor:
-        """image [B, H, W, 1] float32 in [0, 1], overlap [B, n] int ids ->
-        greedy logits [B, max_text_length, num_classes] float32."""
-        return self.decode_from_columns(self.features(self.rectify(image)), overlap)
+    def forward(self, image: torch.Tensor, overlap: torch.Tensor,
+                text: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """image [B, H, W, 1] float32 in [0, 1], overlap [B, n] int ids.
+
+        ``train=False``: greedy logits [B, max_text_length, num_classes]
+        float32 (``text`` is ignored).  ``train=True``: the teacher-forced
+        pass over ``text`` [B, T] input ids, with BatchNorm on batch
+        statistics (updating the running ones) and dropout drawn from
+        ``generator`` (on the image's device) -> logits [B, T, num_classes]
+        float32."""
+        if not train:
+            return self.decode_from_columns(self.features(self.rectify(image)), overlap)
+        if text is None or generator is None:
+            raise ValueError("train=True needs the input ids and a generator")
+        drop = functools.partial(dropout, p=self.cfg.dropout, generator=generator)
+        cols = self.features(self.rectify(image, train=True), train=True)
+        self.semantic(overlap)  # feeds only the fusion sites, all off
+        return self.decoder.teacher_forced(self.encoder(cols, drop), text, drop)
 
 
 @torch.no_grad()

@@ -1,10 +1,12 @@
-"""ResNet-31 backbone (JAX counterpart: models/resnet.py), NCHW.
+"""ResNet-31 backbone (JAX counterpart: models/resnet.py), on [B, C, H, W]
+tensors, which the model hands over in the channels-last memory format.
 
 Stage widths [128, 256, 512, 512], blocks [1, 2, 5, 3], with the asymmetric
 width-preserving reductions (max-pool stride (2,1) pad (0,1); conv 2x2
 stride (2,1) pad (0,1)) that turn a 32x100 crop into a 1x26 map of 512
-channels.  Convs and BN run in ``dtype``.  Module names follow the JAX
-parameter tree (``stem0_conv``, ``block3_4``, ...).
+channels.  Convs and BN run in ``dtype``; ``train`` puts every BatchNorm
+in train mode.  Module names follow the JAX parameter tree (``stem0_conv``,
+``block3_4``, ...).
 """
 
 from __future__ import annotations
@@ -32,10 +34,11 @@ class BasicBlock(nn.Module):
             self.downsample_conv = Conv2d(cin, planes, 1, dtype=dtype)
             self.downsample_bn = BatchNorm2d(planes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        residual = self.downsample_bn(self.downsample_conv(x)) if self.project else x
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        out = torch.relu(self.bn1(self.conv1(x), train))
+        out = self.bn2(self.conv2(out), train)
+        residual = (self.downsample_bn(self.downsample_conv(x), train)
+                    if self.project else x)
         return torch.relu(out + residual)
 
 
@@ -65,24 +68,25 @@ class ResNet31(nn.Module):
         conv_bn("trans4a", ch[3], ch[3], 2, (2, 1), (0, 1))
         conv_bn("trans4b", ch[3], ch[3], 2, 1, 0)
 
-    def _cbr(self, name: str, x: torch.Tensor) -> torch.Tensor:
+    def _cbr(self, name: str, x: torch.Tensor, train: bool) -> torch.Tensor:
         x = getattr(self, f"{name}_conv")(x)
-        return torch.relu(getattr(self, f"{name}_bn")(x))
+        return torch.relu(getattr(self, f"{name}_bn")(x, train))
 
-    def _stage(self, s: int, x: torch.Tensor) -> torch.Tensor:
+    def _stage(self, s: int, x: torch.Tensor, train: bool) -> torch.Tensor:
         for i in range(self.layers[s - 1]):
-            x = getattr(self, f"block{s}_{i}")(x)
+            x = getattr(self, f"block{s}_{i}")(x, train)
         return x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """x [B, C, 32, W] -> [B, oc, 1, W/4+1] in ``dtype``."""
-        x = self._cbr("stem1", self._cbr("stem0", x))
-        x = self._cbr("trans1", self._stage(1, F.max_pool2d(x, 2, 2)))
-        x = self._cbr("trans2", self._stage(2, F.max_pool2d(x, 2, 2)))
+        x = self._cbr("stem1", self._cbr("stem0", x, train), train)
+        x = self._cbr("trans1", self._stage(1, F.max_pool2d(x, 2, 2), train), train)
+        x = self._cbr("trans2", self._stage(2, F.max_pool2d(x, 2, 2), train), train)
         # height-only pool, width padded by one on each side
-        x = self._cbr("trans3", self._stage(3, F.max_pool2d(x, 2, (2, 1), (0, 1))))
-        x = self._stage(4, x)
-        return self._cbr("trans4b", self._cbr("trans4a", x))
+        x = self._cbr("trans3", self._stage(3, F.max_pool2d(x, 2, (2, 1), (0, 1)), train),
+                      train)
+        x = self._stage(4, x, train)
+        return self._cbr("trans4b", self._cbr("trans4a", x, train), train)
 
 
 def to_column_sequence(features: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """TPS rectification (JAX counterpart: models/transformation.py).
 
 Images enter and leave as [B, H, W, 1] (the JAX layout); the localization
-network runs NCHW inside.
+network runs on [B, C, H, W] tensors in the channels-last memory format
+inside.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from torch import nn
 
 from ..ops import tps
 from ..ops.grid_sample import grid_sample
-from .layers import BatchNorm2d, Conv2d
+from .layers import BatchNorm2d, Conv2d, nchw_channels_last
 
 
 class LocalizationNetwork(nn.Module):
@@ -32,11 +33,11 @@ class LocalizationNetwork(nn.Module):
         self.fc1 = nn.Linear(512, 256)
         self.fc2 = nn.Linear(256, 2 * num_fiducial)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """x: [B, C, H, W] -> [B, F, 2]."""
         for ch in (64, 128, 256, 512):
             x = getattr(self, f"conv{ch}")(x)
-            x = torch.relu(getattr(self, f"bn{ch}")(x))
+            x = torch.relu(getattr(self, f"bn{ch}")(x, train))
             if ch != 512:
                 x = F.max_pool2d(x, 2, 2)
         x = x.float().mean(dim=(2, 3))
@@ -61,12 +62,13 @@ class TPSTransform(nn.Module):
         self.loc_net = LocalizationNetwork(num_fiducial, in_ch, dtype)
         self.use_kernels = True
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, train: bool = False) -> torch.Tensor:
         """img: [B, H, W, 1] float32 -> rectified [B, out_h, out_w, 1] float32.
 
         The warp runs the float32 kernel in every compute type (see
-        ops/grid_sample.py)."""
-        c_prime = self.loc_net(img.permute(0, 3, 1, 2))
+        ops/grid_sample.py); in training its backward is the plain version's
+        VJP."""
+        c_prime = self.loc_net(nchw_channels_last(img), train)
         grid = tps.build_sampling_grid(c_prime, self.out_h, self.out_w)
         return grid_sample(img.float().contiguous(), grid.contiguous(),
                            plain=not self.use_kernels)

@@ -45,3 +45,10 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.matmul(probs.float(), heads(v, Tk).float()).to(q.dtype)
     return out.transpose(1, 2).reshape(B, Tq, E)
+
+
+def causal_mask(T: int, device=None) -> torch.Tensor:
+    """Additive causal mask [T, T] float32: 0 on and below the diagonal,
+    -inf above."""
+    blocked = torch.ones(T, T, dtype=torch.bool, device=device).triu(1)
+    return torch.zeros(T, T, device=device).masked_fill(blocked, float("-inf"))

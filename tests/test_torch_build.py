@@ -10,10 +10,11 @@ import pytest
 from multimodal_scene_text_recognition_tpu_torch.kernels import build
 
 FAKE_NVCC = """#!/bin/sh
-# writes the -o target for grid_sample.cu, fails for any other source
+# writes the -o target for grid_sample.cu and bn_bwd_reduce.cu, fails for
+# any other source
 for a; do prev=$cur; cur=$a; [ "$prev" = "-o" ] && out=$a; done
 case "$cur" in
-  *grid_sample.cu) echo built > "$out"; echo "ptxas info    : Used 24 registers";;
+  *grid_sample.cu|*bn_bwd_reduce.cu) echo built > "$out"; echo "ptxas info    : Used 24 registers";;
   *) echo "error: no" ; exit 2;;
 esac
 """
@@ -36,6 +37,16 @@ def test_build_caches_by_source(fake_cuda):
     lib = build.library_path("grid_sample")
     assert lib.parent == fake_cuda and lib.read_text() == "built\n"
     assert build.build(["grid_sample"]) == {"grid_sample": "cached"}
+
+
+def test_every_source_is_listed_and_builds_in_parallel(fake_cuda):
+    """The package's sources are exactly the ``.cu`` files beside the
+    build module; two builds started together both land."""
+    assert sorted(build.SOURCES) == sorted(p.stem for p in build.KERNEL_DIR.glob("*.cu"))
+    assert "bn_bwd_reduce" in build.SOURCES
+    logs = build.build(["grid_sample", "bn_bwd_reduce"])
+    assert set(logs) == {"grid_sample", "bn_bwd_reduce"}
+    assert all(build.library_path(n).read_text() == "built\n" for n in logs)
 
 
 def test_failed_build_raises_and_leaves_no_partial_output(fake_cuda):

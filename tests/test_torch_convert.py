@@ -79,3 +79,17 @@ def test_leaf_layouts(key, shape, target, layout):
 def test_rejects_keys_without_one_counterpart(flat):
     with pytest.raises(KeyError):
         convert.bundle_to_state_dict(flat)
+
+
+def test_state_dict_to_bundle_inverts_the_bridge(bundle):
+    """The trained bundle -> state_dict -> bundle gives back every key but
+    __step__, with equal float32 values (conv kernels back to HWIO, dense
+    kernels and packed projections back to [in, out], embeddings and norm
+    scales told apart)."""
+    back = convert.state_dict_to_bundle(convert.bundle_to_state_dict(bundle))
+    assert set(back) == set(bundle) - set(convert.META_KEYS)
+    for k, v in back.items():
+        assert v.dtype == np.float32
+        np.testing.assert_array_equal(v, bundle[k].astype(np.float32), err_msg=k)
+    with pytest.raises(KeyError):
+        convert.state_dict_to_bundle({"a.num_batches_tracked": torch.zeros(())})

@@ -10,6 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from multimodal_scene_text_recognition_tpu_torch import api
+from multimodal_scene_text_recognition_tpu_torch.charset import AttnCodec
+from multimodal_scene_text_recognition_tpu_torch.config import ModelConfig
+from multimodal_scene_text_recognition_tpu_torch.ops import batchnorm as bn
 from multimodal_scene_text_recognition_tpu_torch.ops import fused_decode as fd
 from multimodal_scene_text_recognition_tpu_torch.ops import grid_sample as gs
 
@@ -130,3 +134,89 @@ def test_fused_decode_wrapper_refuses_bad_inputs(dev):
         fd.fused_greedy_decode_cuda(w32, ck, cv, num_heads=5, steps=6)
     with pytest.raises(ValueError):  # more steps than positional rows
         fd.fused_greedy_decode_cuda(w32, ck, cv, num_heads=4, steps=7)
+
+
+def _bn_inputs(dev, shape, dtype, seed):
+    """Channels-last x and dy (the layout of the backbone's convs), x's
+    float32 batch mean and rstd."""
+    rng = np.random.default_rng(seed)
+    C = shape[1]
+    cl = torch.channels_last
+    x = torch.from_numpy((rng.normal(size=shape) + rng.normal(size=(1, C, 1, 1)))
+                         .astype(np.float32)).to(dev, dtype).contiguous(memory_format=cl)
+    dy = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        dev, dtype).contiguous(memory_format=cl)
+    mean = x.float().mean(dim=(0, 2, 3))
+    rstd = torch.rsqrt(x.float().var(dim=(0, 2, 3), unbiased=False) + 1e-5)
+    return x, dy, mean, rstd
+
+
+def bn_reduction_error(x, dy, mean, rstd, got):
+    """max over channels of |kernel - plain| / max(1, sum of |terms|), for
+    dgamma (terms dy * xhat) and dbeta (terms dy)."""
+    ref = bn.bn_bwd_sums_plain(x, dy, mean, rstd)
+    dyf = dy.float()
+    xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
+    scales = ((dyf * xhat).abs().sum(dim=(0, 2, 3)), dyf.abs().sum(dim=(0, 2, 3)))
+    return max(((g - r).abs() / s.clamp(min=1.0)).max().item()
+               for g, r, s in zip(got, ref, scales))
+
+
+@pytest.mark.parametrize("shape", [(3, 32, 7, 11), (8, 64, 16, 50), (16, 512, 4, 26),
+                                   (5, 512, 2, 27), (3, 96, 7, 11), (1, 64, 1, 1),
+                                   (4, 3, 5, 9)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_bwd_reduce_kernel_matches_plain(dev, shape, dtype):
+    """C = 32, 64, 96, 512, 3: multiples of the 16-byte load and (C = 3)
+    not, so both load paths run; B*H*W of 231 to 13312 rows, so the chunks
+    end ragged; C = 512 float32 takes two channel groups.  Within
+    1e-6 of the sum of |terms| per channel (float32 sums in another order;
+    one element dropped from the smallest case would be 1e-2 off).  The
+    same inputs give bit-equal sums twice (no atomics)."""
+    x, dy, mean, rstd = _bn_inputs(dev, shape, dtype, seed=shape[1] + shape[3])
+    got = bn.bn_bwd_sums_cuda(x, dy, mean, rstd)
+    torch.cuda.synchronize()
+    assert bn_reduction_error(x, dy, mean, rstd, got) <= 1e-6
+    again = bn.bn_bwd_sums_cuda(x, dy, mean, rstd)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_bn_bwd_reduce_wrapper_refuses_bad_inputs(dev):
+    x, dy, mean, rstd = _bn_inputs(dev, (2, 8, 4, 4), torch.float32, seed=0)
+    with pytest.raises(TypeError):  # x and dy of two types
+        bn.bn_bwd_sums_cuda(x, dy.bfloat16(), mean, rstd)
+    with pytest.raises(TypeError):
+        bn.bn_bwd_sums_cuda(x.half(), dy.half(), mean, rstd)
+    with pytest.raises(ValueError):  # NCHW is not copied into channels-last
+        bn.bn_bwd_sums_cuda(x.contiguous(), dy, mean, rstd)
+    with pytest.raises(ValueError):
+        bn.bn_bwd_sums_cuda(x, dy, mean[:4], rstd)
+
+
+def test_train_step_kernels_match_plain(dev):
+    """One train step of a small flagship-shaped model (float32, dropout
+    0.1, the same generator seed) with the kernels and with their plain
+    versions from the same weights: K3 launched once per BatchNorm (36)
+    and K2 once; the loss within 1e-5 relative and the gradient norm
+    within 1e-2 (the backbone's gradients at initialisation magnify
+    float32 summation order, see tests/test_torch_train.py)."""
+    cfg = ModelConfig(enc_layers=1, dec_layers=1, ff_dim=64, hidden_dim=64, embed_dim=32,
+                      num_heads=4, compute_dtype="float32", decode_fused=True)
+    rng = np.random.default_rng(0)
+    text, _ = AttnCodec(cfg.chars).encode(["abc", "hello", "x1", "wxyz"])
+    batch = {"image": rng.integers(0, 256, (4, 32, 100, 1), dtype=np.uint8), "text": text,
+             "overlap": rng.integers(0, 100, (4, 15))}
+    out = []
+    for use_kernels in (True, False):
+        trainer = api.get_trainer(cfg=cfg, seed=3)
+        trainer.model.set_use_kernels(use_kernels)
+        bn.bn_bwd_sums_cuda.launches = gs.grid_sample_cuda.launches = 0
+        m = trainer(batch)
+        torch.cuda.synchronize()
+        out.append((m["loss"].item(), m["grad_norm"].item(),
+                    bn.bn_bwd_sums_cuda.launches, gs.grid_sample_cuda.launches))
+    (loss_k, norm_k, k3, k2), (loss_p, norm_p, k3_p, k2_p) = out
+    assert (k3, k2, k3_p, k2_p) == (36, 1, 0, 0)
+    assert np.isfinite([loss_k, norm_k]).all()
+    assert loss_k == pytest.approx(loss_p, rel=1e-5)
+    assert norm_k == pytest.approx(norm_p, rel=1e-2)
