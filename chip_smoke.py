@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
 """Chip check of the PyTorch port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--mutants]
 
 Builds the port's CUDA kernels from source, holds each against its plain
 PyTorch version on the card, serves the trained flagship recognizer through
 ``api.get_model`` -> ``Recognizer`` at B=192, and checks that the served run
 went through the decode and warp kernels, with where the time of one served
-call goes (stage times and the card's idle share).  Then trains the
+call goes (stage times and the card's idle share).  Serves it again by beam
+search (k=5, early stop, the fused beam kernel) and greedily with early
+stop, and checks those runs went through the beam, early-stop decode and
+warp kernels, with the beam call's time split the same way.  The float32
+phases turn TF32 on first: the model must not use it.  Then trains the
 flagship through ``api.get_trainer`` for a few steps at B=192, once with the
 kernels and once with their plain versions from the same weights and
 dropout seed, and checks that the two agree and that the training run went
 through the warp and BatchNorm-backward kernels; K3 is held against its
 plain version at every BatchNorm shape of the step.  Every phase prints one
 flushed line with the elapsed seconds; any failure raises and the script
-exits non-zero.  A watchdog turns a hang into a printed failure (exit code
+exits non-zero.  ``--mutants`` also builds copies of the beam kernel with
+one bf16 rounding dropped each and prints whether its bf16 limits catch
+them.  A watchdog turns a hang into a printed failure (exit code
 3).
 
 Output: per-phase lines, the ``nvidia-smi`` name/power-limit line, one JSON
@@ -25,6 +31,7 @@ Needs no network and nothing outside the repository; imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -75,6 +82,20 @@ TRAIN_STEPS = 3
 # 6.2e-5 and 5.4e-4 to 6.7e-4 at steps 2 and 3).
 TRAIN_LOSS_TOL = (1e-3, 5e-3, 5e-3)
 TRAIN_NORM_TOL = 3e-2
+BEAM = 5
+# K4 bf16 vs its plain version on the trained decoder at B=192, K=5, as
+# shares of beams identical up to their first [s].  On an H100 the kernel
+# has every best beam and 98.33% of all 960 beams identical (a rounding that
+# lands the other way swaps two close candidates), its best scores 0.026
+# off.  With one of its bf16 roundings dropped (probabilities, q*K products,
+# cross-attention value products or ReLU outputs: --mutants) it had 98.96-
+# 100% of the best beams and 96.67-97.92% of all beams identical, so the
+# all-beam limit sits between the two and catches all four, the best-beam
+# one three.  The best scores (0.021-0.040 off for the mutants) separate
+# nothing: their limit bounds the rounding noise.
+BEAM_BF16_BEST_AGREE = 0.995
+BEAM_BF16_ALL_AGREE = 0.98
+BEAM_BF16_SCORE_TOL = 0.05
 
 T0 = time.time()
 PHASE = ["start"]
@@ -354,10 +375,271 @@ def check_fused_decode(fd, model, image, overlap):
                 library_ms=None)
 
 
-def stage_times(model, rec, crops, reps: int = 10):
+def first_eos_steps(tokens, steps: int):
+    """Steps each row's loop ran: one past the last of its beams' first
+    [s] (tokens [B, K, T] or [B, T]), or ``steps`` where a beam never ends."""
+    t = tokens.reshape(tokens.shape[0], -1, tokens.shape[-1])
+    is_eos = t == 1
+    first = torch.where(is_eos.any(-1), is_eos.int().argmax(-1), steps - 1)
+    return (first.max(dim=1).values + 1).clamp(max=steps)
+
+
+def pruned_agreement(a, b) -> float:
+    """Share of token rows ([..., T]) equal up to and including the first
+    [s] of ``b``."""
+    a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    n = first_eos_steps(b[:, None], b.shape[-1])
+    keep = torch.arange(b.shape[-1], device=b.device)[None] < n[:, None]
+    return ((a == b) | ~keep).all(-1).float().mean().item()
+
+
+def loop_cost(w, ck, K, row_steps, dt_bytes, out_bytes):
+    """Bytes each input and output moves once (tables, memory K/V, the
+    cache writes of the steps taken, ``out_bytes`` of outputs) and the
+    flops of the projections and attention of the steps each row took, for
+    one call of a decode loop over K rows a batch row (the beam kernel; the
+    greedy kernel at K=1)."""
+    L, Bn, Tm, E = ck.shape
+    F = w.ff1_w.shape[2]
+    C = w.head_w.shape[1]
+    T = w.pe.shape[0]
+    S = int(row_steps.sum())
+    tables = sum(t.numel() for t in list(w)[:-1])
+    nbytes = tables * dt_bytes + 2 * ck.numel() * dt_bytes + w.pe.numel() * 4 \
+        + 2 * L * K * S * E * dt_bytes + out_bytes
+    proj = L * (E * 3 * E + 3 * E * E + 2 * E * F) + E * C
+    attn = sum(L * 2 * 2 * E * ((t + 1) + Tm) for n in row_steps.tolist() for t in range(n))
+    return nbytes, 2 * K * S * proj + K * attn
+
+
+def check_fused_decode_early_stop(fd, model, rec, rec_es, crops, image):
+    """K1e against its plain version at full width (trained decoder, the
+    cross K/V of the B=192 crops), then on the served path: greedy strings
+    with early stop against the full-length K1's, which must be identical."""
+    dec = model.decoder
+    T, H = dec.max_text_length, dec.num_heads
+    with torch.no_grad():
+        enc = model.encoder(model.features(model.rectify(image)))
+        ck, cv = dec.cross_kv(dec.hid_to_emb(enc))
+    kw = dict(num_heads=H, steps=T, go_id=0, eos_id=1, eps=1e-5)
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        wd = dec.fused_weights(dt)
+        ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
+        out = fd.fused_greedy_decode_cuda(wd, ckd, cvd, **kw)
+        ref = fd.fused_greedy_decode_plain(wd, ckd, cvd, **kw)
+        full = fd.fused_greedy_decode_cuda(wd, ckd, cvd, **dict(kw, eos_id=None))
+        torch.cuda.synchronize()
+        ids = out.argmax(-1)
+        agree = pruned_agreement(ids, ref.argmax(-1))
+        vs_full = pruned_agreement(ids, full.argmax(-1))
+        errs[dt] = (out - ref).abs().max().item()
+        log(f"fused_decode early stop {dt}: kernel vs plain max |logit diff| {errs[dt]:.3e}, "
+            f"[s]-pruned rows identical {agree:.6f}; vs the full-length kernel {vs_full:.6f}")
+        if not (vs_full == 1.0 and (agree == 1.0 if dt == torch.float32 else agree >= 0.99)):
+            raise AssertionError(f"fused decode early stop {dt}: agreement {agree}, "
+                                 f"with the full-length loop {vs_full}")
+        if dt == torch.float32 and not errs[dt] <= 1e-3:
+            raise AssertionError(f"fused decode early stop f32: max diff {errs[dt]}")
+        if dt == torch.bfloat16 and not errs[dt] <= BF16_LOGIT_TOL:
+            raise AssertionError(f"fused decode early stop bf16: max diff {errs[dt]}")
+    steps = first_eos_steps(ids, T)
+    es = lambda: fd.fused_greedy_decode_cuda(wd, ckd, cvd, **kw)  # noqa: E731
+    ms = cuda_ms(es, 10)
+    full_kw = dict(kw, eos_id=None)
+    ms_full = cuda_ms(lambda: fd.fused_greedy_decode_cuda(wd, ckd, cvd, **full_kw), 10)
+    plain_ms = cuda_ms(lambda: fd.fused_greedy_decode_plain(wd, ckd, cvd, **kw), 2)
+    nbytes, flops = loop_cost(wd, ckd, 1, steps, 2, out.numel() * 4)
+    bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    log(f"fused_decode early stop bf16: kernel {ms:.3f} ms (full length {ms_full:.3f} ms), "
+        f"plain {plain_ms:.3f} ms, steps per row mean {steps.float().mean().item():.2f} max "
+        f"{steps.max().item()}, bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP)")
+
+    fd.fused_greedy_decode_cuda.launches = 0
+    texts_es = rec_es.recognize(crops)
+    launches = fd.fused_greedy_decode_cuda.launches
+    texts = rec.recognize(crops)
+    same = sum(a == b for a, b in zip(texts_es, texts)) / len(texts)
+    log(f"served greedy with early stop vs full length: {same:.4f} of strings identical "
+        f"(limit 1.0); K1 launches with early stop {launches}")
+    if same != 1.0 or launches < 1:
+        raise AssertionError(f"early-stop greedy serving: agreement {same}, launches {launches}")
+    return dict(name="fused_decode_early_stop", route="cuda",
+                source="multimodal_scene_text_recognition_tpu_torch/kernels/fused_decode.cu",
+                replaces="multimodal_scene_text_recognition_tpu/ops/fused_decode.py:340",
+                jax="ops/fused_decode.py::_decode_kernel, eos_id",
+                launches=launches, max_abs_err=errs[torch.float32],
+                max_abs_err_bf16=errs[torch.bfloat16], ms=ms, ms_full_length=ms_full,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                mean_steps=steps.float().mean().item())
+
+
+def beam_inputs(model, image):
+    """The trained decoder and the per-layer cross K/V of ``image``'s crops."""
+    dec = model.decoder
+    with torch.no_grad():
+        enc = model.encoder(model.features(model.rectify(image)))
+        ck, cv = dec.cross_kv(dec.hid_to_emb(enc))
+    return dec, ck, cv
+
+
+def beam_vs_plain(fb, dec, ck, cv, dt, early_stop: bool) -> dict:
+    """K4 against its plain version at K=5 in compute type ``dt``: the best
+    beams' and all beams' agreement up to their first [s], the largest
+    score difference (of all beams and of the best), the steps each row
+    took."""
+    T = dec.max_text_length
+    wd = dec.fused_weights(dt)
+    ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
+    kw = dict(beam_size=BEAM, num_heads=dec.num_heads, steps=T, go_id=0, eos_id=1, eps=1e-5,
+              early_stop=early_stop)
+    tok, sc = fb.fused_beam_decode_cuda(wd, ckd, cvd, **kw)
+    ref_tok, ref_sc = fb.fused_beam_decode_plain(wd, ckd, cvd, **kw)
+    torch.cuda.synchronize()
+    if not torch.isfinite(sc).all():
+        raise AssertionError(f"fused beam ({dt}, early stop {early_stop}): non-finite scores")
+    return dict(best=pruned_agreement(tok[:, 0], ref_tok[:, 0]),
+                beams=pruned_agreement(tok, ref_tok),
+                err=(sc - ref_sc).abs().max().item(),
+                err_best=(sc[:, 0] - ref_sc[:, 0]).abs().max().item(),
+                steps=first_eos_steps(tok, T) if early_stop else torch.full_like(tok[:, 0, 0], T),
+                out_bytes=(tok.numel() + sc.numel()) * 4)
+
+
+def beam_bf16_ok(r: dict) -> bool:
+    return (r["best"] >= BEAM_BF16_BEST_AGREE and r["beams"] >= BEAM_BF16_ALL_AGREE
+            and r["err_best"] <= BEAM_BF16_SCORE_TOL)
+
+
+def beam_line(r: dict) -> str:
+    return (f"best beams identical {r['best']:.6f}, all beams {r['beams']:.6f}, max |score "
+            f"diff| {r['err']:.3e} (best beam {r['err_best']:.3e})")
+
+
+# one bf16 rounding of K4 dropped at a time: (name, text in fused_beam.cu,
+# replacement), for --mutants
+MUTANTS = (
+    ("probabilities", "pr[s] = Num<T>::round(pr[s] / sum);", "pr[s] = pr[s] / sum;"),
+    ("q*K products", "acc += Num<T>::round(Num<T>::round(qr[d]) * Num<T>::to_f(kr[d]));",
+     "acc += Num<T>::round(qr[d]) * Num<T>::to_f(kr[d]);"),
+    ("cross-attention value products",
+     "acc += Num<T>::round(pr[s] * Num<T>::to_f(V[(size_t)s * E + d]));",
+     "acc += pr[s] * Num<T>::to_f(V[(size_t)s * E + d]);"),
+    ("ReLU outputs", "Num<T>::round(fmaxf(v, 0.0f))", "fmaxf(v, 0.0f)"),
+)
+
+
+def check_mutants(fb, build, model, image):
+    """The bf16 limits of K4 against broken copies of it: each mutant drops
+    one bf16 rounding in a copy of the kernel's sources (``fused_beam.cu``
+    and the shared header) in a temporary directory; all are built at once
+    and each is held against the plain version as the kernel is.  Prints
+    what each reads and whether the limits catch it."""
+    import ctypes
+    import tempfile
+
+    names = ("fused_beam.cu", "decode_common.cuh")
+    sources = {n: (build.KERNEL_DIR / n).read_text() for n in names}
+    for name, old, _ in MUTANTS:
+        if not any(old in text for text in sources.values()):
+            raise AssertionError(f"mutant {name}: its text is in no source of the kernel")
+    tmp = tempfile.mkdtemp(prefix="k4_mutants_")
+    procs = []
+    try:
+        for i, (_, old, new) in enumerate(MUTANTS):
+            os.makedirs(os.path.join(tmp, str(i)))
+            for n, text in sources.items():
+                with open(os.path.join(tmp, str(i), n), "w") as f:
+                    f.write(text.replace(old, new))
+            cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", os.path.join(tmp, f"{i}.so"),
+                   os.path.join(tmp, str(i), "fused_beam.cu")]
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT))
+        for p in procs:
+            if p.wait(timeout=300) != 0:
+                raise AssertionError(f"a mutant failed to build: {p.stdout.read()[-2000:]}")
+        dec, ck, cv = beam_inputs(model, image)
+        real = build.load("fused_beam")
+        try:
+            for i, (name, _, _) in enumerate(MUTANTS):
+                build._loaded["fused_beam"] = ctypes.CDLL(os.path.join(tmp, f"{i}.so"))
+                r = beam_vs_plain(fb, dec, ck, cv, torch.bfloat16, early_stop=True)
+                log(f"mutant without the bf16 rounding of the {name}: {beam_line(r)}; caught "
+                    f"by the limits {not beam_bf16_ok(r)}")
+        finally:
+            build._loaded["fused_beam"] = real
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_fused_beam(fb, model, image):
+    """K4 against its plain version at full width on the trained decoder
+    and the cross K/V of the B=192 crops, K=5, float32 and bfloat16, early
+    stop on and off; then its time, the plain version's and the bound of
+    the steps the rows took."""
+    dec, ck, cv = beam_inputs(model, image)
+    T, H = dec.max_text_length, dec.num_heads
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for es in (False, True):
+            r = res[dt, es] = beam_vs_plain(fb, dec, ck, cv, dt, es)
+            log(f"fused_beam {dt} early stop {es}: kernel vs plain, {beam_line(r)}; steps per "
+                f"row mean {r['steps'].float().mean().item():.2f}")
+    for es in (False, True):
+        r32, r16 = res[torch.float32, es], res[torch.bfloat16, es]
+        if not (r32["best"] == 1.0 and r32["err_best"] <= 1e-3):
+            raise AssertionError(f"fused beam f32 (early stop {es}): {r32}")
+        if not beam_bf16_ok(r16):
+            raise AssertionError(
+                f"fused beam bf16 (early stop {es}): best beams identical {r16['best']} "
+                f"(limit {BEAM_BF16_BEST_AGREE}), all beams {r16['beams']} (limit "
+                f"{BEAM_BF16_ALL_AGREE}), best score diff {r16['err_best']} (limit "
+                f"{BEAM_BF16_SCORE_TOL})")
+
+    wd = dec.fused_weights(torch.bfloat16)
+    ckd, cvd = ck.to(torch.bfloat16).contiguous(), cv.to(torch.bfloat16).contiguous()
+    kw = dict(beam_size=BEAM, num_heads=H, steps=T, go_id=0, eos_id=1, eps=1e-5)
+    ms = cuda_ms(lambda: fb.fused_beam_decode_cuda(wd, ckd, cvd, early_stop=True, **kw), 10)
+    ms_full = cuda_ms(lambda: fb.fused_beam_decode_cuda(wd, ckd, cvd, **kw), 10)
+    plain_ms = cuda_ms(lambda: fb.fused_beam_decode_plain(wd, ckd, cvd, early_stop=True, **kw),
+                       2)
+    steps = res[torch.bfloat16, True]["steps"]
+    out_bytes = res[torch.bfloat16, True]["out_bytes"]
+    nbytes, flops = loop_cost(wd, ckd, BEAM, steps, 2, out_bytes)
+    bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    nbytes_full, flops_full = loop_cost(wd, ckd, BEAM, torch.full_like(steps, T), 2, out_bytes)
+    bound_full, _ = bound(nbytes_full, flops_full, PEAK_BF16_FLOPS)
+    log(f"fused_beam bf16 K={BEAM}: kernel {ms:.3f} ms with early stop (steps per row mean "
+        f"{steps.float().mean().item():.2f}, max {steps.max().item()}), {ms_full:.3f} ms at "
+        f"full length; plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}; "
+        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), {bound_full:.4f} ms at full length "
+        f"({flops_full / 1e9:.1f} GFLOP)")
+    r32, r16 = res[torch.float32, True], res[torch.bfloat16, True]
+    return dict(name="fused_beam", route="cuda",
+                source="multimodal_scene_text_recognition_tpu_torch/kernels/fused_beam.cu",
+                replaces="multimodal_scene_text_recognition_tpu/ops/fused_beam.py:69",
+                jax="ops/fused_beam.py::_beam_kernel",
+                max_abs_err=max(res[torch.float32, e]["err"] for e in (False, True)),
+                max_abs_err_bf16=max(res[torch.bfloat16, e]["err"] for e in (False, True)),
+                best_beam_agreement_f32=min(res[torch.float32, e]["best"] for e in (False, True)),
+                best_beam_agreement_bf16=min(r["best"] for k, r in res.items()
+                                             if k[0] == torch.bfloat16),
+                all_beam_agreement_bf16=min(r["beams"] for k, r in res.items()
+                                            if k[0] == torch.bfloat16),
+                ms=ms, ms_full_length=ms_full, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_ms_full_length=bound_full, library_ms=None,
+                mean_steps=steps.float().mean().item(), f32_err_best=r32["err_best"],
+                bf16_err_best=r16["err_best"])
+
+
+def stage_times(model, rec, crops, decode, reps: int = 10):
     """Median CUDA-event milliseconds of each stage of one recognize call:
     host preparation and upload, TPS rectification, ResNet-31 features,
-    semantics + encoder, decoder (cross K/V and K1), argmax + strings."""
+    semantics + encoder, decoder (``decode(enc)`` -> ids: cross K/V and the
+    decode kernel), strings."""
     names = ["prepare", "rectify", "features", "encoder", "decoder", "decode_strings"]
     samples = {n: [] for n in names}
     for _ in range(reps + 1):
@@ -373,9 +655,9 @@ def stage_times(model, rec, crops, reps: int = 10):
             model.semantic(overlap)
             enc = model.encoder(cols)
             ev[4].record()
-            logits = model.decoder.greedy_decode(enc)
+            ids = decode(enc)
             ev[5].record()
-            rec.codec.decode(logits.argmax(-1).cpu().numpy())
+            rec.codec.decode(ids.cpu().numpy())
             ev[6].record()
         torch.cuda.synchronize()
         for i, n in enumerate(names):
@@ -573,6 +855,18 @@ def train_phase(api, bn, gs):
     return summary, k3, kcounts[-1][1]
 
 
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 allowed for float32 matmuls and convs, as a caller may set it."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
 def main() -> int:
     timer = threading.Timer(WATCHDOG_S, _watchdog)
     timer.daemon = True
@@ -598,6 +892,7 @@ def main() -> int:
     from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
     from multimodal_scene_text_recognition_tpu_torch.kernels import build
     from multimodal_scene_text_recognition_tpu_torch.ops import batchnorm as bn
+    from multimodal_scene_text_recognition_tpu_torch.ops import fused_beam as fb
     from multimodal_scene_text_recognition_tpu_torch.ops import fused_decode as fd
     from multimodal_scene_text_recognition_tpu_torch.ops import grid_sample as gs
 
@@ -618,13 +913,25 @@ def main() -> int:
     bn_err, bn_err_abs = check_bn_bwd_reduce(bn)
 
     phase("load model")
+    BEAM_CFG = dataclasses.replace(FLAGSHIP, decode_early_stop=True, decode_beam_fused=True)
     model = api.get_model(BUNDLE)
     rec = Recognizer(model, batch_sizes=(1, 8, 64, B))
     crops = make_crops(B, seed=1234)
     image, overlap = rec.prepare(crops, B)
+    model_b = api.get_model(BUNDLE, BEAM_CFG)  # early stop, fused beam
+    rec_b = Recognizer(model_b, batch_sizes=(1, 8, 64, B))
 
     phase("fused_decode vs plain")
     k1 = check_fused_decode(fd, model, image, overlap)
+
+    phase("fused_decode early stop vs plain")
+    k1e = check_fused_decode_early_stop(fd, model, rec, rec_b, crops, image)
+
+    phase("fused_beam vs plain")
+    k4 = check_fused_beam(fb, model, image)
+    if "--mutants" in sys.argv[1:]:
+        phase("fused_beam mutants")
+        check_mutants(fb, build, model, image)
 
     phase("end-to-end bf16")
     fd.fused_greedy_decode_cuda.launches = 0
@@ -654,7 +961,7 @@ def main() -> int:
     crops_s = B / (ms_call / 1e3)
     log(f"throughput: {crops_s:.1f} crops/s ({ms_call:.2f} ms per {B}-crop call, "
         f"10 warm calls, CUDA events)")
-    stages = stage_times(model, rec, crops)
+    stages = stage_times(model, rec, crops, lambda enc: model.decoder.greedy_decode(enc).argmax(-1))
     log("stage ms (median of 10): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     prof = kernel_profile(lambda: rec.recognize(crops), calls=3)
     if prof["device_busy_ms"] <= 0:
@@ -662,21 +969,68 @@ def main() -> int:
     log(f"profile of {prof['calls']} calls: wall {prof['wall_ms']:.2f} ms, kernels busy "
         f"{prof['device_busy_ms']:.2f} ms, idle share {prof['idle_share']:.4f}")
 
+    phase("end-to-end beam bf16")
+    fb.fused_beam_decode_cuda.launches = 0
+    gs.grid_sample_cuda.launches = 0
+    btexts, bscores = rec_b.recognize(crops, beam_size=BEAM, return_scores=True)
+    launches = {"fused_beam": fb.fused_beam_decode_cuda.launches,
+                "grid_sample": gs.grid_sample_cuda.launches}
+    log(f"served {len(btexts)} crops by beam search (k={BEAM}); kernel launches {launches}; "
+        f"e.g. {list(zip(btexts[:3], bscores[:3]))}")
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"the served beam path never launched the {name} kernel")
+    if len(btexts) != B or not np.isfinite(bscores).all() or max(bscores) > 0:
+        raise AssertionError("beam serving: missing strings or scores not finite and <= 0")
+    k4["launches"] = launches["fused_beam"]
+    k2["launches_beam"] = launches["grid_sample"]
+    model_b.set_use_kernels(False)
+    plain_btexts = rec_b.recognize(crops, beam_size=BEAM)
+    model_b.set_use_kernels(True)
+    agree_b16 = sum(a == b for a, b in zip(btexts, plain_btexts)) / B
+    beam_vs_greedy = sum(a == b for a, b in zip(btexts, texts)) / B
+    log(f"bf16 beam strings, kernels vs plain versions: {agree_b16:.4f} identical (limit 0.98); "
+        f"beam vs greedy strings {beam_vs_greedy:.4f} identical (for information)")
+    if not agree_b16 >= 0.98:
+        raise AssertionError(f"bf16 beam end-to-end agreement {agree_b16} < 0.98")
+    ms_beam = cuda_ms(lambda: rec_b.recognize(crops, beam_size=BEAM), 10)
+    beam_crops_s = B / (ms_beam / 1e3)
+    log(f"beam throughput: {beam_crops_s:.1f} crops/s ({ms_beam:.2f} ms per {B}-crop call, "
+        f"10 warm calls, CUDA events)")
+    beam_stages = stage_times(model_b, rec_b, crops,
+                              lambda enc: model_b.decoder.beam_decode(enc, BEAM)[0])
+    share = beam_stages["decoder"] / sum(beam_stages.values())
+    log("beam stage ms (median of 10): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in beam_stages.items()) + f"; decoder share {share:.3f}")
+    beam_prof = kernel_profile(lambda: rec_b.recognize(crops, beam_size=BEAM), calls=3)
+    if beam_prof["device_busy_ms"] <= 0:
+        raise AssertionError("the profiler saw no kernel run on the card")
+    log(f"beam profile of {beam_prof['calls']} calls: wall {beam_prof['wall_ms']:.2f} ms, "
+        f"kernels busy {beam_prof['device_busy_ms']:.2f} ms, idle share "
+        f"{beam_prof['idle_share']:.4f}; by kernel {beam_prof['kernels_ms']}")
+    del model, rec, model_b, rec_b
+    torch.cuda.empty_cache()
+
     phase("end-to-end f32")
-    del model, rec
-    model32 = api.get_model(BUNDLE, dataclasses.replace(FLAGSHIP, compute_dtype="float32"))
-    rec32 = Recognizer(model32, batch_sizes=(B,))
-    texts32 = rec32.recognize(crops)
-    model32.set_use_kernels(False)
-    plain32 = rec32.recognize(crops)
-    agree32 = sum(a == b for a, b in zip(texts32, plain32)) / B
-    log(f"f32 strings, kernels vs plain versions: {agree32:.4f} identical (limit 1.0); "
-        f"bf16 vs f32 serving: {sum(a == b for a, b in zip(texts, texts32)) / B:.4f}")
-    if agree32 != 1.0:
+    agree32, beam_agree32 = {}, {}
+    with tf32_on():  # the float32 model must not take it
+        for name, cfg in (("greedy", FLAGSHIP), ("beam", BEAM_CFG)):
+            model32 = api.get_model(BUNDLE, dataclasses.replace(cfg, compute_dtype="float32"))
+            rec32 = Recognizer(model32, batch_sizes=(B,))
+            beam_size = BEAM if name == "beam" else 0
+            texts32 = rec32.recognize(crops, beam_size=beam_size)
+            model32.set_use_kernels(False)
+            plain32 = rec32.recognize(crops, beam_size=beam_size)
+            agree32[name] = sum(a == b for a, b in zip(texts32, plain32)) / B
+            ref = texts if name == "greedy" else btexts
+            log(f"f32 {name} strings with TF32 allowed by the caller, kernels vs plain "
+                f"versions: {agree32[name]:.4f} identical (limit 1.0); bf16 vs f32 serving: "
+                f"{sum(a == b for a, b in zip(ref, texts32)) / B:.4f}")
+            del model32, rec32
+    if min(agree32.values()) != 1.0:
         raise AssertionError(f"f32 end-to-end agreement {agree32} < 1")
 
     phase("train bf16")
-    del model32, rec32
     torch.cuda.empty_cache()
     train, k3, k2_train = train_phase(api, bn, gs)
     k3["max_abs_err"] = max(k3["max_abs_err"], bn_err_abs)
@@ -686,12 +1040,18 @@ def main() -> int:
     phase("report")
     log(f"done in {time.time() - T0:.1f} s")
     print(json.dumps({"e2e": {"bf16_string_agreement": agree16,
-                              "f32_string_agreement": agree32,
+                              "f32_string_agreement": agree32["greedy"],
                               "crops_per_s": crops_s, "ms_per_call": ms_call, "batch": B,
                               "stage_ms": stages, "profile": prof},
+                      "e2e_beam": {"beam_size": BEAM, "bf16_string_agreement": agree_b16,
+                                   "f32_string_agreement": agree32["beam"],
+                                   "beam_vs_greedy_strings": beam_vs_greedy,
+                                   "crops_per_s": beam_crops_s, "ms_per_call": ms_beam,
+                                   "batch": B, "stage_ms": beam_stages,
+                                   "decoder_share": share, "profile": beam_prof},
                       "train": train}), flush=True)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
+    print(json.dumps({"kernels": [k1, k1e, k2, k3, k4]}), flush=True)
     timer.cancel()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -15,9 +15,9 @@ from .train.steps import TrainStep
 
 def get_model(bundle_path: Optional[str] = None, cfg: Optional[ModelConfig] = None,
               device: str = "cuda", seed: int = 0, train: bool = False) -> SceneTextModel:
-    """The flagship recognizer (bf16, fused decode) on ``device``: in eval
-    mode with gradients off, or with ``train=True`` in train mode with
-    gradients on.
+    """The recognizer of ``cfg`` (default the flagship: bf16, fused decode)
+    on ``device``: in eval mode with gradients off, or with ``train=True``
+    in train mode with gradients on.
 
     ``bundle_path``: a JAX ``.params.npz`` bundle, loaded strictly (every
     weight of the model must come from it).  Without one the weights are
@@ -44,9 +44,10 @@ def get_model(bundle_path: Optional[str] = None, cfg: Optional[ModelConfig] = No
 
 def get_trainer(bundle_path: Optional[str] = None, cfg: Optional[ModelConfig] = None,
                 train_cfg: Optional[TrainConfig] = None, device: str = "cuda",
-                seed: int = 0) -> TrainStep:
+                seed: int = 0, steps_per_epoch: int = 1) -> TrainStep:
     """A :class:`~.train.steps.TrainStep` over :func:`get_model` (the same
-    arguments, in train mode) with ``train_cfg`` (default ``TrainConfig()``):
-    call it on a batch to take one optimizer step."""
+    arguments, in train mode) with ``train_cfg`` (default ``TrainConfig()``)
+    and ``steps_per_epoch`` (the StepLR boundaries count epochs): call it
+    on a batch to take one optimizer step."""
     model = get_model(bundle_path, cfg, device=device, seed=seed, train=True)
-    return TrainStep(model, train_cfg or TrainConfig())
+    return TrainStep(model, train_cfg or TrainConfig(), steps_per_epoch)

@@ -1,6 +1,7 @@
 """Model and training configuration: the fields of the JAX package's
-``ModelConfig`` and ``TrainConfig`` that the greedy serving path and the
-train step read, with the same defaults (JAX counterpart: core/config.py)."""
+``ModelConfig`` and ``TrainConfig`` that the serving paths (greedy and beam)
+and the train step read, with the same defaults (JAX counterpart:
+core/config.py)."""
 
 from __future__ import annotations
 
@@ -28,10 +29,18 @@ class ModelConfig:
     ff_dim: int = 2048
     num_obj_classes: int = 2000
     max_overlap_objs: int = 15
-    # the greedy loop runs only as the fused decode kernel; the scan
-    # stepper and early stop are not ported yet
+    # greedy decode and beam search stop once every row (every beam of a
+    # row) has emitted [s]; [s]-pruned strings and beam scores are those of
+    # the full-length loop.  The greedy loop runs only as the fused decode
+    # kernel (decode_fused=True); the scan stepper serves beam search alone.
     decode_early_stop: bool = False
     decode_fused: bool = False
+    # run beam search as the fused beam kernel (ops/fused_beam.py) instead
+    # of the stepper's ancestry scan
+    decode_beam_fused: bool = False
+    # the semantic CLS step-0 input of the decoder is not ported;
+    # SceneTextModel refuses True
+    cls_decoder_init: bool = False
     max_text_length: int = 25
     chars: str = DEFAULT_CHARS
     compute_dtype: str = "bfloat16"

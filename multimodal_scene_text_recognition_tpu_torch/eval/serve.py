@@ -1,9 +1,9 @@
-"""Serving facade: crops in, strings out, in fixed batch buckets
-(JAX counterpart: eval/serve.Recognizer, greedy only)."""
+"""Serving facade: crops in, strings out, in fixed batch buckets, by greedy
+decoding or beam search (JAX counterpart: eval/serve.Recognizer)."""
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -12,7 +12,7 @@ from ..charset import AttnCodec
 
 
 class Recognizer:
-    """Greedy recognition of grayscale crops through a
+    """Recognition of grayscale crops through a
     :class:`~..models.model.SceneTextModel` (from ``api.get_model``).
 
     Crops must already be ``img_h x img_w`` (32x100): float in [0, 1] or
@@ -54,13 +54,27 @@ class Recognizer:
         return image, overlap
 
     @torch.no_grad()
-    def recognize(self, crops: Sequence[np.ndarray]) -> List[str]:
-        """Recognise a list of grayscale crops; returns the decoded strings."""
-        out: List[str] = []
+    def recognize(self, crops: Sequence[np.ndarray], beam_size: int = 0,
+                  return_scores: bool = False
+                  ) -> Union[List[str], Tuple[List[str], List[float]]]:
+        """Recognise a list of grayscale crops; returns the decoded strings,
+        or with ``return_scores`` (strings, scores).
+
+        ``beam_size`` > 0 decodes by beam search of that width, and a
+        crop's score is its best beam's cumulative log-probability; greedy
+        decoding (``beam_size=0``) scores every crop 0.0."""
+        texts: List[str] = []
+        scores: List[float] = []
         step = self.batch_sizes[-1]
         for i in range(0, len(crops), step):
             chunk = crops[i:i + step]
-            image, overlap = self.prepare(chunk, self._bucket(len(chunk)))
-            ids = self.model(image, overlap).argmax(dim=-1).cpu().numpy()
-            out.extend(self.codec.decode(ids)[:len(chunk)])
-        return out
+            n = len(chunk)
+            image, overlap = self.prepare(chunk, self._bucket(n))
+            if beam_size:
+                ids, best = self.model.beam_decode(image, overlap, int(beam_size))
+                scores.extend(best[:n].tolist())
+            else:
+                ids = self.model(image, overlap).argmax(dim=-1)
+                scores.extend([0.0] * n)
+            texts.extend(self.codec.decode(ids.cpu().numpy())[:n])
+        return (texts, scores) if return_scores else texts

@@ -5,10 +5,11 @@ library with a plain C interface:
 
     nvcc -O3 -gencode arch=compute_90a,code=sm_90a -shared -Xcompiler -fPIC
 
-The sources include only CUDA headers, so a cold build takes seconds and
-needs neither ``ninja`` nor PyTorch's headers.  Libraries land in
-``kernels/_build/`` (listed in ``.gitignore``) under a name keyed by a hash of
-the source and the flags; a build writes a temporary file and renames it into
+The sources include only CUDA headers (and the shared ``*.cuh`` beside
+them), so a cold build takes seconds and needs neither ``ninja`` nor
+PyTorch's headers.  Libraries land in ``kernels/_build/`` (listed in
+``.gitignore``) under a name keyed by a hash of the source, the shared
+headers and the flags; a build writes a temporary file and renames it into
 place, so a concurrent or interrupted build never leaves a torn library.
 """
 
@@ -26,7 +27,7 @@ KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("fused_decode", "grid_sample", "bn_bwd_reduce")
+SOURCES = ("fused_decode", "fused_beam", "grid_sample", "bn_bwd_reduce")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _running: Set[subprocess.Popen] = set()  # compilers in flight, for kill_running
@@ -47,6 +48,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (KERNEL_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(KERNEL_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

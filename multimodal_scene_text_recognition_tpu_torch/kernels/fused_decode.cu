@@ -1,12 +1,17 @@
 // Whole greedy decode loop of the transformer decoder in one kernel.
 //
 // Replaces the TPU kernel multimodal_scene_text_recognition_tpu/ops/
-// fused_decode.py::_decode_kernel in float mode (no early stop, no CLS
-// step-0 row).  For T steps it embeds the previous token, runs L decoder
-// layers (packed qkv -> self-attention KV-cache write -> causal attention ->
-// out-proj -> LN -> cross-q -> attention over the precomputed memory K/V ->
-// out-proj -> LN -> ReLU FF -> LN), the final LN and the class head, writes
-// logits[b, t, :] and feeds the first-index argmax back.
+// fused_decode.py::_decode_kernel in float mode, with its eos_id early stop
+// (no CLS step-0 row).  For T steps it embeds the previous token, runs L
+// decoder layers (packed qkv -> self-attention KV-cache write -> causal
+// attention -> out-proj -> LN -> cross-q -> attention over the precomputed
+// memory K/V -> out-proj -> LN -> ReLU FF -> LN), the final LN and the
+// class head, writes logits[b, t, :] and feeds the first-index argmax back.
+//
+// Early stop (eos_id >= 0): a row that has emitted eos_id writes no further
+// logits (the caller prefilled them with the eos_id one-hot), and a CTA
+// leaves its loop once every row of its tile has stopped.  Rows are
+// independent, so this needs no flag shared between CTAs.
 //
 // Design.  Rows of the batch are independent, so each CTA owns a fixed tile
 // of R rows (template parameter, built for kRows = 1: at B=192 on an H100
@@ -39,38 +44,12 @@
 // T and probs*V is formed in T and summed in float32; layernorm, softmax and
 // logits are float32; the argmax takes the first index of the maximum.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "decode_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRows = 1;  // batch rows per CTA
-
-template <typename T>
-struct Num;
-
-template <>
-struct Num<float> {
-  __device__ static float to_f(float v) { return v; }
-  __device__ static float load(const float* p) { return __ldg(p); }
-  __device__ static float from_f(float v) { return v; }
-  __device__ static float round(float v) { return v; }
-};
-
-template <>
-struct Num<__nv_bfloat16> {
-  __device__ static float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-  __device__ static float load(const __nv_bfloat16* p) {
-    return __bfloat162float(__ldg(p));
-  }
-  __device__ static __nv_bfloat16 from_f(float v) {
-    return __float2bfloat16_rn(v);
-  }
-  __device__ static float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-};
 
 template <typename T>
 struct Params {
@@ -84,43 +63,9 @@ struct Params {
   T *kc, *vc;        // self-attention caches [L, B, T, E]
   float* logits;     // [B, T, C]
   int B, steps, L, E, F, C, H, Tm, go_id;
+  int eos_id;        // < 0: no early stop
   float eps, scale;  // layernorm epsilon, 1/sqrt(head_dim)
 };
-
-enum Epilogue { kPlain = 0, kReluRound = 1 };
-
-// 16-byte weight loads: 4 floats or 8 bf16 widened to float
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int kW = 4;
-  __device__ static void load(const float* p, float (&w)[4]) {
-    float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int kW = 8;
-  __device__ static void load(const __nv_bfloat16* p, float (&w)[8]) {
-    uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    const unsigned u[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // bf16 is the high half of a float
-      w[2 * i] = __uint_as_float(u[i] << 16);
-      w[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-    }
-  }
-};
-
-template <typename T, int EPI>
-__device__ float epilogue(float acc, const T* b, int j) {
-  float v = acc + Num<T>::load(b + j);
-  return EPI == kReluRound ? Num<T>::round(fmaxf(v, 0.0f)) : v;
-}
 
 // acc[r][v] += sum_{k0 <= k < k1} xin[k * R + r] * W[k * N + v], four 16-byte
 // loads in flight per thread
@@ -223,45 +168,6 @@ __device__ void linear(const float* xin, int K, const T* __restrict__ W,
   }
 }
 
-// xin[k * R + r] = round_T(src[r * stride + k]) for k < K
-template <typename T, int R>
-__device__ void round_rows(const float* src, int stride, int K, float* xin) {
-  for (int i = threadIdx.x; i < R * K; i += blockDim.x) {
-    int r = i / K, k = i - r * K;
-    xin[k * R + r] = Num<T>::round(src[r * stride + k]);
-  }
-}
-
-__device__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// x[r] = layernorm(x[r] + add[r]) in float32, one warp per row
-template <typename T, int R>
-__device__ void add_layernorm(float* xs, const float* add, int add_stride,
-                              const T* s, const T* b, int E, float eps) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < R; r += blockDim.x >> 5) {
-    float* x = xs + r * E;
-    float sum = 0.0f;
-    for (int e = lane; e < E; e += 32) {
-      if (add != nullptr) x[e] += add[r * add_stride + e];
-      sum += x[e];
-    }
-    float mean = warp_sum(sum) / (float)E;
-    float sq = 0.0f;
-    for (int e = lane; e < E; e += 32) {
-      float d = x[e] - mean;
-      sq += d * d;
-    }
-    float inv = rsqrtf(warp_sum(sq) / (float)E + eps);
-    for (int e = lane; e < E; e += 32)
-      x[e] = (x[e] - mean) * inv * Num<T>::to_f(s[e]) + Num<T>::to_f(b[e]);
-  }
-}
-
 // Multi-head attention of R query rows over `len` cached positions.
 // q[r * q_stride + d] (float32, rounded to T here); K/V hold row `row` at
 // kv + row * kv_rows * E, position s at + s * E.  Writes the context, rounded
@@ -323,6 +229,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params<T> p) {
   float* lg = probs + R * H * S;  // [R][C]
   float* red = lg + R * C;        // [blockDim * V * R] split-K partial sums
   int* tok = (int*)(red + kThreads * Vec<T>::kW * R);  // [R]
+  int* done = tok + R;  // [R] rows that have emitted eos_id
 
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -331,7 +238,10 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params<T> p) {
   const size_t cache_l = (size_t)p.B * T_ * E;
   const size_t mem_l = (size_t)p.B * p.Tm * E;
 
-  if (tid < R) tok[tid] = p.go_id;
+  if (tid < R) {
+    tok[tid] = p.go_id;
+    done[tid] = tid >= nrows;  // rows past the batch count as stopped
+  }
   __syncthreads();
 
   for (int t = 0; t < T_; ++t) {
@@ -343,7 +253,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params<T> p) {
 
     for (int l = 0; l < L; ++l) {
       // -- self attention over the running KV cache --
-      round_rows<T, R>(xs, E, E, xin);
+      round_rows<T>(xs, R, E, E, xin);
       __syncthreads();
       linear<T, R, kPlain>(xin, E, p.w_qkv + (size_t)l * E * 3 * E,
                            p.b_qkv + (size_t)l * 3 * E, 3 * E, qkv, 3 * E, 1, red);
@@ -364,12 +274,12 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params<T> p) {
       linear<T, R, kPlain>(xin, E, p.w_out + (size_t)l * E * E,
                            p.b_out + (size_t)l * E, E, qkv, E, 1, red);
       __syncthreads();
-      add_layernorm<T, R>(xs, qkv, E, p.n1_s + l * E, p.n1_b + l * E, E,
+      add_layernorm<T>(xs, R, qkv, E, p.n1_s + l * E, p.n1_b + l * E, E,
                           p.eps);
       __syncthreads();
 
       // -- cross attention over the precomputed memory K/V --
-      round_rows<T, R>(xs, E, E, xin);
+      round_rows<T>(xs, R, E, E, xin);
       __syncthreads();
       linear<T, R, kPlain>(xin, E, p.cw_q + (size_t)l * E * E,
                            p.cb_q + (size_t)l * E, E, qkv, E, 1, red);
@@ -379,12 +289,12 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params<T> p) {
       linear<T, R, kPlain>(xin, E, p.cw_o + (size_t)l * E * E,
                            p.cb_o + (size_t)l * E, E, qkv, E, 1, red);
       __syncthreads();
-      add_layernorm<T, R>(xs, qkv, E, p.n2_s + l * E, p.n2_b + l * E, E,
+      add_layernorm<T>(xs, R, qkv, E, p.n2_s + l * E, p.n2_b + l * E, E,
                           p.eps);
       __syncthreads();
 
       // -- feed-forward --
-      round_rows<T, R>(xs, E, E, xin);
+      round_rows<T>(xs, R, E, E, xin);
       __syncthreads();
       linear<T, R, kReluRound>(xin, E, p.ff1_w + (size_t)l * E * F,
                                p.ff1_b + (size_t)l * F, F, hid, 1, R, red);
@@ -392,20 +302,21 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params<T> p) {
       linear<T, R, kPlain>(hid, F, p.ff2_w + (size_t)l * F * E,
                            p.ff2_b + (size_t)l * E, E, qkv, E, 1, red);
       __syncthreads();
-      add_layernorm<T, R>(xs, qkv, E, p.n3_s + l * E, p.n3_b + l * E, E,
+      add_layernorm<T>(xs, R, qkv, E, p.n3_s + l * E, p.n3_b + l * E, E,
                           p.eps);
       __syncthreads();
     }
 
-    add_layernorm<T, R>(xs, nullptr, 0, p.fn_s, p.fn_b, E, p.eps);
+    add_layernorm<T>(xs, R, nullptr, 0, p.fn_s, p.fn_b, E, p.eps);
     __syncthreads();
-    round_rows<T, R>(xs, E, E, xin);
+    round_rows<T>(xs, R, E, E, xin);
     __syncthreads();
     linear<T, R, kPlain>(xin, E, p.head_w, p.head_b, C, lg, C, 1, red);
     __syncthreads();
     for (int i = tid; i < R * C; i += nt) {
       int r = i / C, c = i - r * C;
-      if (r < nrows) p.logits[((size_t)(r0 + r) * T_ + t) * C + c] = lg[i];
+      if (r < nrows && !done[r])
+        p.logits[((size_t)(r0 + r) * T_ + t) * C + c] = lg[i];
     }
     // first-index argmax per row, one warp per row
     for (int r = warp; r < R; r += nt >> 5) {
@@ -425,13 +336,21 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params<T> p) {
       if (lane == 0) tok[r] = bi < C ? bi : 0;
     }
     __syncthreads();
+    if (p.eos_id >= 0) {
+      bool all_done = true;
+      for (int r = 0; r < R; ++r) all_done &= done[r] || tok[r] == p.eos_id;
+      __syncthreads();  // every thread has read done[] before it changes
+      if (tid < R && tok[tid] == p.eos_id) done[tid] = 1;
+      if (all_done) break;  // the same value in every thread
+      __syncthreads();
+    }
   }
 }
 
 size_t smem_bytes(int R, int V, int E, int F, int C, int H, int S) {
   return sizeof(float) *
              ((size_t)R * (E + E + F + 3 * E + H * S + C + kThreads * V)) +
-         sizeof(int) * R;
+         sizeof(int) * 2 * R;
 }
 
 template <typename T, int R>
@@ -466,6 +385,7 @@ int run(const void* const* ptr, const int* dim, float eps, float scale,
   p.logits = (float*)ptr[nw + 5];
   p.B = dim[0]; p.steps = dim[1]; p.L = dim[2]; p.E = dim[3]; p.F = dim[4];
   p.C = dim[5]; p.H = dim[6]; p.Tm = dim[7]; p.go_id = dim[8];
+  p.eos_id = dim[9];
   p.eps = eps;
   p.scale = scale;
   if (p.B == 0 || p.steps == 0) return 0;
@@ -475,7 +395,8 @@ int run(const void* const* ptr, const int* dim, float eps, float scale,
 }  // namespace
 
 // ptr: the 23 weight tables in Params order, then pe, ck, cv, kc, vc, logits.
-// dim: B, T, L, E, F, C, H, Tm, go_id.  dtype: 0 = float32, 1 = bfloat16.
+// dim: B, T, L, E, F, C, H, Tm, go_id, eos_id (< 0: no early stop).
+// dtype: 0 = float32, 1 = bfloat16.
 // Every pointer lies on the device of `stream`, which the caller makes the
 // current device for the call.
 extern "C" int fused_decode(int dtype, const void* const* ptr, const int* dim,

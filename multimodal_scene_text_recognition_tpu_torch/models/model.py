@@ -1,17 +1,19 @@
 """Model assembly: TPS -> ResNet-31 -> semantics -> encoder -> decoder
-(JAX counterpart: models/model.py): greedy inference, and the
+(JAX counterpart: models/model.py): greedy inference, beam search, and the
 teacher-forced training pass."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..ops.precision import full_fp32
 from .decoders import TransformerDecoder
 from .encoders import TransformerEncoder
 from .layers import BatchNorm2d, dropout, nchw_channels_last
@@ -23,10 +25,12 @@ from .transformation import TPSTransform
 class SceneTextModel(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if not cfg.decode_fused or cfg.decode_early_stop:
+        if not cfg.decode_fused:
             raise NotImplementedError(
                 "the port serves greedy decode through the fused decode kernel "
-                "only (decode_fused=True, decode_early_stop=False)")
+                "only (decode_fused=True)")
+        if cfg.cls_decoder_init:
+            raise NotImplementedError("cls_decoder_init is not ported")
         self.cfg = cfg
         dtype = getattr(torch, cfg.compute_dtype)
         if cfg.use_tps:
@@ -38,7 +42,8 @@ class SceneTextModel(nn.Module):
                                           cfg.enc_layers, cfg.num_cols)
         self.decoder = TransformerDecoder(
             cfg.num_classes, cfg.embed_dim, cfg.hidden_dim, cfg.num_heads, cfg.ff_dim,
-            cfg.dec_layers, cfg.max_text_length, dtype)
+            cfg.dec_layers, cfg.max_text_length, dtype,
+            early_stop=cfg.decode_early_stop, beam_fused=cfg.decode_beam_fused)
         self.set_use_kernels(True)
         for mod in self.modules():  # cfg.fused_bn is K3's default
             if isinstance(mod, BatchNorm2d):
@@ -47,14 +52,23 @@ class SceneTextModel(nn.Module):
     def set_use_kernels(self, on: bool) -> None:
         """On CUDA tensors, run the hand-written kernels or their plain
         PyTorch versions, which the chip check compares them against: the
-        warp (K2), the fused decode (K1) and every BatchNorm's backward
-        reduction (K3).  CPU tensors always take the plain versions."""
+        warp (K2), the fused decode with its early stop (K1, K1e), the fused
+        beam search (K4) and every BatchNorm's backward reduction (K3).  CPU
+        tensors always take the plain versions."""
         if self.cfg.use_tps:
             self.transformation.use_kernels = on
         self.decoder.use_kernels = on
         for mod in self.modules():
             if isinstance(mod, BatchNorm2d):
                 mod.use_kernels = on
+
+    def precision(self):
+        """The context the model's forward and backward run in: full float32
+        (TF32 off for matmuls and convs, whatever the caller set) where the
+        compute type is float32; the caller's settings otherwise."""
+        if self.cfg.compute_dtype == "float32":
+            return full_fp32()
+        return contextlib.nullcontext()
 
     def rectify(self, image: torch.Tensor, train: bool = False) -> torch.Tensor:
         """[B, H, W, 1] float32 -> rectified [B, H, W, 1] float32 (the crop
@@ -85,13 +99,25 @@ class SceneTextModel(nn.Module):
         ``generator`` (on the image's device) -> logits [B, T, num_classes]
         float32."""
         if not train:
-            return self.decode_from_columns(self.features(self.rectify(image)), overlap)
+            with self.precision():
+                return self.decode_from_columns(self.features(self.rectify(image)), overlap)
         if text is None or generator is None:
             raise ValueError("train=True needs the input ids and a generator")
         drop = functools.partial(dropout, p=self.cfg.dropout, generator=generator)
-        cols = self.features(self.rectify(image, train=True), train=True)
-        self.semantic(overlap)  # feeds only the fusion sites, all off
-        return self.decoder.teacher_forced(self.encoder(cols, drop), text, drop)
+        with self.precision():
+            cols = self.features(self.rectify(image, train=True), train=True)
+            self.semantic(overlap)  # feeds only the fusion sites, all off
+            return self.decoder.teacher_forced(self.encoder(cols, drop), text, drop)
+
+    def beam_decode(self, image: torch.Tensor, overlap: torch.Tensor, beam_size: int = 5,
+                    length_penalty: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Beam-search recognition: image [B, H, W, 1] float32 in [0, 1],
+        overlap [B, n] ids -> (tokens [B, max_text_length], scores [B]) of
+        the best beam per row (see ``TransformerDecoder.beam_decode``)."""
+        with self.precision():
+            cols = self.features(self.rectify(image))
+            self.semantic(overlap)  # feeds only the fusion sites, all off
+            return self.decoder.beam_decode(self.encoder(cols), beam_size, length_penalty)
 
 
 @torch.no_grad()

@@ -1,5 +1,6 @@
 """Whole greedy decode loop in one kernel (JAX counterpart:
-ops/fused_decode.py, float mode, no early stop, no CLS step-0 row).
+ops/fused_decode.py, float mode with its ``eos_id`` early stop; no CLS
+step-0 row).
 
 Two versions of one function, ``logits [B, T, C] float32`` from the stacked
 decoder weights and the per-layer cross-attention K/V:
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -121,15 +122,38 @@ def cast_weights(w: FusedDecodeWeights, dtype: torch.dtype) -> FusedDecodeWeight
     return FusedDecodeWeights(**fields)
 
 
+def plain_ops(dt: torch.dtype, eps: float):
+    """The plain versions' arithmetic in compute type ``dt``, on float32
+    tensors: ``rd`` rounds to ``dt``; ``lin(x, W, b)`` is the rounded input
+    times W (float32 accumulation) plus b; ``ln(x, s, b)`` a float32
+    layernorm."""
+    def rd(x):
+        return x.to(dt).float()
+
+    def lin(x, W, b):
+        return rd(x) @ W + b
+
+    def ln(x, s, b):
+        mean = x.mean(-1, keepdim=True)
+        var = ((x - mean) ** 2).mean(-1, keepdim=True)
+        return (x - mean) * torch.rsqrt(var + eps) * s + b
+
+    return rd, lin, ln
+
+
 def fused_greedy_decode_plain(w: FusedDecodeWeights, cross_k: torch.Tensor,
                               cross_v: torch.Tensor, *, num_heads: int,
-                              steps: int, go_id: int = 0,
+                              steps: int, go_id: int = 0, eos_id: Optional[int] = None,
                               eps: float = 1e-5) -> torch.Tensor:
     """The greedy loop in PyTorch with the TPU kernel's casts.
 
     ``w`` is already in the compute type (:func:`cast_weights`);
     cross_k/cross_v [L, B, Tm, E] in the same type.  Values of the compute
     type are carried in float32 tensors; ``rd`` rounds to the compute type.
+
+    With ``eos_id`` a row stops once it has emitted that token: its later
+    logit rows stay the ``eos_id`` one-hot, and the loop ends when every
+    row has stopped.
     """
     dt = w.w_qkv.dtype
     L, B, Tm, E = cross_k.shape
@@ -140,21 +164,11 @@ def fused_greedy_decode_plain(w: FusedDecodeWeights, cross_k: torch.Tensor,
     scale = 1.0 / math.sqrt(hd)
     dev = cross_k.device
 
-    def rd(x):
-        return x.to(dt).float()
-
+    rd, lin, ln = plain_ops(dt, eps)
     f = {k: v.float() for k, v in w._asdict().items()}
     ck, cv = cross_k.float(), cross_v.float()
     kc = torch.zeros(L, B, T, E, device=dev)
     vc = torch.zeros(L, B, T, E, device=dev)
-
-    def lin(x, W, b):
-        return rd(x) @ W + b
-
-    def ln(x, s, b):
-        mean = x.mean(-1, keepdim=True)
-        var = ((x - mean) ** 2).mean(-1, keepdim=True)
-        return (x - mean) * torch.rsqrt(var + eps) * s + b
 
     def attend(q, K, V):
         """q [B, E] (values of the compute type), K/V [B, S, E] -> [B, E]."""
@@ -167,7 +181,8 @@ def fused_greedy_decode_plain(w: FusedDecodeWeights, cross_k: torch.Tensor,
         probsE = probs.repeat_interleave(hd, dim=2)         # [B, S, E]
         return rd(probsE * V).sum(1)
 
-    logits = torch.empty(B, T, C, device=dev)
+    logits = _logits_buffer(B, T, C, eos_id, dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
     tok = torch.full((B,), go_id, dtype=torch.long, device=dev)
     for t in range(T):
         x = f["emb"][tok] + f["pe"][t]
@@ -184,16 +199,89 @@ def fused_greedy_decode_plain(w: FusedDecodeWeights, cross_k: torch.Tensor,
             x = ln(x + lin(h, f["ff2_w"][l], f["ff2_b"][l]), f["n3_s"][l], f["n3_b"][l])
         x = ln(x, f["fn_s"], f["fn_b"])
         lg = lin(x, f["head_w"], f["head_b"])
-        logits[:, t] = lg
+        logits[:, t] = torch.where(done[:, None], logits[:, t], lg)
         tok = torch.argmax(lg, dim=-1)  # first index of the maximum
+        if eos_id is not None:
+            done |= tok == eos_id
+            if done.all():
+                break
+    return logits
+
+
+def _logits_buffer(B: int, T: int, C: int, eos_id: Optional[int], device) -> torch.Tensor:
+    """The logits output: with ``eos_id``, prefilled with its one-hot (the
+    rows a stopped row never visits keep it), else uninitialised."""
+    if eos_id is None:
+        return torch.empty(B, T, C, device=device)
+    logits = torch.zeros(B, T, C, device=device)
+    logits[..., eos_id] = 1.0
     return logits
 
 
 _N_TABLES = 23  # FusedDecodeWeights fields before pe
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
+THREADS = 256  # threads per CTA (kThreads in the decode kernels)
+_ROWS = 1  # batch rows per CTA (kRows in the kernel)
 
 
-def _lib():
-    fn = build.load("fused_decode").fused_decode
+def check_kernel_inputs(w: FusedDecodeWeights, cross_k: torch.Tensor, cross_v: torch.Tensor,
+                        *, num_heads: int, steps: int, class_ids: Sequence[int], what: str):
+    """What the decode kernels (greedy and beam) take: every table of ``w``
+    and cross_k/v contiguous CUDA tensors of one compute type (float32 or
+    bfloat16) on one device, ``pe`` float32, consistent shapes, ``steps``
+    positional rows and valid ``class_ids``.  Raises TypeError or
+    ValueError otherwise; returns (L, B, Tm, E, F, C)."""
+    dev = cross_k.device
+    dt = w.w_qkv.dtype
+    if dt not in KERNEL_DTYPES:
+        raise TypeError(f"{what} kernel takes float32 or bfloat16, got {dt}")
+    if dev.type != "cuda":
+        raise ValueError(f"the {what} kernel takes CUDA tensors")
+    for name, t in zip(FusedDecodeWeights._fields, list(w)[:_N_TABLES]):
+        if t.dtype != dt or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{what}: table {name} must be contiguous "
+                             f"{dt} on {dev}, got {t.dtype} on {t.device}")
+    for name, t, want in (("pe", w.pe, torch.float32), ("cross_k", cross_k, dt),
+                          ("cross_v", cross_v, dt)):
+        if t.dtype != want or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous {want} on {dev}")
+    L, B, Tm, E = cross_k.shape
+    C = w.head_w.shape[1]
+    if cross_v.shape != cross_k.shape or E % num_heads or w.w_qkv.shape != (L, E, 3 * E):
+        raise ValueError(f"{what}: inconsistent shapes")
+    if w.pe.shape[0] < steps or w.emb.shape != (C, E):
+        raise ValueError(f"{what}: pe/emb do not fit the tables")
+    if not all(0 <= i < C for i in class_ids):
+        raise ValueError(f"{what}: class ids {list(class_ids)} outside 0..{C - 1}")
+    return L, B, Tm, E, w.ff1_w.shape[2], C
+
+
+def launch(fn, w: FusedDecodeWeights, cross_k: torch.Tensor, cross_v: torch.Tensor,
+           buffers: Sequence[torch.Tensor], dims: Sequence[int], *, num_heads: int,
+           eps: float, what: str) -> None:
+    """Call a decode kernel's C launcher ``fn(dtype, pointers, dims, eps,
+    scale, stream)`` on the current stream of the tensors' device, with the
+    pointers of the tables, pe, cross_k, cross_v and ``buffers``; raises if
+    the launch fails."""
+    dev = cross_k.device
+    ptrs = [t.data_ptr() for t in list(w)[:_N_TABLES]] + [
+        w.pe.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr()] + [b.data_ptr() for b in buffers]
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    c_dims = (ctypes.c_int * len(dims))(*dims)
+    scale = 1.0 / math.sqrt(cross_k.shape[-1] // num_heads)
+    with torch.cuda.device(dev):  # the launcher uses the current device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(KERNEL_DTYPES[w.w_qkv.dtype], c_ptrs, c_dims, eps, scale, stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def launcher(name: str):
+    """The C launcher of kernel library ``name``, built on first use: the
+    function of the same name, ``int name(dtype, pointers, dims, eps, scale,
+    stream)``, which both decode kernels export."""
+    fn = getattr(build.load(name), name)
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
                    ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_float,
                    ctypes.c_void_p]
@@ -201,65 +289,30 @@ def _lib():
     return fn
 
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
-_THREADS = 256  # threads per CTA (kThreads in the kernel)
-_ROWS = 1  # batch rows per CTA (kRows in the kernel)
-
-
 def fused_greedy_decode_cuda(w: FusedDecodeWeights, cross_k: torch.Tensor,
                              cross_v: torch.Tensor, *, num_heads: int,
-                             steps: int, go_id: int = 0, eps: float = 1e-5) -> torch.Tensor:
-    """Launch the CUDA decode kernel.  Every table of ``w`` and cross_k/v
-    must be contiguous CUDA tensors of one compute type (float32 or
-    bfloat16) on one device, ``pe`` float32.  Returns logits [B, T, C]."""
-    dev = cross_k.device
-    dt = w.w_qkv.dtype
-    if dt not in _KERNEL_DTYPES:
-        raise TypeError(f"fused decode kernel takes float32 or bfloat16, got {dt}")
-    if dev.type != "cuda":
-        raise ValueError("fused_greedy_decode_cuda takes CUDA tensors")
-    tables = list(w)[:_N_TABLES]
-    for name, t in zip(FusedDecodeWeights._fields, tables):
-        if t.dtype != dt or t.device != dev or not t.is_contiguous():
-            raise ValueError(f"fused decode: table {name} must be contiguous "
-                             f"{dt} on {dev}, got {t.dtype} on {t.device}")
-    for name, t, want in (("pe", w.pe, torch.float32), ("cross_k", cross_k, dt),
-                          ("cross_v", cross_v, dt)):
-        if t.dtype != want or t.device != dev or not t.is_contiguous():
-            raise ValueError(f"fused decode: {name} must be contiguous {want} on {dev}")
-    L, B, Tm, E = cross_k.shape
-    F = w.ff1_w.shape[2]
-    C = w.head_w.shape[1]
-    T = steps
-    H = num_heads
-    if cross_v.shape != cross_k.shape or E % H or w.w_qkv.shape != (L, E, 3 * E):
-        raise ValueError("fused decode: inconsistent shapes")
-    if w.pe.shape[0] < T or w.emb.shape != (C, E) or not 0 <= go_id < C:
-        raise ValueError("fused decode: pe/emb/go_id do not fit the tables")
-    R = _ROWS
+                             steps: int, go_id: int = 0, eos_id: Optional[int] = None,
+                             eps: float = 1e-5) -> torch.Tensor:
+    """Launch the CUDA decode kernel on inputs :func:`check_kernel_inputs`
+    accepts.  Returns logits [B, T, C]."""
+    ids = [go_id] + ([] if eos_id is None else [eos_id])
+    L, B, Tm, E, F, C = check_kernel_inputs(w, cross_k, cross_v, num_heads=num_heads,
+                                            steps=steps, class_ids=ids, what="fused decode")
+    dt, T, H, R = w.w_qkv.dtype, steps, num_heads, _ROWS
     S = max(T, Tm)
     vec = 16 // dt.itemsize  # weight columns per 16-byte load
-    smem = 4 * R * (E + E + F + 3 * E + H * S + C + _THREADS * vec) + 4 * R
-    if smem > _SMEM_LIMIT:
+    smem = 4 * R * (E + E + F + 3 * E + H * S + C + THREADS * vec) + 8 * R
+    if smem > SMEM_LIMIT:
         raise ValueError(f"fused decode: {smem} bytes of shared memory per CTA "
-                         f"exceed {_SMEM_LIMIT}")
+                         f"exceed {SMEM_LIMIT}")
 
     # caches zeroed before use, as the TPU kernel's are
-    kc = torch.zeros(L, B, T, E, dtype=dt, device=dev)
+    kc = torch.zeros(L, B, T, E, dtype=dt, device=cross_k.device)
     vc = torch.zeros_like(kc)
-    logits = torch.empty(B, T, C, dtype=torch.float32, device=dev)
-    ptrs = [t.data_ptr() for t in tables] + [
-        w.pe.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(),
-        kc.data_ptr(), vc.data_ptr(), logits.data_ptr()]
-    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    c_dims = (ctypes.c_int * 9)(B, T, L, E, F, C, H, Tm, go_id)
-    fn = _lib()
-    with torch.cuda.device(dev):  # the launcher uses the current device
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(_KERNEL_DTYPES[dt], c_ptrs, c_dims, eps, 1.0 / math.sqrt(E // H), stream)
-    if rc != 0:
-        raise RuntimeError(f"fused decode kernel launch failed: CUDA error {rc}")
+    logits = _logits_buffer(B, T, C, eos_id, cross_k.device)
+    launch(launcher("fused_decode"), w, cross_k, cross_v, (kc, vc, logits),
+           (B, T, L, E, F, C, H, Tm, go_id, -1 if eos_id is None else eos_id),
+           num_heads=H, eps=eps, what="fused decode")
     fused_greedy_decode_cuda.launches += 1
     return logits
 
@@ -270,17 +323,19 @@ fused_greedy_decode_cuda.launches = 0
 def fused_greedy_decode(w: FusedDecodeWeights, cross_k: torch.Tensor,
                         cross_v: torch.Tensor, *, num_heads: int, steps: int,
                         dtype: torch.dtype = torch.bfloat16, go_id: int = 0,
-                        eps: float = 1e-5, plain: bool = False) -> torch.Tensor:
+                        eos_id: Optional[int] = None, eps: float = 1e-5,
+                        plain: bool = False) -> torch.Tensor:
     """Greedy decode -> logits [B, steps, C] float32.
 
     cross_k/cross_v: [L, B, Tm, E] memory projections per layer.  Weights
-    and cross K/V are cast to ``dtype``.  CPU tensors (or ``plain=True``)
+    and cross K/V are cast to ``dtype``.  ``eos_id`` stops each row once it
+    has emitted that token (see :func:`fused_greedy_decode_plain`).  CPU tensors (or ``plain=True``)
     take the plain version; CUDA tensors launch the kernel.
     """
     w = cast_weights(w, dtype)
     ck = cross_k.detach().to(dtype).contiguous()
     cv = cross_v.detach().to(dtype).contiguous()
-    kw = dict(num_heads=num_heads, steps=steps, go_id=go_id, eps=eps)
+    kw = dict(num_heads=num_heads, steps=steps, go_id=go_id, eos_id=eos_id, eps=eps)
     if plain or ck.device.type == "cpu":
         return fused_greedy_decode_plain(w, ck, cv, **kw)
     return fused_greedy_decode_cuda(w, ck, cv, **kw)

@@ -1,17 +1,19 @@
 """Thin-plate-spline grid generation (JAX counterpart: ops/tps.py).
 
 The TPS system depends only on static shapes and is solved once in numpy;
-the per-batch work is one small matmul kept in true float32: it produces
-sample coordinates, and a reduced-precision pass (TF32 on the card) would
-move them by a sizeable fraction of a pixel.
+the per-batch work is one small matmul kept in true float32, forward and
+backward: it produces sample coordinates, and a reduced-precision pass
+(TF32 on the card) would move them by a sizeable fraction of a pixel.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
+
 import numpy as np
 import torch
+
+from .precision import full_fp32
 
 
 def build_fiducial_grid(F: int) -> np.ndarray:
@@ -75,16 +77,21 @@ def _tps_matrix(F: int, I_r_height: int, I_r_width: int,
     return torch.from_numpy(tps_weights(F, I_r_height, I_r_width)).to(device)
 
 
-@contextlib.contextmanager
-def full_fp32_matmul():
-    """Run float32 matmuls in full float32 (no TF32) on the card, restoring
-    the caller's setting afterwards."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+class _Fp32Matmul(torch.autograd.Function):
+    """``M @ c`` for a constant ``M``, forward and backward in full float32
+    (no TF32 on the card, whatever the caller set)."""
+
+    @staticmethod
+    def forward(ctx, M, c):
+        ctx.save_for_backward(M)
+        with full_fp32():
+            return torch.matmul(M, c)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (M,) = ctx.saved_tensors
+        with full_fp32():
+            return None, torch.matmul(M.t(), grad)
 
 
 def build_sampling_grid(batch_C_prime: torch.Tensor, I_r_height: int,
@@ -96,6 +103,5 @@ def build_sampling_grid(batch_C_prime: torch.Tensor, I_r_height: int,
     """
     B, F, _ = batch_C_prime.shape
     M = _tps_matrix(F, I_r_height, I_r_width, batch_C_prime.device)
-    with full_fp32_matmul():
-        grid = torch.matmul(M, batch_C_prime.float())  # [B, n, 2]
+    grid = _Fp32Matmul.apply(M, batch_C_prime.float())  # [B, n, 2]
     return grid.reshape(B, I_r_height, I_r_width, 2)

@@ -52,6 +52,8 @@ def token_accuracy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 class TrainStep:
     """Owns the model, its optimizer, the step count and the dropout
     generator (on the model's device, seeded with ``cfg.seed``).
+    ``steps_per_epoch`` scales the StepLR boundaries, which ``cfg`` counts
+    in epochs (the JAX loop passes ``n_train // batch_size``).
 
     ``step(batch)`` takes a batch in the JAX pipeline's wire format: numpy
     arrays or tensors ``image`` uint8 [B, H, W, 1] (or float in [0, 1]),
@@ -60,11 +62,11 @@ class TrainStep:
     synchronised): ``loss``, ``token_acc`` and ``grad_norm`` (before the
     clip)."""
 
-    def __init__(self, model: torch.nn.Module, cfg: TrainConfig):
+    def __init__(self, model: torch.nn.Module, cfg: TrainConfig, steps_per_epoch: int = 1):
         self.model = model
         self.cfg = cfg
         self.device = next(model.parameters()).device
-        self.optimizer = make_optimizer(model.parameters(), cfg)
+        self.optimizer = make_optimizer(model.parameters(), cfg, steps_per_epoch)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
 
     @property
@@ -79,10 +81,11 @@ class TrainStep:
 
         self.model.train()
         self.optimizer.zero_grad()
-        logits = self.model(image, overlap, text_in, train=True, generator=self.generator)
-        loss = cross_entropy(logits, targets, self.cfg.loss_counts_pad,
-                             self.cfg.label_smoothing)
-        loss.backward()
+        with self.model.precision():  # the backward too
+            logits = self.model(image, overlap, text_in, train=True, generator=self.generator)
+            loss = cross_entropy(logits, targets, self.cfg.loss_counts_pad,
+                                 self.cfg.label_smoothing)
+            loss.backward()
         grad_norm = self.optimizer.step()
         with torch.no_grad():
             acc = token_accuracy(logits, targets)

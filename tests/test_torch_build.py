@@ -10,11 +10,12 @@ import pytest
 from multimodal_scene_text_recognition_tpu_torch.kernels import build
 
 FAKE_NVCC = """#!/bin/sh
-# writes the -o target for grid_sample.cu and bn_bwd_reduce.cu, fails for
-# any other source
+# writes the -o target for grid_sample.cu, bn_bwd_reduce.cu and
+# fused_beam.cu, fails for any other source
 for a; do prev=$cur; cur=$a; [ "$prev" = "-o" ] && out=$a; done
 case "$cur" in
-  *grid_sample.cu|*bn_bwd_reduce.cu) echo built > "$out"; echo "ptxas info    : Used 24 registers";;
+  *grid_sample.cu|*bn_bwd_reduce.cu|*fused_beam.cu)
+    echo built > "$out"; echo "ptxas info    : Used 24 registers";;
   *) echo "error: no" ; exit 2;;
 esac
 """
@@ -39,13 +40,24 @@ def test_build_caches_by_source(fake_cuda):
     assert build.build(["grid_sample"]) == {"grid_sample": "cached"}
 
 
+def test_library_key_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A library is keyed by its source and the ``.cuh`` headers beside it:
+    editing a header gives a new library path, so no stale build is used."""
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "KERNEL_DIR", tmp_path)
+    before = build.library_path("k")
+    (tmp_path / "common.cuh").write_text("// two\n")
+    assert build.library_path("k") != before
+
+
 def test_every_source_is_listed_and_builds_in_parallel(fake_cuda):
     """The package's sources are exactly the ``.cu`` files beside the
-    build module; two builds started together both land."""
+    build module; three builds started together all land."""
     assert sorted(build.SOURCES) == sorted(p.stem for p in build.KERNEL_DIR.glob("*.cu"))
-    assert "bn_bwd_reduce" in build.SOURCES
-    logs = build.build(["grid_sample", "bn_bwd_reduce"])
-    assert set(logs) == {"grid_sample", "bn_bwd_reduce"}
+    assert {"bn_bwd_reduce", "fused_beam"} <= set(build.SOURCES)
+    logs = build.build(["grid_sample", "bn_bwd_reduce", "fused_beam"])
+    assert set(logs) == {"grid_sample", "bn_bwd_reduce", "fused_beam"}
     assert all(build.library_path(n).read_text() == "built\n" for n in logs)
 
 

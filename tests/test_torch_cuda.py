@@ -13,7 +13,9 @@ import torch
 from multimodal_scene_text_recognition_tpu_torch import api
 from multimodal_scene_text_recognition_tpu_torch.charset import AttnCodec
 from multimodal_scene_text_recognition_tpu_torch.config import ModelConfig
+from multimodal_scene_text_recognition_tpu_torch.charset import EOS_ID
 from multimodal_scene_text_recognition_tpu_torch.ops import batchnorm as bn
+from multimodal_scene_text_recognition_tpu_torch.ops import fused_beam as fb
 from multimodal_scene_text_recognition_tpu_torch.ops import fused_decode as fd
 from multimodal_scene_text_recognition_tpu_torch.ops import grid_sample as gs
 
@@ -134,6 +136,157 @@ def test_fused_decode_wrapper_refuses_bad_inputs(dev):
         fd.fused_greedy_decode_cuda(w32, ck, cv, num_heads=5, steps=6)
     with pytest.raises(ValueError):  # more steps than positional rows
         fd.fused_greedy_decode_cuda(w32, ck, cv, num_heads=4, steps=7)
+
+
+def _pruned_agreement(a, b):
+    """Share of beams (rows of [..., T] token arrays) equal up to and
+    including the first [s] of ``b``."""
+    a, b = a.reshape(-1, a.shape[-1]).cpu().numpy(), b.reshape(-1, b.shape[-1]).cpu().numpy()
+    same = 0
+    for x, y in zip(a, b):
+        hit = np.flatnonzero(y == EOS_ID)
+        n = hit[0] + 1 if hit.size else len(y)
+        same += np.array_equal(x[:n], y[:n])
+    return same / len(a)
+
+
+@pytest.mark.parametrize("B", [1, 7, 64])
+@pytest.mark.parametrize("K", [1, 5, 8])
+@pytest.mark.parametrize("early_stop", [False, True])
+def test_fused_beam_kernel_matches_plain(dev, B, K, early_stop):
+    """One batch row per CTA, K beams as its tile (K=1 and 5 in the 5-beam
+    build, 8 in the 8-beam one); with early stop the [s]
+    logit is raised so rows stop at different steps.  float32: identical
+    tokens and scores within 1e-4 (summation order only); bfloat16: at
+    least 90% of the beams identical up to their first [s] (a rounding
+    that lands the other way can swap two close beams) and every score
+    finite.  Both: beams best first, bit-equal from run to run."""
+    w, ck, cv = _decode_inputs(dev, B, seed=B + K, T=8)
+    if early_stop:
+        w = w._replace(head_b=w.head_b + 4.0 * (torch.arange(97, device=dev) == EOS_ID))
+    kw = dict(beam_size=K, num_heads=4, steps=8, go_id=0, eos_id=EOS_ID, early_stop=early_stop)
+    for dt in (torch.float32, torch.bfloat16):
+        wd = fd.cast_weights(w, dt)
+        ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
+        tok, sc = fb.fused_beam_decode_cuda(wd, ckd, cvd, **kw)
+        tok2, sc2 = fb.fused_beam_decode_cuda(wd, ckd, cvd, **kw)
+        ref_tok, ref_sc = fb.fused_beam_decode_plain(wd, ckd, cvd, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(tok, tok2) and torch.equal(sc, sc2)
+        assert tok.shape == (B, K, 8) and sc.shape == (B, K) and torch.isfinite(sc).all()
+        assert (sc[:, 1:] <= sc[:, :-1]).all()
+        if dt == torch.float32:
+            assert torch.equal(tok, ref_tok)
+            torch.testing.assert_close(sc, ref_sc, atol=1e-4, rtol=0)
+        else:
+            assert _pruned_agreement(tok, ref_tok) >= 0.9
+
+
+def test_fused_beam_kernel_tie_order(dev):
+    """Class b made a copy of the class a that the search picks most at
+    step 0 (equal head column, bias and embedding row): the two tie exactly
+    at every step, and so do the beams that differ only by them.  The kernel
+    keeps the plain version's order (the lower flat index first), float32."""
+    w, ck, cv = _decode_inputs(dev, 16, seed=3, T=8)
+    kw = dict(beam_size=5, num_heads=4, steps=8)
+    tok, _ = fb.fused_beam_decode_plain(w, ck, cv, **kw)
+    a = int(torch.mode(tok[:, 0, 0]).values)
+    b = a - 1 if a > 3 else a + 1  # neither [GO], [s] nor [PAD]
+    head_w, head_b, emb = w.head_w.clone(), w.head_b.clone(), w.emb.clone()
+    head_w[:, b], head_b[b], emb[b] = head_w[:, a], head_b[a], emb[a]
+    w = w._replace(head_w=head_w, head_b=head_b, emb=emb)
+    tok, sc = fb.fused_beam_decode_cuda(w, ck, cv, **kw)
+    ref_tok, ref_sc = fb.fused_beam_decode_plain(w, ck, cv, **kw)
+    assert torch.equal(tok, ref_tok)
+    torch.testing.assert_close(sc, ref_sc, atol=1e-4, rtol=0)
+    first = tok[:, :, 0].cpu().numpy()
+    assert any({a, b} <= set(row) for row in first)
+
+
+def test_fused_beam_dispatch_launches_kernel_on_cuda(dev):
+    w, ck, cv = _decode_inputs(dev, 4, seed=0)
+    before = fb.fused_beam_decode_cuda.launches
+    tok, sc = fb.fused_beam_decode(w, ck, cv, beam_size=3, num_heads=4, steps=6,
+                                   dtype=torch.bfloat16)
+    assert tok.shape == (4, 3, 6) and tok.device.type == "cuda" and sc.shape == (4, 3)
+    assert fb.fused_beam_decode_cuda.launches == before + 1
+
+
+def test_fused_beam_wrapper_refuses_bad_inputs(dev):
+    w, ck, cv = _decode_inputs(dev, 4, seed=1)
+    w32 = fd.cast_weights(w, torch.float32)
+    kw = dict(beam_size=5, num_heads=4, steps=6)
+    with pytest.raises(TypeError):  # a type the kernel is not built for
+        fb.fused_beam_decode_cuda(fd.cast_weights(w, torch.float16), ck.half(), cv.half(), **kw)
+    with pytest.raises(ValueError):  # cross K/V of another type
+        fb.fused_beam_decode_cuda(w32, ck.bfloat16(), cv.bfloat16(), **kw)
+    with pytest.raises(ValueError):  # CPU tensors
+        fb.fused_beam_decode_cuda(fd.cast_weights(w, torch.float32)._replace(
+            w_qkv=w32.w_qkv.cpu()), ck, cv, **kw)
+    with pytest.raises(ValueError):  # a non-contiguous table
+        fb.fused_beam_decode_cuda(w32._replace(w_out=w32.w_out.transpose(1, 2)), ck, cv, **kw)
+    with pytest.raises(ValueError):  # heads that do not divide E
+        fb.fused_beam_decode_cuda(w32, ck, cv, beam_size=5, num_heads=5, steps=6)
+    with pytest.raises(ValueError):  # more steps than positional rows
+        fb.fused_beam_decode_cuda(w32, ck, cv, beam_size=5, num_heads=4, steps=7)
+    with pytest.raises(ValueError):  # more beams than a CTA holds
+        fb.fused_beam_decode_cuda(w32, ck, cv, beam_size=9, num_heads=4, steps=6)
+    wide, ckw, cvw = _decode_inputs(dev, 2, seed=2, F=12288)
+    with pytest.raises(ValueError, match="shared memory"):
+        fb.fused_beam_decode_cuda(wide, ckw, cvw, **kw)
+
+
+def test_fused_decode_early_stop_kernel_matches_plain(dev):
+    """K1e: with the [s] logit raised, rows stop at different steps.  The
+    kernel's logits equal the plain version's within 1e-4 (float32), its
+    rows after each row's first [s] are the [s] one-hot, and its
+    [s]-pruned tokens equal those of the full-length kernel; bfloat16: at
+    least 95% of the rows' pruned tokens identical to the plain version's."""
+    w, ck, cv = _decode_inputs(dev, 64, seed=5, T=8)
+    w = w._replace(head_b=w.head_b + 2.0 * (torch.arange(97, device=dev) == EOS_ID))
+    kw = dict(num_heads=4, steps=8, go_id=0)
+    for dt in (torch.float32, torch.bfloat16):
+        wd = fd.cast_weights(w, dt)
+        ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
+        out = fd.fused_greedy_decode_cuda(wd, ckd, cvd, eos_id=EOS_ID, **kw)
+        full = fd.fused_greedy_decode_cuda(wd, ckd, cvd, **kw)
+        ref = fd.fused_greedy_decode_plain(wd, ckd, cvd, eos_id=EOS_ID, **kw)
+        torch.cuda.synchronize()
+        ids, full_ids = out.argmax(-1), full.argmax(-1)
+        assert _pruned_agreement(ids, full_ids) == 1.0
+        stops = [int(np.flatnonzero(r == EOS_ID)[0]) if (r == EOS_ID).any() else 7
+                 for r in ids.cpu().numpy()]
+        assert min(stops) < 7
+        onehot = torch.nn.functional.one_hot(torch.tensor(EOS_ID), 97).float().to(dev)
+        for r, n in enumerate(stops):
+            assert (out[r, n + 1:] == onehot).all()
+        if dt == torch.float32:
+            torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+        else:
+            assert _pruned_agreement(ids, ref.argmax(-1)) >= 0.95
+
+
+def test_f32_model_is_immune_to_the_callers_tf32(dev):
+    """A float32 model's served logits with TF32 turned on by the caller
+    equal, within 1e-6, those of the same call with TF32 off (the model
+    turns it off for itself); the caller's setting survives the call."""
+    cfg = ModelConfig(enc_layers=2, dec_layers=2, ff_dim=256, hidden_dim=128,
+                      embed_dim=64, num_heads=4, compute_dtype="float32", decode_fused=True)
+    model = api.get_model(cfg=cfg, seed=7)
+    rng = np.random.default_rng(0)
+    image = torch.from_numpy(rng.random((8, 32, 100, 1), dtype=np.float32)).to(dev)
+    overlap = torch.zeros(8, 15, dtype=torch.long, device=dev)
+    with torch.no_grad():
+        off = model(image, overlap)
+        try:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
+            on = model(image, overlap)
+            assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+    torch.testing.assert_close(on, off, atol=1e-6, rtol=0)
 
 
 def _bn_inputs(dev, shape, dtype, seed):

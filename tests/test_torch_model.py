@@ -139,10 +139,15 @@ def test_get_model_requires_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_paths_are_refused():
+    """Greedy decoding through the stepper (decode_fused=False) and the
+    semantic CLS step-0 input are not ported; early stop and the fused beam
+    are."""
     for cfg in (ModelConfig(**SMALL), ModelConfig(**SMALL, decode_fused=True,
-                                                   decode_early_stop=True)):
+                                                   cls_decoder_init=True)):
         with pytest.raises(NotImplementedError):
             SceneTextModel(cfg)
+    SceneTextModel(ModelConfig(**SMALL, decode_fused=True, decode_early_stop=True,
+                               decode_beam_fused=True))
 
 
 def test_recognizer_refuses_other_crop_sizes():

@@ -34,7 +34,7 @@ from multimodal_scene_text_recognition_tpu_torch.models.layers import dropout
 from multimodal_scene_text_recognition_tpu_torch.models.model import SceneTextModel
 from multimodal_scene_text_recognition_tpu_torch.models.transformation import TPSTransform
 from multimodal_scene_text_recognition_tpu_torch.ops import batchnorm as bnops
-from multimodal_scene_text_recognition_tpu_torch.ops import tps
+from multimodal_scene_text_recognition_tpu_torch.ops import precision, tps
 from multimodal_scene_text_recognition_tpu_torch.train.loop import train
 from multimodal_scene_text_recognition_tpu_torch.train.state import AdamW, make_lr_schedule
 from multimodal_scene_text_recognition_tpu_torch.train.steps import cross_entropy
@@ -141,6 +141,64 @@ def test_lr_schedule_matches_optax():
         want = j_make_lr_schedule(JTrainConfig(lr=1e-2, **kw))
         for count in range(13):
             assert got(count) == pytest.approx(float(want(count)), rel=1e-6, abs=1e-12), (kw, count)
+
+
+def test_trainer_schedule_counts_epochs_as_jax_does():
+    """``get_trainer(steps_per_epoch=k)`` puts the StepLR boundaries every
+    ``lr_step_size * k`` steps after the warmup, as JAX's
+    ``make_lr_schedule(cfg, steps_per_epoch=k)``: every count 0..40 within
+    1e-6 relative, for k = 1, 3 and 4."""
+    kw = dict(lr=1e-2, warmup_steps=3, lr_step_size=2, lr_gamma=0.5)
+    for k in (1, 3, 4):
+        trainer = api.get_trainer(cfg=ModelConfig(**TINY, decode_fused=True),
+                                  train_cfg=TrainConfig(**kw), device="cpu", steps_per_epoch=k)
+        want = j_make_lr_schedule(JTrainConfig(**kw), steps_per_epoch=k)
+        for count in range(41):
+            assert trainer.optimizer.schedule(count) == pytest.approx(
+                float(want(count)), rel=1e-6, abs=1e-12), (k, count)
+
+
+def test_f32_model_runs_without_tf32_and_restores_the_callers_switches():
+    """With compute_dtype float32 the served forward, the beam search and
+    the train step's forward and backward run with TF32 off for matmuls and
+    convs, though the caller turned it on, and the caller's switches are
+    back afterwards; a bf16 model leaves them as the caller set them."""
+    switches = precision._switches()
+
+    def state():
+        return [getattr(obj, name) for obj, name, _ in switches]
+
+    full = [value for _, _, value in switches]
+    tf32 = ["tf32" if isinstance(v, str) else True for v in full]
+    saved = state()
+    seen = []
+
+    def record(*_):
+        seen.append(state())
+
+    try:
+        for (obj, name, _), v in zip(switches, tf32):
+            setattr(obj, name, v)
+        assert state() == tf32
+        for dtype, want in (("float32", full), ("bfloat16", tf32)):
+            cfg = ModelConfig(**dict(TINY, compute_dtype=dtype), decode_fused=True)
+            trainer = api.get_trainer(cfg=cfg, device="cpu")
+            model = trainer.model
+            model.feature_extractor.register_forward_hook(record)
+            model.decoder.emb_to_classes.register_full_backward_hook(record)
+            seen.clear()
+            trainer(make_batch(2, 0))
+            model.eval()
+            with torch.no_grad():
+                image = torch.zeros(1, 32, 100, 1)
+                overlap = torch.zeros(1, 15, dtype=torch.long)
+                model(image, overlap)
+                model.beam_decode(image, overlap, 2)
+            assert len(seen) == 4 and all(s == want for s in seen), (dtype, seen)
+            assert state() == tf32
+    finally:
+        for (obj, name, _), v in zip(switches, saved):
+            setattr(obj, name, v)
 
 
 def test_adamw_matches_optax_over_four_steps():
