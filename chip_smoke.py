@@ -16,12 +16,17 @@ flagship through ``api.get_trainer`` for a few steps at B=192, once with the
 kernels and once with their plain versions from the same weights and
 dropout seed, and checks that the two agree and that the training run went
 through the warp and BatchNorm-backward kernels; K3 is held against its
-plain version at every BatchNorm shape of the step.  Every phase prints one
-flushed line with the elapsed seconds; any failure raises and the script
-exits non-zero.  ``--mutants`` also builds copies of the beam kernel with
-one bf16 rounding dropped each and prints whether its bf16 limits catch
-them.  A watchdog turns a hang into a printed failure (exit code
-3).
+plain version at every BatchNorm shape of the step.  The int8 phase serves
+the flagship in the JAX package's int8 mode (int8 loc-net, backbone and
+encoder with the committed activation scales, the whole greedy loop in
+K1q), greedily and by beam search, holds K1q against its plain version on
+the trained decoder and the served strings against the plain path's, and
+splits the served call's time by stage.  Every phase prints one flushed line with the
+elapsed seconds; any failure raises and the script exits non-zero.
+``--mutants`` also builds copies of the beam kernel with one bf16 rounding
+dropped each, and of K1q with one of three rounding faults each, and prints
+whether their limits catch them.  A watchdog turns a hang into a printed
+failure (exit code 3).
 
 Output: per-phase lines, the ``nvidia-smi`` name/power-limit line, one JSON
 line ``{"kernels": [...]}`` before the last, and as the last line
@@ -32,6 +37,7 @@ Needs no network and nothing outside the repository; imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import os
@@ -39,6 +45,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -48,11 +55,13 @@ import torch
 WATCHDOG_S = 480
 BUNDLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "assets", "trained", "synth_openvocab_xxl.params.npz")
+SCALES = BUNDLE.replace(".params.npz", ".scales.npz")  # persisted int8 activation scales
 B = 192
 # H100 SXM data-sheet peaks (dense): the card's least time for a given work
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 # K1 bf16 vs its plain version, max |logit diff| on the trained decoder at
 # B=192 (logits of scale ~5).  On an H100 the kernel is 0.070 off; with any
 # one of its bf16 roundings dropped (ReLU output, probabilities, q*K
@@ -96,6 +105,18 @@ BEAM = 5
 BEAM_BF16_BEST_AGREE = 0.995
 BEAM_BF16_ALL_AGREE = 0.98
 BEAM_BF16_SCORE_TOL = 0.05
+# K1q vs its plain version on the trained decoder at B=192.  Its int8
+# products are exact in both, so they differ only where the attention and
+# layernorm sums (other orders) move an activation across a rounding
+# boundary of its int8 step.  On an H100 the kernel is 0.108 (f32) and
+# 0.099 (bf16) off in the logits, every [s]-pruned row identical.  Three
+# faulty copies (--mutants: roundf for rintf, quantizing the bf16-rounded
+# input, rounding the ReLU output) were 0.90-20.9 off in bf16 with 97.4-
+# 99.5% of the rows identical, so the logit limit sits between the two and
+# catches all three, the row limit two.
+K1Q_F32_LOGIT_TOL = 0.3
+K1Q_BF16_LOGIT_TOL = 0.3
+K1Q_BF16_AGREE = 0.99
 
 T0 = time.time()
 PHASE = ["start"]
@@ -529,50 +550,65 @@ MUTANTS = (
 )
 
 
-def check_mutants(fb, build, model, image):
-    """The bf16 limits of K4 against broken copies of it: each mutant drops
-    one bf16 rounding in a copy of the kernel's sources (``fused_beam.cu``
-    and the shared header) in a temporary directory; all are built at once
-    and each is held against the plain version as the kernel is.  Prints
-    what each reads and whether the limits catch it."""
-    import ctypes
-    import tempfile
-
-    names = ("fused_beam.cu", "decode_common.cuh")
+@contextlib.contextmanager
+def mutant_libraries(build, source: str, mutants):
+    """Copies of kernel ``source`` (its .cu and the shared header), each with
+    one (name, text, replacement) of ``mutants`` applied wherever the text
+    stands, built all at once in a temporary directory; yields their
+    library paths.  Raises if a text is in no source or a copy fails to
+    build."""
+    names = (f"{source}.cu", "decode_common.cuh")
     sources = {n: (build.KERNEL_DIR / n).read_text() for n in names}
-    for name, old, _ in MUTANTS:
+    for name, old, _ in mutants:
         if not any(old in text for text in sources.values()):
             raise AssertionError(f"mutant {name}: its text is in no source of the kernel")
-    tmp = tempfile.mkdtemp(prefix="k4_mutants_")
+    tmp = tempfile.mkdtemp(prefix=f"{source}_mutants_")
     procs = []
     try:
-        for i, (_, old, new) in enumerate(MUTANTS):
+        for i, (_, old, new) in enumerate(mutants):
             os.makedirs(os.path.join(tmp, str(i)))
             for n, text in sources.items():
                 with open(os.path.join(tmp, str(i), n), "w") as f:
                     f.write(text.replace(old, new))
             cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", os.path.join(tmp, f"{i}.so"),
-                   os.path.join(tmp, str(i), "fused_beam.cu")]
+                   os.path.join(tmp, str(i), f"{source}.cu")]
             procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT))
         for p in procs:
             if p.wait(timeout=300) != 0:
                 raise AssertionError(f"a mutant failed to build: {p.stdout.read()[-2000:]}")
-        dec, ck, cv = beam_inputs(model, image)
-        real = build.load("fused_beam")
-        try:
-            for i, (name, _, _) in enumerate(MUTANTS):
-                build._loaded["fused_beam"] = ctypes.CDLL(os.path.join(tmp, f"{i}.so"))
-                r = beam_vs_plain(fb, dec, ck, cv, torch.bfloat16, early_stop=True)
-                log(f"mutant without the bf16 rounding of the {name}: {beam_line(r)}; caught "
-                    f"by the limits {not beam_bf16_ok(r)}")
-        finally:
-            build._loaded["fused_beam"] = real
+        yield [os.path.join(tmp, f"{i}.so") for i in range(len(mutants))]
     finally:
         for p in procs:
             p.kill()
             p.wait()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def loaded_as(build, name: str, path: str):
+    """Library ``path`` in the place of kernel library ``name`` for the
+    block."""
+    real = build.load(name)
+    build._loaded[name] = ctypes.CDLL(path)
+    try:
+        yield
+    finally:
+        build._loaded[name] = real
+
+
+def check_mutants(fb, build, model, image):
+    """The bf16 limits of K4 against broken copies of it: each mutant drops
+    one bf16 rounding in a copy of the kernel's sources and is held against
+    the plain version as the kernel is.  Prints what each reads and whether
+    the limits catch it."""
+    dec, ck, cv = beam_inputs(model, image)
+    with mutant_libraries(build, "fused_beam", MUTANTS) as paths:
+        for (name, _, _), path in zip(MUTANTS, paths):
+            with loaded_as(build, "fused_beam", path):
+                r = beam_vs_plain(fb, dec, ck, cv, torch.bfloat16, early_stop=True)
+            log(f"mutant without the bf16 rounding of the {name}: {beam_line(r)}; caught "
+                f"by the limits {not beam_bf16_ok(r)}")
 
 
 def check_fused_beam(fb, model, image):
@@ -635,11 +671,262 @@ def check_fused_beam(fb, model, image):
                 bf16_err_best=r16["err_best"])
 
 
-def stage_times(model, rec, crops, decode, reps: int = 10):
+# the K1q faults its limits must catch, for --mutants: (name, text in
+# fused_decode.cu, replacement)
+K1Q_MUTANTS = (
+    ("roundf (half away from zero) for rintf", "float v = rintf(quant_input<T>(",
+     "float v = roundf(quant_input<T>("),
+    ("quantizing the bf16-rounded input", "__device__ float quant_input(float v) {\n  return v;",
+     "__device__ float quant_input(float v) {\n  return Num<T>::round(v);"),
+    ("rounding the ReLU output of ff1", "return RELU ? fmaxf(v, 0.0f) : v;",
+     "return RELU ? Num<T>::round(fmaxf(v, 0.0f)) : v;"),
+)
+
+
+def k1q_vs_plain(fd, dec, ck, cv, dt, early_stop: bool) -> dict:
+    """K1q against its plain version on the trained decoder's int8 tables
+    in compute type ``dt``: the largest logit difference, the share of rows
+    identical up to their first [s], the steps each row took."""
+    T = dec.max_text_length
+    wq, scales = dec.fused_weights(dt, int8=True)
+    ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
+    kw = dict(num_heads=dec.num_heads, steps=T, go_id=0, eos_id=1 if early_stop else None,
+              eps=1e-5, scales=scales)
+    out = fd.fused_greedy_decode_cuda(wq, ckd, cvd, **kw)
+    ref = fd.fused_greedy_decode_plain(wq, ckd, cvd, **kw)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"K1q ({dt}, early stop {early_stop}) produced non-finite logits")
+    ids = out.argmax(-1)
+    return dict(err=(out - ref).abs().max().item(), agree=pruned_agreement(ids, ref.argmax(-1)),
+                steps=first_eos_steps(ids, T) if early_stop else torch.full_like(ids[:, 0], T))
+
+
+def k1q_results(fd, dec, ck, cv, dts=(torch.float32, torch.bfloat16)) -> dict:
+    """K1q against its plain version in each compute type of ``dts``, early
+    stop on and off."""
+    return {(dt, es): k1q_vs_plain(fd, dec, ck, cv, dt, es) for dt in dts for es in (False, True)}
+
+
+def k1q_f32_ok(res: dict) -> bool:
+    return all(res[torch.float32, es]["err"] <= K1Q_F32_LOGIT_TOL
+               and res[torch.float32, es]["agree"] == 1.0 for es in (False, True))
+
+
+def k1q_bf16_ok(res: dict) -> bool:
+    return all(res[torch.bfloat16, es]["err"] <= K1Q_BF16_LOGIT_TOL
+               and res[torch.bfloat16, es]["agree"] >= K1Q_BF16_AGREE for es in (False, True))
+
+
+def k1q_line(res: dict) -> str:
+    return "; ".join(f"{str(dt)[6:]} early stop {es}: max |logit diff| {r['err']:.3e}, "
+                     f"[s]-pruned rows identical {r['agree']:.6f}" for (dt, es), r in res.items())
+
+
+def k1q_cost(wq, scales, ck, row_steps, dt_bytes: int, out_bytes: int):
+    """Bytes each input and output moves once (the int8 tables, the float
+    ones in the compute type, the scales, memory K/V, positional rows, the
+    cache writes of the steps taken, the logits) and the least time of the
+    operations: the int8 projections at the int8 peak plus the class head
+    and attention at the bf16 peak, for the steps each row took."""
+    from multimodal_scene_text_recognition_tpu_torch.ops.fused_decode import (
+        FusedDecodeWeights, QUANTIZED)
+
+    L, Bn, Tm, E = ck.shape
+    F, C = wq.ff1_w.shape[2], wq.head_w.shape[1]
+    S = int(row_steps.sum())
+    fields = list(zip(FusedDecodeWeights._fields, wq))[:-1]
+    nbytes = (sum(t.numel() for n, t in fields if n in QUANTIZED)
+              + sum(t.numel() for n, t in fields if n not in QUANTIZED) * dt_bytes
+              + sum(s.numel() for s in scales) * 4 + 2 * ck.numel() * dt_bytes
+              + wq.pe.numel() * 4 + 2 * L * S * E * dt_bytes + out_bytes)
+    int8_ops = 2 * S * L * (E * 3 * E + 3 * E * E + 2 * E * F)
+    float_ops = 2 * S * E * C + sum(L * 2 * 2 * E * ((t + 1) + Tm)
+                                    for n in row_steps.tolist() for t in range(n))
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = (int8_ops / PEAK_INT8_OPS + float_ops / PEAK_BF16_FLOPS) * 1e3
+    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound_ms, bound_by, nbytes, int8_ops, float_ops
+
+
+def check_k1q(fd, model_q, image, step, k1: dict, k1e: dict):
+    """K1q against its plain version at full width on the trained decoder's
+    int8 tables and the cross K/V that the served int8 step (``step``: its
+    rectify and features stages) makes from the B=192 crops; then its time
+    with early stop and at full length beside K1's, the plain version's,
+    and the bound."""
+    dec = model_q.decoder
+    with torch.no_grad():
+        enc = model_q.encoder(step.features(step.rectify(image)))
+        ck, cv = dec.cross_kv(dec.hid_to_emb(enc))
+    res = k1q_results(fd, dec, ck, cv)
+    log("K1q vs plain: " + k1q_line(res))
+    if not k1q_f32_ok(res):
+        raise AssertionError(f"K1q f32 outside its limits (logits {K1Q_F32_LOGIT_TOL}, rows "
+                             f"identical 1.0): " + k1q_line(res))
+    if not k1q_bf16_ok(res):
+        raise AssertionError(f"K1q bf16 outside its limits (logits {K1Q_BF16_LOGIT_TOL}, rows "
+                             f"{K1Q_BF16_AGREE}): " + k1q_line(res))
+
+    dt = torch.bfloat16
+    wq, scales = dec.fused_weights(dt, int8=True)
+    ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
+    kw = dict(num_heads=dec.num_heads, steps=dec.max_text_length, go_id=0, eps=1e-5,
+              scales=scales)
+    ms = cuda_ms(lambda: fd.fused_greedy_decode_cuda(wq, ckd, cvd, eos_id=1, **kw), 10)
+    ms_full = cuda_ms(lambda: fd.fused_greedy_decode_cuda(wq, ckd, cvd, **kw), 10)
+    plain_ms = cuda_ms(lambda: fd.fused_greedy_decode_plain(wq, ckd, cvd, eos_id=1, **kw), 2)
+    steps = res[dt, True]["steps"]
+    out_bytes = B * dec.max_text_length * wq.head_w.shape[1] * 4
+    bound_ms, bound_by, nbytes, int8_ops, float_ops = k1q_cost(wq, scales, ckd, steps, 2,
+                                                               out_bytes)
+    full = torch.full_like(steps, dec.max_text_length)
+    bound_full, bound_by_full = k1q_cost(wq, scales, ckd, full, 2, out_bytes)[:2]
+    log(f"K1q bf16: {ms:.3f} ms with early stop (steps per row mean "
+        f"{steps.float().mean().item():.2f}, max {steps.max().item()}), {ms_full:.3f} ms at full "
+        f"length; K1 (float tables, same run) {k1['ms']:.3f} ms at full length, K1e "
+        f"{k1e['ms']:.3f} ms with early stop; plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
+        f"({bound_by}; {int8_ops / 1e9:.1f} G int8 ops, {float_ops / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e6:.2f} MB), {bound_full:.4f} ms at full length ({bound_by_full})")
+    r32 = [res[torch.float32, es] for es in (False, True)]
+    r16 = [res[dt, es] for es in (False, True)]
+    k1q = dict(name="fused_decode_int8", route="cuda",
+               source="multimodal_scene_text_recognition_tpu_torch/kernels/fused_decode.cu",
+               replaces="multimodal_scene_text_recognition_tpu/ops/fused_decode.py:239",
+               jax="ops/fused_decode.py::_decode_kernel, quantized=True",
+               max_abs_err=max(r["err"] for r in r32), max_abs_err_bf16=max(r["err"] for r in r16),
+               rows_identical_f32=min(r["agree"] for r in r32),
+               rows_identical_bf16=min(r["agree"] for r in r16), ms=ms, ms_full_length=ms_full,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bound_ms_full_length=bound_full, bound_by_full_length=bound_by_full,
+               library_ms=None, mean_steps=steps.float().mean().item(),
+               k1_ms_full_length=k1["ms"],
+               k1e_ms=k1e["ms"])
+    return k1q, (dec, ck, cv)
+
+
+def check_k1q_mutants(fd, build, dec, ck, cv):
+    """K1q's limits against broken copies of it (K1Q_MUTANTS), each held
+    against the plain version as the kernel is, in bf16 and in f32."""
+    with mutant_libraries(build, "fused_decode", K1Q_MUTANTS) as paths:
+        for (name, _, _), path in zip(K1Q_MUTANTS, paths):
+            with loaded_as(build, "fused_decode", path):
+                res = k1q_results(fd, dec, ck, cv)
+            log(f"K1q mutant {name}: {k1q_line(res)}; caught by the bf16 limits "
+                f"{not k1q_bf16_ok(res)}, by the f32 limits {not k1q_f32_ok(res)}")
+
+
+def int8_phase(api, fd, fb, gs, build, crops, texts, btexts, k1, k1e, mutants: bool):
+    """Serve the trained flagship in int8 mode through ``api.get_model`` ->
+    ``Recognizer(int8_backbone=True)`` with the committed scales (found
+    beside the bundle): K1q against its plain version, the served greedy
+    and beam calls with their launches against the plain path's strings
+    and the bf16 flagship's, throughput, stage split and idle share."""
+    from multimodal_scene_text_recognition_tpu_torch.config import FLAGSHIP
+    from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
+
+    cfg = dataclasses.replace(FLAGSHIP, decode_early_stop=True, decode_beam_fused=True,
+                              decode_int8=True, encoder_int8=True, tps_int8=True)
+    model_q = api.get_model(BUNDLE, cfg)
+    rec_q = Recognizer(model_q, batch_sizes=(1, 8, 64, B), int8_backbone=True)
+    if rec_q.int8_scales_path != SCALES or rec_q._int8_absmax is None:
+        raise AssertionError(f"the int8 recognizer did not load {SCALES}")
+    fd.fused_greedy_decode_cuda.launches = fd.fused_greedy_decode_cuda.launches_int8 = 0
+    gs.grid_sample_cuda.launches = 0
+    texts_q = rec_q.recognize(crops)
+    launches = {"fused_decode_int8": fd.fused_greedy_decode_cuda.launches_int8,
+                "grid_sample": gs.grid_sample_cuda.launches,
+                "fused_decode (float)": fd.fused_greedy_decode_cuda.launches}
+    log(f"served {len(texts_q)} crops in int8 mode; kernel launches {launches}; "
+        f"e.g. {texts_q[:4]}")
+    if launches["fused_decode_int8"] < 1 or launches["grid_sample"] < 1:
+        raise AssertionError(f"the int8 served path did not launch K1q and K2: {launches}")
+    if launches["fused_decode (float)"] != 0:
+        raise AssertionError("the int8 served path launched the float decode kernel")
+    if len(texts_q) != B or not any(texts_q):
+        raise AssertionError("the int8 recognizer returned no strings")
+    model_q.set_use_kernels(False)
+    plain_q = rec_q.recognize(crops)
+    model_q.set_use_kernels(True)
+    agree_q = sum(a == b for a, b in zip(texts_q, plain_q)) / B
+    vs_bf16 = sum(a == b for a, b in zip(texts_q, texts)) / B
+    log(f"int8 strings, kernels vs plain versions: {agree_q:.4f} identical (limit 0.98); "
+        f"int8 vs the bf16 flagship's strings: {vs_bf16:.4f} identical (for information)")
+    if not agree_q >= 0.98:
+        raise AssertionError(f"int8 end-to-end agreement {agree_q} < 0.98")
+    # where the strings part from the bf16 flagship's: the same int8 serving
+    # with the float loc-net (tps_int8 off)
+    model_f = api.get_model(BUNDLE, dataclasses.replace(cfg, tps_int8=False))
+    texts_f = Recognizer(model_f, batch_sizes=(B,), int8_backbone=True).recognize(crops)
+    del model_f
+    log(f"int8 with the float loc-net vs the bf16 flagship's strings: "
+        f"{sum(a == b for a, b in zip(texts_f, texts)) / B:.4f} identical; vs int8 with the "
+        f"int8 loc-net {sum(a == b for a, b in zip(texts_f, texts_q)) / B:.4f} (for information)")
+
+    fb.fused_beam_decode_cuda.launches = gs.grid_sample_cuda.launches = 0
+    btexts_q, bscores_q = rec_q.recognize(crops, beam_size=BEAM, return_scores=True)
+    blaunches = {"fused_beam": fb.fused_beam_decode_cuda.launches,
+                 "grid_sample": gs.grid_sample_cuda.launches}
+    if min(blaunches.values()) < 1:
+        raise AssertionError(f"the int8 beam path did not launch K4 and K2: {blaunches}")
+    if not np.isfinite(bscores_q).all() or max(bscores_q) > 0:
+        raise AssertionError("int8 beam serving: scores not finite and <= 0")
+    model_q.set_use_kernels(False)
+    plain_bq = rec_q.recognize(crops, beam_size=BEAM)
+    model_q.set_use_kernels(True)
+    agree_bq = sum(a == b for a, b in zip(btexts_q, plain_bq)) / B
+    bvs_bf16 = sum(a == b for a, b in zip(btexts_q, btexts)) / B
+    log(f"int8 beam (k={BEAM}): launches {blaunches}; kernels vs plain versions "
+        f"{agree_bq:.4f} identical (limit 0.98); vs the bf16 flagship's beam strings "
+        f"{bvs_bf16:.4f} (for information)")
+    if not agree_bq >= 0.98:
+        raise AssertionError(f"int8 beam end-to-end agreement {agree_bq} < 0.98")
+
+    image, _ = rec_q.prepare(crops, B)
+    step_q = rec_q._int8_steps[None]  # the greedy step the served calls ran
+    k1q, (dec, ck, cv) = check_k1q(fd, model_q, image, step_q, k1, k1e)
+    k1q["launches"] = launches["fused_decode_int8"]
+    if mutants:
+        phase("K1q mutants")
+        check_k1q_mutants(fd, build, dec, ck, cv)
+
+    phase("int8 timing")
+    ms_call = cuda_ms(lambda: rec_q.recognize(crops), 10)
+    ms_beam = cuda_ms(lambda: rec_q.recognize(crops, beam_size=BEAM), 10)
+    log(f"int8 throughput: greedy {B / ms_call * 1e3:.1f} crops/s ({ms_call:.2f} ms per "
+        f"{B}-crop call), beam {B / ms_beam * 1e3:.1f} crops/s ({ms_beam:.2f} ms), 10 warm "
+        f"calls each, CUDA events")
+    stages = stage_times(model_q, rec_q, crops,
+                         lambda enc: model_q.decoder.greedy_decode(enc).argmax(-1),
+                         rectify=step_q.rectify, features=step_q.features)
+    log("int8 stage ms (median of 10; rectify = int8 loc-net + TPS + K2, features = int8 "
+        "backbone, encoder = int8 encoder, decoder = cross K/V + K1q): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stages.items()))
+    prof = kernel_profile(lambda: rec_q.recognize(crops), calls=3)
+    if prof["device_busy_ms"] <= 0:
+        raise AssertionError("the profiler saw no kernel run on the card")
+    log(f"int8 profile of {prof['calls']} calls: wall {prof['wall_ms']:.2f} ms, kernels busy "
+        f"{prof['device_busy_ms']:.2f} ms, idle share {prof['idle_share']:.4f}; by kernel "
+        f"{prof['kernels_ms']}")
+    summary = {"string_agreement_kernels_vs_plain": agree_q, "vs_bf16_strings": vs_bf16,
+               "beam_string_agreement_kernels_vs_plain": agree_bq,
+               "beam_vs_bf16_strings": bvs_bf16, "crops_per_s": B / ms_call * 1e3,
+               "ms_per_call": ms_call, "beam_crops_per_s": B / ms_beam * 1e3,
+               "beam_ms_per_call": ms_beam, "batch": B, "stage_ms": stages, "profile": prof,
+               "launches": launches, "beam_launches": blaunches}
+    del model_q, rec_q
+    torch.cuda.empty_cache()
+    return k1q, summary, blaunches
+
+
+def stage_times(model, rec, crops, decode, reps: int = 10, rectify=None, features=None):
     """Median CUDA-event milliseconds of each stage of one recognize call:
-    host preparation and upload, TPS rectification, ResNet-31 features,
-    semantics + encoder, decoder (``decode(enc)`` -> ids: cross K/V and the
-    decode kernel), strings."""
+    host preparation and upload, TPS rectification (``rectify``, default
+    the model's), ResNet-31 features (``features``: rectified -> columns,
+    default the model's), semantics + encoder, decoder (``decode(enc)`` ->
+    ids: cross K/V and the decode kernel), strings."""
+    rectify = rectify or model.rectify
+    features = features or model.features
     names = ["prepare", "rectify", "features", "encoder", "decoder", "decode_strings"]
     samples = {n: [] for n in names}
     for _ in range(reps + 1):
@@ -648,9 +935,9 @@ def stage_times(model, rec, crops, decode, reps: int = 10):
             ev[0].record()
             image, overlap = rec.prepare(crops, len(crops))
             ev[1].record()
-            rect = model.rectify(image)
+            rect = rectify(image)
             ev[2].record()
-            cols = model.features(rect)
+            cols = features(rect)
             ev[3].record()
             model.semantic(overlap)
             enc = model.encoder(cols)
@@ -1011,6 +1298,10 @@ def main() -> int:
     del model, rec, model_b, rec_b
     torch.cuda.empty_cache()
 
+    phase("int8")
+    k1q, e2e_int8, _ = int8_phase(api, fd, fb, gs, build, crops, texts, btexts, k1, k1e,
+                                  "--mutants" in sys.argv[1:])
+
     phase("end-to-end f32")
     agree32, beam_agree32 = {}, {}
     with tf32_on():  # the float32 model must not take it
@@ -1049,9 +1340,9 @@ def main() -> int:
                                    "crops_per_s": beam_crops_s, "ms_per_call": ms_beam,
                                    "batch": B, "stage_ms": beam_stages,
                                    "decoder_share": share, "profile": beam_prof},
-                      "train": train}), flush=True)
+                      "e2e_int8": e2e_int8, "train": train}), flush=True)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [k1, k1e, k2, k3, k4]}), flush=True)
+    print(json.dumps({"kernels": [k1, k1e, k1q, k2, k3, k4]}), flush=True)
     timer.cancel()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

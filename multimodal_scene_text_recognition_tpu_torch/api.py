@@ -20,8 +20,10 @@ def get_model(bundle_path: Optional[str] = None, cfg: Optional[ModelConfig] = No
     in train mode with gradients on.
 
     ``bundle_path``: a JAX ``.params.npz`` bundle, loaded strictly (every
-    weight of the model must come from it).  Without one the weights are
-    random, drawn from a ``torch.Generator`` seeded with ``seed``.
+    weight of the model must come from it), and kept as ``model.bundle_path``
+    (an int8 ``Recognizer`` finds the persisted activation scales beside
+    it).  Without one the weights are random, drawn from a
+    ``torch.Generator`` seeded with ``seed``.
     ``device`` defaults to the card; pass ``"cpu"`` explicitly for the CPU.
     """
     device = torch.device(device)
@@ -37,6 +39,7 @@ def get_model(bundle_path: Optional[str] = None, cfg: Optional[ModelConfig] = No
                               strict=True)
     else:
         init_random(model, torch.Generator().manual_seed(seed))
+    model.bundle_path = bundle_path
     if train:
         return model.train().requires_grad_(True)
     return model.eval().requires_grad_(False)

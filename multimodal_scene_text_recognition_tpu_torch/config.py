@@ -1,6 +1,6 @@
 """Model and training configuration: the fields of the JAX package's
-``ModelConfig`` and ``TrainConfig`` that the serving paths (greedy and beam)
-and the train step read, with the same defaults (JAX counterpart:
+``ModelConfig`` and ``TrainConfig`` that the serving paths (greedy, beam
+and int8) and the train step read, with the same defaults (JAX counterpart:
 core/config.py)."""
 
 from __future__ import annotations
@@ -38,6 +38,14 @@ class ModelConfig:
     # run beam search as the fused beam kernel (ops/fused_beam.py) instead
     # of the stepper's ancestry scan
     decode_beam_fused: bool = False
+    # int8 serving (ops/int8.py, models/resnet_int8.py): the fused greedy
+    # decode's six projections as int8 x int8 -> int32 products (K1q), and
+    # in eval mode the encoder's attention projections and FF matmuls;
+    # training stays float.  ``tps_int8`` quantizes the loc-net convs and
+    # acts only in a Recognizer built with ``int8_backbone=True``.
+    decode_int8: bool = False
+    encoder_int8: bool = False
+    tps_int8: bool = False
     # the semantic CLS step-0 input of the decoder is not ported;
     # SceneTextModel refuses True
     cls_decoder_init: bool = False

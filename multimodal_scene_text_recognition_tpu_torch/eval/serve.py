@@ -1,14 +1,30 @@
 """Serving facade: crops in, strings out, in fixed batch buckets, by greedy
-decoding or beam search (JAX counterpart: eval/serve.Recognizer)."""
+decoding or beam search, in float or through the int8 backbone (JAX
+counterpart: eval/serve.Recognizer)."""
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple, Union
+import os
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..charset import AttnCodec
+from ..models.model import make_int8_eval_step
+from ..models.resnet_int8 import (calibrate_resnet, calibrate_tps, check_scale_drift,
+                                  load_activation_scales, save_activation_scales)
+
+
+def scales_path_beside(bundle_path: Optional[str]) -> Optional[str]:
+    """Where a bundle's persisted int8 activation scales live:
+    ``x.params.npz`` -> ``x.scales.npz``, any other path -> ``path +
+    ".scales.npz"`` (JAX ``Recognizer.from_bundle``)."""
+    if not bundle_path:
+        return None
+    if bundle_path.endswith(".params.npz"):
+        return bundle_path[: -len(".params.npz")] + ".scales.npz"
+    return bundle_path + ".scales.npz"
 
 
 class Recognizer:
@@ -18,14 +34,39 @@ class Recognizer:
     Crops must already be ``img_h x img_w`` (32x100): float in [0, 1] or
     uint8 (any crop whose maximum exceeds 1.5 is scaled by 1/255).  Resizing
     other sizes is not ported yet.
+
+    ``int8_backbone=True`` serves through the int8 loc-net (with
+    ``cfg.tps_int8``) and the int8 ResNet-31 (models/resnet_int8.py), in
+    front of the model's encoder and decoder.  Activation scales resolve in
+    order: (1) ``int8_scales_path``, or where it is None the
+    ``<bundle>.scales.npz`` beside the bundle the model was loaded from,
+    when that file exists; (2) an explicit :meth:`calibrate_int8` call on
+    representative crops (which persists them to ``int8_scales_path`` when
+    one is set); (3) lazily on the first recognize call, from that call's
+    REAL crops only (pad rows are filled by cycling the real crops: a
+    zero-padded bucket would pull the static scales below real ranges and
+    clip later traffic).  Persisted scales are checked once against the
+    first traffic seen, and a drift past 2x warns.
     """
 
-    def __init__(self, model, batch_sizes: Sequence[int] = (1, 8, 64)):
+    def __init__(self, model, batch_sizes: Sequence[int] = (1, 8, 64),
+                 int8_backbone: bool = False, int8_scales_path: Optional[str] = None):
         self.model = model
         self.cfg = model.cfg
         self.codec = AttnCodec(self.cfg.chars, self.cfg.max_text_length)
         self.batch_sizes = tuple(sorted(batch_sizes))
         self.device = next(model.parameters()).device
+        self.int8_backbone = int8_backbone
+        if int8_backbone and int8_scales_path is None:
+            found = scales_path_beside(getattr(model, "bundle_path", None))
+            int8_scales_path = found if found and os.path.exists(found) else None
+        self.int8_scales_path = int8_scales_path
+        self._int8_steps: Dict[Optional[int], object] = {}  # None: greedy, k: beam k
+        self._qsites = None
+        self._int8_absmax: Optional[Dict[str, float]] = None
+        self._drift_checked = False
+        if int8_scales_path is not None and os.path.exists(int8_scales_path):
+            self._int8_absmax = load_activation_scales(int8_scales_path)
 
     def _bucket(self, n: int) -> int:
         for b in self.batch_sizes:
@@ -33,9 +74,11 @@ class Recognizer:
                 return b
         return self.batch_sizes[-1]
 
-    def prepare(self, crops: Sequence[np.ndarray], B: int):
-        """Stack ``crops`` into a zero-padded [B, H, W, 1] float32 batch and
-        the (empty) object ids [B, max_overlap_objs] on the model's device."""
+    def prepare(self, crops: Sequence[np.ndarray], B: int, tile_real: bool = False):
+        """Stack ``crops`` into a [B, H, W, 1] float32 batch and the (empty)
+        object ids [B, max_overlap_objs] on the model's device.  Pad rows are
+        zero, or with ``tile_real`` copies of the real crops in turn
+        (calibration batches must not see pad rows)."""
         m = self.cfg
         img = np.zeros((B, m.img_h, m.img_w, 1), np.float32)
         for i, c in enumerate(crops):
@@ -49,9 +92,57 @@ class Recognizer:
                     f"crop {i} has shape {c.shape}; this recognizer takes "
                     f"{m.img_h}x{m.img_w} grayscale crops (resizing is not ported)")
             img[i] = c
+        if tile_real and len(crops) > 0:
+            for i in range(len(crops), B):
+                img[i] = img[i % len(crops)]
         image = torch.from_numpy(img).to(self.device)
         overlap = torch.zeros(B, m.max_overlap_objs, dtype=torch.long, device=self.device)
         return image, overlap
+
+    @torch.no_grad()
+    def _observe_absmax(self, crops: Sequence[np.ndarray]) -> Dict[str, float]:
+        """Per-site input abs-max of the backbone (and, with ``tps_int8``,
+        of the loc-net under ``tps/``) over real crops, pad rows filled by
+        cycling them."""
+        crops = list(crops)[: self.batch_sizes[-1]]
+        image, _ = self.prepare(crops, self._bucket(len(crops)), tile_real=True)
+        model = self.model
+        with model.precision():
+            observed = calibrate_resnet(model.feature_extractor, model.rectify(image))
+        if self.cfg.tps_int8 and self.cfg.use_tps:
+            observed.update({f"tps/{k}": v
+                             for k, v in calibrate_tps(model.transformation, image).items()})
+        return observed
+
+    def calibrate_int8(self, crops: Sequence[np.ndarray]) -> None:
+        """Calibrate the int8 activation scales on representative crops and
+        persist them to ``int8_scales_path`` when one is set.  Scales
+        already held are checked against the new ones for drift first."""
+        observed = self._observe_absmax(crops)
+        if self._int8_absmax is not None:
+            check_scale_drift(self._int8_absmax, observed)
+        self._drift_checked = True
+        self._int8_absmax = observed
+        self._int8_steps = {}  # rebuilt with the new scales
+        self._qsites = None
+        if self.int8_scales_path is not None:
+            save_activation_scales(self.int8_scales_path, observed)
+
+    def _ensure_int8(self, chunk: Sequence[np.ndarray], beam_size: Optional[int] = None):
+        """The int8 step (greedy, or beam search of width ``beam_size``),
+        built once per kind; calibrates lazily on ``chunk``'s real crops if
+        no scales are held, and checks persisted scales once for drift."""
+        key = int(beam_size) if beam_size else None
+        if self._int8_absmax is None:
+            self.calibrate_int8(chunk)
+        if key not in self._int8_steps:
+            step, self._qsites = make_int8_eval_step(self.model, x_absmax=self._int8_absmax,
+                                                     beam_size=key)
+            self._int8_steps[key] = step
+        if not self._drift_checked:
+            check_scale_drift(self._int8_absmax, self._observe_absmax(chunk))
+            self._drift_checked = True
+        return self._int8_steps[key]
 
     @torch.no_grad()
     def recognize(self, crops: Sequence[np.ndarray], beam_size: int = 0,
@@ -71,10 +162,16 @@ class Recognizer:
             n = len(chunk)
             image, overlap = self.prepare(chunk, self._bucket(n))
             if beam_size:
-                ids, best = self.model.beam_decode(image, overlap, int(beam_size))
+                if self.int8_backbone:
+                    ids, best = self._ensure_int8(chunk, beam_size)(image, overlap)
+                else:
+                    ids, best = self.model.beam_decode(image, overlap, int(beam_size))
                 scores.extend(best[:n].tolist())
             else:
-                ids = self.model(image, overlap).argmax(dim=-1)
+                if self.int8_backbone:
+                    ids = self._ensure_int8(chunk)(image, overlap)
+                else:
+                    ids = self.model(image, overlap).argmax(dim=-1)
                 scores.extend([0.0] * n)
             texts.extend(self.codec.decode(ids.cpu().numpy())[:n])
         return (texts, scores) if return_scores else texts

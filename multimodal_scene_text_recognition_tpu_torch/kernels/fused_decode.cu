@@ -1,8 +1,9 @@
 // Whole greedy decode loop of the transformer decoder in one kernel.
 //
 // Replaces the TPU kernel multimodal_scene_text_recognition_tpu/ops/
-// fused_decode.py::_decode_kernel in float mode, with its eos_id early stop
-// (no CLS step-0 row).  For T steps it embeds the previous token, runs L
+// fused_decode.py::_decode_kernel in float mode (K1, fused_decode) and with
+// quantized=True (K1q, fused_decode_int8), with its eos_id early stop (no
+// CLS step-0 row).  For T steps it embeds the previous token, runs L
 // decoder layers (packed qkv -> self-attention KV-cache write -> causal
 // attention -> out-proj -> LN -> cross-q -> attention over the precomputed
 // memory K/V -> out-proj -> LN -> ReLU FF -> LN), the final LN and the
@@ -43,6 +44,24 @@
 // are rounded to T before the per-head sum; the probabilities are rounded to
 // T and probs*V is formed in T and summed in float32; layernorm, softmax and
 // logits are float32; the argmax takes the first index of the maximum.
+//
+// K1q (template flag Q) runs the six projections as the TPU kernel's
+// quantized `lin`: each quantizes its float32 input row as it stands (not
+// rounded to T: the residual stream, the attention contexts and the ReLU
+// output of ff1 stay unrounded) with the row's abs-max (a block reduction
+// in shared memory; scale abs-max / 127, rintf, half to even, clipped to
+// +-127) into an int8 row in shared memory, and multiplies it by an int8
+// table repacked in groups of four K-rows ([L, K/4, N, 4], one 32-bit word
+// per column and group), accumulating __dp4a products in int32: exact, so
+// the split-K partial sums meet in any order.  The epilogue dequantizes as
+// acc * ((absmax / 127) * channel scale) + bias in that order, with
+// __fmul_rn/__fadd_rn so no FMA contraction changes the rounding.  The
+// embedding, attention, layernorms and class head are K1's.  The int8
+// tables hold half the bytes of bf16 ones, and the L2 reads that bound K1
+// shrink accordingly; the dp4a products are CUDA-core work, and the
+// tensor-core (IMMA) design is later work.
+
+#include <stdint.h>
 
 #include "decode_common.cuh"
 
@@ -62,6 +81,11 @@ struct Params {
   const T *ck, *cv;  // cross K/V [L, B, Tm, E]
   T *kc, *vc;        // self-attention caches [L, B, T, E]
   float* logits;     // [B, T, C]
+  // K1q: the six projection tables (qkv, out, cross-q, cross-out, ff1, ff2)
+  // int8 in groups of four K-rows [L, K/4, N, 4], and their per-channel
+  // scales [L, N] float32
+  const int* qw[6];
+  const float* qs[6];
   int B, steps, L, E, F, C, H, Tm, go_id;
   int eos_id;        // < 0: no early stop
   float eps, scale;  // layernorm epsilon, 1/sqrt(head_dim)
@@ -170,9 +194,10 @@ __device__ void linear(const float* xin, int K, const T* __restrict__ W,
 
 // Multi-head attention of R query rows over `len` cached positions.
 // q[r * q_stride + d] (float32, rounded to T here); K/V hold row `row` at
-// kv + row * kv_rows * E, position s at + s * E.  Writes the context, rounded
-// to T for the out-projection, into xin[d * R + r].
-template <typename T, int R>
+// kv + row * kv_rows * E, position s at + s * E.  Writes the context into
+// xin[d * R + r]: rounded to T for K1's out-projection, as summed for
+// K1q's (Q).
+template <typename T, int R, bool Q>
 __device__ void attention(const Params<T>& p, const float* q, int q_stride,
                           const T* K, const T* V, int kv_rows, int len,
                           int r0, int nrows, float* probs, int S, float* xin) {
@@ -211,25 +236,190 @@ __device__ void attention(const Params<T>& p, const float* q, int q_stride,
     float acc = 0.0f;
     for (int s = 0; s < len; ++s)
       acc += Num<T>::round(pr[s] * Num<T>::to_f(vr[(size_t)s * E]));
-    xin[d * R + r] = Num<T>::round(acc);
+    xin[d * R + r] = Q ? acc : Num<T>::round(acc);
   }
   __syncthreads();
 }
 
+// The float32 value K1q quantizes: as it stands (K1 rounds it to T).
+template <typename T>
+__device__ float quant_input(float v) {
+  return v;
+}
+
+// K1q's dynamic per-row quantization of R rows of K values, src(r, k) =
+// src[r * sr + k * sk]: amax[r] = max_k |src(r, k)| and amax[R + r] =
+// 127 / max(amax[r], 1e-12), then xq[r * Kq + k] = clamp(rint(src(r, k) *
+// amax[R + r]), -127, 127).  wred holds a max per warp and row.  Called by
+// every thread of the block; synchronises before it returns.
 template <typename T, int R>
+__device__ void quantize_rows(const float* src, int sr, int sk, int K,
+                              float* amax, float* wred, int8_t* xq, int Kq) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  float m[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) m[r] = 0.0f;
+  for (int k = tid; k < K; k += nt)
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      m[r] = fmaxf(m[r], fabsf(quant_input<T>(src[r * sr + k * sk])));
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float v = warp_max(m[r]);
+    if (lane == 0) wred[warp * R + r] = v;
+  }
+  __syncthreads();
+  if (tid < R) {
+    float v = 0.0f;
+    for (int w = 0; w < nw; ++w) v = fmaxf(v, wred[w * R + tid]);
+    amax[tid] = v;
+    amax[R + tid] = 127.0f / fmaxf(v, 1e-12f);
+  }
+  __syncthreads();
+  for (int i = tid; i < R * K; i += nt) {
+    const int r = i / K, k = i - r * K;
+    float v = rintf(quant_input<T>(src[r * sr + k * sk]) * amax[R + r]);
+    xq[r * Kq + k] = (int8_t)fminf(fmaxf(v, -127.0f), 127.0f);
+  }
+  __syncthreads();
+}
+
+// K1q's epilogue: acc * ((absmax / 127) * s[j]) + b[j] in float32, in
+// that order and without contraction, then ReLU for ff1.
+template <typename T, bool RELU>
+__device__ float epilogue_q(int acc, float absmax, const float* s, const T* b,
+                            int j) {
+  const float d = __fmul_rn(absmax / 127.0f, __ldg(s + j));
+  const float v = __fadd_rn(__fmul_rn(__int2float_rn(acc), d), Num<T>::load(b + j));
+  return RELU ? fmaxf(v, 0.0f) : v;
+}
+
+// acc[r][v] += the int8 dot products of row r's activation words [k0, k1)
+// (xw[r * Kw + k], four K values a word) with the packed weight words of
+// four adjacent columns (W[k * N + v], four K-rows a word), four 16-byte
+// loads in flight per thread
+template <int R>
+__device__ void dot_rows_q(const int* xw, int Kw, const int* W, int N, int k0,
+                           int k1, int (&acc)[R][4]) {
+  int k = k0;
+  for (; k + 4 <= k1; k += 4) {
+    int4 w[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      w[u] = __ldg(reinterpret_cast<const int4*>(W + (size_t)(k + u) * N));
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int a = xw[r * Kw + k + u];
+        acc[r][0] = __dp4a(a, w[u].x, acc[r][0]);
+        acc[r][1] = __dp4a(a, w[u].y, acc[r][1]);
+        acc[r][2] = __dp4a(a, w[u].z, acc[r][2]);
+        acc[r][3] = __dp4a(a, w[u].w, acc[r][3]);
+      }
+  }
+  for (; k < k1; ++k) {
+    const int4 w = __ldg(reinterpret_cast<const int4*>(W + (size_t)k * N));
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int a = xw[r * Kw + k];
+      acc[r][0] = __dp4a(a, w.x, acc[r][0]);
+      acc[r][1] = __dp4a(a, w.y, acc[r][1]);
+      acc[r][2] = __dp4a(a, w.z, acc[r][2]);
+      acc[r][3] = __dp4a(a, w.w, acc[r][3]);
+    }
+  }
+}
+
+// K1q's projection: out[r * os_r + j * os_j] = epilogue_q(sum_k xq[r][k] *
+// Wq[k][j]) for the int8 rows xq (row stride Kq bytes) and the packed table
+// W [K/4][N][4] (K and N multiples of 4).  Each thread owns the four
+// adjacent columns one 16-byte load brings (a warp reads 512 contiguous
+// bytes of a packed row); with fewer column groups than threads the K range
+// is split S ways and the int32 partial sums meet in `red`.  Not inlined:
+// one body serves the six call sites (the fused beam kernel's build time
+// fell from 95 s to seconds when its projection stopped being inlined).
+template <typename T, int R, bool RELU>
+__device__ __noinline__ void linear_q(const int8_t* xq, int Kq, int K,
+                                      const int* __restrict__ W,
+                                      const float* __restrict__ s,
+                                      const T* __restrict__ b, int N,
+                                      float* out, int os_r, int os_j,
+                                      float* red, const float* amax) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int Kw = Kq / 4, K4 = K / 4, G = N / 4;
+  const int* xw = reinterpret_cast<const int*>(xq);
+  const int S = G >= nt ? 1 : nt / G;
+  if (S == 1) {
+    for (int g = tid; g < G; g += nt) {
+      int acc[R][4] = {};
+      dot_rows_q<R>(xw, Kw, W + g * 4, N, 0, K4, acc);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int j = g * 4 + v;
+          out[r * os_r + j * os_j] = epilogue_q<T, RELU>(acc[r][v], amax[r], s, b, j);
+        }
+    }
+    return;
+  }
+  int* ired = reinterpret_cast<int*>(red);
+  if (tid < G * S) {
+    const int g = tid % G, sp = tid / G;
+    const int chunk = (K4 + S - 1) / S;
+    const int k0 = min(K4, sp * chunk), k1 = min(K4, k0 + chunk);
+    int acc[R][4] = {};
+    dot_rows_q<R>(xw, Kw, W + g * 4, N, k0, k1, acc);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) ired[(sp * R + r) * N + g * 4 + v] = acc[r][v];
+  }
+  __syncthreads();
+  for (int i = tid; i < R * N; i += nt) {
+    const int r = i / N, j = i - r * N;
+    int acc = 0;
+    for (int sp = 0; sp < S; ++sp) acc += ired[(sp * R + r) * N + j];
+    out[r * os_r + j * os_j] = epilogue_q<T, RELU>(acc, amax[r], s, b, j);
+  }
+}
+
+// K1q: quantize the R rows of src (src(r, k) = src[r * sr + k * sk]) and
+// project them through int8 table `which` of layer l, bias `bias` [L, N].
+template <typename T, int R, bool RELU>
+__device__ void project_q(const Params<T>& p, int which, int l,
+                          const float* src, int sr, int sk, int K,
+                          const T* bias, int N, float* out, int os_r, int os_j,
+                          float* red, float* amax, float* wred, int8_t* xq,
+                          int Kq) {
+  quantize_rows<T, R>(src, sr, sk, K, amax, wred, xq, Kq);
+  linear_q<T, R, RELU>(xq, Kq, K, p.qw[which] + (size_t)l * (K / 4) * N,
+                       p.qs[which] + (size_t)l * N, bias + (size_t)l * N, N,
+                       out, os_r, os_j, red, amax);
+}
+
+template <typename T, int R, bool Q>
 __global__ void __launch_bounds__(kThreads) decode_kernel(Params<T> p) {
   extern __shared__ float smem[];
   const int E = p.E, F = p.F, C = p.C, H = p.H, T_ = p.steps, L = p.L;
   const int S = max(p.steps, p.Tm);
   float* xs = smem;               // [R][E]   residual stream
-  float* xin = xs + R * E;        // [E][R]   rounded matmul input
-  float* hid = xin + E * R;       // [F][R]   rounded FF hidden
+  float* xin = xs + R * E;        // [E][R]   matmul input (K1q: the context)
+  float* hid = xin + E * R;       // [F][R]   FF hidden (K1: rounded)
   float* qkv = hid + F * R;       // [R][3E]  projections / scratch
   float* probs = qkv + R * 3 * E; // [R][H][S]
   float* lg = probs + R * H * S;  // [R][C]
   float* red = lg + R * C;        // [blockDim * V * R] split-K partial sums
   int* tok = (int*)(red + kThreads * Vec<T>::kW * R);  // [R]
   int* done = tok + R;  // [R] rows that have emitted eos_id
+  // K1q only: the rows' abs-max and inverse scale [2R], a max per warp and
+  // row [kThreads / 32 * R], the int8 rows [R][Kq]
+  float* amax = (float*)(done + R);
+  float* wred = amax + 2 * R;
+  int8_t* xq = (int8_t*)(wred + (kThreads / 32) * R);
+  const int Kq = max(E, F);
 
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -253,10 +443,15 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params<T> p) {
 
     for (int l = 0; l < L; ++l) {
       // -- self attention over the running KV cache --
-      round_rows<T>(xs, R, E, E, xin);
-      __syncthreads();
-      linear<T, R, kPlain>(xin, E, p.w_qkv + (size_t)l * E * 3 * E,
-                           p.b_qkv + (size_t)l * 3 * E, 3 * E, qkv, 3 * E, 1, red);
+      if constexpr (Q) {
+        project_q<T, R, false>(p, 0, l, xs, E, 1, E, p.b_qkv, 3 * E, qkv, 3 * E, 1,
+                               red, amax, wred, xq, Kq);
+      } else {
+        round_rows<T>(xs, R, E, E, xin);
+        __syncthreads();
+        linear<T, R, kPlain>(xin, E, p.w_qkv + (size_t)l * E * 3 * E,
+                             p.b_qkv + (size_t)l * 3 * E, 3 * E, qkv, 3 * E, 1, red);
+      }
       __syncthreads();
       T* kc = p.kc + l * cache_l;
       T* vc = p.vc + l * cache_l;
@@ -269,38 +464,61 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params<T> p) {
         }
       }
       __syncthreads();
-      attention<T, R>(p, qkv, 3 * E, kc, vc, T_, t + 1, r0, nrows, probs, S,
-                      xin);
-      linear<T, R, kPlain>(xin, E, p.w_out + (size_t)l * E * E,
-                           p.b_out + (size_t)l * E, E, qkv, E, 1, red);
+      attention<T, R, Q>(p, qkv, 3 * E, kc, vc, T_, t + 1, r0, nrows, probs, S,
+                         xin);
+      if constexpr (Q) {
+        project_q<T, R, false>(p, 1, l, xin, 1, R, E, p.b_out, E, qkv, E, 1, red,
+                               amax, wred, xq, Kq);
+      } else {
+        linear<T, R, kPlain>(xin, E, p.w_out + (size_t)l * E * E,
+                             p.b_out + (size_t)l * E, E, qkv, E, 1, red);
+      }
       __syncthreads();
       add_layernorm<T>(xs, R, qkv, E, p.n1_s + l * E, p.n1_b + l * E, E,
                           p.eps);
       __syncthreads();
 
       // -- cross attention over the precomputed memory K/V --
-      round_rows<T>(xs, R, E, E, xin);
+      if constexpr (Q) {
+        project_q<T, R, false>(p, 2, l, xs, E, 1, E, p.cb_q, E, qkv, E, 1, red,
+                               amax, wred, xq, Kq);
+      } else {
+        round_rows<T>(xs, R, E, E, xin);
+        __syncthreads();
+        linear<T, R, kPlain>(xin, E, p.cw_q + (size_t)l * E * E,
+                             p.cb_q + (size_t)l * E, E, qkv, E, 1, red);
+      }
       __syncthreads();
-      linear<T, R, kPlain>(xin, E, p.cw_q + (size_t)l * E * E,
-                           p.cb_q + (size_t)l * E, E, qkv, E, 1, red);
-      __syncthreads();
-      attention<T, R>(p, qkv, E, p.ck + l * mem_l, p.cv + l * mem_l, p.Tm,
-                      p.Tm, r0, nrows, probs, S, xin);
-      linear<T, R, kPlain>(xin, E, p.cw_o + (size_t)l * E * E,
-                           p.cb_o + (size_t)l * E, E, qkv, E, 1, red);
+      attention<T, R, Q>(p, qkv, E, p.ck + l * mem_l, p.cv + l * mem_l, p.Tm,
+                         p.Tm, r0, nrows, probs, S, xin);
+      if constexpr (Q) {
+        project_q<T, R, false>(p, 3, l, xin, 1, R, E, p.cb_o, E, qkv, E, 1, red,
+                               amax, wred, xq, Kq);
+      } else {
+        linear<T, R, kPlain>(xin, E, p.cw_o + (size_t)l * E * E,
+                             p.cb_o + (size_t)l * E, E, qkv, E, 1, red);
+      }
       __syncthreads();
       add_layernorm<T>(xs, R, qkv, E, p.n2_s + l * E, p.n2_b + l * E, E,
                           p.eps);
       __syncthreads();
 
       // -- feed-forward --
-      round_rows<T>(xs, R, E, E, xin);
-      __syncthreads();
-      linear<T, R, kReluRound>(xin, E, p.ff1_w + (size_t)l * E * F,
-                               p.ff1_b + (size_t)l * F, F, hid, 1, R, red);
-      __syncthreads();
-      linear<T, R, kPlain>(hid, F, p.ff2_w + (size_t)l * F * E,
-                           p.ff2_b + (size_t)l * E, E, qkv, E, 1, red);
+      if constexpr (Q) {
+        project_q<T, R, true>(p, 4, l, xs, E, 1, E, p.ff1_b, F, hid, 1, R, red,
+                              amax, wred, xq, Kq);
+        __syncthreads();
+        project_q<T, R, false>(p, 5, l, hid, 1, R, F, p.ff2_b, E, qkv, E, 1, red,
+                               amax, wred, xq, Kq);
+      } else {
+        round_rows<T>(xs, R, E, E, xin);
+        __syncthreads();
+        linear<T, R, kReluRound>(xin, E, p.ff1_w + (size_t)l * E * F,
+                                 p.ff1_b + (size_t)l * F, F, hid, 1, R, red);
+        __syncthreads();
+        linear<T, R, kPlain>(hid, F, p.ff2_w + (size_t)l * F * E,
+                             p.ff2_b + (size_t)l * E, E, qkv, E, 1, red);
+      }
       __syncthreads();
       add_layernorm<T>(xs, R, qkv, E, p.n3_s + l * E, p.n3_b + l * E, E,
                           p.eps);
@@ -347,26 +565,30 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params<T> p) {
   }
 }
 
-size_t smem_bytes(int R, int V, int E, int F, int C, int H, int S) {
-  return sizeof(float) *
-             ((size_t)R * (E + E + F + 3 * E + H * S + C + kThreads * V)) +
-         sizeof(int) * 2 * R;
+size_t smem_bytes(int R, int V, int E, int F, int C, int H, int S, bool Q) {
+  size_t n = sizeof(float) *
+                 ((size_t)R * (E + E + F + 3 * E + H * S + C + kThreads * V)) +
+             sizeof(int) * 2 * R;
+  if (Q)
+    n += sizeof(float) * (size_t)R * (2 + kThreads / 32) +
+         (size_t)R * (E > F ? E : F);
+  return n;
 }
 
-template <typename T, int R>
+template <typename T, int R, bool Q>
 int launch(const Params<T>& p, cudaStream_t stream) {
   int S = p.steps > p.Tm ? p.steps : p.Tm;
-  size_t smem = smem_bytes(R, Vec<T>::kW, p.E, p.F, p.C, p.H, S);
+  size_t smem = smem_bytes(R, Vec<T>::kW, p.E, p.F, p.C, p.H, S, Q);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_kernel<T, R, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   int blocks = (p.B + R - 1) / R;
-  decode_kernel<T, R><<<blocks, kThreads, smem, stream>>>(p);
+  decode_kernel<T, R, Q><<<blocks, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool Q>
 int run(const void* const* ptr, const int* dim, float eps, float scale,
         cudaStream_t stream) {
   Params<T> p;
@@ -383,13 +605,20 @@ int run(const void* const* ptr, const int* dim, float eps, float scale,
   p.kc = (T*)ptr[nw + 3];
   p.vc = (T*)ptr[nw + 4];
   p.logits = (float*)ptr[nw + 5];
+  // K1q: the packed tables sit in the slots of w_qkv, w_out, cw_q, cw_o,
+  // ff1_w and ff2_w; their scales follow the logits
+  const int table_slot[6] = {0, 2, 4, 6, 8, 10};
+  for (int j = 0; j < 6; ++j) {
+    p.qw[j] = Q ? (const int*)ptr[table_slot[j]] : nullptr;
+    p.qs[j] = Q ? (const float*)ptr[nw + 6 + j] : nullptr;
+  }
   p.B = dim[0]; p.steps = dim[1]; p.L = dim[2]; p.E = dim[3]; p.F = dim[4];
   p.C = dim[5]; p.H = dim[6]; p.Tm = dim[7]; p.go_id = dim[8];
   p.eos_id = dim[9];
   p.eps = eps;
   p.scale = scale;
   if (p.B == 0 || p.steps == 0) return 0;
-  return launch<T, kRows>(p, stream);
+  return launch<T, kRows, Q>(p, stream);
 }
 
 }  // namespace
@@ -402,7 +631,19 @@ int run(const void* const* ptr, const int* dim, float eps, float scale,
 extern "C" int fused_decode(int dtype, const void* const* ptr, const int* dim,
                             float eps, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return run<float>(ptr, dim, eps, scale, s);
-  if (dtype == 1) return run<__nv_bfloat16>(ptr, dim, eps, scale, s);
+  if (dtype == 0) return run<float, false>(ptr, dim, eps, scale, s);
+  if (dtype == 1) return run<__nv_bfloat16, false>(ptr, dim, eps, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1q: as fused_decode, with the six projection tables int8 in groups of
+// four K-rows [L, K/4, N, 4] in their slots (E and F multiples of 4) and
+// their six scales [L, N] float32 after the logits.
+extern "C" int fused_decode_int8(int dtype, const void* const* ptr,
+                                 const int* dim, float eps, float scale,
+                                 void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) return run<float, true>(ptr, dim, eps, scale, s);
+  if (dtype == 1) return run<__nv_bfloat16, true>(ptr, dim, eps, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,8 +4,9 @@
 Serving: the memory projection ``hid_to_emb`` and the per-layer
 cross-attention K/V run once in float32; the whole 25-step greedy loop is
 one launch of the fused decode kernel (ops/fused_decode.py) in the compute
-type, and with ``beam_fused`` the whole beam search one launch of the fused
-beam kernel (ops/fused_beam.py).  Otherwise beam search runs the
+type (with ``int8`` its six projections int8, K1q), and with ``beam_fused``
+the whole beam search one launch of the fused beam kernel
+(ops/fused_beam.py), in float in every mode (as in the JAX package).  Otherwise beam search runs the
 single-position stepper over KV caches, as the JAX package's XLA path does.
 Training: one teacher-forced causal pass in float32, as the JAX package
 trains its decoder.  The decoder has no fusion sites (the JAX package's
@@ -24,7 +25,8 @@ from torch import nn
 from ..charset import EOS_ID, GO_ID
 from ..ops.attention import attend, attend_ancestry, causal_mask, qkv_projections
 from ..ops.fused_beam import NEG, fused_beam_decode
-from ..ops.fused_decode import cast_weights, fused_greedy_decode, stack_decoder_weights
+from ..ops.fused_decode import (cast_weights, fused_greedy_decode, quantize_fused_weights,
+                                stack_decoder_weights)
 from .encoders import Drop
 from .layers import EPS, MultiHeadAttention, layer_norm, positional_rows
 
@@ -57,14 +59,16 @@ class TransformerDecoder(nn.Module):
     def __init__(self, num_classes: int, d_model: int = 256, memory_dim: int = 512,
                  num_heads: int = 8, ff_dim: int = 2048, num_layers: int = 6,
                  max_text_length: int = 25, dtype: torch.dtype = torch.bfloat16,
-                 early_stop: bool = False, beam_fused: bool = False):
+                 early_stop: bool = False, beam_fused: bool = False, int8: bool = False):
         super().__init__()
         self.d_model, self.num_heads, self.num_layers = d_model, num_heads, num_layers
         self.max_text_length = max_text_length
         self.dtype = dtype
-        self.early_stop, self.beam_fused = early_stop, beam_fused
+        self.early_stop, self.beam_fused, self.int8 = early_stop, beam_fused, int8
         self.use_kernels = True
-        self._fused = {}  # dtype -> (parameter versions, cast weight tables)
+        # (dtype, int8) -> (parameter versions, cast weight tables and, for
+        # int8, their scales)
+        self._fused = {}
         self.hid_to_emb = nn.Linear(memory_dim, d_model)
         self.emb = nn.Embedding(num_classes, d_model)
         self.emb_to_classes = nn.Linear(d_model, num_classes)
@@ -86,24 +90,32 @@ class TransformerDecoder(nn.Module):
             vs.append(v)
         return torch.stack(ks), torch.stack(vs)
 
-    def fused_weights(self, dtype: torch.dtype | None = None):
+    def fused_weights(self, dtype: torch.dtype | None = None, int8: bool = False):
         """The stacked weight tables the fused decode takes, in ``dtype``
         (default: the compute type) on the parameters' device, positional
-        rows float32.  Built on first use and kept until a parameter changes
-        (its storage or its version), so a served call stacks and casts
-        nothing."""
+        rows float32.  With ``int8`` returns ``(tables, scales)``: the six
+        projection tables int8 in K1q's layout (packed here, once),
+        quantized from the float32 parameters (as
+        the JAX package does before it casts; quantizing the cast tables
+        would give other int8 values), the others cast.  Built on first use
+        and kept until a parameter changes (its storage or its version), so
+        a served call stacks, quantizes and casts nothing."""
         dtype = dtype or self.dtype
         params = list(self.parameters())
         key = tuple((p.data_ptr(), p._version) for p in params)
-        hit = self._fused.get(dtype)
+        hit = self._fused.get((dtype, int8))
         if hit is None or hit[0] != key:
             T = self.max_text_length
             with torch.no_grad():
                 pe = positional_rows(T + 1, self.d_model, params[0].device)[:T]
-                w = cast_weights(stack_decoder_weights(
-                    self.layers(), self.final_norm, self.emb_to_classes,
-                    self.emb.weight, pe), dtype)
-            hit = self._fused[dtype] = (key, w)
+                w = stack_decoder_weights(self.layers(), self.final_norm, self.emb_to_classes,
+                                          self.emb.weight, pe)
+                if int8:
+                    w, scales = quantize_fused_weights(w)
+                    w = (cast_weights(w, dtype), scales)
+                else:
+                    w = cast_weights(w, dtype)
+            hit = self._fused[dtype, int8] = (key, w)
         return hit[1]
 
     def teacher_forced(self, enc_out: torch.Tensor, text: torch.Tensor,
@@ -124,13 +136,15 @@ class TransformerDecoder(nn.Module):
 
         With ``early_stop`` a row stops once it has emitted [s], and its
         later logit rows are the [s] one-hot: [s]-pruned strings are those
-        of the full-length loop."""
+        of the full-length loop.  With ``int8`` the loop's six projections
+        run int8 (K1q)."""
         ck, cv = self.cross_kv(self.hid_to_emb(enc_out))
+        w, scales = self.fused_weights(int8=True) if self.int8 else (self.fused_weights(), None)
         return fused_greedy_decode(
-            self.fused_weights(), ck, cv, num_heads=self.num_heads,
+            w, ck, cv, num_heads=self.num_heads,
             steps=self.max_text_length, dtype=self.dtype, go_id=GO_ID,
             eos_id=EOS_ID if self.early_stop else None, eps=EPS,
-            plain=not self.use_kernels)
+            plain=not self.use_kernels, scales=scales)
 
     def _make_stepper(self, memory: torch.Tensor):
         """Single-position decode machinery over ``memory`` [B', Tm, E] in

@@ -4,7 +4,9 @@ models/encoders.py, ``TransformerEncoder`` with the reference norm order).
 ``drop`` is the dropout of train mode (``x -> x`` at eval), applied at the
 JAX module's sites: the positional encoding's output, the attention output
 (``drop1``), the FF's hidden ReLU (``drop_ff``) and the FF output
-(``drop2``)."""
+(``drop2``).  With ``int8`` the attention projections and the FF matmuls
+run through the int8 matmul (ops/int8.py) in eval mode; training stays
+float."""
 
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from ..ops.int8 import int8_linear
 from .layers import MultiHeadAttention, layer_norm, positional_rows
 
 Drop = Callable[[torch.Tensor], torch.Tensor]
@@ -34,26 +37,35 @@ class EncoderLayer(nn.Module):
         self.norm1 = layer_norm(d_model)
         self.norm2 = layer_norm(d_model)
 
-    def forward(self, x: torch.Tensor, drop: Drop = no_dropout) -> torch.Tensor:
-        a = self.self_attn(x, x)
+    def forward(self, x: torch.Tensor, drop: Drop = no_dropout,
+                int8: bool = False) -> torch.Tensor:
+        def dense(mod, h):
+            if int8:
+                return int8_linear(h, mod.weight.t(), mod.bias).to(h.dtype)
+            return mod(h)
+
+        a = self.self_attn(x, x, int8=int8)
         x = self.norm1(x) + drop(a)
-        f = self.linear2(drop(torch.relu(self.linear1(x))))
+        f = dense(self.linear2, drop(torch.relu(dense(self.linear1, x))))
         return self.norm2(x) + drop(f)
 
 
 class TransformerEncoder(nn.Module):
     def __init__(self, d_model: int = 512, num_heads: int = 8, ff_dim: int = 2048,
-                 num_layers: int = 6, max_len: int = 26):
+                 num_layers: int = 6, max_len: int = 26, int8: bool = False):
         super().__init__()
         self.max_len, self.d_model, self.num_layers = max_len, d_model, num_layers
+        self.int8 = int8
         for i in range(num_layers):
             self.add_module(f"layer{i}", EncoderLayer(d_model, num_heads, ff_dim))
         self.final_norm = layer_norm(d_model)
 
-    def forward(self, cols: torch.Tensor, drop: Drop = no_dropout) -> torch.Tensor:
-        """cols [B, T, d_model] float32 -> [B, T, d_model]."""
+    def forward(self, cols: torch.Tensor, drop: Drop = no_dropout,
+                train: bool = False) -> torch.Tensor:
+        """cols [B, T, d_model] float32 -> [B, T, d_model]; ``train`` turns
+        the int8 route off."""
         pe = positional_rows(self.max_len, self.d_model, cols.device)
         x = drop(cols + pe[: cols.shape[1]])
         for i in range(self.num_layers):
-            x = getattr(self, f"layer{i}")(x, drop)
+            x = getattr(self, f"layer{i}")(x, drop, int8=self.int8 and not train)
         return self.final_norm(x)

@@ -17,6 +17,7 @@ from torch import nn
 
 from ..ops.attention import attend, qkv_projections
 from ..ops.batchnorm import bn_train
+from ..ops.int8 import int8_linear
 
 EPS = 1e-5  # torch's LayerNorm/BatchNorm default, used throughout
 BN_MOMENTUM = 0.9  # running statistic = 0.9 * old + 0.1 * batch
@@ -103,9 +104,14 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.empty(3 * E))
         self.out_proj = nn.Linear(E, E)
 
-    def forward(self, query, key, mask=None):
-        q, k, v = qkv_projections(query, key, self.in_proj_weight, self.in_proj_bias)
-        return self.out_proj(attend(q, k, v, self.num_heads, mask))
+    def forward(self, query, key, mask=None, int8: bool = False):
+        """``int8`` runs the four projections through the int8 matmul
+        (inference only; the attention itself stays float)."""
+        q, k, v = qkv_projections(query, key, self.in_proj_weight, self.in_proj_bias, int8)
+        out = attend(q, k, v, self.num_heads, mask)
+        if int8:
+            return int8_linear(out, self.out_proj.weight.t(), self.out_proj.bias).to(query.dtype)
+        return self.out_proj(out)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,13 +1,15 @@
 """Model assembly: TPS -> ResNet-31 -> semantics -> encoder -> decoder
-(JAX counterpart: models/model.py): greedy inference, beam search, and the
-teacher-forced training pass."""
+(JAX counterpart: models/model.py): greedy inference, beam search, the
+teacher-forced training pass, and the int8 serving step that splices the
+int8 loc-net and backbone in front of the encoder and decoder
+(:func:`make_int8_eval_step`, JAX models/resnet_int8.make_int8_eval_step)."""
 
 from __future__ import annotations
 
 import contextlib
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -18,6 +20,8 @@ from .decoders import TransformerDecoder
 from .encoders import TransformerEncoder
 from .layers import BatchNorm2d, dropout, nchw_channels_last
 from .resnet import ResNet31, to_column_sequence
+from .resnet_int8 import QConv, quantize_resnet, quantize_tps, resnet31_int8_forward, \
+    tps_int8_rectify
 from .semantic import LinearEmbedding
 from .transformation import TPSTransform
 
@@ -39,11 +43,12 @@ class SceneTextModel(nn.Module):
         self.feature_extractor = ResNet31(cfg.input_channels, cfg.hidden_dim, dtype=dtype)
         self.semantic = LinearEmbedding(cfg.num_obj_classes, cfg.embed_dim)
         self.encoder = TransformerEncoder(cfg.hidden_dim, cfg.num_heads, cfg.ff_dim,
-                                          cfg.enc_layers, cfg.num_cols)
+                                          cfg.enc_layers, cfg.num_cols, int8=cfg.encoder_int8)
         self.decoder = TransformerDecoder(
             cfg.num_classes, cfg.embed_dim, cfg.hidden_dim, cfg.num_heads, cfg.ff_dim,
             cfg.dec_layers, cfg.max_text_length, dtype,
-            early_stop=cfg.decode_early_stop, beam_fused=cfg.decode_beam_fused)
+            early_stop=cfg.decode_early_stop, beam_fused=cfg.decode_beam_fused,
+            int8=cfg.decode_int8)
         self.set_use_kernels(True)
         for mod in self.modules():  # cfg.fused_bn is K3's default
             if isinstance(mod, BatchNorm2d):
@@ -52,9 +57,10 @@ class SceneTextModel(nn.Module):
     def set_use_kernels(self, on: bool) -> None:
         """On CUDA tensors, run the hand-written kernels or their plain
         PyTorch versions, which the chip check compares them against: the
-        warp (K2), the fused decode with its early stop (K1, K1e), the fused
-        beam search (K4) and every BatchNorm's backward reduction (K3).  CPU
-        tensors always take the plain versions."""
+        warp (K2), the fused decode with its early stop and its int8 mode
+        (K1, K1e, K1q), the fused beam search (K4) and every BatchNorm's
+        backward reduction (K3).  CPU tensors always take the plain
+        versions."""
         if self.cfg.use_tps:
             self.transformation.use_kernels = on
         self.decoder.use_kernels = on
@@ -87,6 +93,14 @@ class SceneTextModel(nn.Module):
         self.semantic(overlap)
         return self.decoder.greedy_decode(self.encoder(cols))
 
+    def beam_from_columns(self, cols: torch.Tensor, overlap: torch.Tensor, beam_size: int = 5,
+                          length_penalty: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Semantics + encoder + beam search from column features: the
+        :meth:`decode_from_columns` counterpart for spliced backbones (int8
+        serving) -> (tokens [B, max_text_length], scores [B])."""
+        self.semantic(overlap)  # feeds only the fusion sites, all off
+        return self.decoder.beam_decode(self.encoder(cols), beam_size, length_penalty)
+
     def forward(self, image: torch.Tensor, overlap: torch.Tensor,
                 text: Optional[torch.Tensor] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -107,7 +121,7 @@ class SceneTextModel(nn.Module):
         with self.precision():
             cols = self.features(self.rectify(image, train=True), train=True)
             self.semantic(overlap)  # feeds only the fusion sites, all off
-            return self.decoder.teacher_forced(self.encoder(cols, drop), text, drop)
+            return self.decoder.teacher_forced(self.encoder(cols, drop, train=True), text, drop)
 
     def beam_decode(self, image: torch.Tensor, overlap: torch.Tensor, beam_size: int = 5,
                     length_penalty: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -115,9 +129,59 @@ class SceneTextModel(nn.Module):
         overlap [B, n] ids -> (tokens [B, max_text_length], scores [B]) of
         the best beam per row (see ``TransformerDecoder.beam_decode``)."""
         with self.precision():
-            cols = self.features(self.rectify(image))
-            self.semantic(overlap)  # feeds only the fusion sites, all off
-            return self.decoder.beam_decode(self.encoder(cols), beam_size, length_penalty)
+            return self.beam_from_columns(self.features(self.rectify(image)), overlap,
+                                          beam_size, length_penalty)
+
+
+def make_int8_eval_step(model: SceneTextModel, x_absmax: Dict[str, float],
+                        beam_size: Optional[int] = None
+                        ) -> Tuple[Callable, Dict[str, QConv]]:
+    """The int8 serving step of ``model`` (in eval mode): TPS (the int8
+    loc-net when ``cfg.tps_int8`` and ``cfg.use_tps``, else the model's
+    own) -> int8 ResNet-31 -> columns -> the model's encoder and decoder
+    (themselves int8 where ``encoder_int8`` / ``decode_int8`` say).
+
+    Activation scales come from ``x_absmax``, a calibration (the
+    Recognizer's, or a persisted one) with the loc-net's sites under a
+    ``tps/`` prefix.  Returns ``(step, qsites)``: ``step(image, overlap)``
+    -> ids [B, T], or with ``beam_size`` (ids [B, T], scores [B]) by beam
+    search over the same spliced pipeline; ``step.rectify(image)`` and
+    ``step.features(rectified)`` -> columns are its first two stages;
+    ``qsites`` the quantized sites (loc-net ones under ``tps/``)."""
+    cfg = model.cfg
+    tps8 = cfg.tps_int8 and cfg.use_tps
+    rn_absmax = {k: v for k, v in x_absmax.items() if not k.startswith("tps/")}
+    tps_absmax = {k[len("tps/"):]: v for k, v in x_absmax.items() if k.startswith("tps/")}
+    if tps8 and not tps_absmax:
+        raise ValueError(
+            "tps_int8 needs TPS activation scales: the persisted npz has no tps/ keys "
+            "(calibrate with tps_int8 set, e.g. Recognizer.calibrate_int8)")
+    rq = quantize_resnet(model.feature_extractor, rn_absmax)
+    tq = quantize_tps(model.transformation, tps_absmax) if tps8 else {}
+    qsites = {**rq, **{f"tps/{k}": v for k, v in tq.items()}}
+
+    @torch.no_grad()
+    def rectify(image: torch.Tensor) -> torch.Tensor:
+        with model.precision():
+            return (tps_int8_rectify(model.transformation, tq, image) if tps8
+                    else model.rectify(image))
+
+    @torch.no_grad()
+    def features(rectified: torch.Tensor) -> torch.Tensor:
+        with model.precision():
+            feats = resnet31_int8_forward(rq, rectified, cfg.hidden_dim)
+            return to_column_sequence(feats.permute(0, 3, 1, 2))
+
+    @torch.no_grad()
+    def step(image: torch.Tensor, overlap: torch.Tensor):
+        with model.precision():
+            cols = features(rectify(image))
+            if beam_size is not None:
+                return model.beam_from_columns(cols, overlap, beam_size)
+            return model.decode_from_columns(cols, overlap).argmax(dim=-1)
+
+    step.rectify, step.features = rectify, features
+    return step, qsites
 
 
 @torch.no_grad()

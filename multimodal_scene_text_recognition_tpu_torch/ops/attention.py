@@ -1,6 +1,7 @@
 """Multi-head attention with a packed in-projection (JAX counterpart:
-ops/attention.py).  Weights follow PyTorch's layout: ``in_proj_weight``
-[3E, E] (q, k, v rows stacked), ``in_proj_bias`` [3E]."""
+ops/attention.py, with its int8 route).  Weights follow PyTorch's layout:
+``in_proj_weight`` [3E, E] (q, k, v rows stacked), ``in_proj_bias``
+[3E]."""
 
 from __future__ import annotations
 
@@ -10,14 +11,23 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .int8 import int8_linear
+
 
 def qkv_projections(q_in: torch.Tensor, kv_in: torch.Tensor,
-                    in_proj_weight: torch.Tensor, in_proj_bias: torch.Tensor
+                    in_proj_weight: torch.Tensor, in_proj_bias: torch.Tensor,
+                    int8: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Project the query input and the key/value input with the packed
-    weights; returns (q, k, v), each [..., E]."""
+    weights; returns (q, k, v), each [..., E].  ``int8`` runs the three
+    projections through :func:`~.int8.int8_linear` (inference only), each
+    result cast back to the query input's type."""
     E = q_in.shape[-1]
     w, b = in_proj_weight, in_proj_bias
+    if int8:
+        dt = q_in.dtype
+        return tuple(int8_linear(x, w[i * E:(i + 1) * E].t(), b[i * E:(i + 1) * E]).to(dt)
+                     for i, x in enumerate((q_in, kv_in, kv_in)))
     q = F.linear(q_in, w[:E], b[:E])
     k = F.linear(kv_in, w[E:2 * E], b[E:2 * E])
     v = F.linear(kv_in, w[2 * E:], b[2 * E:])

@@ -1,6 +1,6 @@
 """Whole greedy decode loop in one kernel (JAX counterpart:
-ops/fused_decode.py, float mode with its ``eos_id`` early stop; no CLS
-step-0 row).
+ops/fused_decode.py, float mode and ``quantized=True``, with its ``eos_id``
+early stop; no CLS step-0 row).
 
 Two versions of one function, ``logits [B, T, C] float32`` from the stacked
 decoder weights and the per-layer cross-attention K/V:
@@ -9,7 +9,9 @@ decoder weights and the per-layer cross-attention K/V:
   exact casts.  The CPU path and the oracle of the kernel.
 * :func:`fused_greedy_decode_cuda`, the CUDA kernel
   ``kernels/fused_decode.cu``, which replaces the TPU kernel
-  ``ops/fused_decode.py::_decode_kernel``.
+  ``ops/fused_decode.py::_decode_kernel``: K1 in float mode, K1q with
+  ``scales`` (the six projections int8 x int8 -> int32, tables from
+  :func:`quantize_fused_weights`).
 
 :func:`fused_greedy_decode` casts the weights to the compute type and picks
 by device: the plain version for CPU tensors, the kernel for CUDA tensors.
@@ -24,6 +26,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from ..kernels import build
+from .int8 import dequantize, div, quantize_rows
 
 
 class FusedDecodeWeights(NamedTuple):
@@ -109,12 +112,64 @@ def stack_decoder_weights(layers: Sequence, final_norm, head, emb: torch.Tensor,
     )
 
 
+class FusedDecodeScales(NamedTuple):
+    """Per-output-channel dequantization scales of the six int8 projection
+    tables (table = table_q * scale), float32 [L, N]: N = 3E, E, E, E, F, E."""
+
+    s_qkv: torch.Tensor
+    s_out: torch.Tensor
+    s_cq: torch.Tensor
+    s_co: torch.Tensor
+    s_ff1: torch.Tensor
+    s_ff2: torch.Tensor
+
+
+QUANTIZED = ("w_qkv", "w_out", "cw_q", "cw_o", "ff1_w", "ff2_w")  # scale order
+
+
+def pack_int8_table(t: torch.Tensor) -> torch.Tensor:
+    """An int8 table [L, K, N] in K1q's layout [L, K/4, N, 4]: the four
+    K-rows of a group side by side per column, so one 32-bit word feeds one
+    ``__dp4a``.  Raises unless K is a multiple of 4."""
+    L, K, N = t.shape
+    if K % 4:
+        raise ValueError(f"the int8 decode takes E and F in multiples of 4, got a table "
+                         f"of {K} input rows")
+    return t.reshape(L, K // 4, 4, N).transpose(2, 3).contiguous()
+
+
+def unpack_int8_table(t: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`pack_int8_table`: [L, K/4, N, 4] -> [L, K, N]."""
+    L, Kw, N, _ = t.shape
+    return t.transpose(2, 3).reshape(L, 4 * Kw, N)
+
+
+def quantize_fused_weights(w: FusedDecodeWeights):
+    """Symmetric per-output-channel int8 quantization of the six projection
+    tables, from their float32 values: scale ``max(absmax, 1e-12) / 127``
+    over each table's input axis, values ``round(t / scale)`` (half to
+    even) clipped to +-127.  Returns ``(w_q, scales)``: ``w`` with those six
+    tables int8 in K1q's layout (:func:`pack_int8_table`; both versions of
+    the decode take them so, and :func:`unpack_int8_table` gives [L, in,
+    out]), and :class:`FusedDecodeScales`."""
+    tables, scales = {}, []
+    for name in QUANTIZED:
+        t = getattr(w, name).detach().float()
+        scale = div(torch.clamp(t.abs().amax(dim=1, keepdim=True), min=1e-12), 127.0)
+        q = torch.clamp(torch.round(t / scale), -127, 127).to(torch.int8)
+        tables[name] = pack_int8_table(q)
+        scales.append(scale[:, 0])
+    return w._replace(**tables), FusedDecodeScales(*scales)
+
+
 def cast_weights(w: FusedDecodeWeights, dtype: torch.dtype) -> FusedDecodeWeights:
-    """Every table in the compute type, contiguous; positional rows stay
-    float32 (as in the TPU kernel).  Tables already so are passed through
-    untouched, so weights cast once cost nothing on later calls."""
+    """Every float table in the compute type, contiguous; positional rows
+    stay float32 (as in the TPU kernel) and int8 tables int8.  Tables
+    already so are passed through untouched, so weights cast once cost
+    nothing on later calls."""
     def cast(v, dt):
         v = v.detach()
+        dt = torch.int8 if v.dtype == torch.int8 else dt
         return v if v.dtype == dt and v.is_contiguous() else v.to(dt).contiguous()
 
     fields = {k: cast(v, dtype) for k, v in w._asdict().items()}
@@ -125,12 +180,15 @@ def cast_weights(w: FusedDecodeWeights, dtype: torch.dtype) -> FusedDecodeWeight
 def plain_ops(dt: torch.dtype, eps: float):
     """The plain versions' arithmetic in compute type ``dt``, on float32
     tensors: ``rd`` rounds to ``dt``; ``lin(x, W, b)`` is the rounded input
-    times W (float32 accumulation) plus b; ``ln(x, s, b)`` a float32
-    layernorm."""
+    times W (float32 accumulation) plus b, or with a scale ``s`` (W an int8
+    table as integer values) the quantized projection of
+    :func:`quantized_linear`; ``ln(x, s, b)`` a float32 layernorm."""
     def rd(x):
         return x.to(dt).float()
 
-    def lin(x, W, b):
+    def lin(x, W, b, s=None):
+        if s is not None:
+            return quantized_linear(x, W, s, b)
         return rd(x) @ W + b
 
     def ln(x, s, b):
@@ -141,21 +199,39 @@ def plain_ops(dt: torch.dtype, eps: float):
     return rd, lin, ln
 
 
+def quantized_linear(x: torch.Tensor, Wq: torch.Tensor, s: torch.Tensor,
+                     b: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's quantized ``lin``: x [B, K] float32, quantized per
+    row from its unrounded values (scale ``row absmax / 127``, half to
+    even, clipped to +-127); the exact integer product with the int8 table
+    ``Wq`` [K, N] (held as float32 or int8), formed in float64; then
+    ``acc.f32 * ((absmax / 127) * s) + b``."""
+    xq, ax = quantize_rows(x)
+    return dequantize((xq.double() @ Wq.double()).float(), div(ax, 127.0), s, b)
+
+
 def fused_greedy_decode_plain(w: FusedDecodeWeights, cross_k: torch.Tensor,
                               cross_v: torch.Tensor, *, num_heads: int,
                               steps: int, go_id: int = 0, eos_id: Optional[int] = None,
-                              eps: float = 1e-5) -> torch.Tensor:
+                              eps: float = 1e-5,
+                              scales: Optional[FusedDecodeScales] = None) -> torch.Tensor:
     """The greedy loop in PyTorch with the TPU kernel's casts.
 
     ``w`` is already in the compute type (:func:`cast_weights`);
     cross_k/cross_v [L, B, Tm, E] in the same type.  Values of the compute
     type are carried in float32 tensors; ``rd`` rounds to the compute type.
 
+    With ``scales`` the six projection tables of ``w`` are int8 in K1q's
+    layout (:func:`quantize_fused_weights`) and their products run as the TPU
+    kernel's ``quantized=True`` mode: each projection quantizes its float32
+    input unrounded (the float mode rounds it to the compute type first),
+    so the attention contexts and the FF hidden are not rounded either.
+
     With ``eos_id`` a row stops once it has emitted that token: its later
     logit rows stay the ``eos_id`` one-hot, and the loop ends when every
     row has stopped.
     """
-    dt = w.w_qkv.dtype
+    dt = w.w_qkv.dtype if scales is None else w.b_qkv.dtype
     L, B, Tm, E = cross_k.shape
     H = num_heads
     hd = E // H
@@ -165,7 +241,9 @@ def fused_greedy_decode_plain(w: FusedDecodeWeights, cross_k: torch.Tensor,
     dev = cross_k.device
 
     rd, lin, ln = plain_ops(dt, eps)
-    f = {k: v.float() for k, v in w._asdict().items()}
+    f = {k: (unpack_int8_table(v) if scales is not None and k in QUANTIZED else v).float()
+         for k, v in w._asdict().items()}
+    q = dict(zip(QUANTIZED, [None] * 6 if scales is None else [s.float() for s in scales]))
     ck, cv = cross_k.float(), cross_v.float()
     kc = torch.zeros(L, B, T, E, device=dev)
     vc = torch.zeros(L, B, T, E, device=dev)
@@ -187,16 +265,20 @@ def fused_greedy_decode_plain(w: FusedDecodeWeights, cross_k: torch.Tensor,
     for t in range(T):
         x = f["emb"][tok] + f["pe"][t]
         for l in range(L):
-            qkv = lin(x, f["w_qkv"][l], f["b_qkv"][l])
+            def proj(name, bias, inp):
+                s = q[name]
+                return lin(inp, f[name][l], f[bias][l], None if s is None else s[l])
+
+            qkv = proj("w_qkv", "b_qkv", x)
             kc[l, :, t] = rd(qkv[:, E:2 * E])
             vc[l, :, t] = rd(qkv[:, 2 * E:])
             ctx = attend(rd(qkv[:, :E]), kc[l, :, :t + 1], vc[l, :, :t + 1])
-            x = ln(x + lin(ctx, f["w_out"][l], f["b_out"][l]), f["n1_s"][l], f["n1_b"][l])
-            q2 = rd(lin(x, f["cw_q"][l], f["cb_q"][l]))
+            x = ln(x + proj("w_out", "b_out", ctx), f["n1_s"][l], f["n1_b"][l])
+            q2 = rd(proj("cw_q", "cb_q", x))
             ctx2 = attend(q2, ck[l], cv[l])
-            x = ln(x + lin(ctx2, f["cw_o"][l], f["cb_o"][l]), f["n2_s"][l], f["n2_b"][l])
-            h = torch.relu(lin(x, f["ff1_w"][l], f["ff1_b"][l]))
-            x = ln(x + lin(h, f["ff2_w"][l], f["ff2_b"][l]), f["n3_s"][l], f["n3_b"][l])
+            x = ln(x + proj("cw_o", "cb_o", ctx2), f["n2_s"][l], f["n2_b"][l])
+            h = torch.relu(proj("ff1_w", "ff1_b", x))
+            x = ln(x + proj("ff2_w", "ff2_b", h), f["n3_s"][l], f["n3_b"][l])
         x = ln(x, f["fn_s"], f["fn_b"])
         lg = lin(x, f["head_w"], f["head_b"])
         logits[:, t] = torch.where(done[:, None], logits[:, t], lg)
@@ -226,35 +308,55 @@ _ROWS = 1  # batch rows per CTA (kRows in the kernel)
 
 
 def check_kernel_inputs(w: FusedDecodeWeights, cross_k: torch.Tensor, cross_v: torch.Tensor,
-                        *, num_heads: int, steps: int, class_ids: Sequence[int], what: str):
+                        *, num_heads: int, steps: int, class_ids: Sequence[int], what: str,
+                        scales: Optional[FusedDecodeScales] = None):
     """What the decode kernels (greedy and beam) take: every table of ``w``
     and cross_k/v contiguous CUDA tensors of one compute type (float32 or
     bfloat16) on one device, ``pe`` float32, consistent shapes, ``steps``
-    positional rows and valid ``class_ids``.  Raises TypeError or
-    ValueError otherwise; returns (L, B, Tm, E, F, C)."""
+    positional rows and valid ``class_ids``.  With ``scales`` (K1q) the six
+    projection tables are int8 in K1q's layout [L, K/4, N, 4] instead, and
+    the scales contiguous float32 [L, N] on the same device.  Raises
+    TypeError or ValueError otherwise; returns (L, B, Tm, E, F, C)."""
     dev = cross_k.device
-    dt = w.w_qkv.dtype
+    dt = w.b_qkv.dtype
     if dt not in KERNEL_DTYPES:
         raise TypeError(f"{what} kernel takes float32 or bfloat16, got {dt}")
     if dev.type != "cuda":
         raise ValueError(f"the {what} kernel takes CUDA tensors")
     for name, t in zip(FusedDecodeWeights._fields, list(w)[:_N_TABLES]):
-        if t.dtype != dt or t.device != dev or not t.is_contiguous():
+        want = torch.int8 if scales is not None and name in QUANTIZED else dt
+        if t.dtype != want or t.device != dev or not t.is_contiguous():
             raise ValueError(f"{what}: table {name} must be contiguous "
-                             f"{dt} on {dev}, got {t.dtype} on {t.device}")
+                             f"{want} on {dev}, got {t.dtype} on {t.device}")
     for name, t, want in (("pe", w.pe, torch.float32), ("cross_k", cross_k, dt),
                           ("cross_v", cross_v, dt)):
         if t.dtype != want or t.device != dev or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous {want} on {dev}")
     L, B, Tm, E = cross_k.shape
-    C = w.head_w.shape[1]
-    if cross_v.shape != cross_k.shape or E % num_heads or w.w_qkv.shape != (L, E, 3 * E):
+    C, F = w.head_w.shape[1], w.ff1_w.shape[2]
+    if cross_v.shape != cross_k.shape or E % num_heads:
         raise ValueError(f"{what}: inconsistent shapes")
+    if scales is None and w.w_qkv.shape != (L, E, 3 * E):
+        raise ValueError(f"{what}: inconsistent shapes")
+    if scales is not None:
+        shapes = ((E, 3 * E), (E, E), (E, E), (E, E), (E, F), (F, E))
+        for name, (K, N) in zip(QUANTIZED, shapes):
+            if K % 4 or getattr(w, name).shape != (L, K // 4, N, 4):
+                raise ValueError(f"{what}: table {name} must be int8 [{L}, {K}/4, {N}, 4] "
+                                 f"(quantize_fused_weights); the int8 kernel takes E and F "
+                                 f"in multiples of 4")
     if w.pe.shape[0] < steps or w.emb.shape != (C, E):
         raise ValueError(f"{what}: pe/emb do not fit the tables")
     if not all(0 <= i < C for i in class_ids):
         raise ValueError(f"{what}: class ids {list(class_ids)} outside 0..{C - 1}")
-    return L, B, Tm, E, w.ff1_w.shape[2], C
+    if scales is not None:
+        for name, s, t in zip(FusedDecodeScales._fields, scales,
+                              (getattr(w, n) for n in QUANTIZED)):
+            if (s.dtype != torch.float32 or s.device != dev or not s.is_contiguous()
+                    or s.shape != (L, t.shape[2])):
+                raise ValueError(f"{what}: scale {name} must be contiguous float32 "
+                                 f"[{L}, {t.shape[2]}] on {dev}")
+    return L, B, Tm, E, F, C
 
 
 def launch(fn, w: FusedDecodeWeights, cross_k: torch.Tensor, cross_v: torch.Tensor,
@@ -272,16 +374,16 @@ def launch(fn, w: FusedDecodeWeights, cross_k: torch.Tensor, cross_v: torch.Tens
     scale = 1.0 / math.sqrt(cross_k.shape[-1] // num_heads)
     with torch.cuda.device(dev):  # the launcher uses the current device
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(KERNEL_DTYPES[w.w_qkv.dtype], c_ptrs, c_dims, eps, scale, stream)
+        rc = fn(KERNEL_DTYPES[w.b_qkv.dtype], c_ptrs, c_dims, eps, scale, stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
 
 
-def launcher(name: str):
-    """The C launcher of kernel library ``name``, built on first use: the
-    function of the same name, ``int name(dtype, pointers, dims, eps, scale,
-    stream)``, which both decode kernels export."""
-    fn = getattr(build.load(name), name)
+def launcher(name: str, fn_name: Optional[str] = None):
+    """The C launcher ``int fn_name(dtype, pointers, dims, eps, scale,
+    stream)`` (default: the library's own name) of kernel library ``name``,
+    built on first use; every decode kernel exports one."""
+    fn = getattr(build.load(name), fn_name or name)
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
                    ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_float,
                    ctypes.c_void_p]
@@ -289,53 +391,79 @@ def launcher(name: str):
     return fn
 
 
+def decode_smem_bytes(E: int, F: int, C: int, H: int, S: int, vec: int,
+                      quantized: bool) -> int:
+    """Shared memory of one decode CTA (``smem_bytes`` in the kernel):
+    float32 rows, the split-K sums, the token and stop flags, and for K1q
+    the row abs-max and its inverse, a max per warp and the int8 row."""
+    R = _ROWS
+    n = 4 * R * (E + E + F + 3 * E + H * S + C + THREADS * vec) + 8 * R
+    if quantized:
+        n += 4 * R * (2 + THREADS // 32) + R * max(E, F)
+    return n
+
+
 def fused_greedy_decode_cuda(w: FusedDecodeWeights, cross_k: torch.Tensor,
                              cross_v: torch.Tensor, *, num_heads: int,
                              steps: int, go_id: int = 0, eos_id: Optional[int] = None,
-                             eps: float = 1e-5) -> torch.Tensor:
-    """Launch the CUDA decode kernel on inputs :func:`check_kernel_inputs`
-    accepts.  Returns logits [B, T, C]."""
+                             eps: float = 1e-5,
+                             scales: Optional[FusedDecodeScales] = None) -> torch.Tensor:
+    """Launch the CUDA decode kernel (K1, or with ``scales`` K1q) on inputs
+    :func:`check_kernel_inputs` accepts.  Returns logits [B, T, C]."""
     ids = [go_id] + ([] if eos_id is None else [eos_id])
+    what = "fused decode" if scales is None else "fused int8 decode"
     L, B, Tm, E, F, C = check_kernel_inputs(w, cross_k, cross_v, num_heads=num_heads,
-                                            steps=steps, class_ids=ids, what="fused decode")
-    dt, T, H, R = w.w_qkv.dtype, steps, num_heads, _ROWS
-    S = max(T, Tm)
+                                            steps=steps, class_ids=ids, what=what,
+                                            scales=scales)
+    dt, T, H = w.b_qkv.dtype, steps, num_heads
     vec = 16 // dt.itemsize  # weight columns per 16-byte load
-    smem = 4 * R * (E + E + F + 3 * E + H * S + C + THREADS * vec) + 8 * R
+    smem = decode_smem_bytes(E, F, C, H, max(T, Tm), vec, scales is not None)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"fused decode: {smem} bytes of shared memory per CTA "
+        raise ValueError(f"{what}: {smem} bytes of shared memory per CTA "
                          f"exceed {SMEM_LIMIT}")
 
     # caches zeroed before use, as the TPU kernel's are
     kc = torch.zeros(L, B, T, E, dtype=dt, device=cross_k.device)
     vc = torch.zeros_like(kc)
     logits = _logits_buffer(B, T, C, eos_id, cross_k.device)
-    launch(launcher("fused_decode"), w, cross_k, cross_v, (kc, vc, logits),
+    buffers, fn = (kc, vc, logits), launcher("fused_decode")
+    if scales is not None:
+        buffers, fn = buffers + tuple(scales), launcher("fused_decode", "fused_decode_int8")
+    launch(fn, w, cross_k, cross_v, buffers,
            (B, T, L, E, F, C, H, Tm, go_id, -1 if eos_id is None else eos_id),
-           num_heads=H, eps=eps, what="fused decode")
-    fused_greedy_decode_cuda.launches += 1
+           num_heads=H, eps=eps, what=what)
+    if scales is None:
+        fused_greedy_decode_cuda.launches += 1
+    else:
+        fused_greedy_decode_cuda.launches_int8 += 1
     return logits
 
 
-fused_greedy_decode_cuda.launches = 0
+fused_greedy_decode_cuda.launches = 0  # K1 (float mode)
+fused_greedy_decode_cuda.launches_int8 = 0  # K1q
 
 
 def fused_greedy_decode(w: FusedDecodeWeights, cross_k: torch.Tensor,
                         cross_v: torch.Tensor, *, num_heads: int, steps: int,
                         dtype: torch.dtype = torch.bfloat16, go_id: int = 0,
                         eos_id: Optional[int] = None, eps: float = 1e-5,
-                        plain: bool = False) -> torch.Tensor:
+                        plain: bool = False,
+                        scales: Optional[FusedDecodeScales] = None) -> torch.Tensor:
     """Greedy decode -> logits [B, steps, C] float32.
 
     cross_k/cross_v: [L, B, Tm, E] memory projections per layer.  Weights
-    and cross K/V are cast to ``dtype``.  ``eos_id`` stops each row once it
-    has emitted that token (see :func:`fused_greedy_decode_plain`).  CPU tensors (or ``plain=True``)
-    take the plain version; CUDA tensors launch the kernel.
+    and cross K/V are cast to ``dtype`` (int8 tables stay int8).
+    ``eos_id`` stops each row once it has emitted that token (see
+    :func:`fused_greedy_decode_plain`).  ``scales`` (with the int8 tables
+    of :func:`quantize_fused_weights`) selects the quantized mode.  CPU
+    tensors (or ``plain=True``) take the plain version; CUDA tensors launch
+    the kernel.
     """
     w = cast_weights(w, dtype)
     ck = cross_k.detach().to(dtype).contiguous()
     cv = cross_v.detach().to(dtype).contiguous()
-    kw = dict(num_heads=num_heads, steps=steps, go_id=go_id, eos_id=eos_id, eps=eps)
+    kw = dict(num_heads=num_heads, steps=steps, go_id=go_id, eos_id=eos_id, eps=eps,
+              scales=scales)
     if plain or ck.device.type == "cpu":
         return fused_greedy_decode_plain(w, ck, cv, **kw)
     return fused_greedy_decode_cuda(w, ck, cv, **kw)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
-These need an NVIDIA GPU and nvcc and skip elsewhere.  They import no JAX, so
-they also run where JAX is not installed:
+These need an NVIDIA GPU and nvcc and skip elsewhere.  They import no JAX (one
+reads crops drawn by the JAX package's renderer, which needs only numpy and
+PIL), so they also run where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -14,10 +15,12 @@ from multimodal_scene_text_recognition_tpu_torch import api
 from multimodal_scene_text_recognition_tpu_torch.charset import AttnCodec
 from multimodal_scene_text_recognition_tpu_torch.config import ModelConfig
 from multimodal_scene_text_recognition_tpu_torch.charset import EOS_ID
+from multimodal_scene_text_recognition_tpu_torch.models import resnet_int8 as ri
 from multimodal_scene_text_recognition_tpu_torch.ops import batchnorm as bn
 from multimodal_scene_text_recognition_tpu_torch.ops import fused_beam as fb
 from multimodal_scene_text_recognition_tpu_torch.ops import fused_decode as fd
 from multimodal_scene_text_recognition_tpu_torch.ops import grid_sample as gs
+from multimodal_scene_text_recognition_tpu_torch.ops import int8
 
 pytestmark = pytest.mark.cuda
 
@@ -373,3 +376,194 @@ def test_train_step_kernels_match_plain(dev):
     assert np.isfinite([loss_k, norm_k]).all()
     assert loss_k == pytest.approx(loss_p, rel=1e-5)
     assert norm_k == pytest.approx(norm_p, rel=1e-2)
+
+
+# -- int8 serving: K1q and the int8 products --------------------------------
+
+
+def _int8_inputs(dev, B, seed, T=8, eos_bias=0.0):
+    """Seeded decode inputs with the [s] logit raised by ``eos_bias``,
+    quantized: (int8 tables, scales, cross K, cross V) on ``dev``."""
+    w, ck, cv = _decode_inputs(dev, B, seed, T=T)
+    w = w._replace(head_b=w.head_b + eos_bias * (torch.arange(97, device=dev) == EOS_ID))
+    wq, scales = fd.quantize_fused_weights(w)
+    return wq, scales, ck, cv
+
+
+@pytest.mark.parametrize("B", [1, 7, 64])
+@pytest.mark.parametrize("early_stop", [False, True])
+def test_fused_decode_int8_kernel_matches_plain(dev, B, early_stop):
+    """K1q against its plain version, one row per CTA, the [s] logit raised
+    with early stop so rows stop at different steps.  The int8 products are
+    exact in both; the attention and layernorms sum in other orders, and a
+    difference that moves an activation across a rounding boundary of its
+    int8 step moves a projection by one step.  float32: the rows' tokens
+    identical up to their first [s], at least 95% of the (row, step) logit
+    rows within 1e-4 and all within 0.2 (one such step moved a row by 0.089
+    at B=64 on an H100); bfloat16: at least 90% of the
+    rows' tokens identical up to their first [s].  Both: bit-equal from run
+    to run, rows after a row's first [s] the [s] one-hot."""
+    wq, scales, ck, cv = _int8_inputs(dev, B, seed=40 + B, eos_bias=3.0 if early_stop else 0.0)
+    kw = dict(num_heads=4, steps=8, go_id=0, eos_id=EOS_ID if early_stop else None)
+    for dt in (torch.float32, torch.bfloat16):
+        wd = fd.cast_weights(wq, dt)
+        ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
+        out = fd.fused_greedy_decode_cuda(wd, ckd, cvd, scales=scales, **kw)
+        again = fd.fused_greedy_decode_cuda(wd, ckd, cvd, scales=scales, **kw)
+        ref = fd.fused_greedy_decode_plain(wd, ckd, cvd, scales=scales, **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all() and torch.equal(out, again)
+        ids = out.argmax(-1)
+        if early_stop:
+            onehot = torch.nn.functional.one_hot(torch.tensor(EOS_ID), 97).float().to(dev)
+            for r, row in enumerate(ids.cpu().numpy()):
+                hit = np.flatnonzero(row == EOS_ID)
+                if hit.size:
+                    assert (out[r, hit[0] + 1:] == onehot).all()
+        if dt == torch.float32:
+            assert _pruned_agreement(ids, ref.argmax(-1)) == 1.0
+            row_err = (out - ref).abs().amax(-1)
+            assert (row_err <= 1e-4).float().mean().item() >= 0.95
+            assert row_err.max().item() <= 0.2
+        else:
+            assert _pruned_agreement(ids, ref.argmax(-1)) >= 0.9
+
+
+def test_fused_decode_int8_dispatch_launches_kernel_on_cuda(dev):
+    """fused_greedy_decode with scales on CUDA tensors launches K1q (and
+    not K1); without them K1 (and not K1q)."""
+    wq, scales, ck, cv = _int8_inputs(dev, 4, seed=0, T=6)
+    before = (fd.fused_greedy_decode_cuda.launches, fd.fused_greedy_decode_cuda.launches_int8)
+    out = fd.fused_greedy_decode(wq, ck, cv, num_heads=4, steps=6, dtype=torch.bfloat16,
+                                 scales=scales)
+    assert out.shape == (4, 6, 97) and out.device.type == "cuda"
+    assert (fd.fused_greedy_decode_cuda.launches,
+            fd.fused_greedy_decode_cuda.launches_int8) == (before[0], before[1] + 1)
+    w, _, _ = _decode_inputs(dev, 4, seed=0, T=6)
+    fd.fused_greedy_decode(w, ck, cv, num_heads=4, steps=6, dtype=torch.bfloat16)
+    assert (fd.fused_greedy_decode_cuda.launches,
+            fd.fused_greedy_decode_cuda.launches_int8) == (before[0] + 1, before[1] + 1)
+
+
+def test_fused_decode_int8_wrapper_refuses_bad_inputs(dev):
+    wq, scales, ck, cv = _int8_inputs(dev, 4, seed=1, T=6)
+    w32 = fd.cast_weights(wq, torch.float32)
+    kw = dict(num_heads=4, steps=6)
+    with pytest.raises(ValueError):  # int8 tables without scales (K1 takes float tables)
+        fd.fused_greedy_decode_cuda(w32, ck, cv, **kw)
+    with pytest.raises(ValueError):  # the beam kernel has no int8 mode
+        fb.fused_beam_decode_cuda(w32, ck, cv, beam_size=2, **kw)
+    with pytest.raises(ValueError):  # a float table where an int8 one belongs
+        fd.fused_greedy_decode_cuda(w32._replace(w_out=w32.w_out.float()), ck, cv,
+                                    scales=scales, **kw)
+    with pytest.raises(ValueError):  # scales of another type
+        fd.fused_greedy_decode_cuda(w32, ck, cv, scales=scales._replace(
+            s_ff1=scales.s_ff1.half()), **kw)
+    with pytest.raises(ValueError):  # scales of another shape
+        fd.fused_greedy_decode_cuda(w32, ck, cv, scales=scales._replace(
+            s_qkv=scales.s_qkv[:, :64].contiguous()), **kw)
+    with pytest.raises(ValueError):  # scales on the CPU
+        fd.fused_greedy_decode_cuda(w32, ck, cv, scales=scales._replace(
+            s_out=scales.s_out.cpu()), **kw)
+    with pytest.raises(TypeError):  # a compute type the kernel is not built for
+        fd.fused_greedy_decode_cuda(fd.cast_weights(wq, torch.float16), ck.half(), cv.half(),
+                                    scales=scales, **kw)
+    with pytest.raises(ValueError, match="multiples of 4"):  # a table not in K1q's layout
+        fd.fused_greedy_decode_cuda(w32._replace(
+            w_out=fd.unpack_int8_table(w32.w_out).contiguous()), ck, cv, scales=scales, **kw)
+    with pytest.raises(ValueError, match="multiples of 4"):  # F = 126 has no such layout
+        fd.quantize_fused_weights(_decode_inputs(dev, 2, seed=2, F=126, T=6)[0])
+    _, _, ck_w, cv_w = _int8_inputs(dev, 2, seed=2, T=6)
+    big = fd.quantize_fused_weights(_decode_inputs(dev, 2, seed=2, F=49152, T=6)[0])
+    with pytest.raises(ValueError, match="shared memory"):
+        fd.fused_greedy_decode_cuda(big[0], ck_w, cv_w, scales=big[1], **kw)
+
+
+@pytest.mark.parametrize("M,K,N", [(26, 64, 40), (5, 9, 12), (4096, 4608, 512)])
+def test_int_mm_route_is_exact(dev, M, K, N):
+    """int_mm on the card (torch._int_mm, with M, K and N padded where it
+    refuses them) equals the exact float64 product: M = 26 (an encoder
+    row), K = 9 (a single-channel 3x3 conv), and the widest conv's K."""
+    rng = np.random.default_rng(M + K)
+    a = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8))
+    b = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8))
+    a[0], b[:, 0] = 127, -127  # the largest magnitudes
+    got = int8.int_mm(a.to(dev), b.to(dev))
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    assert torch.equal(got.cpu(), (a.double() @ b.double()).to(torch.int32))
+
+
+def test_int8_linear_and_conv_routes_equal_the_cpu(dev):
+    """int8_linear, and the int8 conv of a single-channel 3x3 site (K = 9)
+    and of a strided 2x2 one, give on the card exactly what the CPU's
+    float64 route gives."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 26, 64)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((64, 40)) / 8).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(40).astype(np.float32))
+    got = int8.int8_linear(x.to(dev), w.to(dev), b.to(dev))
+    assert torch.equal(got.cpu(), int8.int8_linear(x, w, b))
+    for (ci, co, kh, kw), stride, pad in (((1, 32, 3, 3), (1, 1), (1, 1)),
+                                          ((16, 24, 2, 2), (2, 1), (0, 1))):
+        kf = rng.standard_normal((co, ci, kh, kw)).astype(np.float32)
+        q = ri._quantize_folded({"s": (kf, np.zeros(co, np.float32))}, {"s": 1.0},
+                                torch.device("cpu"))["s"]
+        hq = torch.from_numpy(rng.integers(-127, 128, (3, 8, 13, ci), dtype=np.int8))
+        want = ri.conv_int8(hq, q, stride, pad)
+        q_dev = ri.QConv(*(t.to(dev) for t in q))
+        assert torch.equal(ri.conv_int8(hq.to(dev), q_dev, stride, pad).cpu(), want)
+
+
+def test_int8_backbone_on_the_card_equals_the_cpu(dev):
+    """The int8 ResNet-31 (output channels 64, one block a stage) with the
+    same scales: bit-equal on the card and on the CPU (exact int32
+    products, the same float32 elementwise steps, bf16 between sites)."""
+    from multimodal_scene_text_recognition_tpu_torch.models.resnet import ResNet31
+
+    net = ResNet31(1, 64, (1, 1, 1, 1))
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) / max(1, p[0].numel()) ** 0.5)
+        for m in net.modules():
+            if hasattr(m, "running_var"):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=gen) * 0.1)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    img = torch.rand(3, 32, 100, 1, generator=gen)
+    absmax = ri.calibrate_resnet(net, img)
+    want = ri.resnet31_int8_forward(ri.quantize_resnet(net, x_absmax=absmax), img, 64,
+                                    (1, 1, 1, 1))
+    net_dev = net.to(dev)
+    got = ri.resnet31_int8_forward(ri.quantize_resnet(net_dev, x_absmax=absmax), img.to(dev),
+                                   64, (1, 1, 1, 1))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_served_int8_reads_the_words_on_the_card(dev):
+    """The served int8 configuration (bf16, early stop, the int8 loc-net,
+    backbone and encoder, K1q, the committed scales found beside the
+    trained bundle) on the card reads the word crops that the JAX
+    package's renderer draws for tests/test_torch_int8_serve.py (WORDS),
+    greedily and by beam search (k=5): every string equals its label, as
+    JAX's ``make_int8_eval_step`` and the port's plain versions do there on
+    the CPU.  The greedy call launches K1q and the warp kernel."""
+    import dataclasses
+
+    from multimodal_scene_text_recognition_tpu.data import synthetic  # numpy and PIL only
+    from multimodal_scene_text_recognition_tpu_torch.config import FLAGSHIP
+    from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
+
+    samples = synthetic.make_dataset(size=8, seed=77)
+    crops = [s.image[..., 0] for s in samples]
+    cfg = dataclasses.replace(FLAGSHIP, decode_early_stop=True, decode_beam_fused=True,
+                              decode_int8=True, encoder_int8=True, tps_int8=True)
+    rec = Recognizer(api.get_model("assets/trained/synth_openvocab_xxl.params.npz", cfg),
+                     batch_sizes=(8,), int8_backbone=True)
+    assert rec._int8_absmax is not None  # the committed scales, not a lazy calibration
+    before = (fd.fused_greedy_decode_cuda.launches_int8, gs.grid_sample_cuda.launches)
+    texts = rec.recognize(crops)
+    assert fd.fused_greedy_decode_cuda.launches_int8 == before[0] + 1
+    assert gs.grid_sample_cuda.launches > before[1]
+    labels = [s.label for s in samples]
+    assert texts == labels
+    assert rec.recognize(crops, beam_size=5) == labels

@@ -1,6 +1,10 @@
 """The plain version of the port's fused decode kernel against the JAX
 package's Pallas kernel (``fused_greedy_decode``, interpret mode on the CPU),
-on the same seeded weights and cross K/V."""
+on the same seeded weights and cross K/V, in float mode and int8 (K1q)."""
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -159,3 +163,103 @@ def test_greedy_decode_never_serves_stale_weights(dtype):
         want = _decoder(3, dtype).greedy_decode(enc)
     torch.testing.assert_close(second, want, atol=0, rtol=0)
     assert not torch.equal(first, second)
+
+
+# -- K1q: the quantized mode (decode_int8) --------------------------------
+
+EOS = 1  # [s]
+
+
+def _quantized(seed, eos_bias):
+    """The seeded weights with the [s] logit raised by ``eos_bias``,
+    quantized by each package: (JAX tables, JAX scales, port tables, port
+    scales, cross K, cross V)."""
+    jw, tw, ck, cv = _weights(seed)
+    jw = jw._replace(head_b=jw.head_b.at[0, EOS].add(eos_bias))
+    tw = tw._replace(head_b=tw.head_b.clone())
+    tw.head_b[EOS] += eos_bias
+    jq, js = jfd.quantize_fused_weights(jw)
+    tq, ts = fd.quantize_fused_weights(tw)
+    return jq, js, tq, ts, ck, cv
+
+
+def _pallas_int8(dtype, early_stop):
+    jq, js, _, _, ck, cv = _quantized(7, 5.0)
+    return np.asarray(jfd.fused_greedy_decode(
+        jq, jnp.asarray(ck), jnp.asarray(cv), js, num_heads=H, steps=T,
+        dtype=getattr(jnp, dtype), eos_id=EOS if early_stop else None, interpret=True))
+
+
+# The bf16 reference runs in a JAX process of its own with XLA's excess
+# precision off: by default XLA on the CPU may keep a product in float32
+# where the kernel rounds it to bf16 (tests/test_torch_fused_beam.py).
+_BF16_INT8_REFERENCE = """
+import sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+import numpy as np
+import test_torch_fused_decode as m
+np.savez(sys.argv[1], **{str(es): m._pallas_int8("bfloat16", es) for es in (False, True)})
+"""
+
+
+@pytest.fixture(scope="module")
+def pallas_int8_bf16(tmp_path_factory):
+    path = tmp_path_factory.mktemp("pallas_int8") / "reference.npz"
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.path.dirname(tests),
+               XLA_FLAGS="--xla_allow_excess_precision=false")
+    subprocess.run([sys.executable, "-c", _BF16_INT8_REFERENCE, str(path)], env=env,
+                   check=True, cwd=tests, timeout=600)
+    ref = np.load(path)
+    return {es: ref[str(es)] for es in (False, True)}
+
+
+def test_quantized_tables_match_jax_bit_for_bit():
+    """quantize_fused_weights: the six int8 tables (unpacked from K1q's
+    layout, which packing and unpacking keep) and their per-channel scales
+    equal JAX's exactly; the other tables pass through."""
+    jq, js, tq, ts, _, _ = _quantized(7, 5.0)
+    for name, scale in zip(fd.QUANTIZED, fd.FusedDecodeScales._fields):
+        t = getattr(tq, name)
+        assert t.dtype == torch.int8
+        np.testing.assert_array_equal(fd.unpack_int8_table(t).numpy(),
+                                      np.asarray(getattr(jq, name)))
+        np.testing.assert_array_equal(getattr(ts, scale).numpy(),
+                                      np.asarray(getattr(js, scale))[:, 0])
+    assert torch.equal(tq.emb, _weights(7)[1].emb)
+    assert torch.equal(fd.pack_int8_table(fd.unpack_int8_table(tq.ff2_w)), tq.ff2_w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("early_stop", [False, True])
+def test_plain_int8_matches_pallas_kernel(dtype, early_stop, request):
+    """K1q's plain version against the Pallas kernel with ``scales``
+    (interpret mode; bf16 with XLA's excess precision off), the [s] logit
+    raised so rows stop at different steps: identical tokens up to each
+    row's first [s] (all of them without early stop), and the logit rows
+    there within 2e-2 (scale ~5).  The int8 products are exact in both; the
+    rest sums in other orders, and a float32 difference that moves an
+    activation across a rounding boundary of its int8 step moves a
+    projection by one step.  In float32 that is rare: at least 95% of the
+    (row, step) logit rows agree within 1e-4 (measured: all but one within
+    4e-6, the one 1.5e-2 off)."""
+    if dtype == "bfloat16":
+        want = request.getfixturevalue("pallas_int8_bf16")[early_stop]
+    else:
+        want = _pallas_int8(dtype, early_stop)
+    _, _, tq, ts, ck, cv = _quantized(7, 5.0)
+    got = fd.fused_greedy_decode(tq, torch.from_numpy(ck), torch.from_numpy(cv),
+                                 num_heads=H, steps=T, dtype=getattr(torch, dtype),
+                                 eos_id=EOS if early_stop else None, scales=ts).numpy()
+    assert got.shape == want.shape == (B, T, C)
+    ids, want_ids = got.argmax(-1), want.argmax(-1)
+    stops = [int(np.flatnonzero(r == EOS)[0]) if (r == EOS).any() else T - 1 for r in want_ids]
+    assert min(stops) < T - 1  # some rows do stop early
+    row_err = []
+    for r, n in enumerate(stops if early_stop else [T - 1] * B):
+        np.testing.assert_array_equal(ids[r, :n + 1], want_ids[r, :n + 1])
+        row_err += list(np.abs(got[r, :n + 1] - want[r, :n + 1]).max(axis=-1))
+    assert max(row_err) <= 2e-2
+    if dtype == "float32":
+        assert np.mean(np.asarray(row_err) <= 1e-4) >= 0.95
