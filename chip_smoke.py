@@ -21,11 +21,20 @@ the flagship in the JAX package's int8 mode (int8 loc-net, backbone and
 encoder with the committed activation scales, the whole greedy loop in
 K1q), greedily and by beam search, holds K1q against its plain version on
 the trained decoder and the served strings against the plain path's, and
-splits the served call's time by stage.  Every phase prints one flushed line with the
-elapsed seconds; any failure raises and the script exits non-zero.
-``--mutants`` also builds copies of the beam kernel with one bf16 rounding
-dropped each, and of K1q with one of three rounding faults each, and prints
-whether their limits catch them.  A watchdog turns a hang into a printed
+splits the served call's time by stage.  The semantic phase holds K1 (in
+its float, early-stop and int8 modes) and K4 with a random semantic CLS
+step-0 row (``cls0``) against their plain versions on the trained decoder,
+then serves the semantic-fusion configuration (random weights from a seed:
+no bundle holds trained fusion weights) through ``Recognizer.recognize(
+crops, semantics=)`` with seeded objects, greedily, by beam search, with
+the logit fusion and in int8, checks the cls0 launches, the strings
+against the plain path's, and splits each call's time by stage, the
+fusion MLPs as a stage of their own.  Every phase prints one flushed line
+with the elapsed seconds; any failure raises and the script exits
+non-zero.  ``--mutants`` also builds copies of the beam kernel with one
+bf16 rounding dropped each, of K1q with one of three rounding faults each,
+and of K1 with one bf16 rounding dropped each (read with and without
+cls0), and prints whether their limits catch them.  A watchdog turns a hang into a printed
 failure (exit code 3).
 
 Output: per-phase lines, the ``nvidia-smi`` name/power-limit line, one JSON
@@ -117,6 +126,22 @@ BEAM_BF16_SCORE_TOL = 0.05
 K1Q_F32_LOGIT_TOL = 0.3
 K1Q_BF16_LOGIT_TOL = 0.3
 K1Q_BF16_AGREE = 0.99
+# The served semantic configuration has random weights (no bundle holds
+# trained fusion weights); its strings, kernels vs plain versions, are held
+# at 100% in float32.  In bf16 and int8 an H100 read 100% (greedy, the
+# logit fusion, int8) and 99.48% (beam: one beam swap); the limits are the
+# flagship's bf16 and int8 ones.  These random decoders emit one class for
+# every row and step, so the strings show the path more than the numerics,
+# which the cls0 kernel checks hold on the trained decoder.
+SEM_BF16_AGREE = 0.98
+SEM_INT8_AGREE = 0.98
+# K1 and K1e bf16 with a random N(0, 1) cls0 vs their plain versions on the
+# trained decoder, max |logit diff|.  An H100 read 0.109 (K1) and 0.098
+# (K1e), over BF16_LOGIT_TOL: the random step-0 row lies outside what the
+# trained decoder sees, and its larger activations round larger.  With
+# cls0 the four K1_MUTANTS (--mutants) read 0.232-0.366 (0.127-0.231
+# without it), so the limit sits between the two and catches all four.
+CLS0_BF16_LOGIT_TOL = 0.2
 
 T0 = time.time()
 PHASE = ["start"]
@@ -504,16 +529,16 @@ def beam_inputs(model, image):
     return dec, ck, cv
 
 
-def beam_vs_plain(fb, dec, ck, cv, dt, early_stop: bool) -> dict:
-    """K4 against its plain version at K=5 in compute type ``dt``: the best
-    beams' and all beams' agreement up to their first [s], the largest
-    score difference (of all beams and of the best), the steps each row
-    took."""
+def beam_vs_plain(fb, dec, ck, cv, dt, early_stop: bool, cls0=None) -> dict:
+    """K4 against its plain version at K=5 in compute type ``dt`` (with
+    ``cls0`` every beam's step-0 row): the best beams' and all beams'
+    agreement up to their first [s], the largest score difference (of all
+    beams and of the best), the steps each row took."""
     T = dec.max_text_length
     wd = dec.fused_weights(dt)
     ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
     kw = dict(beam_size=BEAM, num_heads=dec.num_heads, steps=T, go_id=0, eos_id=1, eps=1e-5,
-              early_stop=early_stop)
+              early_stop=early_stop, cls0=cls0)
     tok, sc = fb.fused_beam_decode_cuda(wd, ckd, cvd, **kw)
     ref_tok, ref_sc = fb.fused_beam_decode_plain(wd, ckd, cvd, **kw)
     torch.cuda.synchronize()
@@ -683,15 +708,16 @@ K1Q_MUTANTS = (
 )
 
 
-def k1q_vs_plain(fd, dec, ck, cv, dt, early_stop: bool) -> dict:
+def k1q_vs_plain(fd, dec, ck, cv, dt, early_stop: bool, cls0=None) -> dict:
     """K1q against its plain version on the trained decoder's int8 tables
-    in compute type ``dt``: the largest logit difference, the share of rows
-    identical up to their first [s], the steps each row took."""
+    in compute type ``dt`` (with ``cls0`` its step-0 row): the largest
+    logit difference, the share of rows identical up to their first [s],
+    the steps each row took."""
     T = dec.max_text_length
     wq, scales = dec.fused_weights(dt, int8=True)
     ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
     kw = dict(num_heads=dec.num_heads, steps=T, go_id=0, eos_id=1 if early_stop else None,
-              eps=1e-5, scales=scales)
+              eps=1e-5, scales=scales, cls0=cls0)
     out = fd.fused_greedy_decode_cuda(wq, ckd, cvd, **kw)
     ref = fd.fused_greedy_decode_plain(wq, ckd, cvd, **kw)
     torch.cuda.synchronize()
@@ -702,10 +728,11 @@ def k1q_vs_plain(fd, dec, ck, cv, dt, early_stop: bool) -> dict:
                 steps=first_eos_steps(ids, T) if early_stop else torch.full_like(ids[:, 0], T))
 
 
-def k1q_results(fd, dec, ck, cv, dts=(torch.float32, torch.bfloat16)) -> dict:
+def k1q_results(fd, dec, ck, cv, dts=(torch.float32, torch.bfloat16), cls0=None) -> dict:
     """K1q against its plain version in each compute type of ``dts``, early
-    stop on and off."""
-    return {(dt, es): k1q_vs_plain(fd, dec, ck, cv, dt, es) for dt in dts for es in (False, True)}
+    stop on and off (with ``cls0`` its step-0 row)."""
+    return {(dt, es): k1q_vs_plain(fd, dec, ck, cv, dt, es, cls0)
+            for dt in dts for es in (False, True)}
 
 
 def k1q_f32_ok(res: dict) -> bool:
@@ -882,7 +909,7 @@ def int8_phase(api, fd, fb, gs, build, crops, texts, btexts, k1, k1e, mutants: b
     if not agree_bq >= 0.98:
         raise AssertionError(f"int8 beam end-to-end agreement {agree_bq} < 0.98")
 
-    image, _ = rec_q.prepare(crops, B)
+    image = rec_q.prepare(crops, B)[0]
     step_q = rec_q._int8_steps[None]  # the greedy step the served calls ran
     k1q, (dec, ck, cv) = check_k1q(fd, model_q, image, step_q, k1, k1e)
     k1q["launches"] = launches["fused_decode_int8"]
@@ -933,13 +960,13 @@ def stage_times(model, rec, crops, decode, reps: int = 10, rectify=None, feature
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
         with torch.no_grad():
             ev[0].record()
-            image, overlap = rec.prepare(crops, len(crops))
+            image, overlap, scene, ious = rec.prepare(crops, len(crops))
             ev[1].record()
             rect = rectify(image)
             ev[2].record()
             cols = features(rect)
             ev[3].record()
-            model.semantic(overlap)
+            model.semantics(overlap, scene, ious)
             enc = model.encoder(cols)
             ev[4].record()
             ids = decode(enc)
@@ -986,6 +1013,402 @@ def kernel_profile(fn, calls: int):
     return {"calls": calls, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
             "idle_share": 1.0 - busy_us / 1e3 / wall_ms, "bn_bwd_reduce_ms": bn_ms,
             "kernels_ms": {k[:80]: v for k, v in top}}
+
+
+# -- the semantic phase: the cls0 rows of K1/K1e/K1q and K4, and the served
+# -- semantic-fusion recognizer
+
+SEMANTIC_SEED = 8  # the random weights of the semantic model (no trained bundle holds them)
+
+
+def semantic_config(flagship):
+    """The served semantic configuration: the combined overlap + scene
+    embedder and every fusion hook the fused kernels carry (pre-encoder and
+    pre-decoder fusion, the semantic CLS step-0 row), early stop, fused
+    beam."""
+    return dataclasses.replace(flagship, semantic_vector="combined", pre_encoder_mlp=True,
+                               pre_decoder_mlp=True, cls_decoder_init=True,
+                               decode_early_stop=True, decode_beam_fused=True)
+
+
+def make_semantics(n: int, seed: int):
+    """Seeded objects per crop, as a detector hands them over: overlap ids
+    [n, 15] and scene ids [n, 52] in 1..1999, each row with trailing 0 pads,
+    scene ious float32 with -1000 at the pads."""
+    rng = np.random.default_rng(seed)
+    ov = rng.integers(1, 2000, (n, 15))
+    sc = rng.integers(1, 2000, (n, 52))
+    ious = rng.uniform(0.0, 1.0, (n, 52)).astype(np.float32)
+    for i in range(n):
+        ov[i, rng.integers(4, 16):] = 0
+        pad = rng.integers(8, 53)
+        sc[i, pad:] = 0
+        ious[i, pad:] = -1000.0
+    return {"overlap": ov, "scene": sc, "ious": ious}
+
+
+def random_cls0(seed: int, E: int):
+    """A seeded N(0, 1) step-0 row per batch row, float32 [B, E] on the
+    card.  The model's own cls0 is all ones up to rounding (its softmax over
+    memory positions is summed over the same axis), which cannot tell a
+    kernel that reads it from one that writes 1.0 or reads row 0 for every
+    row; a random one can."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((B, E)).astype(np.float32)).cuda()
+
+
+def greedy_vs_plain(fd, dec, ck, cv, dt, early_stop: bool, cls0) -> dict:
+    """K1 (with ``early_stop`` K1e) on the trained decoder in compute type
+    ``dt`` with step-0 rows ``cls0`` (or none), against its plain version:
+    the largest logit difference, token and [s]-pruned row agreement, the
+    steps the rows took, and the smallest over rows of the largest step-0
+    logit change from the same launch without cls0."""
+    T = dec.max_text_length
+    wd = dec.fused_weights(dt)
+    ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
+    kw = dict(num_heads=dec.num_heads, steps=T, go_id=0, eos_id=1 if early_stop else None,
+              eps=1e-5)
+    out = fd.fused_greedy_decode_cuda(wd, ckd, cvd, cls0=cls0, **kw)
+    ref = fd.fused_greedy_decode_plain(wd, ckd, cvd, cls0=cls0, **kw)
+    without = fd.fused_greedy_decode_cuda(wd, ckd, cvd, **kw) if cls0 is not None else out
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"K1 ({dt}, early stop {early_stop}, cls0 {cls0 is not None}): "
+                             f"non-finite logits")
+    ids, ref_ids = out.argmax(-1), ref.argmax(-1)
+    full = torch.full_like(ids[:, 0], T)
+    return dict(err=(out - ref).abs().max().item(),
+                tokens=(ids == ref_ids).float().mean().item(),
+                rows=pruned_agreement(ids, ref_ids),
+                steps=first_eos_steps(ids, T) if early_stop else full,
+                steps_without=first_eos_steps(without.argmax(-1), T) if early_stop else full,
+                step0_moved=(out[:, 0] - without[:, 0]).abs().amax(-1).min().item())
+
+
+# K1's bf16 roundings dropped one at a time, for --mutants: (name, text in
+# fused_decode.cu or decode_common.cuh, replacement); they set the limit
+# of K1 with a random cls0
+K1_MUTANTS = (
+    ("probabilities", "pr[s] = Num<T>::round(pr[s] / sum);", "pr[s] = pr[s] / sum;"),
+    ("q*K products", "acc += Num<T>::round(Num<T>::round(qr[d]) * Num<T>::to_f(kr[d]));",
+     "acc += Num<T>::round(qr[d]) * Num<T>::to_f(kr[d]);"),
+    ("value products", "acc += Num<T>::round(pr[s] * Num<T>::to_f(vr[(size_t)s * E]));",
+     "acc += pr[s] * Num<T>::to_f(vr[(size_t)s * E]);"),
+    ("ReLU outputs", "Num<T>::round(fmaxf(v, 0.0f))", "fmaxf(v, 0.0f)"),
+)
+
+
+def check_k1_cls0_mutants(fd, build, dec, ck, cv, cls0):
+    """K1's bf16 limits with and without a random cls0 against broken
+    copies of it (K1_MUTANTS), each held against the plain version as the
+    kernel is, at full length."""
+    with mutant_libraries(build, "fused_decode", K1_MUTANTS) as paths:
+        for (name, _, _), path in zip(K1_MUTANTS, paths):
+            with loaded_as(build, "fused_decode", path):
+                r = {c is not None: greedy_vs_plain(fd, dec, ck, cv, torch.bfloat16, False, c)
+                     for c in (None, cls0)}
+            log(f"K1 mutant without the bf16 rounding of the {name}: max |logit diff| "
+                f"{r[False]['err']:.3e} without cls0 (caught by {BF16_LOGIT_TOL}: "
+                f"{r[False]['err'] > BF16_LOGIT_TOL}), {r[True]['err']:.3e} with it (caught "
+                f"by {CLS0_BF16_LOGIT_TOL}: {r[True]['err'] > CLS0_BF16_LOGIT_TOL}); tokens "
+                f"identical {r[False]['tokens']:.6f} / {r[True]['tokens']:.6f}")
+
+
+def check_cls0_kernels(fd, fb, build, dec, ck, cv, mutants: bool) -> tuple:
+    """K1-cls0 (K1, K1e and K1q modes) and K4-cls0 against their plain
+    versions on the trained flagship decoder and the cross K/V of the
+    smoke's B=192 crops, with a random cls0 [192, 256] and the limits the
+    modes have without it (K1 and K1e in bf16: CLS0_BF16_LOGIT_TOL); their
+    times with cls0 beside those without it, their plain versions' and
+    bounds.  Returns the two kernel entries and the list of the limits
+    broken (every check runs and prints first)."""
+    cls0 = random_cls0(SEMANTIC_SEED, dec.d_model)
+    failures = []
+    T, H = dec.max_text_length, dec.num_heads
+    f32, bf16 = torch.float32, torch.bfloat16
+    g = {(dt, es): greedy_vs_plain(fd, dec, ck, cv, dt, es, cls0)
+         for dt in (f32, bf16) for es in (False, True)}
+    for (dt, es), r in g.items():
+        log(f"K1{'e' if es else ''} with cls0, {str(dt)[6:]}: kernel vs plain max |logit diff| "
+            f"{r['err']:.3e}, tokens identical {r['tokens']:.6f}, [s]-pruned rows "
+            f"{r['rows']:.6f}; step-0 logits moved by cls0 at least {r['step0_moved']:.3e} "
+            f"in every row")
+        if not r["step0_moved"] > 1e-3:
+            failures.append(f"K1 with cls0 ({dt}, early stop {es}): step-0 logits as without "
+                            f"it ({r['step0_moved']})")
+        agree = r["rows"] if es else r["tokens"]
+        ok = (r["err"] <= 1e-3 and agree == 1.0) if dt == f32 else (
+            r["err"] <= CLS0_BF16_LOGIT_TOL and agree >= 0.99)
+        if not ok:
+            failures.append(f"K1 with cls0 ({dt}, early stop {es}): max |logit diff| "
+                            f"{r['err']}, agreement {agree} (limits 1e-3 and 1.0 in f32, "
+                            f"{CLS0_BF16_LOGIT_TOL} and 0.99 in bf16)")
+    if mutants:
+        check_k1_cls0_mutants(fd, build, dec, ck, cv, cls0)
+    q = k1q_results(fd, dec, ck, cv, cls0=cls0)
+    log("K1q with cls0 vs plain: " + k1q_line(q))
+    if not (k1q_f32_ok(q) and k1q_bf16_ok(q)):
+        failures.append("K1q with cls0 outside K1q's limits: " + k1q_line(q))
+    b = {(dt, es): beam_vs_plain(fb, dec, ck, cv, dt, es, cls0)
+         for dt in (f32, bf16) for es in (False, True)}
+    for (dt, es), r in b.items():
+        log(f"K4 with cls0, {str(dt)[6:]} early stop {es}: kernel vs plain, {beam_line(r)}")
+        ok = (r["best"] == 1.0 and r["err_best"] <= 1e-3) if dt == f32 else beam_bf16_ok(r)
+        if not ok:
+            failures.append(f"K4 with cls0 ({dt}, early stop {es}) outside K4's limits: "
+                            f"{beam_line(r)}")
+
+    # times in bf16, each with cls0 beside the same launch without it
+    wd, (wq, scales) = dec.fused_weights(bf16), dec.fused_weights(bf16, int8=True)
+    ckd, cvd = ck.to(bf16).contiguous(), cv.to(bf16).contiguous()
+    kw = dict(num_heads=H, steps=T, go_id=0, eps=1e-5)
+    bkw = dict(beam_size=BEAM, num_heads=H, steps=T, go_id=0, eos_id=1, eps=1e-5)
+    launches = {
+        "K1": lambda c: fd.fused_greedy_decode_cuda(wd, ckd, cvd, cls0=c, **kw),
+        "K1e": lambda c: fd.fused_greedy_decode_cuda(wd, ckd, cvd, eos_id=1, cls0=c, **kw),
+        "K1q": lambda c: fd.fused_greedy_decode_cuda(wq, ckd, cvd, scales=scales, cls0=c, **kw),
+        "K1q early stop": lambda c: fd.fused_greedy_decode_cuda(wq, ckd, cvd, eos_id=1,
+                                                                scales=scales, cls0=c, **kw),
+        "K4": lambda c: fb.fused_beam_decode_cuda(wd, ckd, cvd, cls0=c, **bkw),
+        "K4 early stop": lambda c: fb.fused_beam_decode_cuda(wd, ckd, cvd, early_stop=True,
+                                                             cls0=c, **bkw)}
+    ms = {}
+    for name, fn in launches.items():
+        ms[name] = (cuda_ms(lambda: fn(cls0), 10), cuda_ms(lambda: fn(None), 10))
+    # with early stop a CTA runs until its rows end: cls0 changes the tokens
+    # and so the steps, and a launch lasts as long as its longest rows
+    bsteps_without = first_eos_steps(launches["K4 early stop"](None)[0], T)
+    pairs = (("K1e", g[bf16, True]["steps"], g[bf16, True]["steps_without"]),
+             ("K4", b[bf16, True]["steps"], bsteps_without))
+    steps_line = "; ".join(
+        f"{k}: mean {w.float().mean().item():.2f} max {w.max().item()} with cls0, mean "
+        f"{wo.float().mean().item():.2f} max {wo.max().item()} without" for k, w, wo in pairs)
+    plain_k1 = cuda_ms(lambda: fd.fused_greedy_decode_plain(wd, ckd, cvd, eos_id=1, cls0=cls0,
+                                                            **kw), 2)
+    plain_k4 = cuda_ms(lambda: fb.fused_beam_decode_plain(wd, ckd, cvd, early_stop=True,
+                                                          cls0=cls0, **bkw), 2)
+    log("times with cls0 / without, bf16, ms (10 launches each, CUDA events): " + ", ".join(
+        f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in ms.items())
+        + f"; plain with cls0: K1e {plain_k1:.3f}, K4 early stop {plain_k4:.3f}; steps per row "
+        f"(bf16 early stop): {steps_line}")
+    cls0_bytes = cls0.numel() * 4
+    steps = g[bf16, True]["steps"]
+    nb, fl = loop_cost(wd, ckd, 1, steps, 2, B * T * wd.head_w.shape[1] * 4)
+    k1_bound, k1_by = bound(nb + cls0_bytes, fl, PEAK_BF16_FLOPS)
+    nb_f, fl_f = decode_cost(wd, ckd, T, 2)
+    k1_bound_full, _ = bound(nb_f + cls0_bytes, fl_f, PEAK_BF16_FLOPS)
+    bsteps = b[bf16, True]["steps"]
+    nb, fl = loop_cost(wd, ckd, BEAM, bsteps, 2, b[bf16, True]["out_bytes"])
+    k4_bound, k4_by = bound(nb + cls0_bytes, fl, PEAK_BF16_FLOPS)
+    nb, fl = loop_cost(wd, ckd, BEAM, torch.full_like(bsteps, T), 2, b[bf16, True]["out_bytes"])
+    k4_bound_full, _ = bound(nb + cls0_bytes, fl, PEAK_BF16_FLOPS)
+    log(f"bounds with cls0: K1e {k1_bound:.4f} ms ({k1_by}; steps per row mean "
+        f"{steps.float().mean().item():.2f}), K1 at full length {k1_bound_full:.4f} ms; K4 "
+        f"early stop {k4_bound:.4f} ms ({k4_by}; steps per row mean "
+        f"{bsteps.float().mean().item():.2f}), at full length {k4_bound_full:.4f} ms")
+    k1c = dict(name="fused_decode_cls0", route="cuda",
+               source="multimodal_scene_text_recognition_tpu_torch/kernels/fused_decode.cu",
+               replaces="multimodal_scene_text_recognition_tpu/ops/fused_decode.py:294",
+               jax="ops/fused_decode.py::_decode_kernel, use_cls (cls0 step-0 row)",
+               max_abs_err=max(r["err"] for (dt, _), r in g.items() if dt == f32),
+               max_abs_err_bf16=max(r["err"] for (dt, _), r in g.items() if dt == bf16),
+               k1q_max_abs_err=max(r["err"] for (dt, _), r in q.items() if dt == f32),
+               k1q_max_abs_err_bf16=max(r["err"] for (dt, _), r in q.items() if dt == bf16),
+               ms=ms["K1e"][0], ms_without_cls0=ms["K1e"][1],
+               ms_full_length=ms["K1"][0], ms_full_length_without_cls0=ms["K1"][1],
+               k1q_ms=ms["K1q early stop"][0], k1q_ms_without_cls0=ms["K1q early stop"][1],
+               k1q_ms_full_length=ms["K1q"][0], k1q_ms_full_length_without_cls0=ms["K1q"][1],
+               plain_ms=plain_k1, bound_ms=k1_bound, bound_by=k1_by,
+               bound_ms_full_length=k1_bound_full, library_ms=None,
+               mean_steps=steps.float().mean().item())
+    k4c = dict(name="fused_beam_cls0", route="cuda",
+               source="multimodal_scene_text_recognition_tpu_torch/kernels/fused_beam.cu",
+               replaces="multimodal_scene_text_recognition_tpu/ops/fused_beam.py:170",
+               jax="ops/fused_beam.py::_beam_kernel, cls0 step-0 row of every beam",
+               max_abs_err=max(r["err"] for (dt, _), r in b.items() if dt == f32),
+               max_abs_err_bf16=max(r["err"] for (dt, _), r in b.items() if dt == bf16),
+               best_beam_agreement_bf16=min(r["best"] for (dt, _), r in b.items() if dt == bf16),
+               all_beam_agreement_bf16=min(r["beams"] for (dt, _), r in b.items() if dt == bf16),
+               ms=ms["K4 early stop"][0], ms_without_cls0=ms["K4 early stop"][1],
+               ms_full_length=ms["K4"][0], ms_full_length_without_cls0=ms["K4"][1],
+               plain_ms=plain_k4, bound_ms=k4_bound, bound_by=k4_by,
+               bound_ms_full_length=k4_bound_full, library_ms=None,
+               mean_steps=bsteps.float().mean().item())
+    return k1c, k4c, failures
+
+
+def semantic_stage_times(model, rec, crops, sem, decode, reps: int = 10, rectify=None,
+                         features=None):
+    """:func:`stage_times` of a semantic recognize call, with the stage
+    ``semantics + fusion MLPs``: the embedder and the pre-encoder fusion
+    before the encoder, the pre-decoder fusion and the semantic CLS vector
+    after it.  ``decode(memory, cls0, semantics)`` -> ids is the decoder
+    stage (cross K/V and the kernel)."""
+    rectify = rectify or model.rectify
+    features = features or model.features
+    names = ["prepare", "rectify", "features", "semantics + fusion MLPs", "encoder", "decoder",
+             "decode_strings"]
+    samples = {n: [] for n in names}
+    for _ in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
+        with torch.no_grad(), model.precision():
+            ev[0].record()
+            image, overlap, scene, ious = rec.prepare(crops, len(crops), semantics=sem)
+            ev[1].record()
+            rect = rectify(image)
+            ev[2].record()
+            cols = features(rect)
+            ev[3].record()
+            s = model.semantics(overlap, scene, ious)
+            x = model.encoder.fuse(cols, s)
+            ev[4].record()
+            enc = model.encoder.encode(x)
+            ev[5].record()
+            memory, cls0 = model.decoder.memory_and_cls0(enc, s)
+            ev[6].record()
+            ids = decode(memory, cls0, s)
+            ev[7].record()
+            rec.codec.decode(ids.cpu().numpy())
+            ev[8].record()
+        torch.cuda.synchronize()
+        t = [ev[i].elapsed_time(ev[i + 1]) for i in range(8)]
+        for n, v in zip(names, (t[0], t[1], t[2], t[3] + t[5], t[4], t[6], t[7])):
+            samples[n].append(v)
+    return {n: statistics.median(v[1:]) for n, v in samples.items()}
+
+
+def semantic_phase(api, fd, fb, gs, build, crops, mutants: bool):
+    """The kernel checks of the cls0 rows on the trained flagship decoder,
+    then the semantic configuration served through ``api.get_model(None,
+    cfg, seed)`` -> ``Recognizer.recognize(crops, semantics=)`` at B=192
+    with seeded objects: greedily, by beam search (k=5), greedily with
+    ``post_decoder_mlp`` and in int8 (calibrated on the crops: the
+    committed scales belong to the trained flagship), each checked for its
+    kernel launches, held against the plain path's strings and timed, with
+    its stage split and idle share; then greedy, beam and
+    ``post_decoder_mlp`` in float32 with TF32 turned on by the caller,
+    which must give the plain path's strings exactly.  ``mutants`` adds
+    K1_MUTANTS with and without cls0.  Every check runs and prints before
+    the phase raises on the limits broken."""
+    from multimodal_scene_text_recognition_tpu_torch.config import FLAGSHIP
+    from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
+
+    model = api.get_model(BUNDLE)
+    image = Recognizer(model).prepare(crops, B)[0]
+    dec, ck, cv = beam_inputs(model, image)
+    k1c, k4c, failures = check_cls0_kernels(fd, fb, build, dec, ck, cv, mutants)
+    del model, dec, ck, cv
+    torch.cuda.empty_cache()
+
+    cfg = semantic_config(FLAGSHIP)
+    sem = make_semantics(B, SEMANTIC_SEED)
+    int8 = dict(decode_int8=True, encoder_int8=True, tps_int8=True)
+    calls = {  # name: (config changes, beam size, int8 backbone)
+        "greedy": ({}, 0, False),
+        "beam": ({}, BEAM, False),
+        "post_decoder_mlp greedy": ({"post_decoder_mlp": True}, 0, False),
+        "int8 greedy": (int8, 0, True),
+    }
+    summary, served = {}, {}
+    for name, (changes, beam_size, int8_backbone) in calls.items():
+        if name != "beam":  # beam search serves the greedy call's model
+            model = api.get_model(None, dataclasses.replace(cfg, **changes), seed=SEMANTIC_SEED)
+            rec = Recognizer(model, batch_sizes=(1, 8, 64, B), int8_backbone=int8_backbone)
+        for counter in ("launches", "launches_int8", "launches_cls0"):
+            setattr(fd.fused_greedy_decode_cuda, counter, 0)
+        fb.fused_beam_decode_cuda.launches = fb.fused_beam_decode_cuda.launches_cls0 = 0
+        gs.grid_sample_cuda.launches = 0
+        texts, scores = rec.recognize(crops, beam_size, return_scores=True, semantics=sem)
+        n = {"fused_decode": fd.fused_greedy_decode_cuda.launches,
+             "fused_decode_int8": fd.fused_greedy_decode_cuda.launches_int8,
+             "fused_decode with cls0": fd.fused_greedy_decode_cuda.launches_cls0,
+             "fused_beam": fb.fused_beam_decode_cuda.launches,
+             "fused_beam with cls0": fb.fused_beam_decode_cuda.launches_cls0,
+             "grid_sample": gs.grid_sample_cuda.launches}
+        want = (["fused_beam", "fused_beam with cls0"] if beam_size else
+                ["fused_decode_int8" if int8_backbone else "fused_decode",
+                 "fused_decode with cls0"]) + ["grid_sample"]
+        log(f"semantic {name}: served {len(texts)} crops; kernel launches {n}; e.g. "
+            f"{texts[:3]}")
+        if min(n[k] for k in want) < 1:
+            raise AssertionError(f"the served semantic {name} call did not launch {want}: {n}")
+        if int8_backbone and (n["fused_decode"] or rec.int8_scales_path is not None
+                              or rec._int8_absmax is None):
+            raise AssertionError("the semantic int8 call launched K1 or did not calibrate on "
+                                 "its crops")
+        if len(texts) != B or not np.isfinite(scores).all() or max(scores) > 0:
+            raise AssertionError(f"semantic {name}: missing strings or bad scores")
+        model.set_use_kernels(False)
+        plain = rec.recognize(crops, beam_size, semantics=sem)
+        model.set_use_kernels(True)
+        agree = sum(a == b for a, b in zip(texts, plain)) / B
+        ms_call = cuda_ms(lambda: rec.recognize(crops, beam_size, semantics=sem), 10)
+        if int8_backbone:
+            step = rec._int8_steps[None]
+            parts = dict(rectify=step.rectify, features=step.features)
+        else:
+            parts = {}
+        dec = model.decoder
+        if beam_size:
+            decode = lambda m, c, s: dec.beam_from_memory(m, c, beam_size)[0]  # noqa: E731
+        elif dec.post_decoder_mlp:
+            decode = lambda m, c, s: dec.post_decoder(  # noqa: E731
+                dec.greedy_from_memory(m, c), s).argmax(-1)
+        else:
+            decode = lambda m, c, s: dec.greedy_from_memory(m, c).argmax(-1)  # noqa: E731
+        stages = semantic_stage_times(model, rec, crops, sem, decode, **parts)
+        prof = kernel_profile(lambda: rec.recognize(crops, beam_size, semantics=sem), calls=3)
+        if prof["device_busy_ms"] <= 0:
+            raise AssertionError("the profiler saw no kernel run on the card")
+        log(f"semantic {name}: kernels vs plain strings {agree:.4f} identical; {ms_call:.2f} "
+            f"ms per {B}-crop call ({B / ms_call * 1e3:.1f} crops/s, 10 warm calls, CUDA "
+            f"events); stage ms (median of 10): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in stages.items())
+            + f"; profile of 3 calls: wall {prof['wall_ms']:.2f} ms, kernels busy "
+            f"{prof['device_busy_ms']:.2f} ms, idle share {prof['idle_share']:.4f}; by kernel "
+            f"{prof['kernels_ms']}")
+        served[name] = texts
+        summary[name] = {"string_agreement_kernels_vs_plain": agree, "ms_per_call": ms_call,
+                         "crops_per_s": B / ms_call * 1e3, "stage_ms": stages,
+                         "profile": prof, "launches": n}
+        if name != "greedy":
+            del model, rec
+            torch.cuda.empty_cache()
+
+    with tf32_on():  # the float32 model must not take it
+        for name in ("greedy", "beam", "post_decoder_mlp greedy"):
+            changes, beam_size, _ = calls[name]
+            if name != "beam":
+                model = api.get_model(None, dataclasses.replace(cfg, compute_dtype="float32",
+                                                                **changes), seed=SEMANTIC_SEED)
+                rec = Recognizer(model, batch_sizes=(B,))
+            texts = rec.recognize(crops, beam_size, semantics=sem)
+            model.set_use_kernels(False)
+            plain = rec.recognize(crops, beam_size, semantics=sem)
+            model.set_use_kernels(True)
+            agree = sum(a == b for a, b in zip(texts, plain)) / B
+            vs_bf16 = sum(a == b for a, b in zip(texts, served[name])) / B
+            summary[name]["f32_string_agreement"] = agree
+            log(f"semantic {name} f32 with TF32 allowed by the caller, kernels vs plain "
+                f"strings: {agree:.4f} identical (limit 1.0); bf16 vs f32 serving {vs_bf16:.4f}")
+            if name != "greedy":
+                del model, rec
+                torch.cuda.empty_cache()
+    f32_low = {k: v["f32_string_agreement"] for k, v in summary.items()
+               if "f32_string_agreement" in v and v["f32_string_agreement"] != 1.0}
+    limits = {"greedy": SEM_BF16_AGREE, "beam": SEM_BF16_AGREE,
+              "post_decoder_mlp greedy": SEM_BF16_AGREE, "int8 greedy": SEM_INT8_AGREE}
+    low = {k: v["string_agreement_kernels_vs_plain"] for k, v in summary.items()
+           if not v["string_agreement_kernels_vs_plain"] >= limits[k]}
+    if f32_low or low:
+        failures.append(f"semantic strings, kernels vs plain: f32 below 1.0 {f32_low}; bf16 "
+                        f"and int8 below the limits {limits}: {low}")
+    if failures:
+        raise AssertionError("semantic phase: " + "; ".join(failures))
+    k1c["launches"] = summary["greedy"]["launches"]["fused_decode with cls0"]
+    k1c["launches_int8"] = summary["int8 greedy"]["launches"]["fused_decode with cls0"]
+    k4c["launches"] = summary["beam"]["launches"]["fused_beam with cls0"]
+    return k1c, k4c, summary
 
 
 def make_train_batch(n: int, seed: int, chars: str):
@@ -1204,7 +1627,7 @@ def main() -> int:
     model = api.get_model(BUNDLE)
     rec = Recognizer(model, batch_sizes=(1, 8, 64, B))
     crops = make_crops(B, seed=1234)
-    image, overlap = rec.prepare(crops, B)
+    image, overlap, _, _ = rec.prepare(crops, B)
     model_b = api.get_model(BUNDLE, BEAM_CFG)  # early stop, fused beam
     rec_b = Recognizer(model_b, batch_sizes=(1, 8, 64, B))
 
@@ -1285,7 +1708,7 @@ def main() -> int:
     log(f"beam throughput: {beam_crops_s:.1f} crops/s ({ms_beam:.2f} ms per {B}-crop call, "
         f"10 warm calls, CUDA events)")
     beam_stages = stage_times(model_b, rec_b, crops,
-                              lambda enc: model_b.decoder.beam_decode(enc, BEAM)[0])
+                              lambda enc: model_b.decoder.beam_decode(enc, beam_size=BEAM)[0])
     share = beam_stages["decoder"] / sum(beam_stages.values())
     log("beam stage ms (median of 10): " + ", ".join(
         f"{k} {v:.3f}" for k, v in beam_stages.items()) + f"; decoder share {share:.3f}")
@@ -1321,6 +1744,10 @@ def main() -> int:
     if min(agree32.values()) != 1.0:
         raise AssertionError(f"f32 end-to-end agreement {agree32} < 1")
 
+    phase("semantic")
+    k1c, k4c, e2e_semantic = semantic_phase(api, fd, fb, gs, build, crops,
+                                            "--mutants" in sys.argv[1:])
+
     phase("train bf16")
     torch.cuda.empty_cache()
     train, k3, k2_train = train_phase(api, bn, gs)
@@ -1340,9 +1767,10 @@ def main() -> int:
                                    "crops_per_s": beam_crops_s, "ms_per_call": ms_beam,
                                    "batch": B, "stage_ms": beam_stages,
                                    "decoder_share": share, "profile": beam_prof},
-                      "e2e_int8": e2e_int8, "train": train}), flush=True)
+                      "e2e_int8": e2e_int8, "e2e_semantic": e2e_semantic,
+                      "train": train}), flush=True)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [k1, k1e, k1q, k2, k3, k4]}), flush=True)
+    print(json.dumps({"kernels": [k1, k1e, k1q, k2, k3, k4, k1c, k4c]}), flush=True)
     timer.cancel()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

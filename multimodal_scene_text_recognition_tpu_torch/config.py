@@ -1,7 +1,7 @@
 """Model and training configuration: the fields of the JAX package's
-``ModelConfig`` and ``TrainConfig`` that the serving paths (greedy, beam
-and int8) and the train step read, with the same defaults (JAX counterpart:
-core/config.py)."""
+``ModelConfig`` and ``TrainConfig`` that the serving paths (greedy, beam,
+int8 and the semantic fusion hooks) and the train step read, with the same
+defaults (JAX counterpart: core/config.py)."""
 
 from __future__ import annotations
 
@@ -27,8 +27,28 @@ class ModelConfig:
     dec_layers: int = 6
     num_heads: int = 8
     ff_dim: int = 2048
+    # semantic vectors: detector class ids embedded per crop (JAX
+    # models/semantic.py).  SceneTextModel refuses what is not ported: the
+    # "rand" source and the "bert" embedding.
+    semantic_vector: str = "overlap"      # overlap | scene | combined
+    semantic_source: str = "vinvl"        # coco | vg | vinvl | zero | rand
+    semantic_embedding: str = "linear"    # linear | bert
     num_obj_classes: int = 2000
     max_overlap_objs: int = 15
+    max_scene_objs: int = 52
+    # fusion hooks: relevance-weighted semantics fused into the encoder's
+    # input, the decoder's memory, its step-0 input (the semantic CLS
+    # vector, the cls0 row of the fused decode and beam kernels) and its
+    # logits (greedy only).  Serving only: SceneTextModel refuses them in
+    # train mode, and refuses the three per-layer decoder sites
+    # (multihead_*), which need the non-fused greedy stepper.
+    pre_encoder_mlp: bool = False
+    pre_decoder_mlp: bool = False
+    cls_decoder_init: bool = False
+    post_decoder_mlp: bool = False
+    multihead_pre_target: bool = False
+    multihead_pre_memory: bool = False
+    multihead_post_memory: bool = False
     # greedy decode and beam search stop once every row (every beam of a
     # row) has emitted [s]; [s]-pruned strings and beam scores are those of
     # the full-length loop.  The greedy loop runs only as the fused decode
@@ -46,9 +66,6 @@ class ModelConfig:
     decode_int8: bool = False
     encoder_int8: bool = False
     tps_int8: bool = False
-    # the semantic CLS step-0 input of the decoder is not ported;
-    # SceneTextModel refuses True
-    cls_decoder_init: bool = False
     max_text_length: int = 25
     chars: str = DEFAULT_CHARS
     compute_dtype: str = "bfloat16"

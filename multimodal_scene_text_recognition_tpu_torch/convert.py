@@ -14,10 +14,18 @@ the same module paths, so only the leaf name and the layout change:
     w_qkv [E, 3E] / b_qkv                  -> in_proj_weight [3E, E] / in_proj_bias
     w_out [E, E] / b_out                   -> out_proj.weight [E, E] / out_proj.bias
     batch_stats mean / var                 -> running_mean / running_var
+    fc{i}_kernel [in, out] / fc{i}_bias    -> fc{i}.weight [out, in] / fc{i}.bias
+
+The last row is the JAX package's ``MLPP``, whose layers are flat leaves of
+one module: the decoder's fusion MLPs (``relevant_mlp``, ``combine_mlp``,
+``sem_cls_mlp``, ``post_mlp``, ``post_combine_mlp``).  Its ``MLP`` (the
+encoder's ``sem_relevance_mlp`` and ``combine_mlp``) keeps one module per
+layer, ``fc{i}.kernel``, as any dense layer.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -36,8 +44,10 @@ _LEAF = {
     "var": "running_var",
 }
 _TRANSPOSED = {"kernel", "w_qkv", "w_out"}
-_EMBEDDINGS = ("emb", "embed")
+_EMBEDDINGS = ("emb", "embed", "overlap_embed", "scene_embed")
 META_KEYS = ("__step__",)
+_FLAT_LAYER = re.compile(r"(fc\d+)_(kernel|bias)")  # an MLPP leaf
+_FLAT_MLP = re.compile(r"decoder\.\w+_mlp\.fc\d+")  # a port layer of an MLPP
 
 
 def _convert(leaf: str, arr: np.ndarray) -> np.ndarray:
@@ -61,6 +71,10 @@ def bundle_to_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tens
             continue
         collection, _, rest = key.partition(".")
         path, _, leaf = rest.rpartition(".")
+        layer = _FLAT_LAYER.fullmatch(leaf)
+        if layer:
+            path = f"{path}.{layer.group(1)}" if path else layer.group(1)
+            leaf = layer.group(2)
         ok = (collection == "params" and leaf in _LEAF and leaf not in ("mean", "var")) or (
             collection == "batch_stats" and leaf in ("mean", "var"))
         if not ok or not path:
@@ -107,5 +121,8 @@ def state_dict_to_bundle(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np
         arr = t.detach().cpu().float().numpy()
         if jleaf in _TRANSPOSED:  # OIHW -> HWIO, [out, in] -> [in, out]
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
-        out[f"{collection}.{path}.{jleaf}"] = np.ascontiguousarray(arr)
+        key = f"{collection}.{path}.{jleaf}"
+        if _FLAT_MLP.fullmatch(path):  # decoder.x_mlp.fc0.kernel -> decoder.x_mlp.fc0_kernel
+            key = f"{collection}.{path}_{jleaf}"
+        out[key] = np.ascontiguousarray(arr)
     return out

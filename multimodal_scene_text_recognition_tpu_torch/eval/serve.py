@@ -1,11 +1,12 @@
-"""Serving facade: crops in, strings out, in fixed batch buckets, by greedy
+"""Serving facade: crops (and, for the semantic fusion hooks, the crops'
+detected objects) in, strings out, in fixed batch buckets, by greedy
 decoding or beam search, in float or through the int8 backbone (JAX
 counterpart: eval/serve.Recognizer)."""
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,7 +47,9 @@ class Recognizer:
     REAL crops only (pad rows are filled by cycling the real crops: a
     zero-padded bucket would pull the static scales below real ranges and
     clip later traffic).  Persisted scales are checked once against the
-    first traffic seen, and a drift past 2x warns.
+    first traffic seen, and a drift past 2x warns.  A model with random
+    weights (``api.get_model(None, ...)``) has no bundle and so no
+    persisted scales: it calibrates on its first call's crops.
     """
 
     def __init__(self, model, batch_sizes: Sequence[int] = (1, 8, 64),
@@ -74,11 +77,18 @@ class Recognizer:
                 return b
         return self.batch_sizes[-1]
 
-    def prepare(self, crops: Sequence[np.ndarray], B: int, tile_real: bool = False):
-        """Stack ``crops`` into a [B, H, W, 1] float32 batch and the (empty)
-        object ids [B, max_overlap_objs] on the model's device.  Pad rows are
-        zero, or with ``tile_real`` copies of the real crops in turn
-        (calibration batches must not see pad rows)."""
+    def prepare(self, crops: Sequence[np.ndarray], B: int, tile_real: bool = False,
+                semantics: Optional[Mapping[str, np.ndarray]] = None):
+        """Stack ``crops`` into a [B, H, W, 1] float32 batch on the model's
+        device, with its semantic inputs: ``overlap`` ids [B,
+        max_overlap_objs], ``scene`` ids [B, max_scene_objs] and ``ious``
+        float32 [B, max_scene_objs].  Image pad rows are zero, or with
+        ``tile_real`` copies of the real crops in turn (calibration batches
+        must not see pad rows).  Without ``semantics`` the semantic inputs
+        are the JAX defaults (no objects: zero ids, ``ious`` -1000); each
+        array that ``semantics`` holds (rows aligned with ``crops``) fills
+        its input, whose pad rows are then zero, as JAX ``recognize`` fills
+        them.  Returns ``(image, overlap, scene, ious)``."""
         m = self.cfg
         img = np.zeros((B, m.img_h, m.img_w, 1), np.float32)
         for i, c in enumerate(crops):
@@ -95,9 +105,18 @@ class Recognizer:
         if tile_real and len(crops) > 0:
             for i in range(len(crops), B):
                 img[i] = img[i % len(crops)]
+        sem = {"overlap": np.zeros((B, m.max_overlap_objs), np.int64),
+               "scene": np.zeros((B, m.max_scene_objs), np.int64),
+               "ious": np.full((B, m.max_scene_objs), -1000.0, np.float32)}
+        for k, v in (semantics or {}).items():
+            if k not in sem:
+                raise ValueError(f"unknown semantic input {k!r} (overlap, scene, ious)")
+            arr = np.zeros_like(sem[k])
+            arr[: len(crops)] = np.asarray(v)[: len(crops)]
+            sem[k] = arr
         image = torch.from_numpy(img).to(self.device)
-        overlap = torch.zeros(B, m.max_overlap_objs, dtype=torch.long, device=self.device)
-        return image, overlap
+        return (image, *(torch.from_numpy(sem[k]).to(self.device)
+                         for k in ("overlap", "scene", "ious")))
 
     @torch.no_grad()
     def _observe_absmax(self, crops: Sequence[np.ndarray]) -> Dict[str, float]:
@@ -105,7 +124,7 @@ class Recognizer:
         of the loc-net under ``tps/``) over real crops, pad rows filled by
         cycling them."""
         crops = list(crops)[: self.batch_sizes[-1]]
-        image, _ = self.prepare(crops, self._bucket(len(crops)), tile_real=True)
+        image = self.prepare(crops, self._bucket(len(crops)), tile_real=True)[0]
         model = self.model
         with model.precision():
             observed = calibrate_resnet(model.feature_extractor, model.rectify(image))
@@ -146,32 +165,40 @@ class Recognizer:
 
     @torch.no_grad()
     def recognize(self, crops: Sequence[np.ndarray], beam_size: int = 0,
-                  return_scores: bool = False
+                  return_scores: bool = False, *,
+                  semantics: Optional[Mapping[str, np.ndarray]] = None
                   ) -> Union[List[str], Tuple[List[str], List[float]]]:
         """Recognise a list of grayscale crops; returns the decoded strings,
         or with ``return_scores`` (strings, scores).
 
         ``beam_size`` > 0 decodes by beam search of that width, and a
         crop's score is its best beam's cumulative log-probability; greedy
-        decoding (``beam_size=0``) scores every crop 0.0."""
+        decoding (``beam_size=0``) scores every crop 0.0.  ``semantics``:
+        the crops' detected objects for the fusion hooks, a dict of
+        ``overlap`` ids [N, max_overlap_objs], ``scene`` ids [N,
+        max_scene_objs] and ``ious`` [N, max_scene_objs] (any of them; see
+        :meth:`prepare`), rows aligned with ``crops``."""
         texts: List[str] = []
         scores: List[float] = []
         step = self.batch_sizes[-1]
         for i in range(0, len(crops), step):
             chunk = crops[i:i + step]
             n = len(chunk)
-            image, overlap = self.prepare(chunk, self._bucket(n))
+            sem = None if semantics is None else {k: np.asarray(v)[i:i + n]
+                                                  for k, v in semantics.items()}
+            image, overlap, scene, ious = self.prepare(chunk, self._bucket(n), semantics=sem)
             if beam_size:
                 if self.int8_backbone:
-                    ids, best = self._ensure_int8(chunk, beam_size)(image, overlap)
+                    ids, best = self._ensure_int8(chunk, beam_size)(image, overlap, scene, ious)
                 else:
-                    ids, best = self.model.beam_decode(image, overlap, int(beam_size))
+                    ids, best = self.model.beam_decode(image, overlap, int(beam_size),
+                                                       scene=scene, ious=ious)
                 scores.extend(best[:n].tolist())
             else:
                 if self.int8_backbone:
-                    ids = self._ensure_int8(chunk)(image, overlap)
+                    ids = self._ensure_int8(chunk)(image, overlap, scene, ious)
                 else:
-                    ids = self.model(image, overlap).argmax(dim=-1)
+                    ids = self.model(image, overlap, scene=scene, ious=ious).argmax(dim=-1)
                 scores.extend([0.0] * n)
             texts.extend(self.codec.decode(ids.cpu().numpy())[:n])
         return (texts, scores) if return_scores else texts

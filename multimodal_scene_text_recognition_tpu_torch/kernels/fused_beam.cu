@@ -1,14 +1,20 @@
 // Whole beam search of the transformer decoder in one kernel.
 //
 // Replaces the TPU kernel multimodal_scene_text_recognition_tpu/ops/
-// fused_beam.py::_beam_kernel (no CLS step-0 row).  For each batch row it
-// keeps K beams.  Each step embeds every beam's previous token, runs L
-// decoder layers over per-beam self-attention caches and the row's
+// fused_beam.py::_beam_kernel, with its cls0 step-0 row.  For each batch
+// row it keeps K beams.  Each step embeds every beam's previous token, runs
+// L decoder layers over per-beam self-attention caches and the row's
 // precomputed memory K/V, the final LN and the class head, takes an f32
 // log-softmax per beam, lets a finished beam continue only with eos_id at
 // zero cost, keeps the best K of the row's K*C continuations and folds the
 // parents' history into the new beams.  Output: tokens [B, K, T] int32 and
 // cumulative log-probabilities [B, K], best first.
+//
+// cls0 (cls_decoder_init): when the launcher gets a non-null [B, E] float32
+// pointer, step 0's input row of every one of row b's K beams is cls0[b] +
+// pe[0] in float32, unrounded, in place of emb[go_id] + pe[0] (the TPU
+// kernel stacks cls0 K times).  Only beam 0 is live at step 0; the others'
+// step-0 cache entries are read through the ancestry map like any other.
 //
 // Design.  One CTA per batch row owns that row's K beams as the rows of a
 // tile, as the greedy kernel (fused_decode.cu) owns its rows: each weight
@@ -57,6 +63,7 @@ struct Params {
   const T *n1_s, *n1_b, *n2_s, *n2_b, *n3_s, *n3_b;
   const T *fn_s, *fn_b, *head_w, *head_b, *emb;
   const float* pe;   // [T, E]
+  const float* cls0;  // [B, E] step-0 rows, or null: emb[go_id]
   const T *ck, *cv;  // memory K/V [L, B, Tm, E], shared by a row's beams
   T *kc, *vc;        // self-attention caches [L, B, K, T, E]
   int* tokens;       // [B, K, T]
@@ -304,9 +311,12 @@ __global__ void __launch_bounds__(kThreads) beam_kernel(Params<T> p) {
 
   for (int t = 0; t < T_; ++t) {
     if (tid < R) anc[tid * T_ + t] = tid;  // beam k writes position t to slot k
+    const bool from_cls = t == 0 && p.cls0 != nullptr;
     for (int i = tid; i < R * E; i += nt) {
       int r = i / E, e = i - r * E;
-      xs[i] = Num<T>::to_f(p.emb[(size_t)tok[r] * E + e]) + p.pe[t * E + e];
+      float x = from_cls ? p.cls0[(size_t)b * E + e]
+                         : Num<T>::to_f(p.emb[(size_t)tok[r] * E + e]);
+      xs[i] = x + p.pe[t * E + e];
     }
     __syncthreads();
 
@@ -463,7 +473,7 @@ int launch(const Params<T>& p, cudaStream_t stream) {
 
 template <typename T>
 int run(const void* const* ptr, const int* dim, float eps, float scale,
-        cudaStream_t stream) {
+        const float* cls0, cudaStream_t stream) {
   Params<T> p;
   const T** w[] = {&p.w_qkv, &p.b_qkv, &p.w_out, &p.b_out, &p.cw_q,
                    &p.cb_q,  &p.cw_o,  &p.cb_o,  &p.ff1_w, &p.ff1_b,
@@ -473,6 +483,7 @@ int run(const void* const* ptr, const int* dim, float eps, float scale,
   const int nw = sizeof(w) / sizeof(w[0]);
   for (int i = 0; i < nw; ++i) *w[i] = (const T*)ptr[i];
   p.pe = (const float*)ptr[nw];
+  p.cls0 = cls0;
   p.ck = (const T*)ptr[nw + 1];
   p.cv = (const T*)ptr[nw + 2];
   p.kc = (T*)ptr[nw + 3];
@@ -496,13 +507,16 @@ int run(const void* const* ptr, const int* dim, float eps, float scale,
 
 // ptr: the 23 weight tables in Params order, then pe, ck, cv, kc, vc,
 // tokens, scores.  dim: B, T, L, E, F, C, H, Tm, go_id, eos_id, K,
-// early_stop.  dtype: 0 = float32, 1 = bfloat16.  Every pointer lies on the
+// early_stop.  dtype: 0 = float32, 1 = bfloat16.  cls0: the [B, E] float32
+// step-0 rows, or null for the [GO] embedding.  Every pointer lies on the
 // device of `stream`, which the caller makes the current device for the
 // call.
 extern "C" int fused_beam(int dtype, const void* const* ptr, const int* dim,
-                          float eps, float scale, void* stream) {
+                          float eps, float scale, const void* cls0,
+                          void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return run<float>(ptr, dim, eps, scale, s);
-  if (dtype == 1) return run<__nv_bfloat16>(ptr, dim, eps, scale, s);
+  const float* c0 = (const float*)cls0;
+  if (dtype == 0) return run<float>(ptr, dim, eps, scale, c0, s);
+  if (dtype == 1) return run<__nv_bfloat16>(ptr, dim, eps, scale, c0, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,12 +2,18 @@
 //
 // Replaces the TPU kernel multimodal_scene_text_recognition_tpu/ops/
 // fused_decode.py::_decode_kernel in float mode (K1, fused_decode) and with
-// quantized=True (K1q, fused_decode_int8), with its eos_id early stop (no
-// CLS step-0 row).  For T steps it embeds the previous token, runs L
+// quantized=True (K1q, fused_decode_int8), with its eos_id early stop and
+// its cls0 step-0 row.  For T steps it embeds the previous token, runs L
 // decoder layers (packed qkv -> self-attention KV-cache write -> causal
 // attention -> out-proj -> LN -> cross-q -> attention over the precomputed
 // memory K/V -> out-proj -> LN -> ReLU FF -> LN), the final LN and the
 // class head, writes logits[b, t, :] and feeds the first-index argmax back.
+//
+// cls0 (cls_decoder_init, the TPU kernel's use_cls row): when the launcher
+// gets a non-null [B, E] float32 pointer, step 0's input row is cls0[b] +
+// pe[0] in float32, unrounded, in place of emb[go_id] + pe[0]: K1 rounds it
+// to T where a projection reads it, K1q quantizes it as it stands.  Only
+// the load of that one row differs; shared memory and the loop do not.
 //
 // Early stop (eos_id >= 0): a row that has emitted eos_id writes no further
 // logits (the caller prefilled them with the eos_id one-hot), and a CTA
@@ -78,6 +84,7 @@ struct Params {
   const T *n1_s, *n1_b, *n2_s, *n2_b, *n3_s, *n3_b;
   const T *fn_s, *fn_b, *head_w, *head_b, *emb;
   const float* pe;  // [T, E]
+  const float* cls0;  // [B, E] step-0 rows, or null: emb[go_id]
   const T *ck, *cv;  // cross K/V [L, B, Tm, E]
   T *kc, *vc;        // self-attention caches [L, B, T, E]
   float* logits;     // [B, T, C]
@@ -435,9 +442,12 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params<T> p) {
   __syncthreads();
 
   for (int t = 0; t < T_; ++t) {
+    const bool from_cls = t == 0 && p.cls0 != nullptr;
     for (int i = tid; i < R * E; i += nt) {
       int r = i / E, e = i - r * E;
-      xs[i] = Num<T>::to_f(p.emb[(size_t)tok[r] * E + e]) + p.pe[t * E + e];
+      float x = from_cls ? p.cls0[(size_t)(r0 + min(r, nrows - 1)) * E + e]
+                         : Num<T>::to_f(p.emb[(size_t)tok[r] * E + e]);
+      xs[i] = x + p.pe[t * E + e];
     }
     __syncthreads();
 
@@ -590,7 +600,7 @@ int launch(const Params<T>& p, cudaStream_t stream) {
 
 template <typename T, bool Q>
 int run(const void* const* ptr, const int* dim, float eps, float scale,
-        cudaStream_t stream) {
+        const float* cls0, cudaStream_t stream) {
   Params<T> p;
   const T** w[] = {&p.w_qkv, &p.b_qkv, &p.w_out, &p.b_out, &p.cw_q,
                    &p.cb_q,  &p.cw_o,  &p.cb_o,  &p.ff1_w, &p.ff1_b,
@@ -600,6 +610,7 @@ int run(const void* const* ptr, const int* dim, float eps, float scale,
   const int nw = sizeof(w) / sizeof(w[0]);
   for (int i = 0; i < nw; ++i) *w[i] = (const T*)ptr[i];
   p.pe = (const float*)ptr[nw];
+  p.cls0 = cls0;
   p.ck = (const T*)ptr[nw + 1];
   p.cv = (const T*)ptr[nw + 2];
   p.kc = (T*)ptr[nw + 3];
@@ -625,14 +636,17 @@ int run(const void* const* ptr, const int* dim, float eps, float scale,
 
 // ptr: the 23 weight tables in Params order, then pe, ck, cv, kc, vc, logits.
 // dim: B, T, L, E, F, C, H, Tm, go_id, eos_id (< 0: no early stop).
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32, 1 = bfloat16.  cls0: the [B, E] float32 step-0 rows,
+// or null for the [GO] embedding.
 // Every pointer lies on the device of `stream`, which the caller makes the
 // current device for the call.
 extern "C" int fused_decode(int dtype, const void* const* ptr, const int* dim,
-                            float eps, float scale, void* stream) {
+                            float eps, float scale, const void* cls0,
+                            void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return run<float, false>(ptr, dim, eps, scale, s);
-  if (dtype == 1) return run<__nv_bfloat16, false>(ptr, dim, eps, scale, s);
+  const float* c0 = (const float*)cls0;
+  if (dtype == 0) return run<float, false>(ptr, dim, eps, scale, c0, s);
+  if (dtype == 1) return run<__nv_bfloat16, false>(ptr, dim, eps, scale, c0, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -641,9 +655,10 @@ extern "C" int fused_decode(int dtype, const void* const* ptr, const int* dim,
 // their six scales [L, N] float32 after the logits.
 extern "C" int fused_decode_int8(int dtype, const void* const* ptr,
                                  const int* dim, float eps, float scale,
-                                 void* stream) {
+                                 const void* cls0, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return run<float, true>(ptr, dim, eps, scale, s);
-  if (dtype == 1) return run<__nv_bfloat16, true>(ptr, dim, eps, scale, s);
+  const float* c0 = (const float*)cls0;
+  if (dtype == 0) return run<float, true>(ptr, dim, eps, scale, c0, s);
+  if (dtype == 1) return run<__nv_bfloat16, true>(ptr, dim, eps, scale, c0, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,14 +9,22 @@ the whole beam search one launch of the fused beam kernel
 (ops/fused_beam.py), in float in every mode (as in the JAX package).  Otherwise beam search runs the
 single-position stepper over KV caches, as the JAX package's XLA path does.
 Training: one teacher-forced causal pass in float32, as the JAX package
-trains its decoder.  The decoder has no fusion sites (the JAX package's
-``multihead_*`` options), and greedy decoding through the stepper is not
+trains its decoder.
+
+The semantic fusion hooks the fused kernels carry run in float32 around
+them: ``pre_decoder_mlp`` fuses the semantics into the memory
+(:meth:`TransformerDecoder.memory`), ``cls_decoder_init`` replaces the
+[GO] embedding at step 0 by the semantic CLS vector (:meth:`sem_cls`, the
+kernels' ``cls0`` row), and ``post_decoder_mlp`` fuses them into the
+greedy logits (:meth:`post_decoder`; beam search refuses it, as the JAX
+package does).  The per-layer fusion sites (the JAX package's
+``multihead_*`` options) and greedy decoding through the stepper are not
 ported.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,7 +36,8 @@ from ..ops.fused_beam import NEG, fused_beam_decode
 from ..ops.fused_decode import (cast_weights, fused_greedy_decode, quantize_fused_weights,
                                 stack_decoder_weights)
 from .encoders import Drop
-from .layers import EPS, MultiHeadAttention, layer_norm, positional_rows
+from .layers import EPS, FusionMLP, MultiHeadAttention, layer_norm, positional_rows, \
+    relevance_fusion
 
 
 class DecoderLayer(nn.Module):
@@ -59,7 +68,9 @@ class TransformerDecoder(nn.Module):
     def __init__(self, num_classes: int, d_model: int = 256, memory_dim: int = 512,
                  num_heads: int = 8, ff_dim: int = 2048, num_layers: int = 6,
                  max_text_length: int = 25, dtype: torch.dtype = torch.bfloat16,
-                 early_stop: bool = False, beam_fused: bool = False, int8: bool = False):
+                 early_stop: bool = False, beam_fused: bool = False, int8: bool = False,
+                 pre_decoder_mlp: bool = False, cls_decoder_init: bool = False,
+                 post_decoder_mlp: bool = False):
         super().__init__()
         self.d_model, self.num_heads, self.num_layers = d_model, num_heads, num_layers
         self.max_text_length = max_text_length
@@ -75,6 +86,19 @@ class TransformerDecoder(nn.Module):
         self.final_norm = layer_norm(d_model)
         for i in range(num_layers):
             self.add_module(f"layer{i}", DecoderLayer(d_model, num_heads, ff_dim))
+        E, C = d_model, num_classes
+        self.pre_decoder_mlp = pre_decoder_mlp
+        self.cls_decoder_init = cls_decoder_init
+        self.post_decoder_mlp = post_decoder_mlp
+        if pre_decoder_mlp:
+            self.relevant_mlp = FusionMLP(2 * E, E, 1, 3)
+            self.combine_mlp = FusionMLP(2 * E, E, E, 2)
+        if cls_decoder_init:
+            self.sem_cls_mlp = FusionMLP(2 * E, E, 1, 3)
+        if post_decoder_mlp:
+            self.post_mlp = FusionMLP(2 * C, C, 1, 3)
+            self.post_combine_mlp = FusionMLP(2 * C, C, C, 3)
+            self.sem_to_classes = nn.Linear(E, C)
 
     def layers(self):
         return [getattr(self, f"layer{i}") for i in range(self.num_layers)]
@@ -131,20 +155,66 @@ class TransformerDecoder(nn.Module):
             x = layer(x, memory, mask, drop)
         return self.emb_to_classes(self.final_norm(x))
 
-    def greedy_decode(self, enc_out: torch.Tensor) -> torch.Tensor:
-        """enc_out [B, Tm, memory_dim] -> logits [B, max_text_length, C] f32.
+    def memory(self, enc_out: torch.Tensor,
+               semantics: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The memory the decoder attends to (JAX ``_memory``):
+        ``hid_to_emb`` of enc_out [B, Tm, memory_dim] -> [B, Tm, E] float32,
+        with ``pre_decoder_mlp`` plus ``combine_mlp`` of it beside its
+        relevance-weighted semantics [B, O, E]."""
+        memory = self.hid_to_emb(enc_out)
+        if not self.pre_decoder_mlp:
+            return memory
+        rel = relevance_fusion(memory, semantics, self.relevant_mlp)
+        return memory + self.combine_mlp(torch.cat([memory, rel], dim=-1))
+
+    def sem_cls(self, memory: torch.Tensor, semantics: torch.Tensor) -> torch.Tensor:
+        """The semantic CLS vector [B, E] float32, the step-0 input with
+        ``cls_decoder_init`` (JAX ``_sem_cls``): the relevance-weighted
+        semantics of each memory position, softmaxed over the positions and
+        summed over them.  As written in the JAX package (and the reference
+        model it copies), the sum is over the softmax's own axis, so every
+        element is 1 up to float32 rounding whatever ``sem_cls_mlp`` holds."""
+        rel = relevance_fusion(memory, semantics, self.sem_cls_mlp)
+        return torch.softmax(rel, dim=1).sum(dim=1)
+
+    def post_decoder(self, logits: torch.Tensor, semantics: torch.Tensor) -> torch.Tensor:
+        """Logit-space fusion with ``post_decoder_mlp`` (JAX
+        ``_post_decoder``): logits [B, T, C] plus ``post_combine_mlp`` of
+        them beside the relevance-weighted semantics mapped to classes."""
+        sem_c = self.sem_to_classes(semantics)
+        rel = relevance_fusion(logits, sem_c, self.post_mlp)
+        return logits + self.post_combine_mlp(torch.cat([logits, rel], dim=-1))
+
+    def memory_and_cls0(self, enc_out: torch.Tensor, semantics: Optional[torch.Tensor]):
+        """The memory and, with ``cls_decoder_init``, the step-0 rows (else
+        None)."""
+        memory = self.memory(enc_out, semantics)
+        return memory, self.sem_cls(memory, semantics) if self.cls_decoder_init else None
+
+    def greedy_decode(self, enc_out: torch.Tensor,
+                      semantics: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """enc_out [B, Tm, memory_dim] (and the semantic vectors [B, O, E]
+        the fusion hooks read) -> logits [B, max_text_length, C] f32.
 
         With ``early_stop`` a row stops once it has emitted [s], and its
         later logit rows are the [s] one-hot: [s]-pruned strings are those
         of the full-length loop.  With ``int8`` the loop's six projections
         run int8 (K1q)."""
-        ck, cv = self.cross_kv(self.hid_to_emb(enc_out))
+        logits = self.greedy_from_memory(*self.memory_and_cls0(enc_out, semantics))
+        return self.post_decoder(logits, semantics) if self.post_decoder_mlp else logits
+
+    def greedy_from_memory(self, memory: torch.Tensor,
+                           cls0: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The greedy loop over ``memory`` [B, Tm, E] (from :meth:`memory`),
+        with step-0 rows ``cls0`` [B, E] where given: the cross-attention
+        K/V, then the fused decode (K1, K1e or K1q)."""
+        ck, cv = self.cross_kv(memory)
         w, scales = self.fused_weights(int8=True) if self.int8 else (self.fused_weights(), None)
         return fused_greedy_decode(
             w, ck, cv, num_heads=self.num_heads,
             steps=self.max_text_length, dtype=self.dtype, go_id=GO_ID,
             eos_id=EOS_ID if self.early_stop else None, eps=EPS,
-            plain=not self.use_kernels, scales=scales)
+            plain=not self.use_kernels, scales=scales, cls0=cls0)
 
     def _make_stepper(self, memory: torch.Tensor):
         """Single-position decode machinery over ``memory`` [B', Tm, E] in
@@ -211,10 +281,11 @@ class TransformerDecoder(nn.Module):
 
         return step_all, make_caches
 
-    def beam_decode(self, enc_out: torch.Tensor, beam_size: int = 5,
-                    length_penalty: float = 0.0, reorder_caches: bool = False
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Batched beam search: enc_out [B, Tm, memory_dim] -> (tokens
+    def beam_decode(self, enc_out: torch.Tensor, semantics: Optional[torch.Tensor] = None,
+                    beam_size: int = 5, length_penalty: float = 0.0,
+                    reorder_caches: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Batched beam search: enc_out [B, Tm, memory_dim] (and the
+        semantic vectors [B, O, E] the fusion hooks read) -> (tokens
         [B, max_text_length], scores [B]) of the best beam per row.
 
         Only beam 0 is live at step 0; a finished beam ([s] emitted)
@@ -233,16 +304,30 @@ class TransformerDecoder(nn.Module):
         With ``early_stop`` the search ends once every beam has finished;
         tokens up to each beam's first [s] and the scores are those of the
         full-length search.  ``length_penalty`` > 0 ranks the beams by
-        GNMT-normalised scores (:meth:`rank_beams`).
+        GNMT-normalised scores (:meth:`rank_beams`).  With
+        ``cls_decoder_init`` every beam starts from its row's semantic CLS
+        vector.  ``post_decoder_mlp`` raises: its logit fusion is a
+        whole-sequence transform that per-step beam scores cannot take.
         """
-        memory = self.hid_to_emb(enc_out)
+        if self.post_decoder_mlp:
+            raise NotImplementedError(
+                "beam_decode does not support post_decoder_mlp (its logit fusion is a "
+                "whole-sequence transform applied after decoding); use greedy decoding")
+        return self.beam_from_memory(*self.memory_and_cls0(enc_out, semantics), beam_size,
+                                     length_penalty, reorder_caches)
+
+    def beam_from_memory(self, memory: torch.Tensor, cls0: Optional[torch.Tensor] = None,
+                         beam_size: int = 5, length_penalty: float = 0.0,
+                         reorder_caches: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`beam_decode` over ``memory`` [B, Tm, E] (from
+        :meth:`memory`), with step-0 rows ``cls0`` [B, E] where given."""
         B, K, T = memory.shape[0], beam_size, self.max_text_length
         if self.beam_fused and not reorder_caches:
             ck, cv = self.cross_kv(memory)
             tokens, scores = fused_beam_decode(
                 self.fused_weights(), ck, cv, beam_size=K, num_heads=self.num_heads,
                 steps=T, dtype=self.dtype, go_id=GO_ID, eos_id=EOS_ID, eps=EPS,
-                early_stop=self.early_stop, plain=not self.use_kernels)
+                early_stop=self.early_stop, plain=not self.use_kernels, cls0=cls0)
             return self.rank_beams(tokens, scores, length_penalty)
 
         dev = memory.device
@@ -261,7 +346,10 @@ class TransformerDecoder(nn.Module):
         for t in range(T):
             if self.early_stop and finished.all():
                 break
-            x = self.emb.weight[tok.reshape(-1)][:, None] + pe[t]
+            if t == 0 and cls0 is not None:  # every beam of a row from its cls0
+                x = cls0.repeat_interleave(K, dim=0)[:, None] + pe[0]
+            else:
+                x = self.emb.weight[tok.reshape(-1)][:, None] + pe[t]
             if reorder_caches:
                 logits = step_all(x, t, caches)
             else:

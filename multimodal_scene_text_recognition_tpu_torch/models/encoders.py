@@ -6,17 +6,18 @@ JAX module's sites: the positional encoding's output, the attention output
 (``drop1``), the FF's hidden ReLU (``drop_ff``) and the FF output
 (``drop2``).  With ``int8`` the attention projections and the FF matmuls
 run through the int8 matmul (ops/int8.py) in eval mode; training stays
-float."""
+float.  With ``pre_encoder_mlp`` the semantic vectors are fused into the
+columns before the positional encoding (:meth:`TransformerEncoder.fuse`)."""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 
 from ..ops.int8 import int8_linear
-from .layers import MultiHeadAttention, layer_norm, positional_rows
+from .layers import FusionMLP, MultiHeadAttention, layer_norm, positional_rows, relevance_fusion
 
 Drop = Callable[[torch.Tensor], torch.Tensor]
 
@@ -52,20 +53,40 @@ class EncoderLayer(nn.Module):
 
 class TransformerEncoder(nn.Module):
     def __init__(self, d_model: int = 512, num_heads: int = 8, ff_dim: int = 2048,
-                 num_layers: int = 6, max_len: int = 26, int8: bool = False):
+                 num_layers: int = 6, max_len: int = 26, int8: bool = False,
+                 pre_encoder_mlp: bool = False, embed_dim: int = 256):
         super().__init__()
         self.max_len, self.d_model, self.num_layers = max_len, d_model, num_layers
-        self.int8 = int8
+        self.int8, self.pre_encoder_mlp = int8, pre_encoder_mlp
+        if pre_encoder_mlp:
+            width = d_model + embed_dim  # [column; semantic vector]
+            self.sem_relevance_mlp = FusionMLP(width, d_model, 1, 3)
+            self.combine_mlp = FusionMLP(width, d_model, d_model, 3)
         for i in range(num_layers):
             self.add_module(f"layer{i}", EncoderLayer(d_model, num_heads, ff_dim))
         self.final_norm = layer_norm(d_model)
 
-    def forward(self, cols: torch.Tensor, drop: Drop = no_dropout,
-                train: bool = False) -> torch.Tensor:
-        """cols [B, T, d_model] float32 -> [B, T, d_model]; ``train`` turns
-        the int8 route off."""
-        pe = positional_rows(self.max_len, self.d_model, cols.device)
-        x = drop(cols + pe[: cols.shape[1]])
+    def fuse(self, cols: torch.Tensor, semantics: Optional[torch.Tensor]) -> torch.Tensor:
+        """The pre-encoder fusion (JAX encoders.py:131-145): each column plus
+        ``combine_mlp`` of it beside its relevance-weighted semantic vector;
+        ``cols`` unchanged without ``pre_encoder_mlp``."""
+        if not self.pre_encoder_mlp:
+            return cols
+        rel = relevance_fusion(cols, semantics, self.sem_relevance_mlp)
+        return cols + self.combine_mlp(torch.cat([cols, rel], dim=-1))
+
+    def forward(self, cols: torch.Tensor, drop: Drop = no_dropout, train: bool = False,
+                semantics: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """cols [B, T, d_model] float32 (semantics [B, O, embed_dim] with
+        ``pre_encoder_mlp``) -> [B, T, d_model]; ``train`` turns the int8
+        route off."""
+        return self.encode(self.fuse(cols, semantics), drop, train)
+
+    def encode(self, x: torch.Tensor, drop: Drop = no_dropout,
+               train: bool = False) -> torch.Tensor:
+        """The positional encoding, the layers and the final norm."""
+        pe = positional_rows(self.max_len, self.d_model, x.device)
+        x = drop(x + pe[: x.shape[1]])
         for i in range(self.num_layers):
             x = getattr(self, f"layer{i}")(x, drop, int8=self.int8 and not train)
         return self.final_norm(x)

@@ -114,6 +114,47 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(out)
 
 
+class FusionMLP(nn.Module):
+    """The semantic fusion MLP (JAX ``layers.MLP`` in eval mode, where its
+    dropout is off, and its weight-container twin ``layers.MLPP``):
+    ``num_layers`` linear layers ``fc0..``, ``hidden_dim`` wide but the last
+    (``out_dim``), with ReLU between them."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, num_layers: int):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"fc{i}", nn.Linear(in_dim if i == 0 else hidden_dim,
+                                                out_dim if i == num_layers - 1 else hidden_dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.after_first(self.fc0(x))
+
+    def after_first(self, h: torch.Tensor) -> torch.Tensor:
+        """The layers after ``fc0``, from its output ``h``."""
+        for i in range(1, self.num_layers):
+            h = getattr(self, f"fc{i}")(torch.relu(h))
+        return h
+
+
+def relevance_fusion(feats: torch.Tensor, sem: torch.Tensor, mlp: FusionMLP) -> torch.Tensor:
+    """Per-position soft selection of semantic vectors (JAX
+    ``layers.relevance_fusion``): feats [B, T, Df], sem [B, O, Ds] ->
+    ``sum_o softmax_o(mlp([feats[b, t]; sem[b, o]])) * sem[b, o]``
+    [B, T, Ds], the scores ``mlp`` gives being [B, T, O, 1].
+
+    The pair tensor [B, T, O, Df + Ds] is never copied together: the first
+    layer's product splits over the concat, feats times its first Df input
+    columns once per position plus sem times the rest once per object,
+    summed by broadcast into [B, T, O, hidden].  Pad objects (id 0) are not
+    masked: they take part in the softmax, as in the JAX package."""
+    fc0, Df = mlp.fc0, feats.shape[-1]
+    h = (F.linear(feats, fc0.weight[:, :Df])[:, :, None]
+         + F.linear(sem, fc0.weight[:, Df:], fc0.bias)[:, None])
+    scores = torch.softmax(mlp.after_first(h)[..., 0], dim=2)  # [B, T, O]
+    return scores @ sem
+
+
 @functools.lru_cache(maxsize=None)
 def positional_rows(max_len: int, d_model: int, device: torch.device) -> torch.Tensor:
     """:func:`sinusoidal_table` as a float32 tensor on ``device``."""

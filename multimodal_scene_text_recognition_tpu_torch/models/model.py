@@ -2,7 +2,13 @@
 (JAX counterpart: models/model.py): greedy inference, beam search, the
 teacher-forced training pass, and the int8 serving step that splices the
 int8 loc-net and backbone in front of the encoder and decoder
-(:func:`make_int8_eval_step`, JAX models/resnet_int8.make_int8_eval_step)."""
+(:func:`make_int8_eval_step`, JAX models/resnet_int8.make_int8_eval_step).
+
+Every inference entry point takes the semantic inputs of the JAX model:
+``overlap`` [B, max_overlap_objs] ids, and as keywords ``scene``
+[B, max_scene_objs] ids and ``ious`` [B, max_scene_objs] float32, which
+default to the JAX serving defaults (zeros, and -1000 for ``ious``).  The
+semantic vectors feed the fusion hooks of the encoder and the decoder."""
 
 from __future__ import annotations
 
@@ -22,8 +28,12 @@ from .layers import BatchNorm2d, dropout, nchw_channels_last
 from .resnet import ResNet31, to_column_sequence
 from .resnet_int8 import QConv, quantize_resnet, quantize_tps, resnet31_int8_forward, \
     tps_int8_rectify
-from .semantic import LinearEmbedding
+from .semantic import build_semantic_embedder
 from .transformation import TPSTransform
+
+
+FUSION_FLAGS = ("pre_encoder_mlp", "pre_decoder_mlp", "cls_decoder_init", "post_decoder_mlp")
+PER_LAYER_SITES = ("multihead_pre_target", "multihead_pre_memory", "multihead_post_memory")
 
 
 class SceneTextModel(nn.Module):
@@ -33,22 +43,28 @@ class SceneTextModel(nn.Module):
             raise NotImplementedError(
                 "the port serves greedy decode through the fused decode kernel "
                 "only (decode_fused=True)")
-        if cfg.cls_decoder_init:
-            raise NotImplementedError("cls_decoder_init is not ported")
+        sites = [f for f in PER_LAYER_SITES if getattr(cfg, f)]
+        if sites:
+            raise NotImplementedError(
+                f"the per-layer decoder fusion sites {sites} are not ported (they need the "
+                f"non-fused greedy stepper)")
         self.cfg = cfg
         dtype = getattr(torch, cfg.compute_dtype)
         if cfg.use_tps:
             self.transformation = TPSTransform(
                 cfg.num_fiducial, cfg.img_h, cfg.img_w, cfg.input_channels, dtype)
         self.feature_extractor = ResNet31(cfg.input_channels, cfg.hidden_dim, dtype=dtype)
-        self.semantic = LinearEmbedding(cfg.num_obj_classes, cfg.embed_dim)
+        self.semantic = build_semantic_embedder(cfg)
         self.encoder = TransformerEncoder(cfg.hidden_dim, cfg.num_heads, cfg.ff_dim,
-                                          cfg.enc_layers, cfg.num_cols, int8=cfg.encoder_int8)
+                                          cfg.enc_layers, cfg.num_cols, int8=cfg.encoder_int8,
+                                          pre_encoder_mlp=cfg.pre_encoder_mlp,
+                                          embed_dim=cfg.embed_dim)
         self.decoder = TransformerDecoder(
             cfg.num_classes, cfg.embed_dim, cfg.hidden_dim, cfg.num_heads, cfg.ff_dim,
             cfg.dec_layers, cfg.max_text_length, dtype,
             early_stop=cfg.decode_early_stop, beam_fused=cfg.decode_beam_fused,
-            int8=cfg.decode_int8)
+            int8=cfg.decode_int8, pre_decoder_mlp=cfg.pre_decoder_mlp,
+            cls_decoder_init=cfg.cls_decoder_init, post_decoder_mlp=cfg.post_decoder_mlp)
         self.set_use_kernels(True)
         for mod in self.modules():  # cfg.fused_bn is K3's default
             if isinstance(mod, BatchNorm2d):
@@ -86,51 +102,77 @@ class SceneTextModel(nn.Module):
         feats = self.feature_extractor(nchw_channels_last(rectified), train)
         return to_column_sequence(feats)
 
-    def decode_from_columns(self, cols: torch.Tensor, overlap: torch.Tensor) -> torch.Tensor:
-        """Semantics + encoder + greedy decoder from column features."""
-        # the semantic vectors feed only the fusion sites, all off in the
-        # served configuration; computed for parity with the JAX forward
-        self.semantic(overlap)
-        return self.decoder.greedy_decode(self.encoder(cols))
+    def semantics(self, overlap: torch.Tensor, scene: Optional[torch.Tensor] = None,
+                  ious: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The semantic vectors [B, O, embed_dim] float32 of the object ids;
+        ``scene`` and ``ious`` default to zeros and -1000 (the JAX serving
+        defaults: no scene objects)."""
+        B, n = overlap.shape[0], self.cfg.max_scene_objs
+        if scene is None:
+            scene = torch.zeros(B, n, dtype=torch.long, device=overlap.device)
+        if ious is None:
+            ious = torch.full((B, n), -1000.0, device=overlap.device)
+        return self.semantic(overlap, scene, ious)
 
-    def beam_from_columns(self, cols: torch.Tensor, overlap: torch.Tensor, beam_size: int = 5,
+    def decode_from_columns(self, cols: torch.Tensor, overlap: torch.Tensor, *,
+                            scene: Optional[torch.Tensor] = None,
+                            ious: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Semantics + encoder + greedy decoder from column features."""
+        sem = self.semantics(overlap, scene, ious)
+        return self.decoder.greedy_decode(self.encoder(cols, semantics=sem), sem)
+
+    def beam_from_columns(self, cols: torch.Tensor, overlap: torch.Tensor, *,
+                          scene: Optional[torch.Tensor] = None,
+                          ious: Optional[torch.Tensor] = None, beam_size: int = 5,
                           length_penalty: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
         """Semantics + encoder + beam search from column features: the
         :meth:`decode_from_columns` counterpart for spliced backbones (int8
         serving) -> (tokens [B, max_text_length], scores [B])."""
-        self.semantic(overlap)  # feeds only the fusion sites, all off
-        return self.decoder.beam_decode(self.encoder(cols), beam_size, length_penalty)
+        sem = self.semantics(overlap, scene, ious)
+        return self.decoder.beam_decode(self.encoder(cols, semantics=sem), sem, beam_size,
+                                        length_penalty)
 
     def forward(self, image: torch.Tensor, overlap: torch.Tensor,
                 text: Optional[torch.Tensor] = None, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """image [B, H, W, 1] float32 in [0, 1], overlap [B, n] int ids.
+                generator: Optional[torch.Generator] = None, *,
+                scene: Optional[torch.Tensor] = None,
+                ious: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """image [B, H, W, 1] float32 in [0, 1], overlap [B, n] int ids
+        (``scene``/``ious``: see the module's docstring).
 
         ``train=False``: greedy logits [B, max_text_length, num_classes]
         float32 (``text`` is ignored).  ``train=True``: the teacher-forced
         pass over ``text`` [B, T] input ids, with BatchNorm on batch
         statistics (updating the running ones) and dropout drawn from
         ``generator`` (on the image's device) -> logits [B, T, num_classes]
-        float32."""
+        float32.  Training with a fusion hook on is not ported and
+        raises."""
         if not train:
             with self.precision():
-                return self.decode_from_columns(self.features(self.rectify(image)), overlap)
+                return self.decode_from_columns(self.features(self.rectify(image)), overlap,
+                                                scene=scene, ious=ious)
+        hooks = [f for f in FUSION_FLAGS if getattr(self.cfg, f)]
+        if hooks:
+            raise NotImplementedError(f"training with the fusion hooks {hooks} is not ported")
         if text is None or generator is None:
             raise ValueError("train=True needs the input ids and a generator")
         drop = functools.partial(dropout, p=self.cfg.dropout, generator=generator)
         with self.precision():
             cols = self.features(self.rectify(image, train=True), train=True)
-            self.semantic(overlap)  # feeds only the fusion sites, all off
+            self.semantics(overlap, scene, ious)  # feeds only the fusion hooks, all off
             return self.decoder.teacher_forced(self.encoder(cols, drop, train=True), text, drop)
 
     def beam_decode(self, image: torch.Tensor, overlap: torch.Tensor, beam_size: int = 5,
-                    length_penalty: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+                    length_penalty: float = 0.0, *, scene: Optional[torch.Tensor] = None,
+                    ious: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Beam-search recognition: image [B, H, W, 1] float32 in [0, 1],
-        overlap [B, n] ids -> (tokens [B, max_text_length], scores [B]) of
-        the best beam per row (see ``TransformerDecoder.beam_decode``)."""
+        overlap [B, n] ids (``scene``/``ious``: see the module's docstring)
+        -> (tokens [B, max_text_length], scores [B]) of the best beam per
+        row (see ``TransformerDecoder.beam_decode``)."""
         with self.precision():
             return self.beam_from_columns(self.features(self.rectify(image)), overlap,
-                                          beam_size, length_penalty)
+                                          scene=scene, ious=ious, beam_size=beam_size,
+                                          length_penalty=length_penalty)
 
 
 def make_int8_eval_step(model: SceneTextModel, x_absmax: Dict[str, float],
@@ -143,9 +185,9 @@ def make_int8_eval_step(model: SceneTextModel, x_absmax: Dict[str, float],
 
     Activation scales come from ``x_absmax``, a calibration (the
     Recognizer's, or a persisted one) with the loc-net's sites under a
-    ``tps/`` prefix.  Returns ``(step, qsites)``: ``step(image, overlap)``
-    -> ids [B, T], or with ``beam_size`` (ids [B, T], scores [B]) by beam
-    search over the same spliced pipeline; ``step.rectify(image)`` and
+    ``tps/`` prefix.  Returns ``(step, qsites)``: ``step(image, overlap,
+    scene=None, ious=None)`` -> ids [B, T], or with ``beam_size`` (ids
+    [B, T], scores [B]) by beam search over the same spliced pipeline; ``step.rectify(image)`` and
     ``step.features(rectified)`` -> columns are its first two stages;
     ``qsites`` the quantized sites (loc-net ones under ``tps/``)."""
     cfg = model.cfg
@@ -173,12 +215,15 @@ def make_int8_eval_step(model: SceneTextModel, x_absmax: Dict[str, float],
             return to_column_sequence(feats.permute(0, 3, 1, 2))
 
     @torch.no_grad()
-    def step(image: torch.Tensor, overlap: torch.Tensor):
+    def step(image: torch.Tensor, overlap: torch.Tensor, scene: Optional[torch.Tensor] = None,
+             ious: Optional[torch.Tensor] = None):
         with model.precision():
             cols = features(rectify(image))
             if beam_size is not None:
-                return model.beam_from_columns(cols, overlap, beam_size)
-            return model.decode_from_columns(cols, overlap).argmax(dim=-1)
+                return model.beam_from_columns(cols, overlap, scene=scene, ious=ious,
+                                               beam_size=beam_size)
+            return model.decode_from_columns(cols, overlap, scene=scene,
+                                             ious=ious).argmax(dim=-1)
 
     step.rectify, step.features = rectify, features
     return step, qsites

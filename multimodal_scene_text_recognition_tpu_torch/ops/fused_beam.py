@@ -1,5 +1,5 @@
 """Whole beam search in one kernel (JAX counterpart: ops/fused_beam.py,
-without the CLS step-0 row).
+with its ``cls0`` step-0 row).
 
 Two versions of one function, ``(tokens [B, K, T] int32, scores [B, K]
 float32)`` with the K beams of each row best first, from the stacked
@@ -25,17 +25,21 @@ the lowest flat index ``k * C + c``, as ``lax.top_k``), and folds the
 parents' ancestry, tokens and finished flags into the new beams.  With
 ``early_stop`` a row stops once all its beams have finished; its later
 token positions stay 0 and its scores are those of the full-length search
-(a finished beam adds 0).
+(a finished beam adds 0).  With ``cls0`` [B, E] float32 every one of a
+row's K beams takes ``cls0[row] + pe[0]`` (float32, unrounded) as its
+step-0 input in place of the [GO] embedding, as the TPU kernel stacks
+``cls0`` K times; only beam 0 is live then, and the caches the others write
+at step 0 are read through the ancestry map as any other.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from .fused_decode import (SMEM_LIMIT, THREADS, FusedDecodeWeights, cast_weights,
+from .fused_decode import (SMEM_LIMIT, THREADS, FusedDecodeWeights, cast_weights, check_cls0,
                            check_kernel_inputs, launch, launcher, plain_ops)
 
 NEG = -1e9  # the score of a dead beam and of a taken or barred continuation
@@ -44,7 +48,8 @@ NEG = -1e9  # the score of a dead beam and of a taken or barred continuation
 def fused_beam_decode_plain(w: FusedDecodeWeights, cross_k: torch.Tensor,
                             cross_v: torch.Tensor, *, beam_size: int, num_heads: int,
                             steps: int, go_id: int = 0, eos_id: int = 1, eps: float = 1e-5,
-                            early_stop: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                            early_stop: bool = False, cls0: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The beam search in PyTorch with the TPU kernel's casts.
 
     ``w`` is already in the compute type (:func:`cast_weights`);
@@ -61,6 +66,7 @@ def fused_beam_decode_plain(w: FusedDecodeWeights, cross_k: torch.Tensor,
     C = w.head_w.shape[1]
     scale = 1.0 / math.sqrt(hd)
     dev = cross_k.device
+    check_cls0(cls0, B, E, dev, "fused beam")
 
     rd, lin, ln = plain_ops(dt, eps)
     f = {k: v.float() for k, v in w._asdict().items()}
@@ -95,7 +101,8 @@ def fused_beam_decode_plain(w: FusedDecodeWeights, cross_k: torch.Tensor,
             if not live.any():
                 break
         anc[:, :, t] = beam_ids
-        x = f["emb"][tok] + f["pe"][t]                          # [B, K, E]
+        x = (cls0[:, None].expand(B, K, E) if t == 0 and cls0 is not None
+             else f["emb"][tok]) + f["pe"][t]                   # [B, K, E]
         for l in range(L):
             qkv = lin(x, f["w_qkv"][l], f["b_qkv"][l])
             kc[l, :, :, t] = rd(qkv[..., E:2 * E])
@@ -158,14 +165,16 @@ def smem_bytes(K: int, E: int, F: int, C: int, H: int, S: int, T: int, vec: int)
 def fused_beam_decode_cuda(w: FusedDecodeWeights, cross_k: torch.Tensor,
                            cross_v: torch.Tensor, *, beam_size: int, num_heads: int,
                            steps: int, go_id: int = 0, eos_id: int = 1, eps: float = 1e-5,
-                           early_stop: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA beam kernel on inputs that
-    ``fused_decode.check_kernel_inputs`` accepts, with 1 <= ``beam_size``
-    <= min(MAX_BEAMS, C) and a tile that fits one CTA's shared memory.
-    Returns (tokens [B, K, T] int32, scores [B, K] float32)."""
+                           early_stop: bool = False, cls0: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA beam kernel (with ``cls0`` its step-0 row) on inputs
+    that ``fused_decode.check_kernel_inputs`` accepts, with 1 <=
+    ``beam_size`` <= min(MAX_BEAMS, C) and a tile that fits one CTA's
+    shared memory.  Returns (tokens [B, K, T] int32, scores [B, K]
+    float32)."""
     L, B, Tm, E, F, C = check_kernel_inputs(w, cross_k, cross_v, num_heads=num_heads,
                                             steps=steps, class_ids=(go_id, eos_id),
-                                            what="fused beam")
+                                            what="fused beam", cls0=cls0)
     dt, K, T, H = w.w_qkv.dtype, beam_size, steps, num_heads
     if not 1 <= K <= min(MAX_BEAMS, C):
         raise ValueError(f"fused beam: beam_size {K} outside 1..{min(MAX_BEAMS, C)}")
@@ -182,33 +191,38 @@ def fused_beam_decode_cuda(w: FusedDecodeWeights, cross_k: torch.Tensor,
     scores = torch.empty(B, K, dtype=torch.float32, device=dev)
     launch(launcher("fused_beam"), w, cross_k, cross_v, (kc, vc, tokens, scores),
            (B, T, L, E, F, C, H, Tm, go_id, eos_id, K, int(early_stop)),
-           num_heads=H, eps=eps, what="fused beam")
+           num_heads=H, eps=eps, what="fused beam", cls0=cls0)
     fused_beam_decode_cuda.launches += 1
+    if cls0 is not None:
+        fused_beam_decode_cuda.launches_cls0 += 1
     return tokens, scores
 
 
 fused_beam_decode_cuda.launches = 0
+fused_beam_decode_cuda.launches_cls0 = 0  # with a cls0 row
 
 
 def fused_beam_decode(w: FusedDecodeWeights, cross_k: torch.Tensor, cross_v: torch.Tensor,
                       *, beam_size: int, num_heads: int, steps: int,
                       dtype: torch.dtype = torch.bfloat16, go_id: int = 0, eos_id: int = 1,
-                      eps: float = 1e-5, early_stop: bool = False,
-                      plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                      eps: float = 1e-5, early_stop: bool = False, plain: bool = False,
+                      cls0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam search -> (tokens [B, beam_size, steps] int32, scores
     [B, beam_size] float32), best first; scores are raw cumulative
     log-probabilities.
 
     cross_k/cross_v: [L, B, Tm, E] memory projections per layer, one per
-    batch row.  Weights and cross K/V are cast to ``dtype``.  CPU tensors
-    (or ``plain=True``) take the plain version; CUDA tensors launch the
-    kernel.
+    batch row.  Weights and cross K/V are cast to ``dtype``.  ``cls0``
+    [B, E] float32 is every beam's step-0 row of its batch row (both
+    versions raise on another type or shape).  CPU tensors (or
+    ``plain=True``) take the plain version; CUDA tensors launch the kernel.
     """
     w = cast_weights(w, dtype)
     ck = cross_k.detach().to(dtype).contiguous()
     cv = cross_v.detach().to(dtype).contiguous()
     kw = dict(beam_size=beam_size, num_heads=num_heads, steps=steps, go_id=go_id,
-              eos_id=eos_id, eps=eps, early_stop=early_stop)
+              eos_id=eos_id, eps=eps, early_stop=early_stop,
+              cls0=None if cls0 is None else cls0.detach())
     if plain or ck.device.type == "cpu":
         return fused_beam_decode_plain(w, ck, cv, **kw)
     return fused_beam_decode_cuda(w, ck, cv, **kw)

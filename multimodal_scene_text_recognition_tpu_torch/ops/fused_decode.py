@@ -1,6 +1,6 @@
 """Whole greedy decode loop in one kernel (JAX counterpart:
 ops/fused_decode.py, float mode and ``quantized=True``, with its ``eos_id``
-early stop; no CLS step-0 row).
+early stop and its ``cls0`` step-0 row).
 
 Two versions of one function, ``logits [B, T, C] float32`` from the stacked
 decoder weights and the per-layer cross-attention K/V:
@@ -12,6 +12,12 @@ decoder weights and the per-layer cross-attention K/V:
   ``ops/fused_decode.py::_decode_kernel``: K1 in float mode, K1q with
   ``scales`` (the six projections int8 x int8 -> int32, tables from
   :func:`quantize_fused_weights`).
+
+With ``cls0`` [B, E] float32 (the semantic CLS vector of
+``cls_decoder_init``) the step-0 input row is ``cls0 + pe[0]`` in float32,
+unrounded, in place of the [GO] embedding (the TPU kernel's ``use_cls``
+row): rounded to the compute type where a float-mode projection reads it,
+quantized as it stands in K1q.
 
 :func:`fused_greedy_decode` casts the weights to the compute type and picks
 by device: the plain version for CPU tensors, the kernel for CUDA tensors.
@@ -214,7 +220,8 @@ def fused_greedy_decode_plain(w: FusedDecodeWeights, cross_k: torch.Tensor,
                               cross_v: torch.Tensor, *, num_heads: int,
                               steps: int, go_id: int = 0, eos_id: Optional[int] = None,
                               eps: float = 1e-5,
-                              scales: Optional[FusedDecodeScales] = None) -> torch.Tensor:
+                              scales: Optional[FusedDecodeScales] = None,
+                              cls0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The greedy loop in PyTorch with the TPU kernel's casts.
 
     ``w`` is already in the compute type (:func:`cast_weights`);
@@ -229,10 +236,11 @@ def fused_greedy_decode_plain(w: FusedDecodeWeights, cross_k: torch.Tensor,
 
     With ``eos_id`` a row stops once it has emitted that token: its later
     logit rows stay the ``eos_id`` one-hot, and the loop ends when every
-    row has stopped.
+    row has stopped.  With ``cls0`` the step-0 row is ``cls0 + pe[0]``.
     """
     dt = w.w_qkv.dtype if scales is None else w.b_qkv.dtype
     L, B, Tm, E = cross_k.shape
+    check_cls0(cls0, B, E, cross_k.device, "fused decode")
     H = num_heads
     hd = E // H
     C = w.head_w.shape[1]
@@ -263,7 +271,7 @@ def fused_greedy_decode_plain(w: FusedDecodeWeights, cross_k: torch.Tensor,
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     tok = torch.full((B,), go_id, dtype=torch.long, device=dev)
     for t in range(T):
-        x = f["emb"][tok] + f["pe"][t]
+        x = (cls0 if t == 0 and cls0 is not None else f["emb"][tok]) + f["pe"][t]
         for l in range(L):
             def proj(name, bias, inp):
                 s = q[name]
@@ -307,16 +315,28 @@ THREADS = 256  # threads per CTA (kThreads in the decode kernels)
 _ROWS = 1  # batch rows per CTA (kRows in the kernel)
 
 
+def check_cls0(cls0: Optional[torch.Tensor], B: int, E: int, device: torch.device,
+               what: str) -> None:
+    """A step-0 row ``cls0``, where one is given, must be a contiguous
+    float32 [B, E] tensor on ``device``; raises ValueError otherwise."""
+    if cls0 is not None and (cls0.dtype != torch.float32 or cls0.device != device
+                             or not cls0.is_contiguous() or tuple(cls0.shape) != (B, E)):
+        raise ValueError(f"{what}: cls0 must be contiguous float32 [{B}, {E}] on {device}, "
+                         f"got {cls0.dtype} {tuple(cls0.shape)} on {cls0.device}")
+
+
 def check_kernel_inputs(w: FusedDecodeWeights, cross_k: torch.Tensor, cross_v: torch.Tensor,
                         *, num_heads: int, steps: int, class_ids: Sequence[int], what: str,
-                        scales: Optional[FusedDecodeScales] = None):
+                        scales: Optional[FusedDecodeScales] = None,
+                        cls0: Optional[torch.Tensor] = None):
     """What the decode kernels (greedy and beam) take: every table of ``w``
     and cross_k/v contiguous CUDA tensors of one compute type (float32 or
     bfloat16) on one device, ``pe`` float32, consistent shapes, ``steps``
     positional rows and valid ``class_ids``.  With ``scales`` (K1q) the six
     projection tables are int8 in K1q's layout [L, K/4, N, 4] instead, and
-    the scales contiguous float32 [L, N] on the same device.  Raises
-    TypeError or ValueError otherwise; returns (L, B, Tm, E, F, C)."""
+    the scales contiguous float32 [L, N] on the same device; a ``cls0`` is
+    what :func:`check_cls0` takes.  Raises TypeError or ValueError
+    otherwise; returns (L, B, Tm, E, F, C)."""
     dev = cross_k.device
     dt = w.b_qkv.dtype
     if dt not in KERNEL_DTYPES:
@@ -336,6 +356,7 @@ def check_kernel_inputs(w: FusedDecodeWeights, cross_k: torch.Tensor, cross_v: t
     C, F = w.head_w.shape[1], w.ff1_w.shape[2]
     if cross_v.shape != cross_k.shape or E % num_heads:
         raise ValueError(f"{what}: inconsistent shapes")
+    check_cls0(cls0, B, E, dev, what)
     if scales is None and w.w_qkv.shape != (L, E, 3 * E):
         raise ValueError(f"{what}: inconsistent shapes")
     if scales is not None:
@@ -361,11 +382,11 @@ def check_kernel_inputs(w: FusedDecodeWeights, cross_k: torch.Tensor, cross_v: t
 
 def launch(fn, w: FusedDecodeWeights, cross_k: torch.Tensor, cross_v: torch.Tensor,
            buffers: Sequence[torch.Tensor], dims: Sequence[int], *, num_heads: int,
-           eps: float, what: str) -> None:
+           eps: float, what: str, cls0: Optional[torch.Tensor] = None) -> None:
     """Call a decode kernel's C launcher ``fn(dtype, pointers, dims, eps,
-    scale, stream)`` on the current stream of the tensors' device, with the
-    pointers of the tables, pe, cross_k, cross_v and ``buffers``; raises if
-    the launch fails."""
+    scale, cls0, stream)`` on the current stream of the tensors' device,
+    with the pointers of the tables, pe, cross_k, cross_v and ``buffers``,
+    and ``cls0``'s (null without one); raises if the launch fails."""
     dev = cross_k.device
     ptrs = [t.data_ptr() for t in list(w)[:_N_TABLES]] + [
         w.pe.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr()] + [b.data_ptr() for b in buffers]
@@ -374,19 +395,20 @@ def launch(fn, w: FusedDecodeWeights, cross_k: torch.Tensor, cross_v: torch.Tens
     scale = 1.0 / math.sqrt(cross_k.shape[-1] // num_heads)
     with torch.cuda.device(dev):  # the launcher uses the current device
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(KERNEL_DTYPES[w.b_qkv.dtype], c_ptrs, c_dims, eps, scale, stream)
+        rc = fn(KERNEL_DTYPES[w.b_qkv.dtype], c_ptrs, c_dims, eps, scale,
+                None if cls0 is None else cls0.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
 
 
 def launcher(name: str, fn_name: Optional[str] = None):
-    """The C launcher ``int fn_name(dtype, pointers, dims, eps, scale,
+    """The C launcher ``int fn_name(dtype, pointers, dims, eps, scale, cls0,
     stream)`` (default: the library's own name) of kernel library ``name``,
     built on first use; every decode kernel exports one."""
     fn = getattr(build.load(name), fn_name or name)
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
                    ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_float,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -407,14 +429,16 @@ def fused_greedy_decode_cuda(w: FusedDecodeWeights, cross_k: torch.Tensor,
                              cross_v: torch.Tensor, *, num_heads: int,
                              steps: int, go_id: int = 0, eos_id: Optional[int] = None,
                              eps: float = 1e-5,
-                             scales: Optional[FusedDecodeScales] = None) -> torch.Tensor:
-    """Launch the CUDA decode kernel (K1, or with ``scales`` K1q) on inputs
-    :func:`check_kernel_inputs` accepts.  Returns logits [B, T, C]."""
+                             scales: Optional[FusedDecodeScales] = None,
+                             cls0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the CUDA decode kernel (K1, or with ``scales`` K1q; with
+    ``cls0`` its step-0 row) on inputs :func:`check_kernel_inputs` accepts.
+    Returns logits [B, T, C]."""
     ids = [go_id] + ([] if eos_id is None else [eos_id])
     what = "fused decode" if scales is None else "fused int8 decode"
     L, B, Tm, E, F, C = check_kernel_inputs(w, cross_k, cross_v, num_heads=num_heads,
                                             steps=steps, class_ids=ids, what=what,
-                                            scales=scales)
+                                            scales=scales, cls0=cls0)
     dt, T, H = w.b_qkv.dtype, steps, num_heads
     vec = 16 // dt.itemsize  # weight columns per 16-byte load
     smem = decode_smem_bytes(E, F, C, H, max(T, Tm), vec, scales is not None)
@@ -431,16 +455,19 @@ def fused_greedy_decode_cuda(w: FusedDecodeWeights, cross_k: torch.Tensor,
         buffers, fn = buffers + tuple(scales), launcher("fused_decode", "fused_decode_int8")
     launch(fn, w, cross_k, cross_v, buffers,
            (B, T, L, E, F, C, H, Tm, go_id, -1 if eos_id is None else eos_id),
-           num_heads=H, eps=eps, what=what)
+           num_heads=H, eps=eps, what=what, cls0=cls0)
     if scales is None:
         fused_greedy_decode_cuda.launches += 1
     else:
         fused_greedy_decode_cuda.launches_int8 += 1
+    if cls0 is not None:
+        fused_greedy_decode_cuda.launches_cls0 += 1
     return logits
 
 
 fused_greedy_decode_cuda.launches = 0  # K1 (float mode)
 fused_greedy_decode_cuda.launches_int8 = 0  # K1q
+fused_greedy_decode_cuda.launches_cls0 = 0  # either, with a cls0 row
 
 
 def fused_greedy_decode(w: FusedDecodeWeights, cross_k: torch.Tensor,
@@ -448,22 +475,24 @@ def fused_greedy_decode(w: FusedDecodeWeights, cross_k: torch.Tensor,
                         dtype: torch.dtype = torch.bfloat16, go_id: int = 0,
                         eos_id: Optional[int] = None, eps: float = 1e-5,
                         plain: bool = False,
-                        scales: Optional[FusedDecodeScales] = None) -> torch.Tensor:
+                        scales: Optional[FusedDecodeScales] = None,
+                        cls0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy decode -> logits [B, steps, C] float32.
 
     cross_k/cross_v: [L, B, Tm, E] memory projections per layer.  Weights
     and cross K/V are cast to ``dtype`` (int8 tables stay int8).
     ``eos_id`` stops each row once it has emitted that token (see
     :func:`fused_greedy_decode_plain`).  ``scales`` (with the int8 tables
-    of :func:`quantize_fused_weights`) selects the quantized mode.  CPU
-    tensors (or ``plain=True``) take the plain version; CUDA tensors launch
-    the kernel.
+    of :func:`quantize_fused_weights`) selects the quantized mode.  ``cls0``
+    [B, E] float32 replaces the [GO] embedding at step 0 (both versions
+    raise on another type or shape).  CPU tensors (or ``plain=True``) take
+    the plain version; CUDA tensors launch the kernel.
     """
     w = cast_weights(w, dtype)
     ck = cross_k.detach().to(dtype).contiguous()
     cv = cross_v.detach().to(dtype).contiguous()
     kw = dict(num_heads=num_heads, steps=steps, go_id=go_id, eos_id=eos_id, eps=eps,
-              scales=scales)
+              scales=scales, cls0=None if cls0 is None else cls0.detach())
     if plain or ck.device.type == "cpu":
         return fused_greedy_decode_plain(w, ck, cv, **kw)
     return fused_greedy_decode_cuda(w, ck, cv, **kw)

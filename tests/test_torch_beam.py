@@ -58,7 +58,7 @@ def port_decoder(variables, **kw):
 
 def beam(dec, k=BEAM, **kw):
     with torch.no_grad():
-        tokens, scores = dec.beam_decode(torch.from_numpy(ENC), k, **kw)
+        tokens, scores = dec.beam_decode(torch.from_numpy(ENC), beam_size=k, **kw)
     return tokens.numpy(), scores.numpy()
 
 
@@ -228,7 +228,7 @@ def test_model_level_beam():
         tokens, scores = model.beam_decode(image, overlap, 5)
         tok_s, sc_s = scan.beam_decode(image, overlap, 5)
         enc = model.encoder(model.features(model.rectify(image)))
-        tok_d, sc_d = model.decoder.beam_decode(enc, 5)
+        tok_d, sc_d = model.decoder.beam_decode(enc, beam_size=5)
     assert tokens.shape == (2, 25) and scores.shape == (2,)
     assert torch.isfinite(scores).all()
     np.testing.assert_array_equal(tokens.numpy(), tok_s.numpy())
@@ -249,7 +249,7 @@ def test_recognizer_beam_and_scores():
     assert len(texts) == len(scores) == 5
     assert all(isinstance(t, str) for t in texts)
     assert np.isfinite(scores).all() and max(scores) <= 0.0
-    image, overlap = rec.prepare(crops[:4], 4)
+    image, overlap, _, _ = rec.prepare(crops[:4], 4)
     with torch.no_grad():
         ids, best = model.beam_decode(image, overlap, 3)
     assert texts[:4] == rec.codec.decode(ids.numpy())

@@ -57,6 +57,16 @@ def test_trained_bundle_loads_strictly(bundle):
         ("params.a.emb.embedding", (7, 4), "a.emb.weight", None),
         ("batch_stats.a.bn.mean", (4,), "a.bn.running_mean", None),
         ("batch_stats.a.bn.var", (4,), "a.bn.running_var", None),
+        # the JAX package's MLPP: a fusion MLP's layers as flat leaves
+        ("params.decoder.sem_cls_mlp.fc0_kernel", (8, 4), "decoder.sem_cls_mlp.fc0.weight",
+         (1, 0)),
+        ("params.decoder.sem_cls_mlp.fc2_bias", (1,), "decoder.sem_cls_mlp.fc2.bias", None),
+        # its MLP: one module per layer
+        ("params.encoder.combine_mlp.fc1.kernel", (4, 6), "encoder.combine_mlp.fc1.weight",
+         (1, 0)),
+        ("params.semantic.overlap_embed.embedding", (7, 4), "semantic.overlap_embed.weight",
+         None),
+        ("params.semantic.scene_embed.embedding", (7, 4), "semantic.scene_embed.weight", None),
     ],
 )
 def test_leaf_layouts(key, shape, target, layout):
@@ -79,6 +89,42 @@ def test_leaf_layouts(key, shape, target, layout):
 def test_rejects_keys_without_one_counterpart(flat):
     with pytest.raises(KeyError):
         convert.bundle_to_state_dict(flat)
+
+
+def test_state_dict_to_bundle_semantic_leaves():
+    """The semantic configuration's leaves go back to the JAX layout: the
+    decoder's fusion MLPs to flat MLPP leaves (``fc0_kernel``), the
+    encoder's to MLP modules (``fc0.kernel``), both transposed; the combined
+    embedder's tables stay untransposed embeddings, its ``combine`` layer a
+    transposed kernel; and back again unchanged."""
+    rng = np.random.default_rng(1)
+    sd = {name: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+          for name, shape in (("decoder.sem_cls_mlp.fc0.weight", (3, 8)),
+                              ("decoder.sem_cls_mlp.fc0.bias", (3,)),
+                              ("decoder.post_combine_mlp.fc2.weight", (5, 3)),
+                              ("decoder.sem_to_classes.weight", (5, 4)),
+                              ("encoder.sem_relevance_mlp.fc0.weight", (3, 6)),
+                              ("semantic.overlap_embed.weight", (7, 4)),
+                              ("semantic.scene_embed.weight", (7, 4)),
+                              ("semantic.combine.weight", (4, 8)))}
+    back = convert.state_dict_to_bundle(sd)
+    want = {"params.decoder.sem_cls_mlp.fc0_kernel": sd["decoder.sem_cls_mlp.fc0.weight"].T,
+            "params.decoder.sem_cls_mlp.fc0_bias": sd["decoder.sem_cls_mlp.fc0.bias"],
+            "params.decoder.post_combine_mlp.fc2_kernel":
+                sd["decoder.post_combine_mlp.fc2.weight"].T,
+            "params.decoder.sem_to_classes.kernel": sd["decoder.sem_to_classes.weight"].T,
+            "params.encoder.sem_relevance_mlp.fc0.kernel":
+                sd["encoder.sem_relevance_mlp.fc0.weight"].T,
+            "params.semantic.overlap_embed.embedding": sd["semantic.overlap_embed.weight"],
+            "params.semantic.scene_embed.embedding": sd["semantic.scene_embed.weight"],
+            "params.semantic.combine.kernel": sd["semantic.combine.weight"].T}
+    assert set(back) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(back[k], v.numpy(), err_msg=k)
+    again = convert.bundle_to_state_dict(back)
+    assert set(again) == set(sd)
+    for k, v in sd.items():
+        assert torch.equal(again[k], v), k
 
 
 def test_state_dict_to_bundle_inverts_the_bridge(bundle):

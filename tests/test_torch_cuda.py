@@ -567,3 +567,108 @@ def test_served_int8_reads_the_words_on_the_card(dev):
     labels = [s.label for s in samples]
     assert texts == labels
     assert rec.recognize(crops, beam_size=5) == labels
+
+
+# -- the semantic CLS step-0 row (cls0) of K1, K1e, K1q and K4 ---------------
+
+
+def _cls0(dev, B, E=64, seed=0):
+    """A seeded random step-0 row per batch row, N(0, 1) float32 [B, E]:
+    different for every row (the model's own cls0 is all ones, which
+    cannot tell a kernel that reads it from one that writes 1.0 or reads
+    row 0 for every row)."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((B, E)).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("mode", ["K1", "K1e", "K1q", "K1q-early-stop"])
+def test_fused_decode_cls0_kernel_matches_plain(dev, mode):
+    """K1 with a random cls0 (full length, early stop, int8) against its
+    plain version at B=64, f32 and bf16, with the limits of the tests
+    above for the same mode (float: f32 logits atol 1e-4 and tokens equal,
+    bf16 95% of the tokens, with early stop of the [s]-pruned rows; K1q: f32
+    tokens equal and 95% of logit rows within 1e-4, bf16 90% of the
+    [s]-pruned rows).  The step-0 logits differ from those of
+    the same call without cls0, and from row to row as cls0 does."""
+    B = 64
+    int8_mode = mode.startswith("K1q")
+    early_stop = mode in ("K1e", "K1q-early-stop")
+    w, ck, cv = _decode_inputs(dev, B, seed=70, T=8)
+    w = w._replace(head_b=w.head_b + (2.0 if early_stop else 0.0)
+                   * (torch.arange(97, device=dev) == EOS_ID))
+    scales = None
+    if int8_mode:
+        w, scales = fd.quantize_fused_weights(w)
+    cls0 = _cls0(dev, B, seed=71)
+    kw = dict(num_heads=4, steps=8, go_id=0, eos_id=EOS_ID if early_stop else None,
+              scales=scales)
+    for dt in (torch.float32, torch.bfloat16):
+        wd = fd.cast_weights(w, dt)
+        ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
+        out = fd.fused_greedy_decode_cuda(wd, ckd, cvd, cls0=cls0, **kw)
+        ref = fd.fused_greedy_decode_plain(wd, ckd, cvd, cls0=cls0, **kw)
+        without = fd.fused_greedy_decode_cuda(wd, ckd, cvd, **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        assert (out[:, 0] - without[:, 0]).abs().amax(-1).min().item() > 1e-3
+        ids, ref_ids = out.argmax(-1), ref.argmax(-1)
+        if dt == torch.float32:
+            assert _pruned_agreement(ids, ref_ids) == 1.0
+            row_err = (out - ref).abs().amax(-1)
+            if int8_mode:
+                assert (row_err <= 1e-4).float().mean().item() >= 0.95
+            else:
+                assert row_err.max().item() <= 1e-4
+        elif mode == "K1":
+            assert (ids == ref_ids).float().mean().item() >= 0.95
+        else:
+            assert _pruned_agreement(ids, ref_ids) >= (0.9 if int8_mode else 0.95)
+
+
+@pytest.mark.parametrize("early_stop", [False, True])
+def test_fused_beam_cls0_kernel_matches_plain(dev, early_stop):
+    """K4 with a random cls0 (every beam of a row from that row's cls0)
+    against its plain version at B=64, K=5, with the limits of
+    test_fused_beam_kernel_matches_plain: f32 tokens identical and scores
+    within 1e-4, bf16 90% of the beams identical up to their first [s];
+    the scores differ from those of the same search without cls0."""
+    B = 64
+    w, ck, cv = _decode_inputs(dev, B, seed=72, T=8)
+    if early_stop:
+        w = w._replace(head_b=w.head_b + 4.0 * (torch.arange(97, device=dev) == EOS_ID))
+    cls0 = _cls0(dev, B, seed=73)
+    kw = dict(beam_size=5, num_heads=4, steps=8, go_id=0, eos_id=EOS_ID, early_stop=early_stop)
+    for dt in (torch.float32, torch.bfloat16):
+        wd = fd.cast_weights(w, dt)
+        ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
+        tok, sc = fb.fused_beam_decode_cuda(wd, ckd, cvd, cls0=cls0, **kw)
+        ref_tok, ref_sc = fb.fused_beam_decode_plain(wd, ckd, cvd, cls0=cls0, **kw)
+        _, sc_without = fb.fused_beam_decode_cuda(wd, ckd, cvd, **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(sc).all() and (sc[:, 1:] <= sc[:, :-1]).all()
+        assert (sc - sc_without).abs().amax(-1).min().item() > 1e-4
+        if dt == torch.float32:
+            assert torch.equal(tok, ref_tok)
+            torch.testing.assert_close(sc, ref_sc, atol=1e-4, rtol=0)
+        else:
+            assert _pruned_agreement(tok, ref_tok) >= 0.9
+
+
+def test_cls0_wrappers_refuse_bad_cls0(dev):
+    """K1, K1q and K4 refuse a cls0 of another shape, type or device, and
+    a non-contiguous one, rather than reading past it or converting it."""
+    w, ck, cv = _decode_inputs(dev, 4, seed=74)
+    wq, scales = fd.quantize_fused_weights(w)
+    good = _cls0(dev, 4, seed=75)
+    calls = (lambda c: fd.fused_greedy_decode_cuda(w, ck, cv, num_heads=4, steps=6, cls0=c),
+             lambda c: fd.fused_greedy_decode_cuda(wq, ck, cv, num_heads=4, steps=6,
+                                                   scales=scales, cls0=c),
+             lambda c: fb.fused_beam_decode_cuda(w, ck, cv, beam_size=3, num_heads=4, steps=6,
+                                                 cls0=c))
+    bad = (good[:3], good[:, :32].contiguous(), good.bfloat16(), good.double(), good.cpu(),
+           good.t().contiguous().t(), good[None])
+    for call in calls:
+        call(good)
+        for c in bad:
+            with pytest.raises(ValueError, match="cls0"):
+                call(c)

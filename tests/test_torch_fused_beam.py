@@ -6,7 +6,12 @@ The batch (B=5) is not a multiple of the ``block_b=2`` passed to the JAX
 beam kernel, so its zero-padded rows run beside the port's unpadded ones.
 JAX stops a chunk of rows early, the port a single row, so tokens after a
 beam's first [s] may differ and are never compared; scores may not (a
-finished beam adds 0)."""
+finished beam adds 0).
+
+The ``-cls0`` cases give every beam of a row a step-0 row ``cls0``: a
+seeded random N(0, 1) [B, E], different for every row (the model's own,
+the semantic CLS vector, is all ones and could not tell a version that
+reads it per row from one that writes 1.0 or reads row 0 for all)."""
 
 import os
 import subprocess
@@ -71,6 +76,11 @@ def _inputs(seed, eos_bias=0.0, tie=False):
     return jw, tw, ck, cv
 
 
+def _cls0(seed=17):
+    """A seeded N(0, 1) step-0 row per batch row, float32 [B, E]."""
+    return np.random.default_rng(seed).standard_normal((B, E)).astype(np.float32)
+
+
 def _first_eos(row):
     hit = np.flatnonzero(row == EOS_ID)
     return hit[0] if hit.size else len(row) - 1
@@ -83,24 +93,28 @@ def _pruned_equal(a, b):
                for x, y in zip(a.reshape(-1, T), b.reshape(-1, T)))
 
 
-# case: (compute type, K, early stop, [s] bias, tie)
+# case: (compute type, K, early stop, [s] bias, tie, cls0)
 CASES = {
-    "f32-k4": ("float32", 4, False, 0.0, False),
-    "f32-k4-early-stop": ("float32", 4, True, 5.0, False),
-    "f32-k1": ("float32", 1, False, 0.0, False),
-    "f32-k1-early-stop": ("float32", 1, True, 5.0, False),
-    "f32-k4-tie": ("float32", 4, False, 0.0, True),
-    "bf16-k4": ("bfloat16", 4, False, 0.0, False),
-    "bf16-k4-early-stop": ("bfloat16", 4, True, 5.0, False),
+    "f32-k4": ("float32", 4, False, 0.0, False, False),
+    "f32-k4-early-stop": ("float32", 4, True, 5.0, False, False),
+    "f32-k1": ("float32", 1, False, 0.0, False, False),
+    "f32-k1-early-stop": ("float32", 1, True, 5.0, False, False),
+    "f32-k4-tie": ("float32", 4, False, 0.0, True, False),
+    "bf16-k4": ("bfloat16", 4, False, 0.0, False, False),
+    "bf16-k4-early-stop": ("bfloat16", 4, True, 5.0, False, False),
+    "f32-k4-cls0": ("float32", 4, False, 0.0, False, True),
+    "f32-k4-early-stop-cls0": ("float32", 4, True, 5.0, False, True),
+    "bf16-k4-early-stop-cls0": ("bfloat16", 4, True, 5.0, False, True),
 }
 BF16 = [c for c in CASES if CASES[c][0] == "bfloat16"]
 
 
 def _pallas_beam(case):
-    dtype, K, early_stop, eos_bias, tie = CASES[case]
+    dtype, K, early_stop, eos_bias, tie, cls0 = CASES[case]
     jw, _, ck, cv = _inputs(7, eos_bias, tie)
     tokens, scores = jfb.fused_beam_decode(
-        jw, jnp.asarray(ck), jnp.asarray(cv), beam_size=K, num_heads=H, steps=T,
+        jw, jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(_cls0()) if cls0 else None,
+        beam_size=K, num_heads=H, steps=T,
         dtype=getattr(jnp, dtype), go_id=0, eos_id=EOS_ID, early_stop=early_stop,
         block_b=2, interpret=True)
     return np.asarray(tokens), np.asarray(scores)
@@ -145,8 +159,9 @@ def test_plain_beam_matches_pallas_kernel(case, request):
     plain loop rounds where the Pallas kernel rounds; tokens identical up
     to each beam's first [s] and scores (of scale ~7) within 1e-2 (measured
     5.5e-3: sums in another order move a value across a bf16 rounding
-    boundary now and then; float32 measured 2.9e-6)."""
-    dtype, K, early_stop, eos_bias, tie = CASES[case]
+    boundary now and then; float32 measured 2.9e-6; the cls0 cases 2.9e-6
+    in float32 and 7.2e-7 in bfloat16)."""
+    dtype, K, early_stop, eos_bias, tie, cls0 = CASES[case]
     if dtype == "bfloat16":
         jt, js = request.getfixturevalue("pallas_bf16")[case]
     else:
@@ -154,7 +169,8 @@ def test_plain_beam_matches_pallas_kernel(case, request):
     _, tw, ck, cv = _inputs(7, eos_bias, tie)
     pt, ps = fb.fused_beam_decode(
         tw, torch.from_numpy(ck), torch.from_numpy(cv), beam_size=K, num_heads=H, steps=T,
-        dtype=getattr(torch, dtype), go_id=0, eos_id=EOS_ID, early_stop=early_stop)
+        dtype=getattr(torch, dtype), go_id=0, eos_id=EOS_ID, early_stop=early_stop,
+        cls0=torch.from_numpy(_cls0()) if cls0 else None)
     assert pt.dtype == torch.int32 and ps.dtype == torch.float32
     assert pt.shape == jt.shape == (B, K, T) and ps.shape == js.shape == (B, K)
     pt, ps = pt.numpy(), ps.numpy()
@@ -218,18 +234,22 @@ def test_beam_smem_at_the_flagship():
     assert fb.smem_bytes(5, 256, 2048, 97, 8, 26, 25, 8) == 115700
 
 
-def test_plain_early_stop_matches_pallas_kernel():
+@pytest.mark.parametrize("cls0,eos_bias", [(False, 0.5), (True, 3.0)], ids=["emb", "cls0"])
+def test_plain_early_stop_matches_pallas_kernel(cls0, eos_bias):
     """K1e: the greedy plain loop with ``eos_id`` against the Pallas
     kernel's early stop, float32, head biased towards [s] so rows stop.
     Logits within 1e-4 up to each row's first [s] (JAX runs on until every
     row has stopped, the port stops each row); [s]-pruned tokens identical;
     the port's later rows are the [s] one-hot; and without early stop the
-    same rows up to the first [s] are unchanged."""
-    jw, tw, ck, cv = _inputs(11, eos_bias=0.5)
+    same rows up to the first [s] are unchanged.  (With ``cls0`` the [s]
+    bias is 3.0: up to 2.0 one row first emits [s] at the last step.)"""
+    jw, tw, ck, cv = _inputs(11, eos_bias=eos_bias)
+    c0 = _cls0(18) if cls0 else None
     want = np.asarray(jfd.fused_greedy_decode(
-        jw, jnp.asarray(ck), jnp.asarray(cv), num_heads=H, steps=T, dtype=jnp.float32,
-        eos_id=EOS_ID, interpret=True))
-    kw = dict(num_heads=H, steps=T, dtype=torch.float32)
+        jw, jnp.asarray(ck), jnp.asarray(cv), None, None if c0 is None else jnp.asarray(c0),
+        num_heads=H, steps=T, dtype=jnp.float32, eos_id=EOS_ID, interpret=True))
+    kw = dict(num_heads=H, steps=T, dtype=torch.float32,
+              cls0=None if c0 is None else torch.from_numpy(c0))
     ck, cv = torch.from_numpy(ck), torch.from_numpy(cv)
     got = fd.fused_greedy_decode(tw, ck, cv, eos_id=EOS_ID, **kw).numpy()
     full = fd.fused_greedy_decode(tw, ck, cv, **kw).numpy()

@@ -139,15 +139,35 @@ def test_get_model_requires_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_paths_are_refused():
-    """Greedy decoding through the stepper (decode_fused=False) and the
-    semantic CLS step-0 input are not ported; early stop and the fused beam
-    are."""
-    for cfg in (ModelConfig(**SMALL), ModelConfig(**SMALL, decode_fused=True,
-                                                   cls_decoder_init=True)):
-        with pytest.raises(NotImplementedError):
+    """Greedy decoding through the stepper (decode_fused=False), the three
+    per-layer decoder fusion sites, the random and BERT semantic embedders
+    and training with a fusion hook are not ported, and each says what is
+    not; early stop, the fused beam, the fusion hooks the fused kernels
+    carry (the semantic CLS step-0 input among them) in every linear
+    embedder mode, and the zero embedder are."""
+    fused = dict(SMALL, decode_fused=True)
+    refused = [(ModelConfig(**SMALL), "decode_fused"),
+               (ModelConfig(**fused, semantic_source="rand"), "rand"),
+               (ModelConfig(**fused, semantic_embedding="bert"), "bert")]
+    refused += [(ModelConfig(**fused, **{site: True}), site) for site in
+                ("multihead_pre_target", "multihead_pre_memory", "multihead_post_memory")]
+    for cfg, what in refused:
+        with pytest.raises(NotImplementedError, match=what):
             SceneTextModel(cfg)
-    SceneTextModel(ModelConfig(**SMALL, decode_fused=True, decode_early_stop=True,
-                               decode_beam_fused=True))
+    SceneTextModel(ModelConfig(**fused, decode_early_stop=True, decode_beam_fused=True))
+    for mode in ("overlap", "scene", "combined"):
+        SceneTextModel(ModelConfig(**fused, semantic_vector=mode, pre_encoder_mlp=True,
+                                   pre_decoder_mlp=True, cls_decoder_init=True,
+                                   post_decoder_mlp=True))
+    SceneTextModel(ModelConfig(**fused, semantic_source="zero", cls_decoder_init=True))
+    image = torch.zeros(2, 32, 100, 1)
+    overlap = torch.zeros(2, 15, dtype=torch.long)
+    text = torch.zeros(2, 26, dtype=torch.long)
+    for hook in ("pre_encoder_mlp", "pre_decoder_mlp", "cls_decoder_init", "post_decoder_mlp"):
+        model = api.get_model(cfg=ModelConfig(**fused, **{hook: True}), device="cpu",
+                              train=True)
+        with pytest.raises(NotImplementedError, match=hook):
+            model(image, overlap, text, train=True, generator=torch.Generator())
 
 
 def test_recognizer_refuses_other_crop_sizes():
