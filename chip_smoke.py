@@ -29,12 +29,18 @@ no bundle holds trained fusion weights) through ``Recognizer.recognize(
 crops, semantics=)`` with seeded objects, greedily, by beam search, with
 the logit fusion and in int8, checks the cls0 launches, the strings
 against the plain path's, and splits each call's time by stage, the
-fusion MLPs as a stage of their own.  Every phase prints one flushed line
+fusion MLPs as a stage of their own.  The gemm probe phase holds the
+int8-vs-bf16 probe's two chain kernels (P1, P2) against their plain
+versions at 1, 4 and 30 steps, on a tie input and a NaN input, checks both
+end all NaN at the probe's 200 steps, times each against its bound, its
+plain version and the same chain through library products, and runs the
+probe's own entry point.  Every phase prints one flushed line
 with the elapsed seconds; any failure raises and the script exits
 non-zero.  ``--mutants`` also builds copies of the beam kernel with one
 bf16 rounding dropped each, of K1q with one of three rounding faults each,
-and of K1 with one bf16 rounding dropped each (read with and without
-cls0), and prints whether their limits catch them.  A watchdog turns a hang into a printed
+of K1 with one bf16 rounding dropped each (read with and without
+cls0), and of the probe's kernels with one of four rounding faults each,
+and prints whether their limits catch them.  A watchdog turns a hang into a printed
 failure (exit code 3).
 
 Output: per-phase lines, the ``nvidia-smi`` name/power-limit line, one JSON
@@ -356,6 +362,231 @@ def check_bn_bwd_reduce(bn):
         log("bn_bwd_reduce " + bn_line(shape, dtype, r))
         worst, worst_abs = max(worst, r["err"]), max(worst_abs, r["err_abs"])
     return worst, worst_abs
+
+
+# -- the int8-vs-bf16 GEMM probe: P1 (int8 chain) and P2 (bf16 chain)
+
+# P1 is held bit-equal to its plain version (NaN equal to NaN) at every
+# depth, on the tie input and on an x with one NaN: every step is the same
+# IEEE operation in the same order and the int32 sums are exact.  P2 is held
+# to ops/gemm_probe.BF16_CHAIN_TOL (max |diff| over max |acc|, by depth;
+# measured on the card and stated there).  At the probe's 200 steps the
+# chain has overflowed: both versions of both kernels must be all NaN.  On
+# an H100 the four PROBE_MUTANTS were caught: roundf by the tie input and
+# at 4 and 30 steps (random data hits no tie at the first step), the
+# contraction from the second step on, toward-zero bf16 by every P2 limit;
+# fmaxf by none of these (the 200-step chain ends all NaN with it too),
+# which the NaN input now catches.
+PROBE_DEPTHS = (1, 4, 30)
+PROBE_TIE_DEPTHS = (1, 4)
+
+# the faults the probe's limits must catch, for --mutants: (name, text in
+# gemm_probe.cu, replacement)
+PROBE_MUTANTS = (
+    ("P1 roundf for rintf", "rintf(", "roundf("),
+    ("P1 acc + a*q contracted to an FMA", "acc = __fadd_rn(acc, o);",
+     "acc = acc + (float)a * s;"),
+    ("P1 fmaxf for the NaN-propagating max", "nan_max(__uint_as_float(m), 1e-12f)",
+     "fmaxf(__uint_as_float(m), 1e-12f)"),
+    ("P2 x rounded to bf16 toward zero", "__float2bfloat16_rn(", "__float2bfloat16_rz("),
+)
+# copies of P1 with one part of a step left out, timed (not checked) with
+# --mutants to split P1's step against P2's: (name, text, replacement)
+PROBE_TIMING_VARIANTS = (
+    ("without reading the abs-max slots", "for (int s = lane; s < nslots; s += 32)",
+     "for (int s = lane; s < 0; s += 32)"),
+    ("without publishing the abs-max", "if (feeds) publish_max(", "if (false) publish_max("),
+    ("multiplying where it divides by inv", "__fdiv_rn(wsc", "__fmul_rn(wsc"),
+)
+
+
+def differing(got, want) -> dict:
+    """Elements that differ (NaN equal to NaN) and the most ulps between
+    two finite float32 values of one sign."""
+    diff = ~((got == want) | (torch.isnan(got) & torch.isnan(want)))
+    n = int(diff.sum())
+    ulps = 0
+    if n:
+        both = diff & torch.isfinite(got) & torch.isfinite(want) & (
+            torch.sign(got) == torch.sign(want))
+        if both.any():
+            ulps = int((got[both].view(torch.int32).long()
+                        - want[both].view(torch.int32).long()).abs().max())
+    return {"differing": n, "max_ulps": ulps}
+
+
+def probe_errors(gp, x, wq, ws, wbf, xt) -> dict:
+    """Both chain kernels against their plain versions: P1's differing
+    elements at each depth, on the tie input and at one step from an x
+    with one NaN, P2's max |diff| over max |plain| at each depth, and the
+    NaN shares of all four at the probe's 200 steps."""
+    r = {}
+    for n in PROBE_DEPTHS:
+        got, want = gp.int8_chain_cuda(x, wq, ws, n), gp.int8_chain_plain(x, wq, ws, n)
+        r[f"p1_{n}"] = differing(got, want)
+        if n == 1:
+            r["abs_err_p1"] = (got - want).abs().max().item()
+        got, want = gp.bf16_chain_cuda(x, wbf, n), gp.bf16_chain_plain(x, wbf, n)
+        r[f"p2_{n}"] = ((got - want).abs().max() / want.abs().max()).item()
+        if n == 1:
+            r["abs_err_p2"] = (got - want).abs().max().item()
+    for n in PROBE_TIE_DEPTHS:
+        r[f"p1_tie_{n}"] = differing(gp.int8_chain_cuda(xt, wq, ws, n),
+                                     gp.int8_chain_plain(xt, wq, ws, n))
+    xn = x.clone()
+    xn[3, 5] = float("nan")  # the abs-max is NaN: every out NaN from the first step
+    r["p1_nan_1"] = differing(gp.int8_chain_cuda(xn, wq, ws, 1), gp.int8_chain_plain(xn, wq, ws, 1))
+    r["nan_share"] = {name: torch.isnan(f()).float().mean().item() for name, f in (
+        ("p1", lambda: gp.int8_chain_cuda(x, wq, ws, gp.ITERS)),
+        ("p1_plain", lambda: gp.int8_chain_plain(x, wq, ws, gp.ITERS)),
+        ("p2", lambda: gp.bf16_chain_cuda(x, wbf, gp.ITERS)),
+        ("p2_plain", lambda: gp.bf16_chain_plain(x, wbf, gp.ITERS)))}
+    return r
+
+
+def probe_caught(gp, r: dict) -> list:
+    """The limits that ``r`` breaks (empty if the kernels pass)."""
+    caught = [f"P1 bit-equality at {k[3:]}" for k in r
+              if k.startswith("p1_") and r[k]["differing"]]
+    caught += [f"P2 limit at {n} steps" for n in PROBE_DEPTHS
+               if not r[f"p2_{n}"] <= gp.BF16_CHAIN_TOL[n]]
+    if any(v != 1.0 for v in r["nan_share"].values()):
+        caught.append("all NaN at 200 steps")
+    return caught
+
+
+def probe_line(r: dict) -> str:
+    p1 = ", ".join(f"{k[3:]}: {v['differing']} differ ({v['max_ulps']} ulps)"
+                   for k, v in r.items() if k.startswith("p1_"))
+    p2 = ", ".join(f"{n}: {r[f'p2_{n}']:.3e}" for n in PROBE_DEPTHS)
+    return (f"P1 vs plain {p1}; P2 vs plain, max |diff| of max |acc|, {p2}; NaN shares at "
+            f"200 steps {r['nan_share']}")
+
+
+def library_int8_chain(x, wq_cm, ws, iters: int):
+    """P1's chain with its product as one library call (``torch._int_mm``,
+    ``wq_cm`` column-major) and the same glue in torch: the yardstick of
+    P1's time, never on the port's path."""
+    from multimodal_scene_text_recognition_tpu_torch.ops.int8 import div
+
+    acc = torch.zeros(x.shape[0], wq_cm.shape[1], device=x.device)
+    for _ in range(iters):
+        inv = div(127.0, torch.clamp(x.abs().amax(), min=1e-12))
+        xq = torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8)
+        out = torch._int_mm(xq, wq_cm).float() * div(ws, inv)
+        acc = acc + out
+        x = out[:, :x.shape[1]]
+    return acc
+
+
+def library_bf16_chain(x, wbf, iters: int):
+    """P2's chain with its product as one library call, ``torch.mm(...,
+    out_dtype=torch.float32)``."""
+    acc = torch.zeros(x.shape[0], wbf.shape[1], device=x.device)
+    for _ in range(iters):
+        out = torch.mm(x.bfloat16(), wbf, out_dtype=torch.float32)
+        acc = acc + out
+        x = out[:, :x.shape[1]]
+    return acc
+
+
+def graphed(fn):
+    """``fn`` captured once as a CUDA graph; returns its replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def check_gemm_probe(gp, probe, build, mutants: bool):
+    """P1 and P2 against their plain versions (PROBE_DEPTHS, the tie
+    input, all NaN at 200 steps), raising on any broken limit; then each
+    at the probe's 200 steps: ms (CUDA events, 1 warm + 10 calls, with the
+    launch count checked), rate, bound, the plain version's ms and the
+    library chain's ms, eager and as one CUDA graph.  Then the probe's own
+    entry point (``scripts/probe_int8.main(["--run"])``) with the launch
+    counts set to 0 just before it and read just after.  ``mutants`` holds
+    broken copies of the kernels to the same limits."""
+    x, wq, ws, wbf = gp.probe_inputs(0)
+    xt = gp.tie_input(0)
+    r = probe_errors(gp, x, wq, ws, wbf, xt)
+    log("gemm probe: " + probe_line(r))
+    broken = probe_caught(gp, r)
+    if broken:
+        raise AssertionError(f"the gemm probe kernels break their limits: {broken}")
+    if mutants:
+        with mutant_libraries(build, "gemm_probe", PROBE_MUTANTS + PROBE_TIMING_VARIANTS) as paths:
+            for (name, _, _), path in zip(PROBE_MUTANTS, paths):
+                with loaded_as(build, "gemm_probe", path):
+                    rm = probe_errors(gp, x, wq, ws, wbf, xt)
+                log(f"probe mutant {name}: {probe_line(rm)}; caught by "
+                    f"{probe_caught(gp, rm) or 'no limit'}")
+            for (name, _, _), path in zip(PROBE_TIMING_VARIANTS, paths[len(PROBE_MUTANTS):]):
+                with loaded_as(build, "gemm_probe", path):
+                    ms = [cuda_ms(lambda: gp.int8_chain_cuda(x, wq, ws, n), 10)
+                          for n in (30, gp.ITERS)]
+                log(f"P1 {name}: {ms[0]:.4f} ms at 30 steps, {ms[1]:.4f} ms at {gp.ITERS} "
+                    f"(timing only)")
+
+    wq_cm = wq.t().contiguous().t()
+    ops = 2 * gp.B * gp.E * gp.F * gp.ITERS
+    out_bytes = gp.B * gp.F * 4
+    rows = {}
+    for name, kernel, plain, library, nbytes, peak in (
+            ("p1", lambda n: gp.int8_chain_cuda(x, wq, ws, n),
+             lambda n: gp.int8_chain_plain(x, wq, ws, n),
+             lambda n: library_int8_chain(x, wq_cm, ws, n),
+             x.numel() * 4 + wq.numel() + ws.numel() * 4 + out_bytes, PEAK_INT8_OPS),
+            ("p2", lambda n: gp.bf16_chain_cuda(x, wbf, n), lambda n: gp.bf16_chain_plain(x, wbf, n),
+             lambda n: library_bf16_chain(x, wbf, n),
+             x.numel() * 4 + wbf.numel() * 2 + out_bytes, PEAK_BF16_FLOPS)):
+        counter = gp.int8_chain_cuda if name == "p1" else gp.bf16_chain_cuda
+        before = counter.launches
+        ms = cuda_ms(lambda: kernel(gp.ITERS), 10)
+        if counter.launches - before != 11:
+            raise AssertionError(f"{name}: {counter.launches - before} launches in 11 calls")
+        want = plain(4)
+        library_err = ((library(4) - want).abs().max() / want.abs().max()).item()
+        bound_ms, bound_by = bound(nbytes, ops, peak)
+        # the launch, weight staging and output alone; the first 30 steps,
+        # whose values are finite; the overflowed rest (inf and NaN operands)
+        ms_0, ms_30 = (cuda_ms(lambda: kernel(n), 10) for n in (0, 30))
+        rows[name] = dict(
+            ms=ms, tf_s=ops / ms / 1e9, ms_0_steps=ms_0, ms_30_steps=ms_30,
+            step_us_finite=(ms_30 - ms_0) / 30 * 1e3,
+            step_us_overflowed=(ms - ms_30) / (gp.ITERS - 30) * 1e3,
+            plain_ms=cuda_ms(lambda: plain(gp.ITERS), 10),
+            library_ms_eager=cuda_ms(lambda: library(gp.ITERS), 10),
+            library_ms=cuda_ms(graphed(lambda: library(gp.ITERS)), 10),
+            bound_ms=bound_ms, bound_by=bound_by, library_err_4=library_err)
+        log(f"{name} at {gp.ITERS} steps: kernel {ms:.4f} ms ({rows[name]['tf_s']:.2f} TF/s; "
+            f"{ms_0:.4f} ms at 0 steps, {ms_30:.4f} at 30; a step {rows[name]['step_us_finite']:.3f}"
+            f" us over the first 30, {rows[name]['step_us_overflowed']:.3f} us over the rest), "
+            f"plain {rows[name]['plain_ms']:.3f} ms, library chain "
+            f"{rows[name]['library_ms_eager']:.3f} ms eager / {rows[name]['library_ms']:.3f} "
+            f"ms as one CUDA graph (at 4 steps {library_err:.3e} of max |acc| off the plain "
+            f"version), bound {bound_ms:.4f} ms ({bound_by}); CUDA events, 1 warm + 10 calls")
+
+    gp.int8_chain_cuda.launches = gp.bf16_chain_cuda.launches = 0
+    res = probe.main(["--run"])
+    launches = {"p1": gp.int8_chain_cuda.launches, "p2": gp.bf16_chain_cuda.launches}
+    log(f"the probe's own run: launches {launches}; int8 {res['int8_tf_s']:.2f} TF/s, bf16 "
+        f"{res['bf16_tf_s']:.2f} TF/s")
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"the probe never launched the {name} kernel")
+    return [dict(name=name, route="cuda",
+                 source="multimodal_scene_text_recognition_tpu_torch/kernels/gemm_probe.cu",
+                 replaces=f"scripts/probe_int8_pallas.py:{line}",
+                 jax=f"scripts/probe_int8_pallas.py::{fn}", launches=launches[name],
+                 max_abs_err=r[f"abs_err_{name}"], probe_tf_s=res[f"{kind}_tf_s"], **rows[name])
+            for name, fn, line, kind in (("p1", "kern_int8", 21, "int8"),
+                                         ("p2", "kern_bf16", 42, "bf16"))]
 
 
 def decode_cost(w, ck, T, dt_bytes):
@@ -1604,7 +1835,9 @@ def main() -> int:
     from multimodal_scene_text_recognition_tpu_torch.ops import batchnorm as bn
     from multimodal_scene_text_recognition_tpu_torch.ops import fused_beam as fb
     from multimodal_scene_text_recognition_tpu_torch.ops import fused_decode as fd
+    from multimodal_scene_text_recognition_tpu_torch.ops import gemm_probe as gp
     from multimodal_scene_text_recognition_tpu_torch.ops import grid_sample as gs
+    from multimodal_scene_text_recognition_tpu_torch.scripts import probe_int8
 
     phase("build")
     shutil.rmtree(build.BUILD_DIR, ignore_errors=True)  # a cold build, timed
@@ -1621,6 +1854,9 @@ def main() -> int:
 
     phase("bn_bwd_reduce vs plain")
     bn_err, bn_err_abs = check_bn_bwd_reduce(bn)
+
+    phase("gemm probe (P1, P2) vs plain")
+    p1, p2 = check_gemm_probe(gp, probe_int8, build, "--mutants" in sys.argv[1:])
 
     phase("load model")
     BEAM_CFG = dataclasses.replace(FLAGSHIP, decode_early_stop=True, decode_beam_fused=True)
@@ -1770,7 +2006,8 @@ def main() -> int:
                       "e2e_int8": e2e_int8, "e2e_semantic": e2e_semantic,
                       "train": train}), flush=True)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [k1, k1e, k1q, k2, k3, k4, k1c, k4c]}), flush=True)
+    print(json.dumps({"kernels": [k1, k1e, k1q, k2, k3, k4, k1c, k4c, p1, p2]}),
+          flush=True)
     timer.cancel()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

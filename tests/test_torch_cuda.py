@@ -19,6 +19,7 @@ from multimodal_scene_text_recognition_tpu_torch.models import resnet_int8 as ri
 from multimodal_scene_text_recognition_tpu_torch.ops import batchnorm as bn
 from multimodal_scene_text_recognition_tpu_torch.ops import fused_beam as fb
 from multimodal_scene_text_recognition_tpu_torch.ops import fused_decode as fd
+from multimodal_scene_text_recognition_tpu_torch.ops import gemm_probe as gp
 from multimodal_scene_text_recognition_tpu_torch.ops import grid_sample as gs
 from multimodal_scene_text_recognition_tpu_torch.ops import int8
 
@@ -672,3 +673,92 @@ def test_cls0_wrappers_refuse_bad_cls0(dev):
         for c in bad:
             with pytest.raises(ValueError, match="cls0"):
                 call(c)
+
+
+@pytest.mark.parametrize("x_kind,iters", [("normal", 1), ("normal", 4), ("normal", 30),
+                                          ("ties", 1), ("ties", 4), ("nan", 1)])
+def test_int8_chain_kernel_is_bit_equal_to_plain(dev, x_kind, iters):
+    """P1 against its plain version on the probe's inputs, on
+    ``tie_input`` (every first quantization a half-way tie; its chain
+    starts 127 times larger and overflows before 30 steps) and on an x with
+    one NaN (all NaN after one step, as jnp.maximum propagates it): bit for
+    bit, each step the same IEEE operations in the same order, the int32
+    sums exact."""
+    x, wq, ws, _ = gp.probe_inputs(0, dev)
+    if x_kind == "ties":
+        x = gp.tie_input(0, dev)
+    elif x_kind == "nan":
+        x[3, 5] = float("nan")
+    got = gp.int8_chain_cuda(x, wq, ws, iters)
+    want = gp.int8_chain_plain(x, wq, ws, iters)
+    assert torch.isnan(want).all() if x_kind == "nan" else torch.isfinite(want).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("iters", [1, 4, 30])
+def test_bf16_chain_kernel_matches_plain(dev, iters):
+    x, _, _, wbf = gp.probe_inputs(0, dev)
+    got = gp.bf16_chain_cuda(x, wbf, iters)
+    want = gp.bf16_chain_plain(x, wbf, iters)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    assert err <= gp.BF16_CHAIN_TOL[iters], err
+
+
+def test_chain_kernels_end_all_nan_at_the_probes_length(dev):
+    x, wq, ws, wbf = gp.probe_inputs(0, dev)
+    for out in (gp.int8_chain_cuda(x, wq, ws), gp.int8_chain_plain(x, wq, ws),
+                gp.bf16_chain_cuda(x, wbf), gp.bf16_chain_plain(x, wbf)):
+        assert torch.isnan(out).all()
+
+
+def test_chain_kernels_at_another_shape(dev):
+    """B=64, F=384 (2 x 3 CTAs): the tiles and the feedback of the first
+    256 columns do not depend on the probe's own shape."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(64, 256, generator=g, device=dev)
+    w = torch.randn(256, 384, generator=g, device=dev)
+    ws = w.abs().amax(dim=0, keepdim=True) / 127.0
+    wq = torch.clamp(torch.round(w / ws), -127, 127).to(torch.int8)
+    assert torch.equal(gp.int8_chain_cuda(x, wq, ws, 6), gp.int8_chain_plain(x, wq, ws, 6))
+    got = gp.bf16_chain_cuda(x, w.bfloat16(), 1)
+    want = gp.bf16_chain_plain(x, w.bfloat16(), 1)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= gp.BF16_CHAIN_TOL[1]
+
+
+def test_chain_dispatch_launches_the_kernels_once_a_call(dev):
+    x, wq, ws, wbf = gp.probe_inputs(0, dev)
+    n8, n16 = gp.int8_chain_cuda.launches, gp.bf16_chain_cuda.launches
+    for _ in range(3):
+        gp.int8_chain(x, wq, ws, 2)
+        gp.bf16_chain(x, wbf, 2)
+    assert gp.int8_chain_cuda.launches == n8 + 3 and gp.bf16_chain_cuda.launches == n16 + 3
+
+
+def test_chain_wrappers_refuse_bad_inputs(dev):
+    x, wq, ws, wbf = gp.probe_inputs(0, dev)
+    p1 = lambda *a: gp.int8_chain_cuda(*a, 2)  # noqa: E731
+    p2 = lambda *a: gp.bf16_chain_cuda(*a, 2)  # noqa: E731
+    for call, args, exc in (
+            (p1, (x.double(), wq, ws), TypeError), (p1, (x, wq.float(), ws), TypeError),
+            (p1, (x, wq, ws.double()), TypeError), (p2, (x, wbf.float()), TypeError),
+            (p1, (x[:100], wq, ws), ValueError), (p1, (x, wq[:, :200], ws[:, :200]), ValueError),
+            (p1, (x[:, :128].contiguous(), wq[:128], ws), ValueError),
+            (p1, (x, wq, ws[:, :1024]), ValueError), (p2, (x, wbf[:, :1000]), ValueError),
+            (p1, (x.t().contiguous().t(), wq, ws), ValueError), (p2, (x, wbf.cpu()), ValueError)):
+        with pytest.raises(exc):
+            call(*args)
+    with pytest.raises(ValueError, match="iters"):
+        gp.int8_chain_cuda(x, wq, ws, -1)
+
+
+def test_chain_launch_too_large_to_be_resident_raises(dev):
+    """B=4096 makes 16 x 128 CTAs, more than the card holds at once: the
+    cooperative launch is refused and the wrapper raises."""
+    x = torch.zeros(4096, 256, device=dev)
+    _, wq, ws, wbf = gp.probe_inputs(0, dev)
+    before = gp.bf16_chain_cuda.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gp.bf16_chain_cuda(x, wbf, 1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gp.int8_chain_cuda(x, wq, ws, 1)
+    assert gp.bf16_chain_cuda.launches == before
