@@ -38,10 +38,15 @@ probe's own entry point.  Every phase prints one flushed line
 with the elapsed seconds; any failure raises and the script exits
 non-zero.  ``--mutants`` also builds copies of the beam kernel with one
 bf16 rounding dropped each, of K1q with one of three rounding faults each,
-of K1 with one bf16 rounding dropped each (read with and without
-cls0), and of the probe's kernels with one of four rounding faults each,
-and prints whether their limits catch them.  A watchdog turns a hang into a printed
-failure (exit code 3).
+of K1 with one bf16 rounding dropped each (the ReLU outputs': rounded
+toward zero; read with and without cls0), and of the probe's kernels with
+one of four rounding faults each, and prints whether their limits catch
+them; and copies of K1 with one part of its step left out each, timed
+beside it (K1_TIMING_VARIANTS).  The K1 phase prints K1's launch (its
+cluster plan and the weight bytes a call reads from L2), its times
+(``k1_times``: B=192 at full length and with early stop, B=1) and its
+cycles by phase (``fused_greedy_decode_cuda(profile=)``).  A watchdog
+turns a hang into a printed failure (exit code 3).
 
 Output: per-phase lines, the ``nvidia-smi`` name/power-limit line, one JSON
 line ``{"kernels": [...]}`` before the last, and as the last line
@@ -78,10 +83,11 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
 # K1 bf16 vs its plain version, max |logit diff| on the trained decoder at
-# B=192 (logits of scale ~5).  On an H100 the kernel is 0.070 off; with any
-# one of its bf16 roundings dropped (ReLU output, probabilities, q*K
-# products) it was 0.127-0.161 off with every token still equal, so the
-# limit sits between the two.
+# B=192 (logits of scale ~5).  On an H100 the kernel is 0.071 off (the
+# CUDA-core design before it 0.070); with one of its bf16 roundings dropped
+# (probabilities, q*K products, value products) or the ReLU outputs rounded
+# toward zero (K1_MUTANTS) it was 0.111-0.231 off with every token still
+# equal, so the limit sits between the two.
 BF16_LOGIT_TOL = 0.1
 # K3 vs its plain version: max over channels of |kernel - plain| over the
 # sum of |terms| (at least 1).  Both sum float32 in another order: 2.7e-9 to
@@ -142,11 +148,14 @@ K1Q_BF16_AGREE = 0.99
 SEM_BF16_AGREE = 0.98
 SEM_INT8_AGREE = 0.98
 # K1 and K1e bf16 with a random N(0, 1) cls0 vs their plain versions on the
-# trained decoder, max |logit diff|.  An H100 read 0.109 (K1) and 0.098
+# trained decoder, max |logit diff|.  An H100 read 0.112 (K1) and 0.098
 # (K1e), over BF16_LOGIT_TOL: the random step-0 row lies outside what the
 # trained decoder sees, and its larger activations round larger.  With
-# cls0 the four K1_MUTANTS (--mutants) read 0.232-0.366 (0.127-0.231
-# without it), so the limit sits between the two and catches all four.
+# cls0 the four K1_MUTANTS (--mutants) read 0.259-3.17, so the limit sits
+# between the two and catches all four.  Row 151 has a near tie at step 7
+# (the plain version's top two logits 0.0037 apart): a K1 whose sums take
+# another order can flip that token, and the row's later logits then read
+# ~0.26 off (K1 with split-K sums did, on an H100; PERF.md).
 CLS0_BF16_LOGIT_TOL = 0.2
 
 T0 = time.time()
@@ -170,6 +179,13 @@ def _watchdog() -> None:
         build.kill_running()
     finally:
         os._exit(3)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -616,7 +632,8 @@ def check_fused_decode(fd, model, image, overlap):
     for dt in (torch.float32, torch.bfloat16):
         wd = dec.fused_weights(dt)
         ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
-        out = fd.fused_greedy_decode_cuda(wd, ckd, cvd, **kw)
+        # the tables repacked once, as the served path does
+        out = fd.fused_greedy_decode_cuda(wd, ckd, cvd, packed=dec.cluster_tables(dt), **kw)
         ref = fd.fused_greedy_decode_plain(wd, ckd, cvd, **kw)
         torch.cuda.synchronize()
         if not torch.isfinite(out).all():
@@ -636,20 +653,63 @@ def check_fused_decode(fd, model, image, overlap):
         raise AssertionError(f"fused decode bf16: max |logit diff| {err16} > {BF16_LOGIT_TOL}")
 
     _, _, wd, ckd, cvd = results[torch.bfloat16]
-    ms = cuda_ms(lambda: fd.fused_greedy_decode_cuda(wd, ckd, cvd, **kw), 10)
+    kw["packed"] = dec.cluster_tables(torch.bfloat16)
+    first, again = (fd.fused_greedy_decode_cuda(wd, ckd, cvd, **kw) for _ in range(2))
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError("fused decode bf16: two launches on the same input differ")
+    L, _, Tm, E = ckd.shape
+    F, C = wd.ff1_w.shape[2], wd.head_w.shape[1]
+    plan = fd.cluster_plan(B, L, E, H, F, C, T, Tm, torch.bfloat16)
+    log(f"fused_decode bf16 launch: G={plan.G} CTAs a cluster, R={plan.R} rows a cluster, "
+        f"{plan.clusters} clusters ({plan.ctas} CTAs), {plan.smem} B shared memory a CTA, "
+        f"{plan.depth} units in flight a lane; weights read from L2 "
+        f"{plan.cta_step_bytes / 1e6:.3f} MB a CTA a step, "
+        f"{plan.call_bytes(T) / 1e9:.3f} GB a full-length call")
+    times = k1_times(fd, dec, ck, cv, packed=kw["packed"])
+    ms, ms_b1 = times["full"], times["b1"]
+    one = [t[:, :1].contiguous() for t in (ckd, cvd)]
+    shares = {}
+    for name, (k, v) in (("B=192", (ckd, cvd)), ("B=1", one)):
+        prof = torch.zeros(len(fd.CLUSTER_PHASES), dtype=torch.int64, device=k.device)
+        fd.fused_greedy_decode_cuda(wd, k, v, profile=prof, **kw)
+        cycles = prof.tolist()
+        shares[name] = {p: c / sum(cycles) for p, c in zip(fd.CLUSTER_PHASES, cycles)}
+        log(f"fused_decode bf16 {name}: {sum(cycles)} cycles of CTA 0's first thread, by phase "
+            + ", ".join(f"{p} {v:.3f}" for p, v in shares[name].items()))
+    del kw["packed"]
     plain_ms = cuda_ms(lambda: fd.fused_greedy_decode_plain(wd, ckd, cvd, **kw), 3)
     nbytes, flops = decode_cost(wd, ckd, T, 2)
     bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
-    log(f"fused_decode bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+    log(f"fused_decode bf16: kernel {ms:.3f} ms at B={B} (early stop {times['early_stop']:.3f} "
+        f"ms), {ms_b1:.3f} ms at B=1; two launches bit-identical; plain {plain_ms:.3f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
     return dict(name="fused_decode", route="cuda",
-                source="multimodal_scene_text_recognition_tpu_torch/kernels/fused_decode.cu",
+                source="multimodal_scene_text_recognition_tpu_torch/kernels/fused_decode_cluster.cu",
                 replaces="multimodal_scene_text_recognition_tpu/ops/fused_decode.py:207",
                 jax="ops/fused_decode.py::_decode_kernel",
                 max_abs_err=err32, max_abs_err_f32=err32, max_abs_err_bf16=err16,
                 bf16_token_agreement=agree16,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                ms=ms, ms_b1=ms_b1, ms_early_stop=times["early_stop"], phase_shares=shares,
+                rows=plan.R, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None)
+
+
+def k1_times(fd, dec, ck, cv, **kw) -> dict:
+    """K1 bf16 ms on ``dec``'s tables and the cross K/V ``ck``, ``cv``
+    [L, B, Tm, E]: at full length (``full``) and with early stop
+    (``early_stop``), and at full length on the first row alone (``b1``);
+    one warm call, then the mean of 10 by CUDA events.  ``kw``: more
+    arguments of every call (``packed``)."""
+    bf16 = torch.bfloat16
+    wd = dec.fused_weights(bf16)
+    ckd, cvd = ck.to(bf16).contiguous(), cv.to(bf16).contiguous()
+    one = [t[:, :1].contiguous() for t in (ckd, cvd)]
+    kw = dict(num_heads=dec.num_heads, steps=dec.max_text_length, go_id=0, eps=1e-5, **kw)
+    k1 = fd.fused_greedy_decode_cuda
+    return dict(full=cuda_ms(lambda: k1(wd, ckd, cvd, **kw), 10),
+                early_stop=cuda_ms(lambda: k1(wd, ckd, cvd, eos_id=1, **kw), 10),
+                b1=cuda_ms(lambda: k1(wd, *one, **kw), 10))
 
 
 def first_eos_steps(tokens, steps: int):
@@ -701,11 +761,11 @@ def check_fused_decode_early_stop(fd, model, rec, rec_es, crops, image):
     kw = dict(num_heads=H, steps=T, go_id=0, eos_id=1, eps=1e-5)
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
-        wd = dec.fused_weights(dt)
+        wd, packed = dec.fused_weights(dt), dec.cluster_tables(dt)
         ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
-        out = fd.fused_greedy_decode_cuda(wd, ckd, cvd, **kw)
+        out = fd.fused_greedy_decode_cuda(wd, ckd, cvd, packed=packed, **kw)
         ref = fd.fused_greedy_decode_plain(wd, ckd, cvd, **kw)
-        full = fd.fused_greedy_decode_cuda(wd, ckd, cvd, **dict(kw, eos_id=None))
+        full = fd.fused_greedy_decode_cuda(wd, ckd, cvd, packed=packed, **dict(kw, eos_id=None))
         torch.cuda.synchronize()
         ids = out.argmax(-1)
         agree = pruned_agreement(ids, ref.argmax(-1))
@@ -721,16 +781,20 @@ def check_fused_decode_early_stop(fd, model, rec, rec_es, crops, image):
         if dt == torch.bfloat16 and not errs[dt] <= BF16_LOGIT_TOL:
             raise AssertionError(f"fused decode early stop bf16: max diff {errs[dt]}")
     steps = first_eos_steps(ids, T)
-    es = lambda: fd.fused_greedy_decode_cuda(wd, ckd, cvd, **kw)  # noqa: E731
+    es = lambda: fd.fused_greedy_decode_cuda(wd, ckd, cvd, packed=packed, **kw)  # noqa: E731
     ms = cuda_ms(es, 10)
-    full_kw = dict(kw, eos_id=None)
+    full_kw = dict(kw, eos_id=None, packed=packed)
     ms_full = cuda_ms(lambda: fd.fused_greedy_decode_cuda(wd, ckd, cvd, **full_kw), 10)
     plain_ms = cuda_ms(lambda: fd.fused_greedy_decode_plain(wd, ckd, cvd, **kw), 2)
     nbytes, flops = loop_cost(wd, ckd, 1, steps, 2, out.numel() * 4)
     bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    R = fd.CLUSTER_ROWS
+    tiles = torch.nn.functional.pad(steps, (0, -len(steps) % R)).reshape(-1, R).amax(1)
     log(f"fused_decode early stop bf16: kernel {ms:.3f} ms (full length {ms_full:.3f} ms), "
         f"plain {plain_ms:.3f} ms, steps per row mean {steps.float().mean().item():.2f} max "
-        f"{steps.max().item()}, bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP)")
+        f"{steps.max().item()}, per cluster of {R} rows mean {tiles.float().mean().item():.2f} "
+        f"(the steps each cluster ran: {tiles.tolist()}), bound {bound_ms:.4f} ms "
+        f"({bound_by}; {flops / 1e9:.1f} GFLOP)")
 
     fd.fused_greedy_decode_cuda.launches = 0
     texts_es = rec_es.recognize(crops)
@@ -742,13 +806,14 @@ def check_fused_decode_early_stop(fd, model, rec, rec_es, crops, image):
     if same != 1.0 or launches < 1:
         raise AssertionError(f"early-stop greedy serving: agreement {same}, launches {launches}")
     return dict(name="fused_decode_early_stop", route="cuda",
-                source="multimodal_scene_text_recognition_tpu_torch/kernels/fused_decode.cu",
+                source="multimodal_scene_text_recognition_tpu_torch/kernels/fused_decode_cluster.cu",
                 replaces="multimodal_scene_text_recognition_tpu/ops/fused_decode.py:340",
                 jax="ops/fused_decode.py::_decode_kernel, eos_id",
                 launches=launches, max_abs_err=errs[torch.float32],
                 max_abs_err_bf16=errs[torch.bfloat16], ms=ms, ms_full_length=ms_full,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                mean_steps=steps.float().mean().item())
+                mean_steps=steps.float().mean().item(),
+                mean_cluster_steps=tiles.float().mean().item())
 
 
 def beam_inputs(model, image):
@@ -808,12 +873,12 @@ MUTANTS = (
 
 @contextlib.contextmanager
 def mutant_libraries(build, source: str, mutants):
-    """Copies of kernel ``source`` (its .cu and the shared header), each with
-    one (name, text, replacement) of ``mutants`` applied wherever the text
-    stands, built all at once in a temporary directory; yields their
+    """Copies of kernel ``source`` (its .cu and the shared headers), each
+    with one (name, text, replacement) of ``mutants`` applied wherever the
+    text stands, built all at once in a temporary directory; yields their
     library paths.  Raises if a text is in no source or a copy fails to
     build."""
-    names = (f"{source}.cu", "decode_common.cuh")
+    names = (f"{source}.cu", *sorted(p.name for p in build.KERNEL_DIR.glob("*.cuh")))
     sources = {n: (build.KERNEL_DIR / n).read_text() for n in names}
     for name, old, _ in mutants:
         if not any(old in text for text in sources.values()):
@@ -1299,8 +1364,9 @@ def greedy_vs_plain(fd, dec, ck, cv, dt, early_stop: bool, cls0) -> dict:
     ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
     kw = dict(num_heads=dec.num_heads, steps=T, go_id=0, eos_id=1 if early_stop else None,
               eps=1e-5)
-    out = fd.fused_greedy_decode_cuda(wd, ckd, cvd, cls0=cls0, **kw)
     ref = fd.fused_greedy_decode_plain(wd, ckd, cvd, cls0=cls0, **kw)
+    kw["packed"] = dec.cluster_tables(dt)
+    out = fd.fused_greedy_decode_cuda(wd, ckd, cvd, cls0=cls0, **kw)
     without = fd.fused_greedy_decode_cuda(wd, ckd, cvd, **kw) if cls0 is not None else out
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
@@ -1308,7 +1374,11 @@ def greedy_vs_plain(fd, dec, ck, cv, dt, early_stop: bool, cls0) -> dict:
                              f"non-finite logits")
     ids, ref_ids = out.argmax(-1), ref.argmax(-1)
     full = torch.full_like(ids[:, 0], T)
-    return dict(err=(out - ref).abs().max().item(),
+    where = (out - ref).abs().amax(-1)  # [B, T]
+    worst = divmod(int(where.argmax()), T)
+    flips = [(b, t, (lambda v: (v[0] - v[1]).item())(ref[b, t].topk(2).values))
+             for b, t in (ids != ref_ids).nonzero().tolist()[:3]]
+    return dict(err=(out - ref).abs().max().item(), worst=worst, flips=flips,
                 tokens=(ids == ref_ids).float().mean().item(),
                 rows=pruned_agreement(ids, ref_ids),
                 steps=first_eos_steps(ids, T) if early_stop else full,
@@ -1316,26 +1386,66 @@ def greedy_vs_plain(fd, dec, ck, cv, dt, early_stop: bool, cls0) -> dict:
                 step0_moved=(out[:, 0] - without[:, 0]).abs().amax(-1).min().item())
 
 
-# K1's bf16 roundings dropped one at a time, for --mutants: (name, text in
-# fused_decode.cu or decode_common.cuh, replacement); they set the limit
-# of K1 with a random cls0
+# K1's bf16 roundings dropped (the ReLU outputs': rounded toward zero) one
+# at a time, for --mutants: (name, text in K1_SOURCE.cu or the shared
+# headers, replacement); they set the limit of K1 with a random cls0
+K1_SOURCE = "fused_decode_cluster"
 K1_MUTANTS = (
     ("probabilities", "pr[s] = Num<T>::round(pr[s] / sum);", "pr[s] = pr[s] / sum;"),
-    ("q*K products", "acc += Num<T>::round(Num<T>::round(qr[d]) * Num<T>::to_f(kr[d]));",
-     "acc += Num<T>::round(qr[d]) * Num<T>::to_f(kr[d]);"),
-    ("value products", "acc += Num<T>::round(pr[s] * Num<T>::to_f(vr[(size_t)s * E]));",
-     "acc += pr[s] * Num<T>::to_f(vr[(size_t)s * E]);"),
-    ("ReLU outputs", "Num<T>::round(fmaxf(v, 0.0f))", "fmaxf(v, 0.0f)"),
+    ("q*K products",
+     "acc[w] += Num<T>::round(Num<T>::round(qr[d + u * VW + i2]) * widen<T>(kv[w][u], i2));",
+     "acc[w] += Num<T>::round(qr[d + u * VW + i2]) * widen<T>(kv[w][u], i2);"),
+    ("value products", "acc[i2] += Num<T>::round(pr[s0 + j] * widen<T>(vv[j], i2));",
+     "acc[i2] += pr[s0 + j] * widen<T>(vv[j], i2);"),
+    # ff2 takes the ReLU outputs as a bf16 operand of the tensor cores, so
+    # their rounding cannot be dropped: this copy rounds them toward zero
+    ("ReLU outputs", "Num<T>::from_f(epilogue<T, kReluRound>(v, bias, cols.bias_at(n)));",
+     "(T)__float2bfloat16_rz(fmaxf(v + Num<T>::to_f(bias[cols.bias_at(n)]), 0.0f));"),
 )
+
+
+# copies of K1 with one part of its step left out, timed (not checked) with
+# --mutants to split its time by phase: (name, text, replacement).  The
+# exchange has none: left out, its mbarrier waits would never end.
+K1_TIMING_VARIANTS = (
+    ("without the attention key loads",
+     "if (d + u * VW < hd) kv[w][u] = load16(kr[w] + (size_t)s * ps + d + u * VW);",
+     "if (d + u * VW < 0) kv[w][u] = load16(kr[w] + (size_t)s * ps + d + u * VW);"),
+    ("without the attention value loads",
+     "if (s0 + j < len) vv[j] = load16(vr[w] + (size_t)(s0 + j) * ps + d);",
+     "if (s0 + j < 0) vv[j] = load16(vr[w] + (size_t)(s0 + j) * ps + d);"),
+    ("without waiting for the weights",
+     'asm volatile("cp.async.wait_group %0;\\n" ::"n"(D - 1) : "memory");', ""),
+    ("without the weight stream",
+     'asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" ::"r"(dst), "l"(src) : "memory");',
+     ""),
+    ("without the tensor-core products", "mma(d0, af.v[m], b0);\n      mma(d1, af.v[m], b1);", ""),
+)
+
+
+def time_k1_variants(fd, build, dec, ck, cv) -> dict:
+    """K1 bf16 at full length, B=192 and B=1, with each of
+    K1_TIMING_VARIANTS built in (their results are wrong and not read),
+    beside the kernel itself in the same loop; ms by CUDA events."""
+    packed = dec.cluster_tables(torch.bfloat16)
+    times = lambda: k1_times(fd, dec, ck, cv, packed=packed)  # noqa: E731
+    out = {"kernel": times()}
+    with mutant_libraries(build, K1_SOURCE, K1_TIMING_VARIANTS) as paths:
+        for (name, _, _), path in zip(K1_TIMING_VARIANTS, paths):
+            with loaded_as(build, K1_SOURCE, path):
+                out[name] = times()
+    log("K1 bf16 ms at full length, B=192 / B=1, with a part of the step left out: " + "; ".join(
+        f"{k} {t['full']:.3f} / {t['b1']:.3f}" for k, t in out.items()))
+    return out
 
 
 def check_k1_cls0_mutants(fd, build, dec, ck, cv, cls0):
     """K1's bf16 limits with and without a random cls0 against broken
     copies of it (K1_MUTANTS), each held against the plain version as the
     kernel is, at full length."""
-    with mutant_libraries(build, "fused_decode", K1_MUTANTS) as paths:
+    with mutant_libraries(build, K1_SOURCE, K1_MUTANTS) as paths:
         for (name, _, _), path in zip(K1_MUTANTS, paths):
-            with loaded_as(build, "fused_decode", path):
+            with loaded_as(build, K1_SOURCE, path):
                 r = {c is not None: greedy_vs_plain(fd, dec, ck, cv, torch.bfloat16, False, c)
                      for c in (None, cls0)}
             log(f"K1 mutant without the bf16 rounding of the {name}: max |logit diff| "
@@ -1361,9 +1471,10 @@ def check_cls0_kernels(fd, fb, build, dec, ck, cv, mutants: bool) -> tuple:
          for dt in (f32, bf16) for es in (False, True)}
     for (dt, es), r in g.items():
         log(f"K1{'e' if es else ''} with cls0, {str(dt)[6:]}: kernel vs plain max |logit diff| "
-            f"{r['err']:.3e}, tokens identical {r['tokens']:.6f}, [s]-pruned rows "
-            f"{r['rows']:.6f}; step-0 logits moved by cls0 at least {r['step0_moved']:.3e} "
-            f"in every row")
+            f"{r['err']:.3e} (row, step {r['worst']}), tokens identical {r['tokens']:.6f} "
+            f"(first differing (row, step, plain's top-2 logit gap) {r['flips']}), [s]-pruned "
+            f"rows {r['rows']:.6f}; step-0 logits moved by cls0 at least "
+            f"{r['step0_moved']:.3e} in every row")
         if not r["step0_moved"] > 1e-3:
             failures.append(f"K1 with cls0 ({dt}, early stop {es}): step-0 logits as without "
                             f"it ({r['step0_moved']})")
@@ -1391,12 +1502,14 @@ def check_cls0_kernels(fd, fb, build, dec, ck, cv, mutants: bool) -> tuple:
 
     # times in bf16, each with cls0 beside the same launch without it
     wd, (wq, scales) = dec.fused_weights(bf16), dec.fused_weights(bf16, int8=True)
+    packed = dec.cluster_tables(bf16)
     ckd, cvd = ck.to(bf16).contiguous(), cv.to(bf16).contiguous()
     kw = dict(num_heads=H, steps=T, go_id=0, eps=1e-5)
     bkw = dict(beam_size=BEAM, num_heads=H, steps=T, go_id=0, eos_id=1, eps=1e-5)
     launches = {
-        "K1": lambda c: fd.fused_greedy_decode_cuda(wd, ckd, cvd, cls0=c, **kw),
-        "K1e": lambda c: fd.fused_greedy_decode_cuda(wd, ckd, cvd, eos_id=1, cls0=c, **kw),
+        "K1": lambda c: fd.fused_greedy_decode_cuda(wd, ckd, cvd, cls0=c, packed=packed, **kw),
+        "K1e": lambda c: fd.fused_greedy_decode_cuda(wd, ckd, cvd, eos_id=1, cls0=c,
+                                                     packed=packed, **kw),
         "K1q": lambda c: fd.fused_greedy_decode_cuda(wq, ckd, cvd, scales=scales, cls0=c, **kw),
         "K1q early stop": lambda c: fd.fused_greedy_decode_cuda(wq, ckd, cvd, eos_id=1,
                                                                 scales=scales, cls0=c, **kw),
@@ -1438,7 +1551,7 @@ def check_cls0_kernels(fd, fb, build, dec, ck, cv, mutants: bool) -> tuple:
         f"early stop {k4_bound:.4f} ms ({k4_by}; steps per row mean "
         f"{bsteps.float().mean().item():.2f}), at full length {k4_bound_full:.4f} ms")
     k1c = dict(name="fused_decode_cls0", route="cuda",
-               source="multimodal_scene_text_recognition_tpu_torch/kernels/fused_decode.cu",
+               source="multimodal_scene_text_recognition_tpu_torch/kernels/fused_decode_cluster.cu",
                replaces="multimodal_scene_text_recognition_tpu/ops/fused_decode.py:294",
                jax="ops/fused_decode.py::_decode_kernel, use_cls (cls0 step-0 row)",
                max_abs_err=max(r["err"] for (dt, _), r in g.items() if dt == f32),
@@ -1822,9 +1935,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     log(f"device {kind} (count {count}); torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi, flush=True)
 
@@ -1873,6 +1984,10 @@ def main() -> int:
     phase("fused_decode early stop vs plain")
     k1e = check_fused_decode_early_stop(fd, model, rec, rec_b, crops, image)
 
+    if "--mutants" in sys.argv[1:]:
+        phase("K1 timing variants")
+        k1["ms_without"] = time_k1_variants(fd, build, *beam_inputs(model, image))
+
     phase("fused_beam vs plain")
     k4 = check_fused_beam(fb, model, image)
     if "--mutants" in sys.argv[1:]:
@@ -1914,6 +2029,13 @@ def main() -> int:
         raise AssertionError("the profiler saw no kernel run on the card")
     log(f"profile of {prof['calls']} calls: wall {prof['wall_ms']:.2f} ms, kernels busy "
         f"{prof['device_busy_ms']:.2f} ms, idle share {prof['idle_share']:.4f}")
+    # the same greedy call with early stop (K1e), through the beam config
+    ms_call_es = cuda_ms(lambda: rec_b.recognize(crops), 10)
+    stages_es = stage_times(model_b, rec_b, crops,
+                            lambda enc: model_b.decoder.greedy_decode(enc).argmax(-1))
+    log(f"greedy with early stop: {B / (ms_call_es / 1e3):.1f} crops/s ({ms_call_es:.2f} ms per "
+        f"{B}-crop call, 10 warm calls, CUDA events); stage ms (median of 10): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages_es.items()))
 
     phase("end-to-end beam bf16")
     fb.fused_beam_decode_cuda.launches = 0
@@ -1996,7 +2118,8 @@ def main() -> int:
     print(json.dumps({"e2e": {"bf16_string_agreement": agree16,
                               "f32_string_agreement": agree32["greedy"],
                               "crops_per_s": crops_s, "ms_per_call": ms_call, "batch": B,
-                              "stage_ms": stages, "profile": prof},
+                              "stage_ms": stages, "profile": prof,
+                              "early_stop": {"ms_per_call": ms_call_es, "stage_ms": stages_es}},
                       "e2e_beam": {"beam_size": BEAM, "bf16_string_agreement": agree_b16,
                                    "f32_string_agreement": agree32["beam"],
                                    "beam_vs_greedy_strings": beam_vs_greedy,

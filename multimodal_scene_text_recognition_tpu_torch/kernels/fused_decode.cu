@@ -1,19 +1,21 @@
-// Whole greedy decode loop of the transformer decoder in one kernel.
+// Whole greedy decode loop of the transformer decoder in one kernel, with
+// the six projections int8 (K1q).
 //
 // Replaces the TPU kernel multimodal_scene_text_recognition_tpu/ops/
-// fused_decode.py::_decode_kernel in float mode (K1, fused_decode) and with
-// quantized=True (K1q, fused_decode_int8), with its eos_id early stop and
-// its cls0 step-0 row.  For T steps it embeds the previous token, runs L
-// decoder layers (packed qkv -> self-attention KV-cache write -> causal
-// attention -> out-proj -> LN -> cross-q -> attention over the precomputed
-// memory K/V -> out-proj -> LN -> ReLU FF -> LN), the final LN and the
-// class head, writes logits[b, t, :] and feeds the first-index argmax back.
+// fused_decode.py::_decode_kernel with quantized=True (K1q,
+// fused_decode_int8), with its eos_id early stop and its cls0 step-0 row;
+// the float mode (K1) is fused_decode_cluster.cu.  For T steps it embeds
+// the previous token, runs L decoder layers (packed qkv -> self-attention
+// KV-cache write -> causal attention -> out-proj -> LN -> cross-q ->
+// attention over the precomputed memory K/V -> out-proj -> LN -> ReLU FF ->
+// LN), the final LN and the class head, writes logits[b, t, :] and feeds the
+// first-index argmax back.
 //
 // cls0 (cls_decoder_init, the TPU kernel's use_cls row): when the launcher
 // gets a non-null [B, E] float32 pointer, step 0's input row is cls0[b] +
-// pe[0] in float32, unrounded, in place of emb[go_id] + pe[0]: K1 rounds it
-// to T where a projection reads it, K1q quantizes it as it stands.  Only
-// the load of that one row differs; shared memory and the loop do not.
+// pe[0] in float32, unrounded, in place of emb[go_id] + pe[0], and is
+// quantized as it stands.  Only the load of that one row differs; shared
+// memory and the loop do not.
 //
 // Early stop (eos_id >= 0): a row that has emitted eos_id writes no further
 // logits (the caller prefilled them with the eos_id one-hot), and a CTA
@@ -21,51 +23,37 @@
 // independent, so this needs no flag shared between CTAs.
 //
 // Design.  Rows of the batch are independent, so each CTA owns a fixed tile
-// of R rows (template parameter, built for kRows = 1: at B=192 on an H100
-// one row per CTA was the fastest of 1, 2, 4 and 8, and a larger tile
-// waits for a measured batch that gains from it) and loops over t and l
-// itself: there is no
-// grid-wide barrier, no flag shared between CTAs and no cooperative launch,
-// so the kernel cannot deadlock whatever the number of resident CTAs.  The
-// per-row activations (x, qkv, context, the FF hidden) live in shared memory
-// in float32.  The self-attention caches [L, B, T, E] live in device memory in
-// the compute type (row-major per batch row, so each CTA touches only its own
-// rows); only positions <= t are ever read.  Weights are read from device
-// memory, where L2 keeps them: they are stored [in, out] row-major and each
-// thread owns the 16 bytes of adjacent output columns one vector load
-// brings, so a warp reads 512 contiguous bytes of a weight row; where there
-// are fewer column groups than threads the K range is split and the partial
-// sums meet in shared memory.  Each weight is read once per CTA per step and
-// used for all R rows.
+// of R rows (template parameter, built for kRows = 1) and loops over t and
+// l itself: there is no grid-wide barrier, no flag shared between CTAs and
+// no cooperative launch, so the kernel cannot deadlock whatever the number
+// of resident CTAs.  The per-row activations (x, qkv, context, the FF
+// hidden) live in shared memory in float32.  The self-attention caches [L,
+// B, T, E] live in device memory in the compute type (row-major per batch
+// row, so each CTA touches only its own rows); only positions <= t are ever
+// read.  Weights are read from device memory, where L2 keeps them.
 //
-// Bound: operations.  At the flagship (B=192, T=25, L=6, E=256, F=2048,
-// C=97) the projections need 2*B*T*(L*1.44M + E*C) ~ 84 GFLOP against ~49 MB
-// of inputs and outputs.  This version uses CUDA-core FMAs, not tensor
-// cores, and re-reads the weights from L2 in every CTA and every step, so it
-// is bound in practice by L2 reads per SM; the tensor-core, TMA-fed,
-// persistent design is later work.
-//
-// Numerics mirror the TPU kernel's casts for compute type T (float or bf16):
-// matmul inputs are rounded to T and accumulated in float32; the q*K products
-// are rounded to T before the per-head sum; the probabilities are rounded to
-// T and probs*V is formed in T and summed in float32; layernorm, softmax and
-// logits are float32; the argmax takes the first index of the maximum.
-//
-// K1q (template flag Q) runs the six projections as the TPU kernel's
-// quantized `lin`: each quantizes its float32 input row as it stands (not
-// rounded to T: the residual stream, the attention contexts and the ReLU
-// output of ff1 stay unrounded) with the row's abs-max (a block reduction
-// in shared memory; scale abs-max / 127, rintf, half to even, clipped to
-// +-127) into an int8 row in shared memory, and multiplies it by an int8
-// table repacked in groups of four K-rows ([L, K/4, N, 4], one 32-bit word
-// per column and group), accumulating __dp4a products in int32: exact, so
-// the split-K partial sums meet in any order.  The epilogue dequantizes as
-// acc * ((absmax / 127) * channel scale) + bias in that order, with
+// The six projections run as the TPU kernel's quantized `lin`: each
+// quantizes its float32 input row as it stands (not rounded to T: the
+// residual stream, the attention contexts and the ReLU output of ff1 stay
+// unrounded) with the row's abs-max (a block reduction in shared memory;
+// scale abs-max / 127, rintf, half to even, clipped to +-127) into an int8
+// row in shared memory, and multiplies it by an int8 table repacked in
+// groups of four K-rows ([L, K/4, N, 4], one 32-bit word per column and
+// group), accumulating __dp4a products in int32: exact, so the split-K
+// partial sums meet in any order.  The epilogue dequantizes as acc *
+// ((absmax / 127) * channel scale) + bias in that order, with
 // __fmul_rn/__fadd_rn so no FMA contraction changes the rounding.  The
-// embedding, attention, layernorms and class head are K1's.  The int8
-// tables hold half the bytes of bf16 ones, and the L2 reads that bound K1
-// shrink accordingly; the dp4a products are CUDA-core work, and the
-// tensor-core (IMMA) design is later work.
+// embedding, attention, layernorms and class head follow the TPU kernel's
+// casts for compute type T (float or bf16): the class head's input rounded
+// to T and accumulated in float32; the q*K products rounded to T before the
+// per-head sum; the probabilities rounded to T and probs*V formed in T and
+// summed in float32; layernorm, softmax and logits float32; the argmax
+// takes the first index of the maximum.
+//
+// Bound: each CTA reads every int8 table of a step through __ldg (8.65 MB
+// at the flagship), so the kernel is bound in practice by L2 reads per SM,
+// as K1 was before its cluster design; the dp4a products are CUDA-core
+// work.  The cluster split and IMMA products are later work.
 
 #include <stdint.h>
 
@@ -88,9 +76,10 @@ struct Params {
   const T *ck, *cv;  // cross K/V [L, B, Tm, E]
   T *kc, *vc;        // self-attention caches [L, B, T, E]
   float* logits;     // [B, T, C]
-  // K1q: the six projection tables (qkv, out, cross-q, cross-out, ff1, ff2)
-  // int8 in groups of four K-rows [L, K/4, N, 4], and their per-channel
-  // scales [L, N] float32
+  // the six projection tables (qkv, out, cross-q, cross-out, ff1, ff2) int8
+  // in groups of four K-rows [L, K/4, N, 4] (in the slots of w_qkv, w_out,
+  // cw_q, cw_o, ff1_w and ff2_w), and their per-channel scales [L, N]
+  // float32
   const int* qw[6];
   const float* qs[6];
   int B, steps, L, E, F, C, H, Tm, go_id;
@@ -202,9 +191,8 @@ __device__ void linear(const float* xin, int K, const T* __restrict__ W,
 // Multi-head attention of R query rows over `len` cached positions.
 // q[r * q_stride + d] (float32, rounded to T here); K/V hold row `row` at
 // kv + row * kv_rows * E, position s at + s * E.  Writes the context into
-// xin[d * R + r]: rounded to T for K1's out-projection, as summed for
-// K1q's (Q).
-template <typename T, int R, bool Q>
+// xin[d * R + r] as summed (K1q quantizes it unrounded).
+template <typename T, int R>
 __device__ void attention(const Params<T>& p, const float* q, int q_stride,
                           const T* K, const T* V, int kv_rows, int len,
                           int r0, int nrows, float* probs, int S, float* xin) {
@@ -243,12 +231,12 @@ __device__ void attention(const Params<T>& p, const float* q, int q_stride,
     float acc = 0.0f;
     for (int s = 0; s < len; ++s)
       acc += Num<T>::round(pr[s] * Num<T>::to_f(vr[(size_t)s * E]));
-    xin[d * R + r] = Q ? acc : Num<T>::round(acc);
+    xin[d * R + r] = acc;
   }
   __syncthreads();
 }
 
-// The float32 value K1q quantizes: as it stands (K1 rounds it to T).
+// The float32 value K1q quantizes: as it stands (not rounded to T).
 template <typename T>
 __device__ float quant_input(float v) {
   return v;
@@ -407,22 +395,22 @@ __device__ void project_q(const Params<T>& p, int which, int l,
                        out, os_r, os_j, red, amax);
 }
 
-template <typename T, int R, bool Q>
+template <typename T, int R>
 __global__ void __launch_bounds__(kThreads) decode_kernel(Params<T> p) {
   extern __shared__ float smem[];
   const int E = p.E, F = p.F, C = p.C, H = p.H, T_ = p.steps, L = p.L;
   const int S = max(p.steps, p.Tm);
   float* xs = smem;               // [R][E]   residual stream
-  float* xin = xs + R * E;        // [E][R]   matmul input (K1q: the context)
-  float* hid = xin + E * R;       // [F][R]   FF hidden (K1: rounded)
+  float* xin = xs + R * E;        // [E][R]   matmul input (the context)
+  float* hid = xin + E * R;       // [F][R]   FF hidden
   float* qkv = hid + F * R;       // [R][3E]  projections / scratch
   float* probs = qkv + R * 3 * E; // [R][H][S]
   float* lg = probs + R * H * S;  // [R][C]
   float* red = lg + R * C;        // [blockDim * V * R] split-K partial sums
   int* tok = (int*)(red + kThreads * Vec<T>::kW * R);  // [R]
   int* done = tok + R;  // [R] rows that have emitted eos_id
-  // K1q only: the rows' abs-max and inverse scale [2R], a max per warp and
-  // row [kThreads / 32 * R], the int8 rows [R][Kq]
+  // the rows' abs-max and inverse scale [2R], a max per warp and row
+  // [kThreads / 32 * R], the int8 rows [R][Kq]
   float* amax = (float*)(done + R);
   float* wred = amax + 2 * R;
   int8_t* xq = (int8_t*)(wred + (kThreads / 32) * R);
@@ -453,15 +441,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params<T> p) {
 
     for (int l = 0; l < L; ++l) {
       // -- self attention over the running KV cache --
-      if constexpr (Q) {
-        project_q<T, R, false>(p, 0, l, xs, E, 1, E, p.b_qkv, 3 * E, qkv, 3 * E, 1,
-                               red, amax, wred, xq, Kq);
-      } else {
-        round_rows<T>(xs, R, E, E, xin);
-        __syncthreads();
-        linear<T, R, kPlain>(xin, E, p.w_qkv + (size_t)l * E * 3 * E,
-                             p.b_qkv + (size_t)l * 3 * E, 3 * E, qkv, 3 * E, 1, red);
-      }
+      project_q<T, R, false>(p, 0, l, xs, E, 1, E, p.b_qkv, 3 * E, qkv, 3 * E, 1, red, amax,
+                             wred, xq, Kq);
       __syncthreads();
       T* kc = p.kc + l * cache_l;
       T* vc = p.vc + l * cache_l;
@@ -474,64 +455,33 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params<T> p) {
         }
       }
       __syncthreads();
-      attention<T, R, Q>(p, qkv, 3 * E, kc, vc, T_, t + 1, r0, nrows, probs, S,
-                         xin);
-      if constexpr (Q) {
-        project_q<T, R, false>(p, 1, l, xin, 1, R, E, p.b_out, E, qkv, E, 1, red,
-                               amax, wred, xq, Kq);
-      } else {
-        linear<T, R, kPlain>(xin, E, p.w_out + (size_t)l * E * E,
-                             p.b_out + (size_t)l * E, E, qkv, E, 1, red);
-      }
+      attention<T, R>(p, qkv, 3 * E, kc, vc, T_, t + 1, r0, nrows, probs, S, xin);
+      project_q<T, R, false>(p, 1, l, xin, 1, R, E, p.b_out, E, qkv, E, 1, red, amax, wred, xq,
+                             Kq);
       __syncthreads();
-      add_layernorm<T>(xs, R, qkv, E, p.n1_s + l * E, p.n1_b + l * E, E,
-                          p.eps);
+      add_layernorm<T>(xs, R, qkv, E, p.n1_s + l * E, p.n1_b + l * E, E, p.eps);
       __syncthreads();
 
       // -- cross attention over the precomputed memory K/V --
-      if constexpr (Q) {
-        project_q<T, R, false>(p, 2, l, xs, E, 1, E, p.cb_q, E, qkv, E, 1, red,
-                               amax, wred, xq, Kq);
-      } else {
-        round_rows<T>(xs, R, E, E, xin);
-        __syncthreads();
-        linear<T, R, kPlain>(xin, E, p.cw_q + (size_t)l * E * E,
-                             p.cb_q + (size_t)l * E, E, qkv, E, 1, red);
-      }
+      project_q<T, R, false>(p, 2, l, xs, E, 1, E, p.cb_q, E, qkv, E, 1, red, amax, wred, xq,
+                             Kq);
       __syncthreads();
-      attention<T, R, Q>(p, qkv, E, p.ck + l * mem_l, p.cv + l * mem_l, p.Tm,
-                         p.Tm, r0, nrows, probs, S, xin);
-      if constexpr (Q) {
-        project_q<T, R, false>(p, 3, l, xin, 1, R, E, p.cb_o, E, qkv, E, 1, red,
-                               amax, wred, xq, Kq);
-      } else {
-        linear<T, R, kPlain>(xin, E, p.cw_o + (size_t)l * E * E,
-                             p.cb_o + (size_t)l * E, E, qkv, E, 1, red);
-      }
+      attention<T, R>(p, qkv, E, p.ck + l * mem_l, p.cv + l * mem_l, p.Tm, p.Tm, r0, nrows,
+                      probs, S, xin);
+      project_q<T, R, false>(p, 3, l, xin, 1, R, E, p.cb_o, E, qkv, E, 1, red, amax, wred, xq,
+                             Kq);
       __syncthreads();
-      add_layernorm<T>(xs, R, qkv, E, p.n2_s + l * E, p.n2_b + l * E, E,
-                          p.eps);
+      add_layernorm<T>(xs, R, qkv, E, p.n2_s + l * E, p.n2_b + l * E, E, p.eps);
       __syncthreads();
 
       // -- feed-forward --
-      if constexpr (Q) {
-        project_q<T, R, true>(p, 4, l, xs, E, 1, E, p.ff1_b, F, hid, 1, R, red,
-                              amax, wred, xq, Kq);
-        __syncthreads();
-        project_q<T, R, false>(p, 5, l, hid, 1, R, F, p.ff2_b, E, qkv, E, 1, red,
-                               amax, wred, xq, Kq);
-      } else {
-        round_rows<T>(xs, R, E, E, xin);
-        __syncthreads();
-        linear<T, R, kReluRound>(xin, E, p.ff1_w + (size_t)l * E * F,
-                                 p.ff1_b + (size_t)l * F, F, hid, 1, R, red);
-        __syncthreads();
-        linear<T, R, kPlain>(hid, F, p.ff2_w + (size_t)l * F * E,
-                             p.ff2_b + (size_t)l * E, E, qkv, E, 1, red);
-      }
+      project_q<T, R, true>(p, 4, l, xs, E, 1, E, p.ff1_b, F, hid, 1, R, red, amax, wred, xq,
+                            Kq);
       __syncthreads();
-      add_layernorm<T>(xs, R, qkv, E, p.n3_s + l * E, p.n3_b + l * E, E,
-                          p.eps);
+      project_q<T, R, false>(p, 5, l, hid, 1, R, F, p.ff2_b, E, qkv, E, 1, red, amax, wred, xq,
+                             Kq);
+      __syncthreads();
+      add_layernorm<T>(xs, R, qkv, E, p.n3_s + l * E, p.n3_b + l * E, E, p.eps);
       __syncthreads();
     }
 
@@ -575,30 +525,26 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params<T> p) {
   }
 }
 
-size_t smem_bytes(int R, int V, int E, int F, int C, int H, int S, bool Q) {
-  size_t n = sizeof(float) *
-                 ((size_t)R * (E + E + F + 3 * E + H * S + C + kThreads * V)) +
-             sizeof(int) * 2 * R;
-  if (Q)
-    n += sizeof(float) * (size_t)R * (2 + kThreads / 32) +
+size_t smem_bytes(int R, int V, int E, int F, int C, int H, int S) {
+  return sizeof(float) * ((size_t)R * (E + E + F + 3 * E + H * S + C + kThreads * V)) +
+         sizeof(int) * 2 * R + sizeof(float) * (size_t)R * (2 + kThreads / 32) +
          (size_t)R * (E > F ? E : F);
-  return n;
 }
 
-template <typename T, int R, bool Q>
+template <typename T, int R>
 int launch(const Params<T>& p, cudaStream_t stream) {
   int S = p.steps > p.Tm ? p.steps : p.Tm;
-  size_t smem = smem_bytes(R, Vec<T>::kW, p.E, p.F, p.C, p.H, S, Q);
+  size_t smem = smem_bytes(R, Vec<T>::kW, p.E, p.F, p.C, p.H, S);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<T, R, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   int blocks = (p.B + R - 1) / R;
-  decode_kernel<T, R, Q><<<blocks, kThreads, smem, stream>>>(p);
+  decode_kernel<T, R><<<blocks, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool Q>
+template <typename T>
 int run(const void* const* ptr, const int* dim, float eps, float scale,
         const float* cls0, cudaStream_t stream) {
   Params<T> p;
@@ -616,12 +562,12 @@ int run(const void* const* ptr, const int* dim, float eps, float scale,
   p.kc = (T*)ptr[nw + 3];
   p.vc = (T*)ptr[nw + 4];
   p.logits = (float*)ptr[nw + 5];
-  // K1q: the packed tables sit in the slots of w_qkv, w_out, cw_q, cw_o,
-  // ff1_w and ff2_w; their scales follow the logits
+  // the packed tables sit in the slots of w_qkv, w_out, cw_q, cw_o, ff1_w
+  // and ff2_w; their scales follow the logits
   const int table_slot[6] = {0, 2, 4, 6, 8, 10};
   for (int j = 0; j < 6; ++j) {
-    p.qw[j] = Q ? (const int*)ptr[table_slot[j]] : nullptr;
-    p.qs[j] = Q ? (const float*)ptr[nw + 6 + j] : nullptr;
+    p.qw[j] = (const int*)ptr[table_slot[j]];
+    p.qs[j] = (const float*)ptr[nw + 6 + j];
   }
   p.B = dim[0]; p.steps = dim[1]; p.L = dim[2]; p.E = dim[3]; p.F = dim[4];
   p.C = dim[5]; p.H = dim[6]; p.Tm = dim[7]; p.go_id = dim[8];
@@ -629,36 +575,25 @@ int run(const void* const* ptr, const int* dim, float eps, float scale,
   p.eps = eps;
   p.scale = scale;
   if (p.B == 0 || p.steps == 0) return 0;
-  return launch<T, kRows, Q>(p, stream);
+  return launch<T, kRows>(p, stream);
 }
 
 }  // namespace
 
-// ptr: the 23 weight tables in Params order, then pe, ck, cv, kc, vc, logits.
-// dim: B, T, L, E, F, C, H, Tm, go_id, eos_id (< 0: no early stop).
-// dtype: 0 = float32, 1 = bfloat16.  cls0: the [B, E] float32 step-0 rows,
-// or null for the [GO] embedding.
-// Every pointer lies on the device of `stream`, which the caller makes the
+// ptr: the 23 weight tables in Params order, the six projection tables
+// int8 in groups of four K-rows [L, K/4, N, 4] in their slots (E and F
+// multiples of 4), then pe, ck, cv, kc, vc, logits and the six scales [L, N]
+// float32.  dim: B, T, L, E, F, C, H, Tm, go_id, eos_id (< 0: no early
+// stop).  dtype (of the other tables): 0 = float32, 1 = bfloat16.  cls0:
+// the [B, E] float32 step-0 rows, or null for the [GO] embedding.  Every
+// pointer lies on the device of `stream`, which the caller makes the
 // current device for the call.
-extern "C" int fused_decode(int dtype, const void* const* ptr, const int* dim,
-                            float eps, float scale, const void* cls0,
-                            void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const float* c0 = (const float*)cls0;
-  if (dtype == 0) return run<float, false>(ptr, dim, eps, scale, c0, s);
-  if (dtype == 1) return run<__nv_bfloat16, false>(ptr, dim, eps, scale, c0, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// K1q: as fused_decode, with the six projection tables int8 in groups of
-// four K-rows [L, K/4, N, 4] in their slots (E and F multiples of 4) and
-// their six scales [L, N] float32 after the logits.
 extern "C" int fused_decode_int8(int dtype, const void* const* ptr,
                                  const int* dim, float eps, float scale,
                                  const void* cls0, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float* c0 = (const float*)cls0;
-  if (dtype == 0) return run<float, true>(ptr, dim, eps, scale, c0, s);
-  if (dtype == 1) return run<__nv_bfloat16, true>(ptr, dim, eps, scale, c0, s);
+  if (dtype == 0) return run<float>(ptr, dim, eps, scale, c0, s);
+  if (dtype == 1) return run<__nv_bfloat16>(ptr, dim, eps, scale, c0, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,1014 @@
+// Whole greedy decode loop of the transformer decoder in one kernel, one
+// thread-block cluster per tile of batch rows (K1, float mode).
+//
+// Replaces the TPU kernel multimodal_scene_text_recognition_tpu/ops/
+// fused_decode.py::_decode_kernel in float mode, with its eos_id early stop
+// (K1e) and its cls0 step-0 row (K1-cls0); the quantized mode (K1q) is
+// fused_decode.cu.  For T steps it embeds the previous token, runs L
+// decoder layers (packed qkv -> self-attention KV-cache write -> causal
+// attention -> out-proj -> LN -> cross-q -> attention over the precomputed
+// memory K/V -> out-proj -> LN -> ReLU FF -> LN), the final LN and the class
+// head, writes logits[b, t, :] and feeds the first-index argmax back.
+//
+// Bound: operations.  At the flagship (B=192, T=25, L=6, E=256, F=2048,
+// C=97) the projections are 2*B*T*(L*1.44M + E*C) ~ 84 GFLOP against ~49 MB
+// of inputs and outputs.  What holds a decode loop back on this card is
+// moving the 17.3 MB of bf16 weights of a step to the SMs: the TPU kernel
+// keeps them in VMEM and runs each projection as one [B, E] x [E, N]
+// product; 227 KB of shared memory cannot hold them, so they stream from
+// L2, and the design's job is to read each weight byte as few times as it
+// can and to keep the stream running while the loop waits on itself.  With
+// that done (5.35 GB of L2 reads a call at B=192, from ~83 GB), what
+// remains on an H100 is the latency of each layer's chain of dependent
+// phases: six projections (serial chains of 16-deep products), two
+// attention phases (L2 round trips for K and V) and three exchanges
+// (PERF.md).
+//
+// Design.  A cluster of G = H CTAs (one per attention head, at most 8) owns
+// a tile of R = 16 batch rows (the M side of one tensor-core tile; tiles of
+// 32 rows were slower at B=192 on an H100, PERF.md) and loops over t and l
+// itself; clusters never wait on each other (no grid barrier, no
+// cooperative launch), so any B runs in waves.
+// Every weight is split across the cluster where its input already lies,
+// so each CTA reads 1/G of every projection, once per row tile and step
+// (not once per row):
+//
+//   qkv, cross-q, ff1   N-split: CTA h computes head h's q, k and v columns
+//                       (writes its k and v to the cache and runs head h's
+//                       attention itself), head h's cross query, and its
+//                       F/G columns of the FF hidden (which never leave it);
+//   out-proj, cross-out, ff2   K-split over the same head or FF columns:
+//                       each CTA leaves a partial [R, E] float32 sum.
+//
+// The three K-split partials of a layer meet through distributed shared
+// memory, by stores only: each CTA stores its partial of each column into
+// the shared memory of the column's owner; once they have all arrived
+// (counted on an mbarrier, no cluster barrier) the owner sums the G
+// partials in rank order, adds the bias and the residual and stores the
+// result into every CTA; once a CTA has every column (a second mbarrier)
+// it runs the layernorm on the full rows itself.  One reduction order and one
+// code path, no atomics: the G copies of the residual stream are
+// bit-identical, and so are the class head, the argmax, the early-stop
+// decision and the done flags, which every CTA computes for itself (only
+// rank 0 writes the logits).
+//
+// Weights.  `pack_cluster_tables` (ops/fused_decode.py) repacks the tables
+// once into units of 512 bytes: a 16-deep k-step of 16 (bf16) or 8 (f32)
+// output columns, laid out so that lane l's 16 bytes are its mma.sync B
+// fragments (bf16) or the same four k-values of one column (f32), and
+// orders them per (layer, CTA, warp) exactly as that warp consumes them
+// (see project), so a warp's weights for a layer are one contiguous run.  Each lane streams
+// its 16 bytes of every unit with cp.async (L2 only) into a private ring of
+// D slots in shared memory and reads back only what it copied itself, so
+// the ring needs no barrier.  The weights do not depend on the activations,
+// so the ring runs D units ahead through barriers, attention and layer and
+// step boundaries (it wraps to the next step's units, which are the same).
+//
+// Products.  bf16: mma.sync m16n8k16 bf16 -> f32, R rows as M (padded rows
+// past B compute on clamped inputs and are never written), each 16-deep
+// product from zero and added to the output's float32 sum in k order.
+// float32: CUDA-core FMAs over the same units (no TF32), each lane summing
+// its four k-values of a column for all R rows, the lane quad then summed
+// by two shuffles.  A warp sums every output of its column tiles over the
+// slice's whole K, never splitting it: at the flagship that leaves two of
+// eight warps idle in qkv and six in cross-q, and it keeps the sums in the
+// plain version's k order (split-K sums put K1 bf16 0.256 off its plain
+// version with a random cls0 against 0.112 unsplit, on an H100).
+// Attention stays on CUDA cores: the TPU kernel rounds each q*K product and
+// each probs*V product to T before it sums them, which a tensor-core
+// product cannot do.
+//
+// Numerics mirror the TPU kernel's casts for compute type T (float or bf16):
+// matmul inputs rounded to T, accumulated in float32; q*K products rounded
+// to T before the per-head sum; probabilities rounded to T and probs*V
+// formed in T and summed in float32; layernorm, softmax and logits float32;
+// the argmax takes the first index of the maximum.  cls0 (a non-null [B, E]
+// float32 pointer): step 0's input row is cls0[b] + pe[0], unrounded, in
+// place of emb[go_id] + pe[0].  Early stop (eos_id >= 0): a row that has
+// emitted eos_id writes no further logits (the caller prefilled them with
+// the eos_id one-hot), and a cluster leaves its loop once every row of its
+// tile has stopped.
+
+#include <cooperative_groups.h>
+#include <stdint.h>
+
+#include "decode_common.cuh"
+#include "mma.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnit = 512;  // bytes of one weight unit: 16 a lane
+constexpr int kMaxCluster = 8;
+constexpr int kMaxE = 512;  // row width the exchange holds in registers
+constexpr int kProj = 7;     // qkv, out, cross-q, cross-out, ff1, ff2, head
+constexpr int kChunk = 8;    // positions a thread sums of an attention context
+
+constexpr int kRows = 16;   // batch rows a cluster owns (R)
+// ring slots per lane: 64 KB of weights in flight per CTA; a 128 KB ring was
+// slower on an H100 (PERF.md)
+constexpr int kDepth = 16;
+
+template <typename T>
+struct Params {
+  // per-layer tables stacked on a leading L axis, matrices [in, out]; the
+  // six projection matrices and the head are read from `packed`
+  const T *w_qkv, *b_qkv, *w_out, *b_out, *cw_q, *cb_q, *cw_o, *cb_o;
+  const T *ff1_w, *ff1_b, *ff2_w, *ff2_b;
+  const T *n1_s, *n1_b, *n2_s, *n2_b, *n3_s, *n3_b;
+  const T *fn_s, *fn_b, *head_w, *head_b, *emb;
+  const float* pe;    // [T, E]
+  const float* cls0;  // [B, E] step-0 rows, or null: emb[go_id]
+  const T *ck, *cv;   // cross K/V [L, B, Tm, E]
+  T *kc, *vc;         // self-attention caches [L, B, T, E]
+  float* logits;      // [B, T, C]
+  const char* packed;  // weight units (pack_cluster_tables)
+  long long* prof;     // [15] cycles by phase, or null (see Marks)
+  int B, steps, L, E, F, C, H, Tm, go_id;
+  int eos_id;          // < 0: no early stop
+  float eps, scale;    // layernorm epsilon, 1/sqrt(head_dim)
+};
+
+// The shapes every CTA derives from Params in the same way as the packer:
+// the [K, N] slice a CTA owns of each projection (the head's N padded to
+// Cp), cut into items of kCols output columns; item i belongs to warp i %
+// kWarps, which reads its K / 16 units in k order.
+template <typename T>
+struct Geometry {
+  static constexpr int kCols = sizeof(T) == 2 ? 16 : 8;  // output columns of a unit
+  int hd, Fg, Cp, lda, ldb, S;
+  int K[kProj], N[kProj];
+  int layer_units;  // units of a CTA's layer (all its warps)
+
+  __device__ __host__ Geometry(const Params<T>& p) {
+    hd = p.E / p.H;
+    Fg = p.F / p.H;
+    Cp = (p.C + kWarps * kCols - 1) / (kWarps * kCols) * (kWarps * kCols);
+    lda = p.E + 8;
+    ldb = (hd > Fg ? hd : Fg) + 8;
+    S = p.steps > p.Tm ? p.steps : p.Tm;
+    const int k[kProj] = {p.E, hd, p.E, hd, p.E, Fg, p.E};
+    const int n[kProj] = {3 * hd, p.E, hd, p.E, Fg, p.E, Cp};
+    layer_units = 0;
+    for (int i = 0; i < kProj; ++i) {
+      K[i] = k[i];
+      N[i] = n[i];
+      if (i < kProj - 1) layer_units += N[i] / kCols * (K[i] / 16);
+    }
+  }
+
+  // units warp w reads of projections [p0, p1)
+  __device__ __host__ int units(int w, int p0, int p1) const {
+    int u = 0;
+    for (int i = p0; i < p1; ++i) {
+      const int items = N[i] / kCols;
+      u += (items / kWarps + (w < items % kWarps)) * (K[i] / 16);
+    }
+    return u;
+  }
+
+  // float32 elements of the scratch that holds the attention's chunk sums
+  // and the head's logits [R][Cp]
+  __device__ __host__ int red_floats(int R) const {
+    const int chunks = (S + kChunk - 1) / kChunk * R * hd;
+    return R * Cp > chunks ? R * Cp : chunks;
+  }
+
+  // bytes of shared memory: the weight ring, then the float32 residual
+  // rows, the two A operands in T, the N-split outputs, the exchange's
+  // receive and gather buffers, the scratch, the attention scores and the
+  // token flags
+  __device__ __host__ size_t smem_bytes(int R, int D, int E) const {
+    return (size_t)kWarps * D * kUnit + 4 * (size_t)R * E + sizeof(T) * (size_t)R * (lda + ldb) +
+           4 * (size_t)R * 3 * hd + 8 * (size_t)R * E + 4 * (size_t)red_floats(R) +
+           4 * (size_t)R * S + 8 * (size_t)R;
+  }
+};
+
+// One lane's stream of weight units through its ring of D slots.  A CTA's
+// layer is layer_units units, its warps' runs one after another (warp w's
+// from units(w' < w)); layer l of CTA h starts at unit (l * G + h) *
+// layer_units, and the head, which every CTA reads, after the L layers
+// (its warps' runs likewise).  A warp reads U units a layer (U may be 0)
+// and UH of the head (at least one); the stream repeats every step.
+template <int D>
+struct Stream {
+  const char* src;    // the next unit to issue (this lane's 16 bytes)
+  const char* first;  // this lane's bytes of its warp's first layer unit
+  const char* head;   // ... and of its first head unit
+  char* ring;         // this lane's 16 bytes of slot 0 (slot i at + i * kUnit)
+  size_t layer;       // bytes from one layer of a CTA to the next
+  int slot, l, u, L, U, UH;
+
+  // past the end of a run (and over empty ones) to the next unit to read;
+  // ends, since every warp reads at least one head unit
+  __device__ void settle() {
+    while (u == (l < L ? U : UH)) {
+      u = 0;
+      if (l < L) {
+        ++l;
+        src = l < L ? first + l * layer : head;
+      } else {
+        l = 0;
+        src = first;
+      }
+    }
+  }
+
+  __device__ void issue(int s) {
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(ring + s * kUnit);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    src += kUnit;
+    ++u;
+    settle();
+  }
+
+  // this lane's 16 bytes of the oldest unit in flight
+  __device__ uint4 peek() const {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(D - 1) : "memory");
+    return *reinterpret_cast<const uint4*>(ring + slot * kUnit);
+  }
+
+  // refill the slot just read with the unit D ahead
+  __device__ void next() {
+    issue(slot);
+    slot = (slot + 1) & (D - 1);
+  }
+};
+
+// Shared-memory addresses and the mbarrier operations of the exchange.
+__device__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+// the address of the same shared-memory location in CTA `rank` of the
+// cluster
+__device__ uint32_t remote(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// stores v at `addr` (shared::cluster) and counts its bytes on the
+// mbarrier `bar` of the same CTA
+__device__ void store_counted(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+               ::"r"(addr), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+
+__device__ void store_counted(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];" ::"r"(addr), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
+      "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(bar) : "memory");
+}
+
+// the phase of `bar` now running expects `bytes` more (one arrival, by one
+// thread of the CTA)
+__device__ void expect_bytes(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// waits until the phase of `bar` with this parity has completed
+__device__ void wait_phase(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}" : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// The accumulator of one item: R rows by one unit's columns.
+template <typename T, int R>
+struct Frag;
+
+// bf16: mma.sync m16n8k16, R / 16 row tiles by two 8-column tiles
+template <int R>
+struct Frag<__nv_bfloat16, R> {
+  static constexpr int kMT = R / 16;
+  float c[kMT][2][4];
+
+  __device__ void zero() {
+#pragma unroll
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) c[m][n][i] = 0.0f;
+  }
+
+  // the lane's A fragments of A[:, k0:k0+16]
+  struct AFrag {
+    uint32_t v[kMT][4];
+  };
+  __device__ static AFrag load_a(const __nv_bfloat16* A, int lda, int k0, int lane) {
+    const int g = lane >> 2, q = lane & 3;
+    AFrag f;
+#pragma unroll
+    for (int m = 0; m < kMT; ++m) {
+      const __nv_bfloat16* a = A + (m * 16 + g) * lda + k0 + 2 * q;
+      f.v[m][0] = word(a);
+      f.v[m][1] = word(a + 8 * lda);
+      f.v[m][2] = word(a + 8);
+      f.v[m][3] = word(a + 8 * lda + 8);
+    }
+    return f;
+  }
+
+  // += the A fragments times the unit w (lane's B fragments of both tiles)
+  __device__ void mac(const AFrag& af, uint4 w) {
+    const uint32_t b0[2] = {w.x, w.y}, b1[2] = {w.z, w.w};
+#pragma unroll
+    for (int m = 0; m < kMT; ++m) {
+      // each 16-deep product from zero, added to the sum in float32 here:
+      // the tensor cores' own accumulation does not round to nearest
+      float d0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, d1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma(d0, af.v[m], b0);
+      mma(d1, af.v[m], b1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        c[m][0][i] += d0[i];
+        c[m][1][i] += d1[i];
+      }
+    }
+  }
+
+  __device__ void finish() {}
+
+  // f(r, j, v) for each value this lane holds: row r, column j of the unit
+  template <typename Fn>
+  __device__ void each(int lane, Fn f) const {
+    const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          f(m * 16 + g + (i >> 1) * 8, n * 8 + 2 * q + (i & 1), c[m][n][i]);
+  }
+};
+
+// float32: CUDA-core FMAs; lane (g, q) sums k-values {2q, 2q+1, 2q+8, 2q+9}
+// of each 16-deep step of column g for all R rows
+template <int R>
+struct Frag<float, R> {
+  float c[R];
+
+  __device__ void zero() {
+#pragma unroll
+    for (int r = 0; r < R; ++r) c[r] = 0.0f;
+  }
+
+  // the lane's k-values of A[:, k0:k0+16] for every row
+  struct AFrag {
+    float2 x0[R], x1[R];
+  };
+  __device__ static AFrag load_a(const float* A, int lda, int k0, int lane) {
+    const int q = lane & 3;
+    AFrag f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float* a = A + r * lda + k0 + 2 * q;
+      f.x0[r] = *reinterpret_cast<const float2*>(a);
+      f.x1[r] = *reinterpret_cast<const float2*>(a + 8);
+    }
+    return f;
+  }
+
+  __device__ void mac(const AFrag& a, uint4 w) {
+    const float w0 = __uint_as_float(w.x), w1 = __uint_as_float(w.y);
+    const float w2 = __uint_as_float(w.z), w3 = __uint_as_float(w.w);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      c[r] = fmaf(a.x0[r].x, w0, c[r]);
+      c[r] = fmaf(a.x0[r].y, w1, c[r]);
+      c[r] = fmaf(a.x1[r].x, w2, c[r]);
+      c[r] = fmaf(a.x1[r].y, w3, c[r]);
+    }
+  }
+
+  // the lane quad's four partial sums, the same in all four lanes
+  __device__ void finish() {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      c[r] += __shfl_xor_sync(0xffffffffu, c[r], 1);
+      c[r] += __shfl_xor_sync(0xffffffffu, c[r], 2);
+    }
+  }
+
+  template <typename Fn>
+  __device__ void each(int lane, Fn f) const {
+    const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if ((r & 3) == q) f(r, g, c[r]);
+  }
+};
+
+// How a projection leaves its output.
+enum Store {
+  kBias = 0,       // float32 out[r][n] = acc + bias
+  kReluRoundT = 1, // T out[r][n] = round_T(relu(acc + bias)): the FF hidden
+  kPartial = 2,    // a K-split partial sum, to the owner of column n (see exchange_ln)
+};
+
+// Where output column n of a CTA's slice finds its bias: at (n / seg) *
+// seg_stride + off + n % seg of the layer's bias row (qkv: three head
+// slices E apart); columns from `valid` on are padding and not stored.  A
+// K-split partial (kPartial) goes to CTA n / seg, row off + r of its
+// receive buffer [G * R][seg], its bytes counted on that CTA's receive
+// mbarrier `bar`.
+struct Cols {
+  int seg, seg_stride, off, valid;
+  uint32_t bar;  // kPartial: the owners' receive mbarrier (its address in every CTA)
+  __device__ int bias_at(int n) const { return n / seg * seg_stride + off + n % seg; }
+};
+
+template <typename T, int MODE>
+__device__ void store(void* out, int ldo, int r, int n, float v, const T* bias, Cols cols) {
+  if (n >= cols.valid) return;
+  if (MODE == kBias) {
+    static_cast<float*>(out)[r * ldo + n] = epilogue<T, kPlain>(v, bias, cols.bias_at(n));
+  } else if (MODE == kReluRoundT) {
+    static_cast<T*>(out)[r * ldo + n] =
+        Num<T>::from_f(epilogue<T, kReluRound>(v, bias, cols.bias_at(n)));
+  } else {  // into the receive buffer of the column's owner, at this CTA's slot
+    const int o = n / cols.seg;
+    const float* dst =
+        static_cast<const float*>(out) + (cols.off + r) * cols.seg + n - o * cols.seg;
+    store_counted(remote(smem_u32(dst), o), v, remote(cols.bar, o));
+  }
+}
+
+// One projection of the R rows A [R][lda] (T, the input already rounded)
+// by the CTA's slice [K][N] of a weight, read from the stream: output
+// column tiles of kCols (items); item i belongs to warp i % kWarps, which
+// sums its K in one chain of 16-deep steps, in k order, as the plain
+// version's product does.  A warp takes its items two at a time (i and i +
+// kWarps), their units interleaved by k-step, so that two independent
+// chains share each A fragment and overlap their latencies.  Not inlined:
+// one body serves the seven call sites of a step.
+template <typename T, int R, int D, int MODE>
+__device__ __noinline__ void project(Stream<D>* stream, const T* A, int lda, int K, int N,
+                                     const T* bias, Cols cols, void* out, int ldo) {
+  constexpr int kCols = Geometry<T>::kCols;
+  using F = Frag<T, R>;
+  Stream<D> st = *stream;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int KS = K / 16, items = N / kCols;
+  for (int c0 = warp; c0 < items; c0 += 2 * kWarps) {
+    const int c1 = c0 + kWarps;
+    const bool pair = c1 < items;
+    F f0, f1;
+    f0.zero();
+    f1.zero();
+    for (int k = 0; k < KS; ++k) {
+      const typename F::AFrag a = F::load_a(A, lda, k * 16, lane);
+      f0.mac(a, st.peek());
+      st.next();
+      if (pair) {
+        f1.mac(a, st.peek());
+        st.next();
+      }
+    }
+    f0.finish();
+    f0.each(lane, [&](int r, int j, float v) {
+      store<T, MODE>(out, ldo, r, c0 * kCols + j, v, bias, cols);
+    });
+    if (pair) {
+      f1.finish();
+      f1.each(lane, [&](int r, int j, float v) {
+        store<T, MODE>(out, ldo, r, c1 * kCols + j, v, bias, cols);
+      });
+    }
+  }
+  *stream = st;
+}
+
+// 16 bytes of T at p, as loaded (written earlier in this launch: a plain
+// load, not the read-only path); value i of them widened to float by
+// widen, so that many loads can be in flight in few registers
+__device__ uint4 load16(const void* p) { return *reinterpret_cast<const uint4*>(p); }
+
+template <typename T>
+__device__ float widen(uint4 v, int i);
+
+template <>
+__device__ float widen<float>(uint4 v, int i) {
+  return __uint_as_float(i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w);
+}
+
+template <>
+__device__ float widen<__nv_bfloat16>(uint4 v, int i) {  // bf16 is the high half of a float
+  const unsigned u = i < 2 ? v.x : i < 4 ? v.y : i < 6 ? v.z : v.w;
+  return __uint_as_float(i & 1 ? u & 0xffff0000u : u << 16);
+}
+
+// Attention of head h for the R rows over `len` positions, each warp for
+// its RW = R / kWarps rows at once: q[r * ldq + d] (float32, rounded to T
+// here), K/V at kv + row * row_stride + s * ps (the head's columns; row =
+// r0 + r, clamped to the batch).  Writes the context, rounded to T, to
+// ctx[r * ldc + d].  A lane scores a position of each of the warp's rows
+// (their keys' head slices in 16-byte loads, all in flight at once), the
+// softmax is a warp reduction, and the context is summed over chunks of
+// kChunk positions, a lane a (row, chunk, 16 bytes of columns) with all its
+// loads in flight, the chunks' sums then added in chunk order (`part`, R *
+// ceil(S / kChunk) * hd floats).  So a phase waits on L2 about twice; only
+// its end synchronises the block.
+template <typename T, int R>
+__device__ void attend_head(const float* q, int ldq, const T* K, const T* V, size_t row_stride,
+                            int ps, int hd, int len, int r0, int nrows, float scale,
+                            float* probs, int S, T* ctx, int ldc, float* part) {
+  constexpr int VW = Vec<T>::kW, RW = R / kWarps;
+  constexpr int kLoads = 4;  // 16-byte loads of a key in flight a row
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int groups = hd / VW, chunks = (len + kChunk - 1) / kChunk;
+  const int max_chunks = (S + kChunk - 1) / kChunk;
+  const T* kr[RW];  // the rows' first keys and values
+  const T* vr[RW];
+  float m[RW];
+#pragma unroll
+  for (int w = 0; w < RW; ++w) {
+    const size_t at = (size_t)(r0 + min(warp + w * kWarps, nrows - 1)) * row_stride;
+    kr[w] = K + at;
+    vr[w] = V + at;
+    m[w] = -__int_as_float(0x7f800000);
+  }
+  for (int s = lane; s < len; s += 32) {
+    float acc[RW];
+#pragma unroll
+    for (int w = 0; w < RW; ++w) acc[w] = 0.0f;
+    for (int d = 0; d < hd; d += kLoads * VW) {
+      uint4 kv[RW][kLoads];
+#pragma unroll
+      for (int w = 0; w < RW; ++w)
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u)
+          if (d + u * VW < hd) kv[w][u] = load16(kr[w] + (size_t)s * ps + d + u * VW);
+#pragma unroll
+      for (int w = 0; w < RW; ++w) {
+        const float* qr = q + (warp + w * kWarps) * ldq;
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u)
+          if (d + u * VW < hd)
+#pragma unroll
+            for (int i2 = 0; i2 < VW; ++i2)
+              acc[w] += Num<T>::round(Num<T>::round(qr[d + u * VW + i2]) * widen<T>(kv[w][u], i2));
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < RW; ++w) {
+      acc[w] *= scale;
+      probs[(warp + w * kWarps) * S + s] = acc[w];
+      m[w] = fmaxf(m[w], acc[w]);
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < RW; ++w) {
+    float* pr = probs + (warp + w * kWarps) * S;
+    const float mx = warp_max(m[w]);
+    float sum = 0.0f;
+    for (int s = lane; s < len; s += 32) {
+      const float e = expf(pr[s] - mx);
+      pr[s] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int s = lane; s < len; s += 32) pr[s] = Num<T>::round(pr[s] / sum);
+  }
+  __syncwarp();
+  for (int i = lane; i < RW * chunks * groups; i += 32) {
+    const int w = i / (chunks * groups), rest = i - w * chunks * groups;
+    const int c = rest / groups, d = (rest - c * groups) * VW, s0 = c * kChunk;
+    const int r = warp + w * kWarps;
+    const float* pr = probs + r * S;
+    uint4 vv[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j)
+      if (s0 + j < len) vv[j] = load16(vr[w] + (size_t)(s0 + j) * ps + d);
+    float acc[VW];
+#pragma unroll
+    for (int i2 = 0; i2 < VW; ++i2) acc[i2] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j)
+      if (s0 + j < len)
+#pragma unroll
+        for (int i2 = 0; i2 < VW; ++i2) acc[i2] += Num<T>::round(pr[s0 + j] * widen<T>(vv[j], i2));
+#pragma unroll
+    for (int i2 = 0; i2 < VW; ++i2) part[(r * max_chunks + c) * hd + d + i2] = acc[i2];
+  }
+  __syncwarp();
+  for (int i = lane; i < RW * hd; i += 32) {
+    const int w = i / hd, d = i - w * hd, r = warp + w * kWarps;
+    const float* rp = part + r * max_chunks * hd;
+    float acc = rp[d];
+    for (int c = 1; c < chunks; ++c) acc += rp[c * hd + d];
+    ctx[r * ldc + d] = Num<T>::from_f(acc);
+  }
+  __syncthreads();
+}
+
+// The exchange of a K-split projection, then the residual and layernorm.
+// Every CTA h has stored its partial sums of the E columns into the
+// receive buffer of their owner (column e belongs to CTA e / (E / G)), at
+// rows h * R.., each store counted on the owner's receive mbarrier.  Each
+// CTA waits for its columns' G partials (R * E * 4 bytes), sums them in
+// rank order, adds the bias and the residual, and stores the result into
+// every CTA's gather buffer [R][E], counted on that CTA's gather mbarrier;
+// once its own gather phase completes (the whole rows) every CTA runs the
+// layernorm (with `fs`, the final norm after it) on the full rows, writes x
+// to xs and, rounded to T, to the A operand xa.  One reduction per column
+// and one code path, no atomics: the G copies of the rows are
+// bit-identical.  No cluster barrier: a CTA waits only for the bytes it
+// reads.  Each mbarrier completes one phase an exchange (`parity` = the
+// exchange's count & 1); its thread 0 arms the next phase with its bytes
+// as soon as one completes, before any of them can be sent.  A buffer is
+// written again only after its readers are done: a CTA stores its next
+// partials after its gather phase, which needs every owner's sums, each
+// read from its receive buffer first; an owner stores its next sums after
+// its next receive phase, which needs every CTA's next partials, each sent
+// after that CTA's layernorm read its gather buffer.  The layernorm runs
+// one warp a row, four adjacent columns a lane per 128.
+template <typename T, int R>
+__device__ void exchange_ln(const float* recv, float* gath, uint32_t recv_bar, uint32_t gath_bar,
+                            uint32_t parity, int G, int h, const T* bias, float* xs, const T* s,
+                            const T* b, const T* fs, const T* fb, int E, float eps, T* xa,
+                            int lda) {
+  constexpr int J = kMaxE / 128, RW = R / kWarps;  // 128-column runs of a row, rows a warp
+  const int Es = E / G, q4 = Es / 4;
+  wait_phase(recv_bar, parity);  // every partial slice of this CTA's columns
+  // the next phase's bytes, counted before this thread's stores below can
+  // let any CTA send them
+  if (threadIdx.x == 0) expect_bytes(recv_bar, 4u * R * E);
+  const uint32_t gath_at = smem_u32(gath);
+  for (int i = threadIdx.x; i < R * q4; i += blockDim.x) {
+    const int r = i / q4, c = (i - r * q4) * 4, e = h * Es + c;
+    float4 a = *reinterpret_cast<const float4*>(recv + r * Es + c);
+    for (int g = 1; g < G; ++g) {
+      const float4 o = *reinterpret_cast<const float4*>(recv + (g * R + r) * Es + c);
+      a.x += o.x; a.y += o.y; a.z += o.z; a.w += o.w;
+    }
+    const float4 xr = *reinterpret_cast<const float4*>(xs + r * E + e);
+    const float4 y = make_float4(xr.x + (a.x + Num<T>::to_f(bias[e])),
+                                 xr.y + (a.y + Num<T>::to_f(bias[e + 1])),
+                                 xr.z + (a.z + Num<T>::to_f(bias[e + 2])),
+                                 xr.w + (a.w + Num<T>::to_f(bias[e + 3])));
+    for (int g = 0; g < G; ++g)
+      store_counted(remote(gath_at + 4 * (r * E + e), g), y, remote(gath_bar, g));
+  }
+  wait_phase(gath_bar, parity);  // every row is whole here
+  if (threadIdx.x == 0) expect_bytes(gath_bar, 4u * R * E);  // before the next partials go out
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float x[RW][J][4];
+  float sum[RW];
+#pragma unroll
+  for (int w = 0; w < RW; ++w) {
+    sum[w] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int e = 4 * lane + 128 * j;
+      if (e < E) {
+        const float4 v = *reinterpret_cast<const float4*>(gath + (warp + w * kWarps) * E + e);
+        x[w][j][0] = v.x; x[w][j][1] = v.y; x[w][j][2] = v.z; x[w][j][3] = v.w;
+        sum[w] += (x[w][j][0] + x[w][j][1]) + (x[w][j][2] + x[w][j][3]);
+      }
+    }
+  }
+  for (int pass = 0; pass < (fs != nullptr ? 2 : 1); ++pass) {
+    const T* sc = pass == 0 ? s : fs;
+    const T* bi = pass == 0 ? b : fb;
+#pragma unroll
+    for (int w = 0; w < RW; ++w) {
+      if (pass == 1) {
+        sum[w] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          if (4 * lane + 128 * j < E)
+            sum[w] += (x[w][j][0] + x[w][j][1]) + (x[w][j][2] + x[w][j][3]);
+      }
+      const float mean = warp_sum(sum[w]) / (float)E;
+      float sq = 0.0f;
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        if (4 * lane + 128 * j < E)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float d = x[w][j][i] - mean;
+            sq += d * d;
+          }
+      const float inv = rsqrtf(warp_sum(sq) / (float)E + eps);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int e = 4 * lane + 128 * j;
+        if (e < E)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            x[w][j][i] = (x[w][j][i] - mean) * inv * Num<T>::to_f(sc[e + i]) +
+                         Num<T>::to_f(bi[e + i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < RW; ++w) {
+    const int r = warp + w * kWarps;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int e = 4 * lane + 128 * j;
+      if (e < E) {
+        *reinterpret_cast<float4*>(xs + r * E + e) =
+            make_float4(x[w][j][0], x[w][j][1], x[w][j][2], x[w][j][3]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) xa[r * lda + e + i] = Num<T>::from_f(x[w][j][i]);
+      }
+    }
+  }
+}
+
+// The cycles the first thread of CTA 0 spends in each phase of a step (the
+// embedding, the fourteen phases of a layer and the class head, the
+// logits and argmax), summed over the launch into prof[phase]; a phase ends
+// where that thread leaves it, so a barrier's wait counts to the phase it
+// closes.  prof is null unless the caller asks for the profile.
+struct Marks {
+  long long* prof;
+  long long t0;
+  __device__ void at(int phase) {
+    if (prof != nullptr) {
+      const long long t = clock64();
+      prof[phase] += t - t0;
+      t0 = t;
+    }
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) decode_cluster_kernel(Params<T> p) {
+  constexpr int R = kRows, D = kDepth;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const Geometry<T> geo(p);
+  const int E = p.E, C = p.C, T_ = p.steps, L = p.L, G = p.H, hd = geo.hd, Fg = geo.Fg;
+  const int lda = geo.lda, ldb = geo.ldb, S = geo.S;
+  char* ring = reinterpret_cast<char*>(smem);       // [kWarps][D][32 lanes][16 B]
+  float* xs = reinterpret_cast<float*>(ring + (size_t)kWarps * D * kUnit);  // [R][E]
+  T* xa = reinterpret_cast<T*>(xs + R * E);         // [R][lda] A operand of E-wide inputs
+  T* xb = xa + R * lda;                             // [R][ldb] A operand of the K-split inputs
+  float* qv = reinterpret_cast<float*>(xb + R * ldb);  // [R][3hd] head h's q, k, v / cross q
+  float* recv = qv + R * 3 * hd;                    // [G][R][E/G] partials of this CTA's columns
+  float* gath = recv + R * E;                       // [R][E] the rows before the layernorm
+  float* red = gath + R * E;                        // attention chunk sums; the head's logits
+  float* probs = red + geo.red_floats(R);           // [R][S]
+  int* tok = reinterpret_cast<int*>(probs + R * S); // [R]
+  int* done = tok + R;                              // [R] rows that have emitted eos_id
+
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int h = (int)cl.block_rank();
+  const int r0 = blockIdx.x / G * R;
+  const int nrows = min(R, p.B - r0);  // the last tile may be ragged
+  const size_t cache_l = (size_t)p.B * T_ * E;
+  const size_t mem_l = (size_t)p.B * p.Tm * E;
+
+  Stream<D> st;
+  {
+    int before = 0, before_head = 0;  // units of the warps before this one
+    for (int w = 0; w < warp; ++w) {
+      before += geo.units(w, 0, kProj - 1);
+      before_head += geo.units(w, kProj - 1, kProj);
+    }
+    st.layer = (size_t)G * geo.layer_units * kUnit;
+    st.first = p.packed + ((size_t)h * geo.layer_units + before) * kUnit + lane * 16;
+    st.head = p.packed + L * st.layer + (size_t)before_head * kUnit + lane * 16;
+    st.ring = ring + (size_t)warp * D * kUnit + lane * 16;
+    st.src = st.first;
+    st.L = L;
+    st.U = geo.units(warp, 0, kProj - 1);
+    st.UH = geo.units(warp, kProj - 1, kProj);
+    st.l = 0;
+    st.u = 0;
+    st.settle();
+    for (int i = 0; i < D; ++i) st.issue(i);
+    st.slot = 0;
+  }
+
+  if (tid < R) {
+    tok[tid] = p.go_id;
+    done[tid] = tid >= nrows;  // rows past the batch count as stopped
+  }
+  __syncthreads();
+
+  // the exchange's mbarriers, one phase an exchange; set up before any
+  // CTA of the cluster can count bytes on them
+  __shared__ __align__(8) unsigned long long bars[2];
+  const uint32_t recv_bar = smem_u32(&bars[0]), gath_bar = smem_u32(&bars[1]);
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(recv_bar) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(gath_bar) : "memory");
+    expect_bytes(recv_bar, 4u * R * E);  // the first exchange's
+    expect_bytes(gath_bar, 4u * R * E);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cl.sync();
+  uint32_t ex = 0;  // exchanges so far
+
+  Marks mark{tid == 0 && blockIdx.x == 0 ? p.prof : nullptr, clock64()};
+  for (int t = 0; t < T_; ++t) {
+    const bool from_cls = t == 0 && p.cls0 != nullptr;
+    for (int i = tid; i < R * E; i += nt) {
+      const int r = i / E, e = i - r * E;
+      float x = from_cls ? p.cls0[(size_t)(r0 + min(r, nrows - 1)) * E + e]
+                         : Num<T>::to_f(p.emb[(size_t)tok[r] * E + e]);
+      x += p.pe[t * E + e];
+      xs[i] = x;
+      xa[r * lda + e] = Num<T>::from_f(x);
+    }
+    __syncthreads();
+    mark.at(0);
+
+    for (int l = 0; l < L; ++l) {
+      // -- self attention of head h over the running KV cache --
+      project<T, R, D, kBias>(&st, xa, lda, E, 3 * hd, p.b_qkv + (size_t)l * 3 * E,
+                              Cols{hd, E, h * hd, 3 * hd}, qv, 3 * hd);
+      __syncthreads();
+      mark.at(1);
+      T* kc = p.kc + l * cache_l + h * hd;
+      T* vc = p.vc + l * cache_l + h * hd;
+      for (int i = tid; i < nrows * hd; i += nt) {
+        const int r = i / hd, d = i - r * hd;
+        const size_t off = ((size_t)(r0 + r) * T_ + t) * E + d;
+        kc[off] = Num<T>::from_f(qv[r * 3 * hd + hd + d]);
+        vc[off] = Num<T>::from_f(qv[r * 3 * hd + 2 * hd + d]);
+      }
+      __syncthreads();
+      mark.at(2);
+      attend_head<T, R>(qv, 3 * hd, kc, vc, (size_t)T_ * E, E, hd, t + 1, r0, nrows, p.scale,
+                        probs, S, xb, ldb, red);
+      mark.at(3);
+      project<T, R, D, kPartial>(&st, xb, ldb, hd, E, nullptr, Cols{E / G, 0, h * R, E, recv_bar},
+                                 recv, 0);
+      mark.at(4);
+      exchange_ln<T, R>(recv, gath, recv_bar, gath_bar, ex++ & 1, G, h, p.b_out + (size_t)l * E,
+                        xs, p.n1_s + l * E, p.n1_b + l * E, nullptr, nullptr, E, p.eps, xa, lda);
+      __syncthreads();
+      mark.at(5);
+
+      // -- cross attention of head h over the precomputed memory K/V --
+      project<T, R, D, kBias>(&st, xa, lda, E, hd, p.cb_q + (size_t)l * E,
+                              Cols{hd, 0, h * hd, hd}, qv, hd);
+      __syncthreads();
+      mark.at(6);
+      attend_head<T, R>(qv, hd, p.ck + l * mem_l + h * hd, p.cv + l * mem_l + h * hd,
+                        (size_t)p.Tm * E, E, hd, p.Tm, r0, nrows, p.scale, probs, S, xb, ldb,
+                        red);
+      mark.at(7);
+      project<T, R, D, kPartial>(&st, xb, ldb, hd, E, nullptr, Cols{E / G, 0, h * R, E, recv_bar},
+                                 recv, 0);
+      mark.at(8);
+      exchange_ln<T, R>(recv, gath, recv_bar, gath_bar, ex++ & 1, G, h, p.cb_o + (size_t)l * E,
+                        xs, p.n2_s + l * E, p.n2_b + l * E, nullptr, nullptr, E, p.eps, xa, lda);
+      __syncthreads();
+      mark.at(9);
+
+      // -- feed-forward: head h's F/G hidden columns stay in this CTA --
+      project<T, R, D, kReluRoundT>(&st, xa, lda, E, Fg, p.ff1_b + (size_t)l * p.F,
+                                    Cols{Fg, 0, h * Fg, Fg}, xb, ldb);
+      __syncthreads();
+      mark.at(10);
+      project<T, R, D, kPartial>(&st, xb, ldb, Fg, E, nullptr, Cols{E / G, 0, h * R, E, recv_bar},
+                                 recv, 0);
+      mark.at(11);
+      const bool last = l == L - 1;  // then the final norm follows
+      exchange_ln<T, R>(recv, gath, recv_bar, gath_bar, ex++ & 1, G, h, p.ff2_b + (size_t)l * E,
+                        xs, p.n3_s + l * E, p.n3_b + l * E, last ? p.fn_s : nullptr,
+                        last ? p.fn_b : nullptr, E, p.eps, xa, lda);
+      __syncthreads();
+      mark.at(12);
+    }
+
+    // -- class head, in every CTA alike --
+    float* lg = red;  // [R][Cp]
+    project<T, R, D, kBias>(&st, xa, lda, E, geo.Cp, p.head_b, Cols{geo.Cp, 0, 0, C}, lg,
+                            geo.Cp);
+    __syncthreads();
+    mark.at(13);
+    if (h == 0) {
+      for (int i = tid; i < R * C; i += nt) {
+        const int r = i / C, c = i - r * C;
+        if (r < nrows && !done[r])
+          p.logits[((size_t)(r0 + r) * T_ + t) * C + c] = lg[r * geo.Cp + c];
+      }
+    }
+    // first-index argmax per row, one warp per row
+    for (int r = warp; r < R; r += nt >> 5) {
+      float best = lane < C ? lg[r * geo.Cp + lane] : -__int_as_float(0x7f800000);
+      int bi = lane < C ? lane : C;
+      for (int c = lane + 32; c < C; c += 32) {
+        float v = lg[r * geo.Cp + c];
+        if (v > best) { best = v; bi = c; }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        float ob = __shfl_xor_sync(0xffffffffu, best, o);
+        int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+        if (ob > best || (ob == best && oi < bi)) { best = ob; bi = oi; }
+      }
+      // all-NaN logits leave bi at C: feed back a valid id
+      if (lane == 0) tok[r] = bi < C ? bi : 0;
+    }
+    __syncthreads();
+    if (p.eos_id >= 0) {
+      bool all_done = true;
+      for (int r = 0; r < R; ++r) all_done &= done[r] || tok[r] == p.eos_id;
+      __syncthreads();  // every thread has read done[] before it changes
+      if (tid < R && tok[tid] == p.eos_id) done[tid] = 1;
+      if (all_done) break;  // the same value in every thread of every CTA
+      __syncthreads();
+    }
+    mark.at(14);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  cl.sync();  // no CTA leaves while the cluster may still use its shared memory
+}
+
+template <typename T>
+int launch(const Params<T>& p, int smem_expected, cudaStream_t stream) {
+  const Geometry<T> geo(p);
+  const size_t smem = geo.smem_bytes(kRows, kDepth, p.E);
+  if ((int)smem != smem_expected) return (int)cudaErrorInvalidValue;
+  const auto kernel = decode_cluster_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.H;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p.B + kRows - 1) / kRows * p.H);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // a cluster that cannot be resident is refused, never run another way
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <typename T>
+int run(const void* const* ptr, const int* dim, float eps, float scale, const float* cls0,
+        cudaStream_t stream) {
+  Params<T> p;
+  const T** w[] = {&p.w_qkv, &p.b_qkv, &p.w_out, &p.b_out, &p.cw_q,
+                   &p.cb_q,  &p.cw_o,  &p.cb_o,  &p.ff1_w, &p.ff1_b,
+                   &p.ff2_w, &p.ff2_b, &p.n1_s,  &p.n1_b,  &p.n2_s,
+                   &p.n2_b,  &p.n3_s,  &p.n3_b,  &p.fn_s,  &p.fn_b,
+                   &p.head_w, &p.head_b, &p.emb};
+  const int nw = sizeof(w) / sizeof(w[0]);
+  for (int i = 0; i < nw; ++i) *w[i] = (const T*)ptr[i];
+  p.pe = (const float*)ptr[nw];
+  p.cls0 = cls0;
+  p.ck = (const T*)ptr[nw + 1];
+  p.cv = (const T*)ptr[nw + 2];
+  p.kc = (T*)ptr[nw + 3];
+  p.vc = (T*)ptr[nw + 4];
+  p.logits = (float*)ptr[nw + 5];
+  p.packed = (const char*)ptr[nw + 6];
+  p.prof = (long long*)ptr[nw + 7];
+  p.B = dim[0]; p.steps = dim[1]; p.L = dim[2]; p.E = dim[3]; p.F = dim[4];
+  p.C = dim[5]; p.H = dim[6]; p.Tm = dim[7]; p.go_id = dim[8]; p.eos_id = dim[9];
+  const int smem = dim[10];
+  p.eps = eps;
+  p.scale = scale;
+  if (p.H < 1 || p.H > kMaxCluster || p.E > kMaxE) return (int)cudaErrorInvalidValue;
+  if (p.B == 0 || p.steps == 0) return 0;
+  return launch<T>(p, smem, stream);
+}
+
+}  // namespace
+
+// ptr: the 23 weight tables in Params order, then pe, ck, cv, kc, vc,
+// logits, the packed weight units and the int64 [15] phase profile (null:
+// none; see Marks).  dim: B, T, L, E, F, C, H, Tm, go_id,
+// eos_id (< 0: no early stop) and the shared-memory bytes the caller
+// planned (checked).
+// dtype: 0 = float32, 1 = bfloat16.  cls0: the [B, E] float32 step-0 rows,
+// or null for the [GO] embedding.  Every pointer lies on the device of
+// `stream`, which the caller makes the current device for the call.
+extern "C" int fused_decode_cluster(int dtype, const void* const* ptr, const int* dim, float eps,
+                                    float scale, const void* cls0, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* c0 = (const float*)cls0;
+  if (dtype == 0) return run<float>(ptr, dim, eps, scale, c0, s);
+  if (dtype == 1) return run<__nv_bfloat16>(ptr, dim, eps, scale, c0, s);
+  return (int)cudaErrorInvalidValue;
+}

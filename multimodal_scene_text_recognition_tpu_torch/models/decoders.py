@@ -33,8 +33,8 @@ from torch import nn
 from ..charset import EOS_ID, GO_ID
 from ..ops.attention import attend, attend_ancestry, causal_mask, qkv_projections
 from ..ops.fused_beam import NEG, fused_beam_decode
-from ..ops.fused_decode import (cast_weights, fused_greedy_decode, quantize_fused_weights,
-                                stack_decoder_weights)
+from ..ops.fused_decode import (cast_weights, fused_greedy_decode, pack_cluster_tables,
+                                quantize_fused_weights, stack_decoder_weights)
 from .encoders import Drop
 from .layers import EPS, FusionMLP, MultiHeadAttention, layer_norm, positional_rows, \
     relevance_fusion
@@ -78,7 +78,7 @@ class TransformerDecoder(nn.Module):
         self.early_stop, self.beam_fused, self.int8 = early_stop, beam_fused, int8
         self.use_kernels = True
         # (dtype, int8) -> (parameter versions, cast weight tables and, for
-        # int8, their scales)
+        # int8, their scales); (dtype, "cluster") -> (versions, K1's units)
         self._fused = {}
         self.hid_to_emb = nn.Linear(memory_dim, d_model)
         self.emb = nn.Embedding(num_classes, d_model)
@@ -126,7 +126,7 @@ class TransformerDecoder(nn.Module):
         a served call stacks, quantizes and casts nothing."""
         dtype = dtype or self.dtype
         params = list(self.parameters())
-        key = tuple((p.data_ptr(), p._version) for p in params)
+        key = self._versions()
         hit = self._fused.get((dtype, int8))
         if hit is None or hit[0] != key:
             T = self.max_text_length
@@ -140,6 +140,22 @@ class TransformerDecoder(nn.Module):
                 else:
                     w = cast_weights(w, dtype)
             hit = self._fused[dtype, int8] = (key, w)
+        return hit[1]
+
+    def _versions(self):
+        return tuple((p.data_ptr(), p._version) for p in self.parameters())
+
+    def cluster_tables(self, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """The float tables of :meth:`fused_weights` in ``dtype`` repacked
+        once for K1's cluster kernel (``ops.fused_decode.pack_cluster_tables``),
+        kept as those are."""
+        dtype = dtype or self.dtype
+        key = self._versions()
+        hit = self._fused.get((dtype, "cluster"))
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                packed = pack_cluster_tables(self.fused_weights(dtype), self.num_heads)
+            hit = self._fused[dtype, "cluster"] = (key, packed)
         return hit[1]
 
     def teacher_forced(self, enc_out: torch.Tensor, text: torch.Tensor,
@@ -214,7 +230,7 @@ class TransformerDecoder(nn.Module):
             w, ck, cv, num_heads=self.num_heads,
             steps=self.max_text_length, dtype=self.dtype, go_id=GO_ID,
             eos_id=EOS_ID if self.early_stop else None, eps=EPS,
-            plain=not self.use_kernels, scales=scales, cls0=cls0)
+            plain=not self.use_kernels, scales=scales, cls0=cls0, units=self.cluster_tables)
 
     def _make_stepper(self, memory: torch.Tensor):
         """Single-position decode machinery over ``memory`` [B', Tm, E] in

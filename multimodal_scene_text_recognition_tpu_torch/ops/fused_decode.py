@@ -7,11 +7,14 @@ decoder weights and the per-layer cross-attention K/V:
 
 * :func:`fused_greedy_decode_plain`, a PyTorch loop with the TPU kernel's
   exact casts.  The CPU path and the oracle of the kernel.
-* :func:`fused_greedy_decode_cuda`, the CUDA kernel
-  ``kernels/fused_decode.cu``, which replaces the TPU kernel
-  ``ops/fused_decode.py::_decode_kernel``: K1 in float mode, K1q with
-  ``scales`` (the six projections int8 x int8 -> int32, tables from
-  :func:`quantize_fused_weights`).
+* :func:`fused_greedy_decode_cuda`, the CUDA kernels that replace the TPU
+  kernel ``ops/fused_decode.py::_decode_kernel``: K1 in float mode
+  (``kernels/fused_decode_cluster.cu``: one thread-block cluster of H CTAs
+  per tile of R rows, the weights split across the cluster, read from the
+  units :func:`pack_cluster_tables` lays out, and run on the tensor cores
+  in bf16; :func:`cluster_plan` is its launch), K1q with ``scales``
+  (``kernels/fused_decode.cu``: the six projections int8 x int8 -> int32,
+  tables from :func:`quantize_fused_weights`).
 
 With ``cls0`` [B, E] float32 (the semantic CLS vector of
 ``cls_decoder_init``) the step-0 input row is ``cls0 + pe[0]`` in float32,
@@ -27,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -312,7 +315,7 @@ _N_TABLES = 23  # FusedDecodeWeights fields before pe
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
 THREADS = 256  # threads per CTA (kThreads in the decode kernels)
-_ROWS = 1  # batch rows per CTA (kRows in the kernel)
+_ROWS = 1  # batch rows per CTA of K1q (kRows in fused_decode.cu)
 
 
 def check_cls0(cls0: Optional[torch.Tensor], B: int, E: int, device: torch.device,
@@ -385,11 +388,13 @@ def launch(fn, w: FusedDecodeWeights, cross_k: torch.Tensor, cross_v: torch.Tens
            eps: float, what: str, cls0: Optional[torch.Tensor] = None) -> None:
     """Call a decode kernel's C launcher ``fn(dtype, pointers, dims, eps,
     scale, cls0, stream)`` on the current stream of the tensors' device,
-    with the pointers of the tables, pe, cross_k, cross_v and ``buffers``,
-    and ``cls0``'s (null without one); raises if the launch fails."""
+    with the pointers of the tables, pe, cross_k, cross_v and ``buffers``
+    (null for None), and ``cls0``'s (null without one); raises if the
+    launch fails."""
     dev = cross_k.device
     ptrs = [t.data_ptr() for t in list(w)[:_N_TABLES]] + [
-        w.pe.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr()] + [b.data_ptr() for b in buffers]
+        w.pe.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr()] + [
+        0 if b is None else b.data_ptr() for b in buffers]
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     c_dims = (ctypes.c_int * len(dims))(*dims)
     scale = 1.0 / math.sqrt(cross_k.shape[-1] // num_heads)
@@ -413,16 +418,213 @@ def launcher(name: str, fn_name: Optional[str] = None):
     return fn
 
 
-def decode_smem_bytes(E: int, F: int, C: int, H: int, S: int, vec: int,
-                      quantized: bool) -> int:
-    """Shared memory of one decode CTA (``smem_bytes`` in the kernel):
-    float32 rows, the split-K sums, the token and stop flags, and for K1q
-    the row abs-max and its inverse, a max per warp and the int8 row."""
+def decode_smem_bytes(E: int, F: int, C: int, H: int, S: int, vec: int) -> int:
+    """Shared memory of one K1q CTA (``smem_bytes`` in fused_decode.cu):
+    float32 rows, the split-K sums, the token and stop flags, the row
+    abs-max and its inverse, a max per warp and the int8 row."""
     R = _ROWS
-    n = 4 * R * (E + E + F + 3 * E + H * S + C + THREADS * vec) + 8 * R
-    if quantized:
-        n += 4 * R * (2 + THREADS // 32) + R * max(E, F)
-    return n
+    return (4 * R * (E + E + F + 3 * E + H * S + C + THREADS * vec) + 8 * R
+            + 4 * R * (2 + THREADS // 32) + R * max(E, F))
+
+
+# -- K1's cluster design (kernels/fused_decode_cluster.cu) --------------------
+
+# the phases of a step K1's profile tells apart (Marks in the kernel)
+CLUSTER_PHASES = ("embedding", "qkv", "cache write", "self-attention", "out-proj", "exchange 1",
+                  "cross-q", "cross-attention", "cross-out", "exchange 2", "ff1", "ff2",
+                  "exchange 3", "class head", "logits, argmax, stop")
+# rows a cluster owns (kRows in the kernel): the M side of one mma.sync tile;
+# tiles of 32 rows were slower at B=192 on an H100 (PERF.md)
+CLUSTER_ROWS = 16
+_DEPTH = 16  # weight units in flight a lane (kDepth in the kernel)
+MAX_CLUSTER = 8  # CTAs a cluster (one a head): the portable cluster size
+_WARPS = THREADS // 32
+_UNIT = 512  # bytes of one weight unit: 16 a lane
+_MAX_E = 512  # row width the kernel's exchange holds in registers
+_KK = torch.tensor([2 * q + (j % 2) + 8 * (j // 2) for q in range(4) for j in range(4)])
+
+
+def unit_cols(dtype: torch.dtype) -> int:
+    """Output columns of one weight unit: 16 in bf16 (two mma.sync n8
+    tiles), 8 in float32 (one column a lane quad)."""
+    return 16 if dtype.itemsize == 2 else 8
+
+
+class ClusterPlan(NamedTuple):
+    """The launch of K1's cluster kernel: ``clusters`` clusters of ``G``
+    CTAs (one a head), each owning ``R`` batch rows; ``smem`` bytes of
+    shared memory a CTA, ``depth`` weight units in flight a lane; each of
+    the seven projections (qkv, out, cross-q, cross-out, ff1, ff2 and the
+    class head, its columns padded to ``Cp``) has ``shapes`` [K, N] in a
+    CTA's slice; a CTA reads ``units`` units of 512 bytes a layer and
+    ``head_units`` for the head, ``cta_step_bytes`` of weights a step."""
+
+    G: int
+    R: int
+    clusters: int
+    smem: int
+    depth: int
+    Cp: int
+    shapes: Tuple[Tuple[int, int], ...]
+    units: int
+    head_units: int
+    cta_step_bytes: int
+
+    @property
+    def ctas(self) -> int:
+        return self.clusters * self.G
+
+    def call_bytes(self, steps: int) -> int:
+        """Weight bytes the CTAs of a call read from L2 over ``steps``
+        steps (every cluster running them all)."""
+        return self.ctas * self.cta_step_bytes * steps
+
+
+def _cluster_shapes(E: int, H: int, F: int, C: int, dtype: torch.dtype):
+    """Unit columns, padded class count and the [K, N] slice of each
+    projection a CTA owns; raises ValueError where the kernel cannot tile
+    the widths."""
+    if not 1 <= H <= MAX_CLUSTER:
+        raise ValueError(f"fused decode: {H} heads; the cluster kernel runs one CTA a head, "
+                         f"at most {MAX_CLUSTER}")
+    if E % H or F % H:
+        raise ValueError(f"fused decode: {H} heads do not divide E={E} and F={F}")
+    hd, Fg = E // H, F // H
+    if hd % 16 or Fg % 16:
+        raise ValueError(f"fused decode: the cluster kernel takes E/H and F/H in multiples of "
+                         f"16 (mma.sync k-steps), got {hd} and {Fg}")
+    if E > _MAX_E:
+        raise ValueError(f"fused decode: E={E} exceeds the cluster kernel's {_MAX_E}")
+    un = unit_cols(dtype)
+    Cp = -(-C // (_WARPS * un)) * _WARPS * un
+    shapes = ((E, 3 * hd), (hd, E), (E, hd), (hd, E), (E, Fg), (Fg, E), (E, Cp))
+    return un, Cp, shapes
+
+
+def cluster_plan(B: int, L: int, E: int, H: int, F: int, C: int, T: int, Tm: int,
+                 dtype: torch.dtype) -> ClusterPlan:
+    """The launch of K1's cluster kernel for these widths (``Geometry`` in
+    the kernel computes the same): G = H CTAs a cluster, :data:`CLUSTER_ROWS`
+    rows a cluster, ceil(B / CLUSTER_ROWS) clusters.  Raises ValueError for
+    widths the kernel cannot tile (:func:`_cluster_shapes`) or shared memory
+    beyond the card's."""
+    un, Cp, shapes = _cluster_shapes(E, H, F, C, dtype)
+    units = [N // un * (K // 16) for K, N in shapes]
+    R, depth, es = CLUSTER_ROWS, _DEPTH, dtype.itemsize
+    hd, Fg = E // H, F // H
+    red = max(R * Cp, -(-max(T, Tm) // 8) * R * hd)  # the head's logits, the attention's chunks
+    smem = (_WARPS * depth * _UNIT + 4 * R * E + es * R * ((E + 8) + max(hd, Fg) + 8)
+            + 4 * R * 3 * hd + 8 * R * E + 4 * red + 4 * R * max(T, Tm) + 8 * R)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"fused decode: {smem} bytes of shared memory a CTA ({dtype}) "
+                         f"exceed {SMEM_LIMIT}")
+    return ClusterPlan(G=H, R=R, clusters=-(-B // R), smem=smem, depth=depth, Cp=Cp,
+                       shapes=shapes, units=sum(units[:-1]), head_units=units[-1],
+                       cta_step_bytes=(L * sum(units[:-1]) + units[-1]) * _UNIT)
+
+
+def _slices(w: FusedDecodeWeights, H: int, Cp: int):
+    """The slice [L, H, K, N] of each projection CTA h owns (qkv: head h's
+    q, k and v columns side by side), and the class head padded to Cp
+    columns [1, 1, E, Cp]."""
+    L, E, _ = w.w_qkv.shape
+    F = w.ff1_w.shape[2]
+    hd, Fg = E // H, F // H
+    head = torch.zeros(E, Cp, dtype=w.head_w.dtype, device=w.head_w.device)
+    head[:, :w.head_w.shape[1]] = w.head_w
+    return (w.w_qkv.reshape(L, E, 3, H, hd).permute(0, 3, 1, 2, 4).reshape(L, H, E, 3 * hd),
+            w.w_out.reshape(L, H, hd, E),
+            w.cw_q.reshape(L, E, H, hd).transpose(1, 2),
+            w.cw_o.reshape(L, H, hd, E),
+            w.ff1_w.reshape(L, E, H, Fg).transpose(1, 2),
+            w.ff2_w.reshape(L, H, Fg, E),
+            head[None, None])
+
+
+def _to_units(m: torch.Tensor, un: int) -> torch.Tensor:
+    """[A, B, K, N] -> its units [A, B, items, K/16, 32, vals]: unit (column
+    tile c, k-step k) holds lane (g, q)'s k-values {2q, 2q+1, 2q+8, 2q+9}
+    of columns c * un + nt * 8 + g, nt < un / 8 (its mma.sync B fragments
+    in bf16)."""
+    A, B, K, N = m.shape
+    ks, nc, nt = K // 16, N // un, un // 8
+    x = m.reshape(A, B, ks, 16, nc, nt, 8).index_select(3, _KK.to(m.device))
+    x = x.reshape(A, B, ks, 4, 4, nc, nt, 8).permute(0, 1, 5, 2, 7, 3, 6, 4)
+    return x.reshape(A, B, nc, ks, 32, nt * 4)
+
+
+def _from_units(x: torch.Tensor, K: int, N: int, un: int) -> torch.Tensor:
+    """The inverse of :func:`_to_units`."""
+    A, B = x.shape[:2]
+    ks, nc, nt = K // 16, N // un, un // 8
+    x = x.reshape(A, B, nc, ks, 8, 4, nt, 4).permute(0, 1, 3, 5, 7, 2, 6, 4)
+    x = x.reshape(A, B, ks, 16, nc, nt, 8).index_select(3, torch.argsort(_KK).to(x.device))
+    return x.reshape(A, B, K, N)
+
+
+def _warp_passes(items: int):
+    """The column tiles warp w reads, for each warp, as the kernel's
+    ``project`` takes them: two at a time (c, c + 8; c = w, w + 16, ...),
+    the last alone where c + 8 is past the end."""
+    return [[(c, c + _WARPS) if c + _WARPS < items else (c,)
+             for c in range(w, items, 2 * _WARPS)] for w in range(_WARPS)]
+
+
+def pack_cluster_tables(w: FusedDecodeWeights, num_heads: int) -> torch.Tensor:
+    """The six projection tables and the class head of ``w`` (already in
+    the compute type) as K1's cluster kernel reads them: one flat tensor of
+    512-byte units (:func:`_to_units`), first per (layer, CTA h) the units
+    of CTA h's slices, warp by warp, each warp's in the order it reads them
+    (its column tiles of qkv, out, cross-q, cross-out, ff1 and ff2 two at a
+    time, :func:`_warp_passes`, the two tiles' k-steps interleaved), then
+    the class head's (padded with zero columns), which every CTA reads,
+    warp by warp.  :func:`unpack_cluster_tables` is its inverse."""
+    L, E, _ = w.w_qkv.shape
+    F, C = w.ff1_w.shape[2], w.head_w.shape[1]
+    un, Cp, _ = _cluster_shapes(E, num_heads, F, C, w.w_qkv.dtype)
+    parts = [_to_units(m.detach(), un) for m in _slices(w, num_heads, Cp)]
+
+    def runs(ps):  # warp by warp, each warp's passes of every projection of ps
+        return [p[:, :, list(tiles)].transpose(2, 3).flatten(2, 3) for w in range(_WARPS)
+                for p in ps for tiles in _warp_passes(p.shape[2])[w]]
+
+    layers = torch.cat(runs(parts[:-1]), 2)  # [L, H, units, 32, vals]
+    return torch.cat([layers.reshape(-1), torch.cat(runs(parts[-1:]), 2).reshape(-1)]).contiguous()
+
+
+def unpack_cluster_tables(packed: torch.Tensor, *, L: int, E: int, H: int, F: int,
+                          C: int) -> dict:
+    """The inverse of :func:`pack_cluster_tables`: the tables w_qkv, w_out,
+    cw_q, cw_o, ff1_w, ff2_w [L, in, out] and head_w [E, C]."""
+    un, Cp, shapes = _cluster_shapes(E, H, F, C, packed.dtype)
+    vals = 16 // packed.itemsize
+    units = [N // un * (K // 16) for K, N in shapes]
+    n_layers = L * H * sum(units[:-1]) * 32 * vals
+    blocks = (packed[:n_layers].reshape(L, H, -1, 32, vals),
+              packed[n_layers:].reshape(1, 1, -1, 32, vals))
+    items = [torch.zeros(A, B, N // un, K // 16, 32, vals, dtype=packed.dtype,
+                         device=packed.device)
+             for (A, B), (K, N) in zip([(L, H)] * 6 + [(1, 1)], shapes)]
+    for block, ps in ((blocks[0], range(6)), (blocks[1], range(6, 7))):
+        at = 0
+        for w in range(_WARPS):
+            for p in ps:
+                for tiles in _warp_passes(items[p].shape[2])[w]:
+                    n = items[p].shape[3] * len(tiles)
+                    run = block[:, :, at:at + n].unflatten(2, (-1, len(tiles)))
+                    items[p][:, :, list(tiles)] = run.transpose(2, 3)
+                    at += n
+    mats = [_from_units(x, K, N, un) for x, (K, N) in zip(items, shapes)]
+    hd = E // H
+    qkv, out, cq, co, f1, f2, head = mats
+    return dict(
+        w_qkv=qkv.reshape(L, H, E, 3, hd).permute(0, 2, 3, 1, 4).reshape(L, E, 3 * E),
+        w_out=out.reshape(L, E, E),
+        cw_q=cq.transpose(1, 2).reshape(L, E, E),
+        cw_o=co.reshape(L, E, E),
+        ff1_w=f1.transpose(1, 2).reshape(L, E, F),
+        ff2_w=f2.reshape(L, F, E),
+        head_w=head[0, 0, :, :C])
 
 
 def fused_greedy_decode_cuda(w: FusedDecodeWeights, cross_k: torch.Tensor,
@@ -430,35 +632,54 @@ def fused_greedy_decode_cuda(w: FusedDecodeWeights, cross_k: torch.Tensor,
                              steps: int, go_id: int = 0, eos_id: Optional[int] = None,
                              eps: float = 1e-5,
                              scales: Optional[FusedDecodeScales] = None,
-                             cls0: Optional[torch.Tensor] = None) -> torch.Tensor:
+                             cls0: Optional[torch.Tensor] = None,
+                             packed: Optional[torch.Tensor] = None,
+                             profile: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the CUDA decode kernel (K1, or with ``scales`` K1q; with
     ``cls0`` its step-0 row) on inputs :func:`check_kernel_inputs` accepts.
-    Returns logits [B, T, C]."""
+    K1 reads its weights as ``packed``, :func:`pack_cluster_tables` of
+    ``w`` made once by the caller (required: it is never packed here), in
+    clusters of :data:`CLUSTER_ROWS` rows (:func:`cluster_plan`, which
+    raises ValueError for widths it cannot tile); with ``profile`` (int64
+    [len(CLUSTER_PHASES)] on the device) it adds the cycles the first
+    thread of CTA 0 spent in each phase.  Returns logits [B, T, C]."""
     ids = [go_id] + ([] if eos_id is None else [eos_id])
     what = "fused decode" if scales is None else "fused int8 decode"
     L, B, Tm, E, F, C = check_kernel_inputs(w, cross_k, cross_v, num_heads=num_heads,
                                             steps=steps, class_ids=ids, what=what,
                                             scales=scales, cls0=cls0)
     dt, T, H = w.b_qkv.dtype, steps, num_heads
-    vec = 16 // dt.itemsize  # weight columns per 16-byte load
-    smem = decode_smem_bytes(E, F, C, H, max(T, Tm), vec, scales is not None)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{what}: {smem} bytes of shared memory per CTA "
-                         f"exceed {SMEM_LIMIT}")
-
+    if scales is None:
+        plan = cluster_plan(B, L, E, H, F, C, T, Tm, dt)
+        want = (L * H * plan.units + plan.head_units) * _UNIT // dt.itemsize
+        if (packed is None or packed.dtype != dt or packed.device != cross_k.device
+                or not packed.is_contiguous() or packed.numel() != want):
+            raise ValueError(f"{what}: packed must be pack_cluster_tables of the tables, "
+                             f"contiguous {dt} on {cross_k.device} with {want} elements")
+        if profile is not None and (profile.dtype != torch.int64
+                                    or profile.device != cross_k.device
+                                    or profile.shape != (len(CLUSTER_PHASES),)):
+            raise ValueError(f"{what}: profile must be int64 [{len(CLUSTER_PHASES)}] on "
+                             f"{cross_k.device}")
+    else:
+        smem = decode_smem_bytes(E, F, C, H, max(T, Tm), 16 // dt.itemsize)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"{what}: {smem} bytes of shared memory per CTA "
+                             f"exceed {SMEM_LIMIT}")
     # caches zeroed before use, as the TPU kernel's are
     kc = torch.zeros(L, B, T, E, dtype=dt, device=cross_k.device)
     vc = torch.zeros_like(kc)
     logits = _logits_buffer(B, T, C, eos_id, cross_k.device)
-    buffers, fn = (kc, vc, logits), launcher("fused_decode")
-    if scales is not None:
-        buffers, fn = buffers + tuple(scales), launcher("fused_decode", "fused_decode_int8")
-    launch(fn, w, cross_k, cross_v, buffers,
-           (B, T, L, E, F, C, H, Tm, go_id, -1 if eos_id is None else eos_id),
-           num_heads=H, eps=eps, what=what, cls0=cls0)
+    dims = (B, T, L, E, F, C, H, Tm, go_id, -1 if eos_id is None else eos_id)
     if scales is None:
+        launch(launcher("fused_decode_cluster"), w, cross_k, cross_v,
+               (kc, vc, logits, packed, profile), dims + (plan.smem,), num_heads=H,
+               eps=eps, what=what, cls0=cls0)
         fused_greedy_decode_cuda.launches += 1
     else:
+        launch(launcher("fused_decode", "fused_decode_int8"), w, cross_k, cross_v,
+               (kc, vc, logits) + tuple(scales), dims, num_heads=H, eps=eps, what=what,
+               cls0=cls0)
         fused_greedy_decode_cuda.launches_int8 += 1
     if cls0 is not None:
         fused_greedy_decode_cuda.launches_cls0 += 1
@@ -476,7 +697,9 @@ def fused_greedy_decode(w: FusedDecodeWeights, cross_k: torch.Tensor,
                         eos_id: Optional[int] = None, eps: float = 1e-5,
                         plain: bool = False,
                         scales: Optional[FusedDecodeScales] = None,
-                        cls0: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        cls0: Optional[torch.Tensor] = None,
+                        units: Optional[Callable[[torch.dtype], torch.Tensor]] = None
+                        ) -> torch.Tensor:
     """Greedy decode -> logits [B, steps, C] float32.
 
     cross_k/cross_v: [L, B, Tm, E] memory projections per layer.  Weights
@@ -486,7 +709,9 @@ def fused_greedy_decode(w: FusedDecodeWeights, cross_k: torch.Tensor,
     of :func:`quantize_fused_weights`) selects the quantized mode.  ``cls0``
     [B, E] float32 replaces the [GO] embedding at step 0 (both versions
     raise on another type or shape).  CPU tensors (or ``plain=True``) take
-    the plain version; CUDA tensors launch the kernel.
+    the plain version; CUDA tensors launch the kernel, K1 with the tables
+    ``units(dtype)`` returns (:func:`pack_cluster_tables` of ``w`` in
+    ``dtype``, which the caller keeps; called only when K1 runs).
     """
     w = cast_weights(w, dtype)
     ck = cross_k.detach().to(dtype).contiguous()
@@ -495,4 +720,5 @@ def fused_greedy_decode(w: FusedDecodeWeights, cross_k: torch.Tensor,
               scales=scales, cls0=None if cls0 is None else cls0.detach())
     if plain or ck.device.type == "cpu":
         return fused_greedy_decode_plain(w, ck, cv, **kw)
-    return fused_greedy_decode_cuda(w, ck, cv, **kw)
+    packed = None if scales is not None or units is None else units(dtype)
+    return fused_greedy_decode_cuda(w, ck, cv, packed=packed, **kw)

@@ -99,17 +99,32 @@ def _decode_inputs(dev, B, seed, L=2, E=64, F=128, C=97, T=6, Tm=8):
     return w, t(L, B, Tm, E, scale=1.0), t(L, B, Tm, E, scale=1.0)
 
 
-@pytest.mark.parametrize("B", [1, 13, 300])
-def test_fused_decode_kernel_matches_plain(dev, B):
-    """One row per CTA, from one CTA to more than two per SM.
-    float32: logits atol 1e-4 (summation order only) and identical tokens;
-    bfloat16: at least 95% of tokens identical."""
-    w, ck, cv = _decode_inputs(dev, B, seed=B)
-    kw = dict(num_heads=4, steps=6, go_id=0, eps=1e-5)
+# (E, H, F): the small widths, and the flagship's (L cut to 2)
+DECODE_WIDTHS = {"small": (64, 4, 128), "flagship": (256, 8, 2048)}
+
+
+@pytest.mark.parametrize("B", [1, 13, 192, 300])
+@pytest.mark.parametrize("widths", sorted(DECODE_WIDTHS))
+@pytest.mark.parametrize("cls0", [False, True])
+@pytest.mark.parametrize("early_stop", [False, True])
+def test_fused_decode_kernel_matches_plain(dev, B, widths, cls0, early_stop):
+    """K1's cluster kernel, from one ragged row tile (B=1, 13) to tiles in
+    waves (B=300 at 16 rows), at the small widths (a cluster of 4 CTAs)
+    and the flagship's (8), with and without a random cls0 row and early
+    stop.  float32: logits atol 1e-4 (summation order only) and identical
+    tokens; bfloat16: at least 95% of tokens identical."""
+    E, H, F = DECODE_WIDTHS[widths]
+    w, ck, cv = _decode_inputs(dev, B, seed=B, E=E, F=F)
+    if early_stop:  # the [s] logit raised, so rows stop at different steps
+        w = w._replace(head_b=w.head_b + 2.0 * (torch.arange(97, device=dev) == EOS_ID))
+    c0 = torch.from_numpy(np.random.default_rng(B).standard_normal((B, E)).astype(np.float32))
+    kw = dict(num_heads=H, steps=6, go_id=0, eps=1e-5, eos_id=EOS_ID if early_stop else None,
+              cls0=c0.to(dev) if cls0 else None)
     for dt in (torch.float32, torch.bfloat16):
         wd = fd.cast_weights(w, dt)
         ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
-        out = fd.fused_greedy_decode_cuda(wd, ckd, cvd, **kw)
+        packed = fd.pack_cluster_tables(wd, H)
+        out = fd.fused_greedy_decode_cuda(wd, ckd, cvd, packed=packed, **kw)
         ref = fd.fused_greedy_decode_plain(wd, ckd, cvd, **kw)
         assert torch.isfinite(out).all()
         agree = (out.argmax(-1) == ref.argmax(-1)).float().mean().item()
@@ -120,11 +135,46 @@ def test_fused_decode_kernel_matches_plain(dev, B):
             assert agree >= 0.95
 
 
+def test_fused_decode_kernel_is_deterministic(dev):
+    """Two launches on the same input give bit-identical logits: the G
+    copies of the residual stream sum the partials in one order, with no
+    atomics."""
+    E, H, F = DECODE_WIDTHS["flagship"]
+    w, ck, cv = _decode_inputs(dev, 192, seed=3, E=E, F=F)
+    dt = torch.bfloat16
+    wd = fd.cast_weights(w, dt)
+    ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
+    packed = fd.pack_cluster_tables(wd, H)
+    kw = dict(num_heads=H, steps=6, packed=packed)
+    first = fd.fused_greedy_decode_cuda(wd, ckd, cvd, **kw)
+    again = fd.fused_greedy_decode_cuda(wd, ckd, cvd, **kw)
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("E,H,F,why", [(48, 4, 128, "multiples of 16"),
+                                        (256, 16, 2048, "at most 8"),
+                                        (64, 4, 96, "multiples of 16")])
+def test_fused_decode_kernel_refuses_shapes_it_cannot_tile(dev, E, H, F, why):
+    """Head or FF slices not a multiple of 16 wide, or more heads than a
+    cluster holds: ValueError, never another kernel or the plain version."""
+    w, ck, cv = _decode_inputs(dev, 4, seed=0, E=E, F=F)
+    before = fd.fused_greedy_decode_cuda.launches
+    with pytest.raises(ValueError, match=why):
+        fd.fused_greedy_decode_cuda(fd.cast_weights(w, torch.bfloat16), ck.bfloat16(),
+                                    cv.bfloat16(), num_heads=H, steps=6)
+    assert fd.fused_greedy_decode_cuda.launches == before
+
+
 def test_fused_decode_dispatch_launches_kernel_on_cuda(dev):
     w, ck, cv = _decode_inputs(dev, 4, seed=0)
     before = fd.fused_greedy_decode_cuda.launches
-    out = fd.fused_greedy_decode(w, ck, cv, num_heads=4, steps=6, dtype=torch.bfloat16)
+    units = lambda dt: fd.pack_cluster_tables(fd.cast_weights(w, dt), 4)  # noqa: E731
+    out = fd.fused_greedy_decode(w, ck, cv, num_heads=4, steps=6, dtype=torch.bfloat16,
+                                 units=units)
     assert out.shape == (4, 6, 97) and out.device.type == "cuda"
+    assert fd.fused_greedy_decode_cuda.launches == before + 1
+    with pytest.raises(ValueError, match="packed"):  # K1 never packs the tables itself
+        fd.fused_greedy_decode(w, ck, cv, num_heads=4, steps=6, dtype=torch.bfloat16)
     assert fd.fused_greedy_decode_cuda.launches == before + 1
 
 
@@ -140,6 +190,11 @@ def test_fused_decode_wrapper_refuses_bad_inputs(dev):
         fd.fused_greedy_decode_cuda(w32, ck, cv, num_heads=5, steps=6)
     with pytest.raises(ValueError):  # more steps than positional rows
         fd.fused_greedy_decode_cuda(w32, ck, cv, num_heads=4, steps=7)
+    with pytest.raises(ValueError, match="packed"):  # no packed tables
+        fd.fused_greedy_decode_cuda(w32, ck, cv, **kw)
+    with pytest.raises(ValueError, match="packed"):  # the bf16 tables' units
+        fd.fused_greedy_decode_cuda(w32, ck, cv, packed=fd.pack_cluster_tables(
+            fd.cast_weights(w, torch.bfloat16), 4), **kw)
 
 
 def _pruned_agreement(a, b):
@@ -252,8 +307,9 @@ def test_fused_decode_early_stop_kernel_matches_plain(dev):
     for dt in (torch.float32, torch.bfloat16):
         wd = fd.cast_weights(w, dt)
         ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
-        out = fd.fused_greedy_decode_cuda(wd, ckd, cvd, eos_id=EOS_ID, **kw)
-        full = fd.fused_greedy_decode_cuda(wd, ckd, cvd, **kw)
+        packed = fd.pack_cluster_tables(wd, 4)
+        out = fd.fused_greedy_decode_cuda(wd, ckd, cvd, eos_id=EOS_ID, packed=packed, **kw)
+        full = fd.fused_greedy_decode_cuda(wd, ckd, cvd, packed=packed, **kw)
         ref = fd.fused_greedy_decode_plain(wd, ckd, cvd, eos_id=EOS_ID, **kw)
         torch.cuda.synchronize()
         ids, full_ids = out.argmax(-1), full.argmax(-1)
@@ -441,7 +497,8 @@ def test_fused_decode_int8_dispatch_launches_kernel_on_cuda(dev):
     assert (fd.fused_greedy_decode_cuda.launches,
             fd.fused_greedy_decode_cuda.launches_int8) == (before[0], before[1] + 1)
     w, _, _ = _decode_inputs(dev, 4, seed=0, T=6)
-    fd.fused_greedy_decode(w, ck, cv, num_heads=4, steps=6, dtype=torch.bfloat16)
+    fd.fused_greedy_decode(w, ck, cv, num_heads=4, steps=6, dtype=torch.bfloat16,
+                           units=lambda dt: fd.pack_cluster_tables(fd.cast_weights(w, dt), 4))
     assert (fd.fused_greedy_decode_cuda.launches,
             fd.fused_greedy_decode_cuda.launches_int8) == (before[0] + 1, before[1] + 1)
 
@@ -606,9 +663,10 @@ def test_fused_decode_cls0_kernel_matches_plain(dev, mode):
     for dt in (torch.float32, torch.bfloat16):
         wd = fd.cast_weights(w, dt)
         ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
-        out = fd.fused_greedy_decode_cuda(wd, ckd, cvd, cls0=cls0, **kw)
+        packed = None if int8_mode else fd.pack_cluster_tables(wd, 4)
+        out = fd.fused_greedy_decode_cuda(wd, ckd, cvd, cls0=cls0, packed=packed, **kw)
         ref = fd.fused_greedy_decode_plain(wd, ckd, cvd, cls0=cls0, **kw)
-        without = fd.fused_greedy_decode_cuda(wd, ckd, cvd, **kw)
+        without = fd.fused_greedy_decode_cuda(wd, ckd, cvd, packed=packed, **kw)
         torch.cuda.synchronize()
         assert torch.isfinite(out).all()
         assert (out[:, 0] - without[:, 0]).abs().amax(-1).min().item() > 1e-3
@@ -661,7 +719,9 @@ def test_cls0_wrappers_refuse_bad_cls0(dev):
     w, ck, cv = _decode_inputs(dev, 4, seed=74)
     wq, scales = fd.quantize_fused_weights(w)
     good = _cls0(dev, 4, seed=75)
-    calls = (lambda c: fd.fused_greedy_decode_cuda(w, ck, cv, num_heads=4, steps=6, cls0=c),
+    packed = fd.pack_cluster_tables(w, 4)
+    calls = (lambda c: fd.fused_greedy_decode_cuda(w, ck, cv, num_heads=4, steps=6, cls0=c,
+                                                   packed=packed),
              lambda c: fd.fused_greedy_decode_cuda(wq, ck, cv, num_heads=4, steps=6,
                                                    scales=scales, cls0=c),
              lambda c: fb.fused_beam_decode_cuda(w, ck, cv, beam_size=3, num_heads=4, steps=6,

@@ -1,5 +1,6 @@
-"""The PyTorch port and chip_smoke.py stand alone: they import neither JAX,
-flax, PIL nor any module of the JAX package (which the card machine lacks)."""
+"""The PyTorch port, chip_smoke.py and time_k1.py stand alone: they import
+neither JAX, flax, PIL nor any module of the JAX package (which the card
+machine lacks)."""
 
 import ast
 import pathlib
@@ -8,7 +9,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "multimodal_scene_text_recognition_tpu_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "time_k1.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL")
 JAX_PACKAGE = "multimodal_scene_text_recognition_tpu"
 
