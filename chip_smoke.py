@@ -37,7 +37,8 @@ plain version and the same chain through library products, and runs the
 probe's own entry point.  Every phase prints one flushed line
 with the elapsed seconds; any failure raises and the script exits
 non-zero.  ``--mutants`` also builds copies of the beam kernel with one
-bf16 rounding dropped each, of K1q with one of three rounding faults each,
+bf16 rounding dropped each (the ReLU outputs': rounded toward zero), of
+K1q with one of three rounding faults each,
 of K1 with one bf16 rounding dropped each (the ReLU outputs': rounded
 toward zero; read with and without cls0), and of the probe's kernels with
 one of four rounding faults each, and prints whether their limits catch
@@ -45,8 +46,13 @@ them; and copies of K1 with one part of its step left out each, timed
 beside it (K1_TIMING_VARIANTS).  The K1 phase prints K1's launch (its
 cluster plan and the weight bytes a call reads from L2), its times
 (``k1_times``: B=192 at full length and with early stop, B=1) and its
-cycles by phase (``fused_greedy_decode_cuda(profile=)``).  A watchdog
-turns a hang into a printed failure (exit code 3).
+cycles by phase (``fused_greedy_decode_cuda(profile=)``); a second K1
+phase holds it at widths it serves by padding or by grouping heads
+(K1_WIDTHS).  The K4 phase prints its grid plan (``beam_plan``), its
+times (``k4_times``: B=192 with early stop and at full length, B=1), the
+floor of its grid barriers and its cycles by phase, barrier and part
+(``fused_beam_decode_cuda(profile=)``).  A watchdog turns a hang into a
+printed failure (exit code 3).
 
 Output: per-phase lines, the ``nvidia-smi`` name/power-limit line, one JSON
 line ``{"kernels": [...]}`` before the last, and as the last line
@@ -712,6 +718,67 @@ def k1_times(fd, dec, ck, cv, **kw) -> dict:
                 b1=cuda_ms(lambda: k1(wd, *one, **kw), 10))
 
 
+# (E, H, F) that K1 serves by padding its slices or rows or by two heads a
+# CTA: head slices 12 wide, sixteen heads, FF slices 24 wide, rows 40 and
+# 42 wide (padded to 48; three heads of 14)
+K1_WIDTHS = ((48, 4, 128), (256, 16, 2048), (64, 4, 96), (40, 4, 128), (42, 3, 100))
+
+
+def random_decoder(L, E, F, C, T, Tm, B, seed: int):
+    """Seeded random decoder tables and cross K/V at these widths (the card
+    tests' scales), float32 on the card."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=None, base=0.0):
+        s = 1.0 / np.sqrt(shape[-2]) if scale is None else scale
+        return torch.from_numpy((base + s * rng.standard_normal(shape)).astype(np.float32)).cuda()
+
+    from multimodal_scene_text_recognition_tpu_torch.ops.fused_decode import FusedDecodeWeights
+    w = FusedDecodeWeights(
+        w_qkv=t(L, E, 3 * E), b_qkv=t(L, 3 * E, scale=0.1), w_out=t(L, E, E),
+        b_out=t(L, E, scale=0.1), cw_q=t(L, E, E), cb_q=t(L, E, scale=0.1), cw_o=t(L, E, E),
+        cb_o=t(L, E, scale=0.1), ff1_w=t(L, E, F), ff1_b=t(L, F, scale=0.1), ff2_w=t(L, F, E),
+        ff2_b=t(L, E, scale=0.1), n1_s=t(L, E, scale=0.1, base=1.0), n1_b=t(L, E, scale=0.1),
+        n2_s=t(L, E, scale=0.1, base=1.0), n2_b=t(L, E, scale=0.1),
+        n3_s=t(L, E, scale=0.1, base=1.0), n3_b=t(L, E, scale=0.1),
+        fn_s=t(E, scale=0.1, base=1.0), fn_b=t(E, scale=0.1), head_w=t(E, C, scale=0.5),
+        head_b=t(C, scale=0.1), emb=t(C, E, scale=1.0), pe=t(T, E, scale=1.0))
+    return w, t(L, B, Tm, E, scale=1.0), t(L, B, Tm, E, scale=1.0)
+
+
+def check_k1_widths(fd) -> dict:
+    """K1 at K1_WIDTHS (seeded random tables, L=2, B=64, T=6, C=97) against
+    its plain version, float32 and bfloat16, at the flagship's limits:
+    float32 within 1e-3 and every token, bfloat16 at least 99% of tokens."""
+    out = {}
+    for E, H, F in K1_WIDTHS:
+        w, ck, cv = random_decoder(2, E, F, 97, 6, 8, 64, seed=E + H + F)
+        plan = fd.cluster_plan(64, 2, E, H, F, 97, 6, 8, torch.bfloat16)
+        kw = dict(num_heads=H, steps=6, go_id=0, eps=1e-5)
+        r = {}
+        for dt in (torch.float32, torch.bfloat16):
+            wd = fd.cast_weights(w, dt)
+            ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
+            got = fd.fused_greedy_decode_cuda(wd, ckd, cvd, packed=fd.pack_cluster_tables(wd, H),
+                                              **kw)
+            ref = fd.fused_greedy_decode_plain(wd, ckd, cvd, **kw)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"K1 at E={E}, H={H}, F={F} ({dt}): non-finite logits")
+            r[dt] = ((got - ref).abs().max().item(),
+                     (got.argmax(-1) == ref.argmax(-1)).float().mean().item())
+        log(f"K1 at E={E}, H={H}, F={F} (clusters of {plan.G} CTAs, {H // plan.G} heads a "
+            f"CTA): f32 max |logit diff| {r[torch.float32][0]:.3e}, tokens "
+            f"{r[torch.float32][1]:.4f}; bf16 {r[torch.bfloat16][0]:.3e}, tokens "
+            f"{r[torch.bfloat16][1]:.4f}")
+        if not (r[torch.float32][0] <= 1e-3 and r[torch.float32][1] == 1.0
+                and r[torch.bfloat16][1] >= 0.99):
+            raise AssertionError(f"K1 at E={E}, H={H}, F={F} outside the flagship's limits: {r}")
+        out[f"{E},{H},{F}"] = {"f32_err": r[torch.float32][0], "bf16_err": r[torch.bfloat16][0],
+                               "bf16_tokens": r[torch.bfloat16][1]}
+    return out
+
+
 def first_eos_steps(tokens, steps: int):
     """Steps each row's loop ran: one past the last of its beams' first
     [s] (tokens [B, K, T] or [B, T]), or ``steps`` where a beam never ends."""
@@ -858,16 +925,16 @@ def beam_line(r: dict) -> str:
             f"diff| {r['err']:.3e} (best beam {r['err_best']:.3e})")
 
 
-# one bf16 rounding of K4 dropped at a time: (name, text in fused_beam.cu,
-# replacement), for --mutants
+# one bf16 rounding of K4 dropped at a time (the ReLU outputs': rounded
+# toward zero, since ff2 takes them as a bf16 tensor-core operand): (name,
+# text in K4_SOURCE.cu, replacement), for --mutants
+K4_SOURCE = "fused_beam_grid"
 MUTANTS = (
-    ("probabilities", "pr[s] = Num<T>::round(pr[s] / sum);", "pr[s] = pr[s] / sum;"),
-    ("q*K products", "acc += Num<T>::round(Num<T>::round(qr[d]) * Num<T>::to_f(kr[d]));",
-     "acc += Num<T>::round(qr[d]) * Num<T>::to_f(kr[d]);"),
-    ("cross-attention value products",
-     "acc += Num<T>::round(pr[s] * Num<T>::to_f(V[(size_t)s * E + d]));",
-     "acc += pr[s] * Num<T>::to_f(V[(size_t)s * E + d]);"),
-    ("ReLU outputs", "Num<T>::round(fmaxf(v, 0.0f))", "fmaxf(v, 0.0f)"),
+    ("probabilities", "pr[s] = Num<T>::round(pr[s] / sum[j]);", "pr[s] = pr[s] / sum[j];"),
+    ("q*K products", "acc += Num<T>::round(qd * kd);", "acc += qd * kd;"),
+    ("cross-attention value products", "acc += Num<T>::round(pr[s] * v);", "acc += pr[s] * v;"),
+    ("ReLU outputs", "const T h = Num<T>::from_f(fmaxf(v, 0.0f));",
+     "const T h = (T)__float2bfloat16_rz(fmaxf(v, 0.0f));"),
 )
 
 
@@ -924,9 +991,9 @@ def check_mutants(fb, build, model, image):
     the plain version as the kernel is.  Prints what each reads and whether
     the limits catch it."""
     dec, ck, cv = beam_inputs(model, image)
-    with mutant_libraries(build, "fused_beam", MUTANTS) as paths:
+    with mutant_libraries(build, K4_SOURCE, MUTANTS) as paths:
         for (name, _, _), path in zip(MUTANTS, paths):
-            with loaded_as(build, "fused_beam", path):
+            with loaded_as(build, K4_SOURCE, path):
                 r = beam_vs_plain(fb, dec, ck, cv, torch.bfloat16, early_stop=True)
             log(f"mutant without the bf16 rounding of the {name}: {beam_line(r)}; caught "
                 f"by the limits {not beam_bf16_ok(r)}")
@@ -959,8 +1026,42 @@ def check_fused_beam(fb, model, image):
     wd = dec.fused_weights(torch.bfloat16)
     ckd, cvd = ck.to(torch.bfloat16).contiguous(), cv.to(torch.bfloat16).contiguous()
     kw = dict(beam_size=BEAM, num_heads=H, steps=T, go_id=0, eos_id=1, eps=1e-5)
-    ms = cuda_ms(lambda: fb.fused_beam_decode_cuda(wd, ckd, cvd, early_stop=True, **kw), 10)
-    ms_full = cuda_ms(lambda: fb.fused_beam_decode_cuda(wd, ckd, cvd, **kw), 10)
+    first, again = (fb.fused_beam_decode_cuda(wd, ckd, cvd, early_stop=True, **kw)
+                    for _ in range(2))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError("fused beam bf16: two launches on the same input differ")
+    L, _, Tm, E = ckd.shape
+    F, C = wd.ff1_w.shape[2], wd.head_w.shape[1]
+    plan = fb.beam_plan(B, BEAM, L, E, H, F, C, T, Tm, torch.bfloat16,
+                        ctas=torch.cuda.get_device_properties(0).multi_processor_count)
+    log(f"fused_beam bf16 launch: {plan.ctas} CTAs (one an SM), {plan.row_tiles} row tiles of "
+        f"{fb.ROWS} beam rows, tiles a phase " + ", ".join(
+            f"{p.name} {p.tiles}" for p in plan.phases) + f"; {plan.barriers} grid barriers a "
+        f"step, {plan.smem} B shared memory a CTA, attention rows {plan.attn_rows} and positions "
+        f"{plan.positions} at a time, {plan.l2_step_bytes / 1e6:.1f} MB of operands "
+        f"and weights read from L2 a step; two launches bit-identical")
+    times = k4_times(fb, dec, ck, cv)
+    ms, ms_full, ms_b1 = times["early_stop"], times["full"], times["b1"]
+    barriers = plan.barriers * T
+    floor_ms = cuda_ms(lambda: fb.barrier_floor_cuda(barriers, ckd.device), 10)
+    log(f"fused_beam barrier floor: {barriers} grid barriers of {plan.ctas} CTAs (a full-length "
+        f"call's) {floor_ms:.3f} ms, {floor_ms / barriers * 1e3:.3f} us a barrier")
+    shares = {}
+    one = [t[:, :1].contiguous() for t in (ckd, cvd)]
+    for name, (k, v) in (("B=192", (ckd, cvd)), ("B=1", one)):
+        prof = torch.zeros(fb.PROFILE_SLOTS, dtype=torch.int64, device=k.device)
+        fb.fused_beam_decode_cuda(wd, k, v, profile=prof, **kw)
+        cycles = prof.tolist()
+        phases, parts = cycles[:2 * len(fb.BEAM_PHASES)], cycles[2 * len(fb.BEAM_PHASES):]
+        total = sum(phases)
+        shares[name] = {f"{p} {part}": c / total for p, pair in
+                        zip(fb.BEAM_PHASES, zip(phases[::2], phases[1::2]))
+                        for part, c in zip(("work", "barrier"), pair)}
+        shares[name].update({f"part: {p}": c / total for p, c in zip(fb.BEAM_PARTS, parts)})
+        log(f"fused_beam bf16 {name} at full length: {total} cycles of CTA 0's first thread, "
+            f"{total / T / plan.barriers:.0f} a phase; by phase and part "
+            + ", ".join(f"{p} {v:.3f}" for p, v in shares[name].items()))
     plain_ms = cuda_ms(lambda: fb.fused_beam_decode_plain(wd, ckd, cvd, early_stop=True, **kw),
                        2)
     steps = res[torch.bfloat16, True]["steps"]
@@ -971,12 +1072,13 @@ def check_fused_beam(fb, model, image):
     bound_full, _ = bound(nbytes_full, flops_full, PEAK_BF16_FLOPS)
     log(f"fused_beam bf16 K={BEAM}: kernel {ms:.3f} ms with early stop (steps per row mean "
         f"{steps.float().mean().item():.2f}, max {steps.max().item()}), {ms_full:.3f} ms at "
-        f"full length; plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}; "
+        f"full length, {ms_b1:.3f} ms at B=1 at full length; plain {plain_ms:.3f} ms; bound "
+        f"{bound_ms:.4f} ms ({bound_by}; "
         f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), {bound_full:.4f} ms at full length "
         f"({flops_full / 1e9:.1f} GFLOP)")
     r32, r16 = res[torch.float32, True], res[torch.bfloat16, True]
     return dict(name="fused_beam", route="cuda",
-                source="multimodal_scene_text_recognition_tpu_torch/kernels/fused_beam.cu",
+                source="multimodal_scene_text_recognition_tpu_torch/kernels/fused_beam_grid.cu",
                 replaces="multimodal_scene_text_recognition_tpu/ops/fused_beam.py:69",
                 jax="ops/fused_beam.py::_beam_kernel",
                 max_abs_err=max(res[torch.float32, e]["err"] for e in (False, True)),
@@ -986,10 +1088,29 @@ def check_fused_beam(fb, model, image):
                                              if k[0] == torch.bfloat16),
                 all_beam_agreement_bf16=min(r["beams"] for k, r in res.items()
                                             if k[0] == torch.bfloat16),
-                ms=ms, ms_full_length=ms_full, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, bound_ms_full_length=bound_full, library_ms=None,
-                mean_steps=steps.float().mean().item(), f32_err_best=r32["err_best"],
-                bf16_err_best=r16["err_best"])
+                ms=ms, ms_full_length=ms_full, ms_b1=ms_b1, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bound_ms_full_length=bound_full,
+                library_ms=None, mean_steps=steps.float().mean().item(),
+                f32_err_best=r32["err_best"], bf16_err_best=r16["err_best"], ctas=plan.ctas,
+                barriers_a_step=plan.barriers, barrier_floor_ms=floor_ms,
+                l2_step_bytes=plan.l2_step_bytes, phase_shares=shares)
+
+
+def k4_times(fb, dec, ck, cv) -> dict:
+    """K4 bf16 ms (K=5) on ``dec``'s tables and the cross K/V ``ck``, ``cv``
+    [L, B, Tm, E]: with early stop (``early_stop``) and at full length
+    (``full``), and at full length on the first row alone (``b1``); one
+    warm call, then the mean of 10 by CUDA events."""
+    bf16 = torch.bfloat16
+    wd = dec.fused_weights(bf16)
+    ckd, cvd = ck.to(bf16).contiguous(), cv.to(bf16).contiguous()
+    one = [t[:, :1].contiguous() for t in (ckd, cvd)]
+    kw = dict(beam_size=BEAM, num_heads=dec.num_heads, steps=dec.max_text_length, go_id=0,
+              eos_id=1, eps=1e-5)
+    k4 = fb.fused_beam_decode_cuda
+    return dict(early_stop=cuda_ms(lambda: k4(wd, ckd, cvd, early_stop=True, **kw), 10),
+                full=cuda_ms(lambda: k4(wd, ckd, cvd, **kw), 10),
+                b1=cuda_ms(lambda: k4(wd, *one, **kw), 10))
 
 
 # the K1q faults its limits must catch, for --mutants: (name, text in
@@ -1225,6 +1346,11 @@ def int8_phase(api, fd, fb, gs, build, crops, texts, btexts, k1, k1e, mutants: b
     log("int8 stage ms (median of 10; rectify = int8 loc-net + TPS + K2, features = int8 "
         "backbone, encoder = int8 encoder, decoder = cross K/V + K1q): " + ", ".join(
             f"{k} {v:.3f}" for k, v in stages.items()))
+    bstages = stage_times(model_q, rec_q, crops,
+                          lambda enc: model_q.decoder.beam_decode(enc, beam_size=BEAM)[0],
+                          rectify=step_q.rectify, features=step_q.features)
+    log("int8 beam stage ms (median of 10; decoder = cross K/V + K4, bf16 tables, early stop): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in bstages.items()))
     prof = kernel_profile(lambda: rec_q.recognize(crops), calls=3)
     if prof["device_busy_ms"] <= 0:
         raise AssertionError("the profiler saw no kernel run on the card")
@@ -1235,7 +1361,8 @@ def int8_phase(api, fd, fb, gs, build, crops, texts, btexts, k1, k1e, mutants: b
                "beam_string_agreement_kernels_vs_plain": agree_bq,
                "beam_vs_bf16_strings": bvs_bf16, "crops_per_s": B / ms_call * 1e3,
                "ms_per_call": ms_call, "beam_crops_per_s": B / ms_beam * 1e3,
-               "beam_ms_per_call": ms_beam, "batch": B, "stage_ms": stages, "profile": prof,
+               "beam_ms_per_call": ms_beam, "batch": B, "stage_ms": stages,
+               "beam_stage_ms": bstages, "profile": prof,
                "launches": launches, "beam_launches": blaunches}
     del model_q, rec_q
     torch.cuda.empty_cache()
@@ -1399,14 +1526,16 @@ K1_MUTANTS = (
      "acc[i2] += pr[s0 + j] * widen<T>(vv[j], i2);"),
     # ff2 takes the ReLU outputs as a bf16 operand of the tensor cores, so
     # their rounding cannot be dropped: this copy rounds them toward zero
-    ("ReLU outputs", "Num<T>::from_f(epilogue<T, kReluRound>(v, bias, cols.bias_at(n)));",
-     "(T)__float2bfloat16_rz(fmaxf(v + Num<T>::to_f(bias[cols.bias_at(n)]), 0.0f));"),
+    ("ReLU outputs", "Num<T>::from_f(epilogue<T, kReluRound>(v, bias, bi));",
+     "(T)__float2bfloat16_rz(fmaxf(v + Num<T>::to_f(bias[bi]), 0.0f));"),
 )
 
 
 # copies of K1 with one part of its step left out, timed (not checked) with
 # --mutants to split its time by phase: (name, text, replacement).  The
-# exchange has none: left out, its mbarrier waits would never end.
+# exchange has none: left out, its mbarrier waits would never end; nor the
+# wait for the weight stream: a copy without it hung the card when run
+# after the others in one process.
 K1_TIMING_VARIANTS = (
     ("without the attention key loads",
      "if (d + u * VW < hd) kv[w][u] = load16(kr[w] + (size_t)s * ps + d + u * VW);",
@@ -1414,8 +1543,6 @@ K1_TIMING_VARIANTS = (
     ("without the attention value loads",
      "if (s0 + j < len) vv[j] = load16(vr[w] + (size_t)(s0 + j) * ps + d);",
      "if (s0 + j < 0) vv[j] = load16(vr[w] + (size_t)(s0 + j) * ps + d);"),
-    ("without waiting for the weights",
-     'asm volatile("cp.async.wait_group %0;\\n" ::"n"(D - 1) : "memory");', ""),
     ("without the weight stream",
      'asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" ::"r"(dst), "l"(src) : "memory");',
      ""),
@@ -1430,8 +1557,10 @@ def time_k1_variants(fd, build, dec, ck, cv) -> dict:
     packed = dec.cluster_tables(torch.bfloat16)
     times = lambda: k1_times(fd, dec, ck, cv, packed=packed)  # noqa: E731
     out = {"kernel": times()}
+    log("K1 timing variants: building")
     with mutant_libraries(build, K1_SOURCE, K1_TIMING_VARIANTS) as paths:
         for (name, _, _), path in zip(K1_TIMING_VARIANTS, paths):
+            log(f"K1 timing variant {name}")
             with loaded_as(build, K1_SOURCE, path):
                 out[name] = times()
     log("K1 bf16 ms at full length, B=192 / B=1, with a part of the step left out: " + "; ".join(
@@ -1566,7 +1695,7 @@ def check_cls0_kernels(fd, fb, build, dec, ck, cv, mutants: bool) -> tuple:
                bound_ms_full_length=k1_bound_full, library_ms=None,
                mean_steps=steps.float().mean().item())
     k4c = dict(name="fused_beam_cls0", route="cuda",
-               source="multimodal_scene_text_recognition_tpu_torch/kernels/fused_beam.cu",
+               source="multimodal_scene_text_recognition_tpu_torch/kernels/fused_beam_grid.cu",
                replaces="multimodal_scene_text_recognition_tpu/ops/fused_beam.py:170",
                jax="ops/fused_beam.py::_beam_kernel, cls0 step-0 row of every beam",
                max_abs_err=max(r["err"] for (dt, _), r in b.items() if dt == f32),
@@ -1983,6 +2112,9 @@ def main() -> int:
 
     phase("fused_decode early stop vs plain")
     k1e = check_fused_decode_early_stop(fd, model, rec, rec_b, crops, image)
+
+    phase("fused_decode at padded widths vs plain")
+    k1["widths"] = check_k1_widths(fd)
 
     if "--mutants" in sys.argv[1:]:
         phase("K1 timing variants")

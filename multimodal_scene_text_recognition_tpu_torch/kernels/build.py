@@ -27,8 +27,8 @@ KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("fused_decode_cluster", "fused_decode", "fused_beam", "grid_sample", "bn_bwd_reduce",
-           "gemm_probe")
+SOURCES = ("fused_decode_cluster", "fused_decode", "fused_beam_grid", "grid_sample",
+           "bn_bwd_reduce", "gemm_probe")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _running: Set[subprocess.Popen] = set()  # compilers in flight, for kill_running

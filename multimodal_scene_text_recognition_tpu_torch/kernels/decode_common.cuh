@@ -1,4 +1,4 @@
-// Pieces shared by the decode kernels (fused_decode.cu, fused_beam.cu): the
+// Pieces shared by the decode kernels (fused_decode.cu, fused_beam_grid.cu): the
 // compute-type conversions, 16-byte weight loads widened to float, the
 // projection epilogues, and the per-row rounding and layernorm over a tile
 // of R rows held in shared memory.

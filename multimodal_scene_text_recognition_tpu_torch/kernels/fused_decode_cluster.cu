@@ -24,19 +24,29 @@
 // attention phases (L2 round trips for K and V) and three exchanges
 // (PERF.md).
 //
-// Design.  A cluster of G = H CTAs (one per attention head, at most 8) owns
-// a tile of R = 16 batch rows (the M side of one tensor-core tile; tiles of
-// 32 rows were slower at B=192 on an H100, PERF.md) and loops over t and l
-// itself; clusters never wait on each other (no grid barrier, no
-// cooperative launch), so any B runs in waves.
+// Design.  A cluster of G CTAs owns a tile of R = 16 batch rows (the M side
+// of one tensor-core tile; tiles of 32 rows were slower at B=192 on an
+// H100, PERF.md) and loops over t and l itself; clusters never wait on
+// each other (no grid barrier, no cooperative launch), so any B runs in
+// waves.  G is the largest divisor of H that is at most 8 (the portable
+// cluster size) and divides Ep / 4 (the exchange's 16-byte columns); CTA h
+// owns the Hc = H / G heads h * Hc.. and the FF columns h * Fg.. (Fg =
+// ceil(F / G)).  Each owned head's q, k and v columns and the CTA's FF
+// columns are zero-padded to a multiple of 16 (the mma.sync k-step of the
+// products that read them): zero q and k columns add nothing to a score,
+// the scale stays 1/sqrt(true head width), and zero value, ff1 columns and
+// biases meet zero rows of the out-projection and ff2.  The rows, E wide,
+// are padded likewise to Ep, a multiple of 16: the tables' padding rows
+// and columns are zero, so the padding columns of the residual stream stay
+// 0, and the layernorm takes its statistics over the true E.
 // Every weight is split across the cluster where its input already lies,
 // so each CTA reads 1/G of every projection, once per row tile and step
 // (not once per row):
 //
-//   qkv, cross-q, ff1   N-split: CTA h computes head h's q, k and v columns
-//                       (writes its k and v to the cache and runs head h's
-//                       attention itself), head h's cross query, and its
-//                       F/G columns of the FF hidden (which never leave it);
+//   qkv, cross-q, ff1   N-split: CTA h computes its heads' q, k and v
+//                       columns (writes their k and v to the cache and runs
+//                       their attention itself), their cross queries, and
+//                       its Fg columns of the FF hidden (which never leave it);
 //   out-proj, cross-out, ff2   K-split over the same head or FF columns:
 //                       each CTA leaves a partial [R, E] float32 sum.
 //
@@ -129,29 +139,46 @@ struct Params {
   long long* prof;     // [15] cycles by phase, or null (see Marks)
   int B, steps, L, E, F, C, H, Tm, go_id;
   int eos_id;          // < 0: no early stop
+  int G;               // CTAs a cluster (cluster_size)
   float eps, scale;    // layernorm epsilon, 1/sqrt(head_dim)
 };
 
+__device__ __host__ int pad16(int n) { return (n + 15) / 16 * 16; }
+
+// CTAs a cluster: the largest divisor of H that is at most kMaxCluster and
+// divides Ep / 4 (Ep: the rows' width padded to a multiple of 16)
+__host__ int cluster_size(int Ep, int H) {
+  for (int g = kMaxCluster; g >= 1; --g)
+    if (H % g == 0 && Ep % (4 * g) == 0) return g;
+  return 0;
+}
+
 // The shapes every CTA derives from Params in the same way as the packer:
-// the [K, N] slice a CTA owns of each projection (the head's N padded to
-// Cp), cut into items of kCols output columns; item i belongs to warp i %
+// the [K, N] slice a CTA owns of each projection (its heads' columns and
+// its FF columns padded to multiples of 16, the head's N padded to Cp),
+// cut into items of kCols output columns; item i belongs to warp i %
 // kWarps, which reads its K / 16 units in k order.
 template <typename T>
 struct Geometry {
   static constexpr int kCols = sizeof(T) == 2 ? 16 : 8;  // output columns of a unit
-  int hd, Fg, Cp, lda, ldb, S;
+  int Ep, Hc, hd, hdp, W, Fg, Fgp, Cp, lda, ldb, S;
   int K[kProj], N[kProj];
   int layer_units;  // units of a CTA's layer (all its warps)
 
   __device__ __host__ Geometry(const Params<T>& p) {
-    hd = p.E / p.H;
-    Fg = p.F / p.H;
+    Ep = pad16(p.E);            // the rows' width, padded
+    Hc = p.H / p.G;             // heads a CTA
+    hd = p.E / p.H;             // a head's true width
+    hdp = pad16(hd);            // ... padded
+    W = Hc * hdp;               // a CTA's padded head columns of q (or k, or v)
+    Fg = (p.F + p.G - 1) / p.G;  // FF columns a CTA (the last may own fewer)
+    Fgp = pad16(Fg);
     Cp = (p.C + kWarps * kCols - 1) / (kWarps * kCols) * (kWarps * kCols);
-    lda = p.E + 8;
-    ldb = (hd > Fg ? hd : Fg) + 8;
+    lda = Ep + 8;
+    ldb = (W > Fgp ? W : Fgp) + 8;
     S = p.steps > p.Tm ? p.steps : p.Tm;
-    const int k[kProj] = {p.E, hd, p.E, hd, p.E, Fg, p.E};
-    const int n[kProj] = {3 * hd, p.E, hd, p.E, Fg, p.E, Cp};
+    const int k[kProj] = {Ep, W, Ep, W, Ep, Fgp, Ep};
+    const int n[kProj] = {3 * W, Ep, W, Ep, Fgp, Ep, Cp};
     layer_units = 0;
     for (int i = 0; i < kProj; ++i) {
       K[i] = k[i];
@@ -181,9 +208,9 @@ struct Geometry {
   // rows, the two A operands in T, the N-split outputs, the exchange's
   // receive and gather buffers, the scratch, the attention scores and the
   // token flags
-  __device__ __host__ size_t smem_bytes(int R, int D, int E) const {
-    return (size_t)kWarps * D * kUnit + 4 * (size_t)R * E + sizeof(T) * (size_t)R * (lda + ldb) +
-           4 * (size_t)R * 3 * hd + 8 * (size_t)R * E + 4 * (size_t)red_floats(R) +
+  __device__ __host__ size_t smem_bytes(int R, int D) const {
+    return (size_t)kWarps * D * kUnit + 4 * (size_t)R * Ep + sizeof(T) * (size_t)R * (lda + ldb) +
+           4 * (size_t)R * 3 * W + 8 * (size_t)R * Ep + 4 * (size_t)red_floats(R) +
            4 * (size_t)R * S + 8 * (size_t)R;
   }
 };
@@ -416,31 +443,35 @@ enum Store {
   kPartial = 2,    // a K-split partial sum, to the owner of column n (see exchange_ln)
 };
 
-// Where output column n of a CTA's slice finds its bias: at (n / seg) *
-// seg_stride + off + n % seg of the layer's bias row (qkv: three head
-// slices E apart); columns from `valid` on are padding and not stored.  A
-// K-split partial (kPartial) goes to CTA n / seg, row off + r of its
-// receive buffer [G * R][seg], its bytes counted on that CTA's receive
+// The output columns of a CTA's slice are segments of segp columns, of
+// which the first segw are real and the rest padding.  Column d < segw of
+// segment s finds its bias at (s / per) * part_stride + (s % per) *
+// seg_stride + off + d of the layer's bias row (qkv: per = Hc heads a part,
+// the q, k and v parts E apart); padding is not stored, except that the FF
+// hidden's is stored as 0 (the next product reads it).  A K-split partial
+// (kPartial) goes to CTA s (segp = E / G columns each), row off + r of its
+// receive buffer [G * R][segp], its bytes counted on that CTA's receive
 // mbarrier `bar`.
 struct Cols {
-  int seg, seg_stride, off, valid;
+  int segp, segw, per, part_stride, seg_stride, off;
   uint32_t bar;  // kPartial: the owners' receive mbarrier (its address in every CTA)
-  __device__ int bias_at(int n) const { return n / seg * seg_stride + off + n % seg; }
 };
 
 template <typename T, int MODE>
 __device__ void store(void* out, int ldo, int r, int n, float v, const T* bias, Cols cols) {
-  if (n >= cols.valid) return;
+  const int s = n / cols.segp, d = n - s * cols.segp;
+  if (d >= cols.segw) {
+    if (MODE == kReluRoundT) static_cast<T*>(out)[r * ldo + n] = Num<T>::from_f(0.0f);
+    return;
+  }
+  const int bi = s / cols.per * cols.part_stride + s % cols.per * cols.seg_stride + cols.off + d;
   if (MODE == kBias) {
-    static_cast<float*>(out)[r * ldo + n] = epilogue<T, kPlain>(v, bias, cols.bias_at(n));
+    static_cast<float*>(out)[r * ldo + n] = epilogue<T, kPlain>(v, bias, bi);
   } else if (MODE == kReluRoundT) {
-    static_cast<T*>(out)[r * ldo + n] =
-        Num<T>::from_f(epilogue<T, kReluRound>(v, bias, cols.bias_at(n)));
+    static_cast<T*>(out)[r * ldo + n] = Num<T>::from_f(epilogue<T, kReluRound>(v, bias, bi));
   } else {  // into the receive buffer of the column's owner, at this CTA's slot
-    const int o = n / cols.seg;
-    const float* dst =
-        static_cast<const float*>(out) + (cols.off + r) * cols.seg + n - o * cols.seg;
-    store_counted(remote(smem_u32(dst), o), v, remote(cols.bar, o));
+    const float* dst = static_cast<const float*>(out) + (cols.off + r) * cols.segp + d;
+    store_counted(remote(smem_u32(dst), s), v, remote(cols.bar, s));
   }
 }
 
@@ -512,21 +543,24 @@ __device__ float widen<__nv_bfloat16>(uint4 v, int i) {  // bf16 is the high hal
 // its RW = R / kWarps rows at once: q[r * ldq + d] (float32, rounded to T
 // here), K/V at kv + row * row_stride + s * ps (the head's columns; row =
 // r0 + r, clamped to the batch).  Writes the context, rounded to T, to
-// ctx[r * ldc + d].  A lane scores a position of each of the warp's rows
-// (their keys' head slices in 16-byte loads, all in flight at once), the
-// softmax is a warp reduction, and the context is summed over chunks of
-// kChunk positions, a lane a (row, chunk, 16 bytes of columns) with all its
-// loads in flight, the chunks' sums then added in chunk order (`part`, R *
-// ceil(S / kChunk) * hd floats).  So a phase waits on L2 about twice; only
-// its end synchronises the block.
+// ctx[r * ldc + d], and zeros to its padding columns hd <= d < hdp.  A lane
+// scores a position of each of the warp's rows (their keys' head slices in
+// 16-byte loads, all in flight at once), the softmax is a warp reduction,
+// and the context is summed over chunks of kChunk positions, a lane a (row,
+// chunk, 16 bytes of columns) with all its loads in flight, the chunks'
+// sums then added in chunk order (`part`, R * ceil(S / kChunk) * hd
+// floats).  So a phase waits on L2 about twice; only its end synchronises
+// the block.  A head width that is not a whole number of 16-byte groups
+// takes the same steps a value at a time.
 template <typename T, int R>
 __device__ void attend_head(const float* q, int ldq, const T* K, const T* V, size_t row_stride,
-                            int ps, int hd, int len, int r0, int nrows, float scale,
+                            int ps, int hd, int hdp, int len, int r0, int nrows, float scale,
                             float* probs, int S, T* ctx, int ldc, float* part) {
   constexpr int VW = Vec<T>::kW, RW = R / kWarps;
   constexpr int kLoads = 4;  // 16-byte loads of a key in flight a row
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int groups = hd / VW, chunks = (len + kChunk - 1) / kChunk;
+  const bool vec = hd % VW == 0;
+  const int groups = vec ? hd / VW : hd, chunks = (len + kChunk - 1) / kChunk;
   const int max_chunks = (S + kChunk - 1) / kChunk;
   const T* kr[RW];  // the rows' first keys and values
   const T* vr[RW];
@@ -542,7 +576,12 @@ __device__ void attend_head(const float* q, int ldq, const T* K, const T* V, siz
     float acc[RW];
 #pragma unroll
     for (int w = 0; w < RW; ++w) acc[w] = 0.0f;
-    for (int d = 0; d < hd; d += kLoads * VW) {
+    for (int d = 0; !vec && d < hd; ++d)
+#pragma unroll
+      for (int w = 0; w < RW; ++w)
+        acc[w] += Num<T>::round(Num<T>::round(q[(warp + w * kWarps) * ldq + d]) *
+                                Num<T>::to_f(kr[w][(size_t)s * ps + d]));
+    for (int d = 0; vec && d < hd; d += kLoads * VW) {
       uint4 kv[RW][kLoads];
 #pragma unroll
       for (int w = 0; w < RW; ++w)
@@ -583,9 +622,18 @@ __device__ void attend_head(const float* q, int ldq, const T* K, const T* V, siz
   __syncwarp();
   for (int i = lane; i < RW * chunks * groups; i += 32) {
     const int w = i / (chunks * groups), rest = i - w * chunks * groups;
-    const int c = rest / groups, d = (rest - c * groups) * VW, s0 = c * kChunk;
+    const int c = rest / groups, s0 = c * kChunk;
     const int r = warp + w * kWarps;
     const float* pr = probs + r * S;
+    if (!vec) {
+      const int d = rest - c * groups;
+      float acc = 0.0f;
+      for (int j = 0; j < kChunk && s0 + j < len; ++j)
+        acc += Num<T>::round(pr[s0 + j] * Num<T>::to_f(vr[w][(size_t)(s0 + j) * ps + d]));
+      part[(r * max_chunks + c) * hd + d] = acc;
+      continue;
+    }
+    const int d = (rest - c * groups) * VW;
     uint4 vv[kChunk];
 #pragma unroll
     for (int j = 0; j < kChunk; ++j)
@@ -602,23 +650,26 @@ __device__ void attend_head(const float* q, int ldq, const T* K, const T* V, siz
     for (int i2 = 0; i2 < VW; ++i2) part[(r * max_chunks + c) * hd + d + i2] = acc[i2];
   }
   __syncwarp();
-  for (int i = lane; i < RW * hd; i += 32) {
-    const int w = i / hd, d = i - w * hd, r = warp + w * kWarps;
+  for (int i = lane; i < RW * hdp; i += 32) {
+    const int w = i / hdp, d = i - w * hdp, r = warp + w * kWarps;
     const float* rp = part + r * max_chunks * hd;
-    float acc = rp[d];
-    for (int c = 1; c < chunks; ++c) acc += rp[c * hd + d];
+    float acc = 0.0f;
+    if (d < hd) {
+      acc = rp[d];
+      for (int c = 1; c < chunks; ++c) acc += rp[c * hd + d];
+    }
     ctx[r * ldc + d] = Num<T>::from_f(acc);
   }
   __syncthreads();
 }
 
 // The exchange of a K-split projection, then the residual and layernorm.
-// Every CTA h has stored its partial sums of the E columns into the
-// receive buffer of their owner (column e belongs to CTA e / (E / G)), at
-// rows h * R.., each store counted on the owner's receive mbarrier.  Each
-// CTA waits for its columns' G partials (R * E * 4 bytes), sums them in
-// rank order, adds the bias and the residual, and stores the result into
-// every CTA's gather buffer [R][E], counted on that CTA's gather mbarrier;
+// Every CTA h has stored its partial sums of the Ep (padded) columns into
+// the receive buffer of their owner (column e belongs to CTA e / (Ep / G)),
+// at rows h * R.., each store counted on the owner's receive mbarrier.
+// Each CTA waits for its columns' G partials (R * Ep * 4 bytes), sums them
+// in rank order, adds the bias and the residual, and stores the result into
+// every CTA's gather buffer [R][Ep], counted on that CTA's gather mbarrier;
 // once its own gather phase completes (the whole rows) every CTA runs the
 // layernorm (with `fs`, the final norm after it) on the full rows, writes x
 // to xs and, rounded to T, to the A operand xa.  One reduction per column
@@ -636,14 +687,14 @@ __device__ void attend_head(const float* q, int ldq, const T* K, const T* V, siz
 template <typename T, int R>
 __device__ void exchange_ln(const float* recv, float* gath, uint32_t recv_bar, uint32_t gath_bar,
                             uint32_t parity, int G, int h, const T* bias, float* xs, const T* s,
-                            const T* b, const T* fs, const T* fb, int E, float eps, T* xa,
-                            int lda) {
+                            const T* b, const T* fs, const T* fb, int E, int Ep, float eps,
+                            T* xa, int lda) {
   constexpr int J = kMaxE / 128, RW = R / kWarps;  // 128-column runs of a row, rows a warp
-  const int Es = E / G, q4 = Es / 4;
+  const int Es = Ep / G, q4 = Es / 4;
   wait_phase(recv_bar, parity);  // every partial slice of this CTA's columns
   // the next phase's bytes, counted before this thread's stores below can
   // let any CTA send them
-  if (threadIdx.x == 0) expect_bytes(recv_bar, 4u * R * E);
+  if (threadIdx.x == 0) expect_bytes(recv_bar, 4u * R * Ep);
   const uint32_t gath_at = smem_u32(gath);
   for (int i = threadIdx.x; i < R * q4; i += blockDim.x) {
     const int r = i / q4, c = (i - r * q4) * 4, e = h * Es + c;
@@ -652,16 +703,17 @@ __device__ void exchange_ln(const float* recv, float* gath, uint32_t recv_bar, u
       const float4 o = *reinterpret_cast<const float4*>(recv + (g * R + r) * Es + c);
       a.x += o.x; a.y += o.y; a.z += o.z; a.w += o.w;
     }
-    const float4 xr = *reinterpret_cast<const float4*>(xs + r * E + e);
-    const float4 y = make_float4(xr.x + (a.x + Num<T>::to_f(bias[e])),
-                                 xr.y + (a.y + Num<T>::to_f(bias[e + 1])),
-                                 xr.z + (a.z + Num<T>::to_f(bias[e + 2])),
-                                 xr.w + (a.w + Num<T>::to_f(bias[e + 3])));
+    const float4 xr = *reinterpret_cast<const float4*>(xs + r * Ep + e);
+    float bv[4];  // the padding columns' bias is 0 (their partials and residual are too)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) bv[i] = e + i < E ? Num<T>::to_f(bias[e + i]) : 0.0f;
+    const float4 y = make_float4(xr.x + (a.x + bv[0]), xr.y + (a.y + bv[1]),
+                                 xr.z + (a.z + bv[2]), xr.w + (a.w + bv[3]));
     for (int g = 0; g < G; ++g)
-      store_counted(remote(gath_at + 4 * (r * E + e), g), y, remote(gath_bar, g));
+      store_counted(remote(gath_at + 4 * (r * Ep + e), g), y, remote(gath_bar, g));
   }
   wait_phase(gath_bar, parity);  // every row is whole here
-  if (threadIdx.x == 0) expect_bytes(gath_bar, 4u * R * E);  // before the next partials go out
+  if (threadIdx.x == 0) expect_bytes(gath_bar, 4u * R * Ep);  // before the next partials go out
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float x[RW][J][4];
   float sum[RW];
@@ -671,8 +723,8 @@ __device__ void exchange_ln(const float* recv, float* gath, uint32_t recv_bar, u
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int e = 4 * lane + 128 * j;
-      if (e < E) {
-        const float4 v = *reinterpret_cast<const float4*>(gath + (warp + w * kWarps) * E + e);
+      if (e < Ep) {  // the padding columns are 0 and add nothing
+        const float4 v = *reinterpret_cast<const float4*>(gath + (warp + w * kWarps) * Ep + e);
         x[w][j][0] = v.x; x[w][j][1] = v.y; x[w][j][2] = v.z; x[w][j][3] = v.w;
         sum[w] += (x[w][j][0] + x[w][j][1]) + (x[w][j][2] + x[w][j][3]);
       }
@@ -687,16 +739,16 @@ __device__ void exchange_ln(const float* recv, float* gath, uint32_t recv_bar, u
         sum[w] = 0.0f;
 #pragma unroll
         for (int j = 0; j < J; ++j)
-          if (4 * lane + 128 * j < E)
+          if (4 * lane + 128 * j < Ep)
             sum[w] += (x[w][j][0] + x[w][j][1]) + (x[w][j][2] + x[w][j][3]);
       }
       const float mean = warp_sum(sum[w]) / (float)E;
       float sq = 0.0f;
 #pragma unroll
       for (int j = 0; j < J; ++j)
-        if (4 * lane + 128 * j < E)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < 4; ++i)
+          if (4 * lane + 128 * j + i < E) {
             const float d = x[w][j][i] - mean;
             sq += d * d;
           }
@@ -704,11 +756,12 @@ __device__ void exchange_ln(const float* recv, float* gath, uint32_t recv_bar, u
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int e = 4 * lane + 128 * j;
-        if (e < E)
+        if (e < Ep)
 #pragma unroll
           for (int i = 0; i < 4; ++i)
-            x[w][j][i] = (x[w][j][i] - mean) * inv * Num<T>::to_f(sc[e + i]) +
-                         Num<T>::to_f(bi[e + i]);
+            x[w][j][i] = e + i < E ? (x[w][j][i] - mean) * inv * Num<T>::to_f(sc[e + i]) +
+                                         Num<T>::to_f(bi[e + i])
+                                   : 0.0f;
       }
     }
   }
@@ -718,8 +771,8 @@ __device__ void exchange_ln(const float* recv, float* gath, uint32_t recv_bar, u
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int e = 4 * lane + 128 * j;
-      if (e < E) {
-        *reinterpret_cast<float4*>(xs + r * E + e) =
+      if (e < Ep) {
+        *reinterpret_cast<float4*>(xs + r * Ep + e) =
             make_float4(x[w][j][0], x[w][j][1], x[w][j][2], x[w][j][3]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) xa[r * lda + e + i] = Num<T>::from_f(x[w][j][i]);
@@ -751,16 +804,18 @@ __global__ void __launch_bounds__(kThreads, 1) decode_cluster_kernel(Params<T> p
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cl = cg::this_cluster();
   const Geometry<T> geo(p);
-  const int E = p.E, C = p.C, T_ = p.steps, L = p.L, G = p.H, hd = geo.hd, Fg = geo.Fg;
+  const int E = p.E, Ep = geo.Ep, C = p.C, T_ = p.steps, L = p.L, G = p.G, Hc = geo.Hc;
+  const int hd = geo.hd;
+  const int hdp = geo.hdp, W = geo.W, Fg = geo.Fg, Fgp = geo.Fgp;
   const int lda = geo.lda, ldb = geo.ldb, S = geo.S;
   char* ring = reinterpret_cast<char*>(smem);       // [kWarps][D][32 lanes][16 B]
-  float* xs = reinterpret_cast<float*>(ring + (size_t)kWarps * D * kUnit);  // [R][E]
-  T* xa = reinterpret_cast<T*>(xs + R * E);         // [R][lda] A operand of E-wide inputs
+  float* xs = reinterpret_cast<float*>(ring + (size_t)kWarps * D * kUnit);  // [R][Ep]
+  T* xa = reinterpret_cast<T*>(xs + R * Ep);        // [R][lda] A operand of E-wide inputs
   T* xb = xa + R * lda;                             // [R][ldb] A operand of the K-split inputs
-  float* qv = reinterpret_cast<float*>(xb + R * ldb);  // [R][3hd] head h's q, k, v / cross q
-  float* recv = qv + R * 3 * hd;                    // [G][R][E/G] partials of this CTA's columns
-  float* gath = recv + R * E;                       // [R][E] the rows before the layernorm
-  float* red = gath + R * E;                        // attention chunk sums; the head's logits
+  float* qv = reinterpret_cast<float*>(xb + R * ldb);  // [R][3W] its heads' q, k, v / cross q
+  float* recv = qv + R * 3 * W;                     // [G][R][Ep/G] partials of this CTA's columns
+  float* gath = recv + R * Ep;                      // [R][Ep] the rows before the layernorm
+  float* red = gath + R * Ep;                       // attention chunk sums; the head's logits
   float* probs = red + geo.red_floats(R);           // [R][S]
   int* tok = reinterpret_cast<int*>(probs + R * S); // [R]
   int* done = tok + R;                              // [R] rows that have emitted eos_id
@@ -808,8 +863,8 @@ __global__ void __launch_bounds__(kThreads, 1) decode_cluster_kernel(Params<T> p
   if (tid == 0) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(recv_bar) : "memory");
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(gath_bar) : "memory");
-    expect_bytes(recv_bar, 4u * R * E);  // the first exchange's
-    expect_bytes(gath_bar, 4u * R * E);
+    expect_bytes(recv_bar, 4u * R * Ep);  // the first exchange's
+    expect_bytes(gath_bar, 4u * R * Ep);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   cl.sync();
@@ -818,11 +873,14 @@ __global__ void __launch_bounds__(kThreads, 1) decode_cluster_kernel(Params<T> p
   Marks mark{tid == 0 && blockIdx.x == 0 ? p.prof : nullptr, clock64()};
   for (int t = 0; t < T_; ++t) {
     const bool from_cls = t == 0 && p.cls0 != nullptr;
-    for (int i = tid; i < R * E; i += nt) {
-      const int r = i / E, e = i - r * E;
-      float x = from_cls ? p.cls0[(size_t)(r0 + min(r, nrows - 1)) * E + e]
-                         : Num<T>::to_f(p.emb[(size_t)tok[r] * E + e]);
-      x += p.pe[t * E + e];
+    for (int i = tid; i < R * Ep; i += nt) {
+      const int r = i / Ep, e = i - r * Ep;
+      float x = 0.0f;  // in the padding columns
+      if (e < E) {
+        x = from_cls ? p.cls0[(size_t)(r0 + min(r, nrows - 1)) * E + e]
+                     : Num<T>::to_f(p.emb[(size_t)tok[r] * E + e]);
+        x += p.pe[t * E + e];
+      }
       xs[i] = x;
       xa[r * lda + e] = Num<T>::from_f(x);
     }
@@ -830,68 +888,72 @@ __global__ void __launch_bounds__(kThreads, 1) decode_cluster_kernel(Params<T> p
     mark.at(0);
 
     for (int l = 0; l < L; ++l) {
-      // -- self attention of head h over the running KV cache --
-      project<T, R, D, kBias>(&st, xa, lda, E, 3 * hd, p.b_qkv + (size_t)l * 3 * E,
-                              Cols{hd, E, h * hd, 3 * hd}, qv, 3 * hd);
+      // -- self attention of this CTA's heads over the running KV cache --
+      project<T, R, D, kBias>(&st, xa, lda, Ep, 3 * W, p.b_qkv + (size_t)l * 3 * E,
+                              Cols{hdp, hd, Hc, E, hd, h * Hc * hd}, qv, 3 * W);
       __syncthreads();
       mark.at(1);
-      T* kc = p.kc + l * cache_l + h * hd;
-      T* vc = p.vc + l * cache_l + h * hd;
-      for (int i = tid; i < nrows * hd; i += nt) {
-        const int r = i / hd, d = i - r * hd;
-        const size_t off = ((size_t)(r0 + r) * T_ + t) * E + d;
-        kc[off] = Num<T>::from_f(qv[r * 3 * hd + hd + d]);
-        vc[off] = Num<T>::from_f(qv[r * 3 * hd + 2 * hd + d]);
+      T* kc = p.kc + l * cache_l + h * Hc * hd;
+      T* vc = p.vc + l * cache_l + h * Hc * hd;
+      for (int i = tid; i < nrows * Hc * hd; i += nt) {
+        const int r = i / (Hc * hd), c = i - r * Hc * hd, j = c / hd, d = c - j * hd;
+        const size_t off = ((size_t)(r0 + r) * T_ + t) * E + c;
+        kc[off] = Num<T>::from_f(qv[r * 3 * W + W + j * hdp + d]);
+        vc[off] = Num<T>::from_f(qv[r * 3 * W + 2 * W + j * hdp + d]);
       }
       __syncthreads();
       mark.at(2);
-      attend_head<T, R>(qv, 3 * hd, kc, vc, (size_t)T_ * E, E, hd, t + 1, r0, nrows, p.scale,
-                        probs, S, xb, ldb, red);
+      for (int j = 0; j < Hc; ++j)
+        attend_head<T, R>(qv + j * hdp, 3 * W, kc + j * hd, vc + j * hd, (size_t)T_ * E, E, hd,
+                          hdp, t + 1, r0, nrows, p.scale, probs, S, xb + j * hdp, ldb, red);
       mark.at(3);
-      project<T, R, D, kPartial>(&st, xb, ldb, hd, E, nullptr, Cols{E / G, 0, h * R, E, recv_bar},
-                                 recv, 0);
+      const Cols partial{Ep / G, Ep / G, 1, 0, 0, h * R, recv_bar};
+      project<T, R, D, kPartial>(&st, xb, ldb, W, Ep, nullptr, partial, recv, 0);
       mark.at(4);
       exchange_ln<T, R>(recv, gath, recv_bar, gath_bar, ex++ & 1, G, h, p.b_out + (size_t)l * E,
-                        xs, p.n1_s + l * E, p.n1_b + l * E, nullptr, nullptr, E, p.eps, xa, lda);
+                        xs, p.n1_s + l * E, p.n1_b + l * E, nullptr, nullptr, E, Ep, p.eps, xa,
+                        lda);
       __syncthreads();
       mark.at(5);
 
-      // -- cross attention of head h over the precomputed memory K/V --
-      project<T, R, D, kBias>(&st, xa, lda, E, hd, p.cb_q + (size_t)l * E,
-                              Cols{hd, 0, h * hd, hd}, qv, hd);
+      // -- cross attention of this CTA's heads over the precomputed memory K/V --
+      project<T, R, D, kBias>(&st, xa, lda, Ep, W, p.cb_q + (size_t)l * E,
+                              Cols{hdp, hd, Hc, 0, hd, h * Hc * hd}, qv, W);
       __syncthreads();
       mark.at(6);
-      attend_head<T, R>(qv, hd, p.ck + l * mem_l + h * hd, p.cv + l * mem_l + h * hd,
-                        (size_t)p.Tm * E, E, hd, p.Tm, r0, nrows, p.scale, probs, S, xb, ldb,
-                        red);
+      for (int j = 0; j < Hc; ++j) {
+        const size_t at = l * mem_l + (size_t)(h * Hc + j) * hd;
+        attend_head<T, R>(qv + j * hdp, W, p.ck + at, p.cv + at, (size_t)p.Tm * E, E, hd, hdp,
+                          p.Tm, r0, nrows, p.scale, probs, S, xb + j * hdp, ldb, red);
+      }
       mark.at(7);
-      project<T, R, D, kPartial>(&st, xb, ldb, hd, E, nullptr, Cols{E / G, 0, h * R, E, recv_bar},
-                                 recv, 0);
+      project<T, R, D, kPartial>(&st, xb, ldb, W, Ep, nullptr, partial, recv, 0);
       mark.at(8);
       exchange_ln<T, R>(recv, gath, recv_bar, gath_bar, ex++ & 1, G, h, p.cb_o + (size_t)l * E,
-                        xs, p.n2_s + l * E, p.n2_b + l * E, nullptr, nullptr, E, p.eps, xa, lda);
+                        xs, p.n2_s + l * E, p.n2_b + l * E, nullptr, nullptr, E, Ep, p.eps, xa,
+                        lda);
       __syncthreads();
       mark.at(9);
 
-      // -- feed-forward: head h's F/G hidden columns stay in this CTA --
-      project<T, R, D, kReluRoundT>(&st, xa, lda, E, Fg, p.ff1_b + (size_t)l * p.F,
-                                    Cols{Fg, 0, h * Fg, Fg}, xb, ldb);
+      // -- feed-forward: this CTA's Fg hidden columns stay in it --
+      const int fw = min(Fg, max(0, p.F - h * Fg));  // of which real
+      project<T, R, D, kReluRoundT>(&st, xa, lda, Ep, Fgp, p.ff1_b + (size_t)l * p.F,
+                                    Cols{Fgp, fw, 1, 0, 0, h * Fg}, xb, ldb);
       __syncthreads();
       mark.at(10);
-      project<T, R, D, kPartial>(&st, xb, ldb, Fg, E, nullptr, Cols{E / G, 0, h * R, E, recv_bar},
-                                 recv, 0);
+      project<T, R, D, kPartial>(&st, xb, ldb, Fgp, Ep, nullptr, partial, recv, 0);
       mark.at(11);
       const bool last = l == L - 1;  // then the final norm follows
       exchange_ln<T, R>(recv, gath, recv_bar, gath_bar, ex++ & 1, G, h, p.ff2_b + (size_t)l * E,
                         xs, p.n3_s + l * E, p.n3_b + l * E, last ? p.fn_s : nullptr,
-                        last ? p.fn_b : nullptr, E, p.eps, xa, lda);
+                        last ? p.fn_b : nullptr, E, Ep, p.eps, xa, lda);
       __syncthreads();
       mark.at(12);
     }
 
     // -- class head, in every CTA alike --
     float* lg = red;  // [R][Cp]
-    project<T, R, D, kBias>(&st, xa, lda, E, geo.Cp, p.head_b, Cols{geo.Cp, 0, 0, C}, lg,
+    project<T, R, D, kBias>(&st, xa, lda, Ep, geo.Cp, p.head_b, Cols{geo.Cp, C, 1, 0, 0, 0}, lg,
                             geo.Cp);
     __syncthreads();
     mark.at(13);
@@ -937,7 +999,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_cluster_kernel(Params<T> p
 template <typename T>
 int launch(const Params<T>& p, int smem_expected, cudaStream_t stream) {
   const Geometry<T> geo(p);
-  const size_t smem = geo.smem_bytes(kRows, kDepth, p.E);
+  const size_t smem = geo.smem_bytes(kRows, kDepth);
   if ((int)smem != smem_expected) return (int)cudaErrorInvalidValue;
   const auto kernel = decode_cluster_kernel<T>;
   cudaError_t err =
@@ -945,11 +1007,11 @@ int launch(const Params<T>& p, int smem_expected, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.H;
+  attr[0].val.clusterDim.x = p.G;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((p.B + kRows - 1) / kRows * p.H);
+  cfg.gridDim = dim3((p.B + kRows - 1) / kRows * p.G);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -987,9 +1049,12 @@ int run(const void* const* ptr, const int* dim, float eps, float scale, const fl
   p.B = dim[0]; p.steps = dim[1]; p.L = dim[2]; p.E = dim[3]; p.F = dim[4];
   p.C = dim[5]; p.H = dim[6]; p.Tm = dim[7]; p.go_id = dim[8]; p.eos_id = dim[9];
   const int smem = dim[10];
+  p.G = dim[11];
   p.eps = eps;
   p.scale = scale;
-  if (p.H < 1 || p.H > kMaxCluster || p.E > kMaxE) return (int)cudaErrorInvalidValue;
+  // the caller's cluster plan (ops/fused_decode.cluster_plan) must be this one
+  if (p.H < 1 || p.E % p.H || pad16(p.E) > kMaxE || p.G != cluster_size(pad16(p.E), p.H))
+    return (int)cudaErrorInvalidValue;
   if (p.B == 0 || p.steps == 0) return 0;
   return launch<T>(p, smem, stream);
 }
@@ -999,8 +1064,8 @@ int run(const void* const* ptr, const int* dim, float eps, float scale, const fl
 // ptr: the 23 weight tables in Params order, then pe, ck, cv, kc, vc,
 // logits, the packed weight units and the int64 [15] phase profile (null:
 // none; see Marks).  dim: B, T, L, E, F, C, H, Tm, go_id,
-// eos_id (< 0: no early stop) and the shared-memory bytes the caller
-// planned (checked).
+// eos_id (< 0: no early stop), and the shared-memory bytes and CTAs a
+// cluster the caller planned (both checked).
 // dtype: 0 = float32, 1 = bfloat16.  cls0: the [B, E] float32 step-0 rows,
 // or null for the [GO] embedding.  Every pointer lies on the device of
 // `stream`, which the caller makes the current device for the call.

@@ -452,7 +452,7 @@ def unit_cols(dtype: torch.dtype) -> int:
 
 class ClusterPlan(NamedTuple):
     """The launch of K1's cluster kernel: ``clusters`` clusters of ``G``
-    CTAs (one a head), each owning ``R`` batch rows; ``smem`` bytes of
+    CTAs (:func:`cluster_size`), each owning ``R`` batch rows; ``smem`` bytes of
     shared memory a CTA, ``depth`` weight units in flight a lane; each of
     the seven projections (qkv, out, cross-q, cross-out, ff1, ff2 and the
     class head, its columns padded to ``Cp``) has ``shapes`` [K, N] in a
@@ -480,64 +480,108 @@ class ClusterPlan(NamedTuple):
         return self.ctas * self.cta_step_bytes * steps
 
 
-def _cluster_shapes(E: int, H: int, F: int, C: int, dtype: torch.dtype):
-    """Unit columns, padded class count and the [K, N] slice of each
-    projection a CTA owns; raises ValueError where the kernel cannot tile
-    the widths."""
-    if not 1 <= H <= MAX_CLUSTER:
-        raise ValueError(f"fused decode: {H} heads; the cluster kernel runs one CTA a head, "
-                         f"at most {MAX_CLUSTER}")
-    if E % H or F % H:
-        raise ValueError(f"fused decode: {H} heads do not divide E={E} and F={F}")
-    hd, Fg = E // H, F // H
-    if hd % 16 or Fg % 16:
-        raise ValueError(f"fused decode: the cluster kernel takes E/H and F/H in multiples of "
-                         f"16 (mma.sync k-steps), got {hd} and {Fg}")
+class ClusterWidths(NamedTuple):
+    """How K1 cuts the widths: rows of E padded to ``Ep`` columns, ``G``
+    CTAs a cluster, ``Hc`` heads a CTA of ``hd`` columns each (padded to
+    ``hdp``), ``Fg`` FF columns a CTA (the last may own fewer; padded to
+    ``Fgp``), the class head padded to ``Cp`` columns, ``un`` output
+    columns a weight unit, and the [K, N] slice a CTA owns of each of the
+    seven projections (qkv, out, cross-q, cross-out, ff1, ff2, head)."""
+
+    Ep: int
+    G: int
+    Hc: int
+    hd: int
+    hdp: int
+    Fg: int
+    Fgp: int
+    Cp: int
+    un: int
+    shapes: Tuple[Tuple[int, int], ...]
+
+
+def cluster_size(Ep: int, H: int) -> int:
+    """CTAs a K1 cluster (``cluster_size`` in the kernel) for rows of Ep
+    (padded) columns: the largest divisor of H that is at most
+    :data:`MAX_CLUSTER` and divides Ep / 4 (the exchange moves 16-byte
+    column groups); 0 where none does."""
+    return next((g for g in range(MAX_CLUSTER, 0, -1) if H % g == 0 and Ep % (4 * g) == 0), 0)
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _cluster_shapes(E: int, H: int, F: int, C: int, dtype: torch.dtype) -> ClusterWidths:
+    """The cut of the widths (``Geometry`` in the kernel computes the
+    same): rows of E zero-padded to Ep, a multiple of 16 (the mma.sync
+    k-step); a cluster of G = :func:`cluster_size` CTAs, each owning H / G
+    heads and ceil(F / G) FF columns, zero-padded to multiples of 16 too.
+    Raises ValueError where the kernel cannot tile the widths: heads that
+    do not divide E, or E beyond the exchange's registers."""
+    if H < 1 or E % H:
+        raise ValueError(f"fused decode: {H} heads do not divide E={E}")
     if E > _MAX_E:
         raise ValueError(f"fused decode: E={E} exceeds the cluster kernel's {_MAX_E}")
+    Ep = _pad16(E)
+    G = cluster_size(Ep, H)
+    Hc, hd, Fg = H // G, E // H, -(-F // G)
+    hdp, Fgp = _pad16(hd), _pad16(Fg)
     un = unit_cols(dtype)
     Cp = -(-C // (_WARPS * un)) * _WARPS * un
-    shapes = ((E, 3 * hd), (hd, E), (E, hd), (hd, E), (E, Fg), (Fg, E), (E, Cp))
-    return un, Cp, shapes
+    W = Hc * hdp
+    shapes = ((Ep, 3 * W), (W, Ep), (Ep, W), (W, Ep), (Ep, Fgp), (Fgp, Ep), (Ep, Cp))
+    return ClusterWidths(Ep, G, Hc, hd, hdp, Fg, Fgp, Cp, un, shapes)
 
 
 def cluster_plan(B: int, L: int, E: int, H: int, F: int, C: int, T: int, Tm: int,
                  dtype: torch.dtype) -> ClusterPlan:
     """The launch of K1's cluster kernel for these widths (``Geometry`` in
-    the kernel computes the same): G = H CTAs a cluster, :data:`CLUSTER_ROWS`
-    rows a cluster, ceil(B / CLUSTER_ROWS) clusters.  Raises ValueError for
-    widths the kernel cannot tile (:func:`_cluster_shapes`) or shared memory
-    beyond the card's."""
-    un, Cp, shapes = _cluster_shapes(E, H, F, C, dtype)
-    units = [N // un * (K // 16) for K, N in shapes]
-    R, depth, es = CLUSTER_ROWS, _DEPTH, dtype.itemsize
-    hd, Fg = E // H, F // H
-    red = max(R * Cp, -(-max(T, Tm) // 8) * R * hd)  # the head's logits, the attention's chunks
-    smem = (_WARPS * depth * _UNIT + 4 * R * E + es * R * ((E + 8) + max(hd, Fg) + 8)
-            + 4 * R * 3 * hd + 8 * R * E + 4 * red + 4 * R * max(T, Tm) + 8 * R)
+    the kernel computes the same): G = :func:`cluster_size` CTAs a
+    cluster, :data:`CLUSTER_ROWS` rows a cluster, ceil(B / CLUSTER_ROWS)
+    clusters.  Raises ValueError for widths the kernel cannot tile
+    (:func:`_cluster_shapes`) or shared memory beyond the card's."""
+    cw = _cluster_shapes(E, H, F, C, dtype)
+    units = [N // cw.un * (K // 16) for K, N in cw.shapes]
+    R, depth, es, Ep = CLUSTER_ROWS, _DEPTH, dtype.itemsize, cw.Ep
+    W = cw.Hc * cw.hdp
+    red = max(R * cw.Cp, -(-max(T, Tm) // 8) * R * cw.hd)  # the head's logits, the attention's chunks
+    smem = (_WARPS * depth * _UNIT + 4 * R * Ep + es * R * ((Ep + 8) + max(W, cw.Fgp) + 8)
+            + 4 * R * 3 * W + 8 * R * Ep + 4 * red + 4 * R * max(T, Tm) + 8 * R)
     if smem > SMEM_LIMIT:
         raise ValueError(f"fused decode: {smem} bytes of shared memory a CTA ({dtype}) "
                          f"exceed {SMEM_LIMIT}")
-    return ClusterPlan(G=H, R=R, clusters=-(-B // R), smem=smem, depth=depth, Cp=Cp,
-                       shapes=shapes, units=sum(units[:-1]), head_units=units[-1],
+    return ClusterPlan(G=cw.G, R=R, clusters=-(-B // R), smem=smem, depth=depth, Cp=cw.Cp,
+                       shapes=cw.shapes, units=sum(units[:-1]), head_units=units[-1],
                        cta_step_bytes=(L * sum(units[:-1]) + units[-1]) * _UNIT)
 
 
-def _slices(w: FusedDecodeWeights, H: int, Cp: int):
-    """The slice [L, H, K, N] of each projection CTA h owns (qkv: head h's
-    q, k and v columns side by side), and the class head padded to Cp
-    columns [1, 1, E, Cp]."""
+def _slices(w: FusedDecodeWeights, cw: ClusterWidths):
+    """The slice [L, G, K, N] of each projection CTA h owns (qkv: the q, k
+    and v columns of its Hc heads, part by part), each head's columns, the
+    CTA's FF columns and the rows' E (as K or N) zero-padded
+    (:func:`_cluster_shapes`), and the class head padded to [1, 1, Ep,
+    Cp]."""
     L, E, _ = w.w_qkv.shape
     F = w.ff1_w.shape[2]
-    hd, Fg = E // H, F // H
-    head = torch.zeros(E, Cp, dtype=w.head_w.dtype, device=w.head_w.device)
-    head[:, :w.head_w.shape[1]] = w.head_w
-    return (w.w_qkv.reshape(L, E, 3, H, hd).permute(0, 3, 1, 2, 4).reshape(L, H, E, 3 * hd),
-            w.w_out.reshape(L, H, hd, E),
-            w.cw_q.reshape(L, E, H, hd).transpose(1, 2),
-            w.cw_o.reshape(L, H, hd, E),
-            w.ff1_w.reshape(L, E, H, Fg).transpose(1, 2),
-            w.ff2_w.reshape(L, H, Fg, E),
+    G, Hc, hd, hdp, Fg, Fgp, Ep = cw.G, cw.Hc, cw.hd, cw.hdp, cw.Fg, cw.Fgp, cw.Ep
+    H = G * Hc
+
+    def pad(t, dim, n):  # zero-pad dimension dim of t up to n
+        extra = [0, 0] * (t.dim() - 1 - dim % t.dim()) + [0, n - t.shape[dim]]
+        return torch.nn.functional.pad(t, extra)
+
+    head = pad(pad(w.head_w, 1, cw.Cp), 0, Ep)
+    f1 = pad(pad(w.ff1_w, 2, G * Fg).reshape(L, E, G, Fg), 3, Fgp)
+    f2 = pad(pad(w.ff2_w, 1, G * Fg).reshape(L, G, Fg, E), 2, Fgp)
+    return (pad(pad(w.w_qkv.reshape(L, E, 3, H, hd), 4, hdp).reshape(L, E, 3, G, Hc, hdp)
+                .permute(0, 3, 1, 2, 4, 5).reshape(L, G, E, 3 * Hc * hdp), 2, Ep),
+            pad(pad(w.w_out.reshape(L, H, hd, E), 2, hdp).reshape(L, G, Hc * hdp, E), 3, Ep),
+            pad(pad(w.cw_q.reshape(L, E, H, hd), 3, hdp).reshape(L, E, G, Hc * hdp)
+                .transpose(1, 2), 2, Ep),
+            pad(pad(w.cw_o.reshape(L, H, hd, E), 2, hdp).reshape(L, G, Hc * hdp, E), 3, Ep),
+            pad(f1.transpose(1, 2), 2, Ep),
+            pad(f2, 3, Ep),
             head[None, None])
 
 
@@ -581,8 +625,8 @@ def pack_cluster_tables(w: FusedDecodeWeights, num_heads: int) -> torch.Tensor:
     warp by warp.  :func:`unpack_cluster_tables` is its inverse."""
     L, E, _ = w.w_qkv.shape
     F, C = w.ff1_w.shape[2], w.head_w.shape[1]
-    un, Cp, _ = _cluster_shapes(E, num_heads, F, C, w.w_qkv.dtype)
-    parts = [_to_units(m.detach(), un) for m in _slices(w, num_heads, Cp)]
+    cw = _cluster_shapes(E, num_heads, F, C, w.w_qkv.dtype)
+    parts = [_to_units(m.detach(), cw.un) for m in _slices(w, cw)]
 
     def runs(ps):  # warp by warp, each warp's passes of every projection of ps
         return [p[:, :, list(tiles)].transpose(2, 3).flatten(2, 3) for w in range(_WARPS)
@@ -595,16 +639,18 @@ def pack_cluster_tables(w: FusedDecodeWeights, num_heads: int) -> torch.Tensor:
 def unpack_cluster_tables(packed: torch.Tensor, *, L: int, E: int, H: int, F: int,
                           C: int) -> dict:
     """The inverse of :func:`pack_cluster_tables`: the tables w_qkv, w_out,
-    cw_q, cw_o, ff1_w, ff2_w [L, in, out] and head_w [E, C]."""
-    un, Cp, shapes = _cluster_shapes(E, H, F, C, packed.dtype)
+    cw_q, cw_o, ff1_w, ff2_w [L, in, out] and head_w [E, C], their padding
+    dropped."""
+    cw = _cluster_shapes(E, H, F, C, packed.dtype)
+    G, Hc, hd, hdp, Fg, un, shapes = cw.G, cw.Hc, cw.hd, cw.hdp, cw.Fg, cw.un, cw.shapes
     vals = 16 // packed.itemsize
     units = [N // un * (K // 16) for K, N in shapes]
-    n_layers = L * H * sum(units[:-1]) * 32 * vals
-    blocks = (packed[:n_layers].reshape(L, H, -1, 32, vals),
+    n_layers = L * G * sum(units[:-1]) * 32 * vals
+    blocks = (packed[:n_layers].reshape(L, G, -1, 32, vals),
               packed[n_layers:].reshape(1, 1, -1, 32, vals))
     items = [torch.zeros(A, B, N // un, K // 16, 32, vals, dtype=packed.dtype,
                          device=packed.device)
-             for (A, B), (K, N) in zip([(L, H)] * 6 + [(1, 1)], shapes)]
+             for (A, B), (K, N) in zip([(L, G)] * 6 + [(1, 1)], shapes)]
     for block, ps in ((blocks[0], range(6)), (blocks[1], range(6, 7))):
         at = 0
         for w in range(_WARPS):
@@ -614,16 +660,24 @@ def unpack_cluster_tables(packed: torch.Tensor, *, L: int, E: int, H: int, F: in
                     run = block[:, :, at:at + n].unflatten(2, (-1, len(tiles)))
                     items[p][:, :, list(tiles)] = run.transpose(2, 3)
                     at += n
-    mats = [_from_units(x, K, N, un) for x, (K, N) in zip(items, shapes)]
-    hd = E // H
-    qkv, out, cq, co, f1, f2, head = mats
+    qkv, out, cq, co, f1, f2, head = (_from_units(x, K, N, un) for x, (K, N) in zip(items, shapes))
+    # the rows' padding (as K or N) dropped
+    qkv, cq, f1, head = (m.narrow(2, 0, E) for m in (qkv, cq, f1, head))
+    out, co, f2 = (m.narrow(3, 0, E) for m in (out, co, f2))
+
+    def heads(m, dim):  # the padded heads' columns at dim -> [.., Hc, hd, ..]
+        return m.unflatten(dim, (Hc, hdp)).narrow(dim + 1, 0, hd)
+
+    qkv = heads(qkv.unflatten(3, (3, Hc * hdp)), 4)                    # [L, G, E, 3, Hc, hd]
+    out, co = (heads(m, 2) for m in (out, co))                         # [L, G, Hc, hd, E]
+    cq = heads(cq, 3)                                                  # [L, G, E, Hc, hd]
     return dict(
-        w_qkv=qkv.reshape(L, H, E, 3, hd).permute(0, 2, 3, 1, 4).reshape(L, E, 3 * E),
+        w_qkv=qkv.permute(0, 2, 3, 1, 4, 5).reshape(L, E, 3 * E),
         w_out=out.reshape(L, E, E),
         cw_q=cq.transpose(1, 2).reshape(L, E, E),
         cw_o=co.reshape(L, E, E),
-        ff1_w=f1.transpose(1, 2).reshape(L, E, F),
-        ff2_w=f2.reshape(L, F, E),
+        ff1_w=f1[..., :Fg].transpose(1, 2).reshape(L, E, G * Fg)[..., :F],
+        ff2_w=f2[:, :, :Fg].reshape(L, G * Fg, E)[:, :F],
         head_w=head[0, 0, :, :C])
 
 
@@ -651,7 +705,7 @@ def fused_greedy_decode_cuda(w: FusedDecodeWeights, cross_k: torch.Tensor,
     dt, T, H = w.b_qkv.dtype, steps, num_heads
     if scales is None:
         plan = cluster_plan(B, L, E, H, F, C, T, Tm, dt)
-        want = (L * H * plan.units + plan.head_units) * _UNIT // dt.itemsize
+        want = (L * plan.G * plan.units + plan.head_units) * _UNIT // dt.itemsize
         if (packed is None or packed.dtype != dt or packed.device != cross_k.device
                 or not packed.is_contiguous() or packed.numel() != want):
             raise ValueError(f"{what}: packed must be pack_cluster_tables of the tables, "
@@ -673,7 +727,7 @@ def fused_greedy_decode_cuda(w: FusedDecodeWeights, cross_k: torch.Tensor,
     dims = (B, T, L, E, F, C, H, Tm, go_id, -1 if eos_id is None else eos_id)
     if scales is None:
         launch(launcher("fused_decode_cluster"), w, cross_k, cross_v,
-               (kc, vc, logits, packed, profile), dims + (plan.smem,), num_heads=H,
+               (kc, vc, logits, packed, profile), dims + (plan.smem, plan.G), num_heads=H,
                eps=eps, what=what, cls0=cls0)
         fused_greedy_decode_cuda.launches += 1
     else:

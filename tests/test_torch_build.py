@@ -11,10 +11,10 @@ from multimodal_scene_text_recognition_tpu_torch.kernels import build
 
 FAKE_NVCC = """#!/bin/sh
 # writes the -o target for grid_sample.cu, bn_bwd_reduce.cu and
-# fused_beam.cu, fails for any other source
+# fused_beam_grid.cu, fails for any other source
 for a; do prev=$cur; cur=$a; [ "$prev" = "-o" ] && out=$a; done
 case "$cur" in
-  *grid_sample.cu|*bn_bwd_reduce.cu|*fused_beam.cu)
+  *grid_sample.cu|*bn_bwd_reduce.cu|*fused_beam_grid.cu)
     echo built > "$out"; echo "ptxas info    : Used 24 registers";;
   *) echo "error: no" ; exit 2;;
 esac
@@ -55,9 +55,9 @@ def test_every_source_is_listed_and_builds_in_parallel(fake_cuda):
     """The package's sources are exactly the ``.cu`` files beside the
     build module; three builds started together all land."""
     assert sorted(build.SOURCES) == sorted(p.stem for p in build.KERNEL_DIR.glob("*.cu"))
-    assert {"bn_bwd_reduce", "fused_beam"} <= set(build.SOURCES)
-    logs = build.build(["grid_sample", "bn_bwd_reduce", "fused_beam"])
-    assert set(logs) == {"grid_sample", "bn_bwd_reduce", "fused_beam"}
+    assert {"bn_bwd_reduce", "fused_beam_grid"} <= set(build.SOURCES)
+    logs = build.build(["grid_sample", "bn_bwd_reduce", "fused_beam_grid"])
+    assert set(logs) == {"grid_sample", "bn_bwd_reduce", "fused_beam_grid"}
     assert all(build.library_path(n).read_text() == "built\n" for n in logs)
 
 

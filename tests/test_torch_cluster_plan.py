@@ -11,7 +11,8 @@ its launch and its weight layout are, without a card.
   2q + 1, 2q + 8, 2q + 9 of column g of each 8-column tile) finds every
   weight of every CTA's slices, and the zero padding of the class head;
 * ``cluster_plan``'s G, R, grid, shared memory and weight bytes for the
-  flagship and the card tests' widths, and its refusals;
+  flagship, the card tests' widths and widths whose head or FF slices are
+  padded (more than eight heads, slices not 16 wide), and its refusals;
 * the decoder's repacked tables are built once and rebuilt after a
   parameter changes, and the dispatch asks for them only where K1 runs.
 """
@@ -42,8 +43,13 @@ def _weights(L, E, F, C, seed, dtype):
 
 
 # (L, E, H, F, C): the card tests' small widths, the flagship's (L cut), a
-# cluster of two and a class count under 32
-SHAPES = [(2, 64, 4, 128, 97), (1, 256, 8, 2048, 97), (1, 32, 2, 32, 5)]
+# cluster of two and a class count under 32; then widths whose slices are
+# padded: head slices 12 wide, sixteen heads in clusters of eight (two a
+# CTA), FF slices 24 wide, and F=100 over four CTAs (25 each); rows not a
+# multiple of 16 wide (E=40 and 42, padded to 48; three heads of 14)
+SHAPES = [(2, 64, 4, 128, 97), (1, 256, 8, 2048, 97), (1, 32, 2, 32, 5),
+          (2, 48, 4, 128, 97), (1, 256, 16, 2048, 97), (2, 64, 4, 96, 97), (1, 64, 4, 100, 97),
+          (2, 40, 4, 128, 97), (1, 42, 3, 100, 97)]
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -127,6 +133,17 @@ def test_packed_units_hold_what_the_kernel_reads(shape, dtype):
     # the card tests' widths: clusters of 4, ragged tiles
     (13, 2, 64, 4, 128, 6, 8, torch.bfloat16, (4, 16, 1, 4, 93312, 16, 57344)),
     (300, 2, 64, 4, 128, 6, 8, torch.float32, (4, 16, 19, 76, 96896, 16, 114688)),
+    # padded slices: sixteen heads, two a CTA of a cluster of 8 (the same
+    # units as eight heads); head slices 12 wide padded to 16; FF slices 24
+    # wide padded to 32
+    (192, 6, 256, 16, 2048, 25, 26, torch.bfloat16, (8, 16, 12, 96, 147712, 16, 2228224)),
+    (13, 2, 48, 4, 128, 6, 8, torch.bfloat16, (4, 16, 1, 4, 89728, 16, 43008)),
+    (13, 2, 64, 4, 96, 6, 8, torch.float32, (4, 16, 1, 4, 96896, 16, 114688)),
+    # rows padded to 48 columns: E=40 (four heads of 10) and E=42 (three of
+    # 14, a cluster of three)
+    (13, 2, 40, 4, 128, 6, 8, torch.bfloat16, (4, 16, 1, 4, 89728, 16, 43008)),
+    (13, 2, 40, 4, 128, 6, 8, torch.float32, (4, 16, 1, 4, 92800, 16, 86016)),
+    (13, 2, 42, 3, 100, 6, 8, torch.bfloat16, (3, 16, 1, 3, 90240, 16, 49152)),
 ])
 def test_cluster_plan(B, L, E, H, F, T, Tm, dtype, want):
     plan = fd.cluster_plan(B, L, E, H, F, 97, T, Tm, dtype)
@@ -137,9 +154,6 @@ def test_cluster_plan(B, L, E, H, F, T, Tm, dtype, want):
 
 
 @pytest.mark.parametrize("E,H,F,dtype,why", [
-    (256, 16, 2048, torch.bfloat16, "at most 8"),  # more heads than a cluster holds
-    (48, 4, 128, torch.bfloat16, "multiples of 16"),  # head slices 12 wide
-    (64, 4, 96, torch.bfloat16, "multiples of 16"),  # FF slices 24 wide
     (64, 5, 128, torch.bfloat16, "do not divide"),
     (1024, 8, 2048, torch.bfloat16, "exceeds"),  # rows wider than the exchange holds
     (512, 8, 2048, torch.float32, "shared memory"),
@@ -153,6 +167,9 @@ def test_decoder_repacks_its_tables_once_per_parameter_version():
     torch.manual_seed(0)
     dec = TransformerDecoder(num_classes=97, d_model=64, memory_dim=32, num_heads=4, ff_dim=128,
                              num_layers=2, max_text_length=6)
+    with torch.no_grad():  # the packed attention projections start uninitialised (torch.empty)
+        for p in dec.parameters():
+            p.normal_(0.0, 0.1)
     packed = dec.cluster_tables(torch.bfloat16)
     assert torch.equal(packed, fd.pack_cluster_tables(dec.fused_weights(torch.bfloat16), 4))
     assert dec.cluster_tables(torch.bfloat16) is packed

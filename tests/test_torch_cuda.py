@@ -151,18 +151,42 @@ def test_fused_decode_kernel_is_deterministic(dev):
     assert torch.equal(first, again)
 
 
-@pytest.mark.parametrize("E,H,F,why", [(48, 4, 128, "multiples of 16"),
-                                        (256, 16, 2048, "at most 8"),
-                                        (64, 4, 96, "multiples of 16")])
+@pytest.mark.parametrize("E,H,F,why", [(48, 4, 128, None), (256, 16, 2048, None),
+                                        (64, 4, 96, None), (40, 4, 128, None), (42, 3, 100, None),
+                                        (1024, 8, 2048, "exceeds")])
 def test_fused_decode_kernel_refuses_shapes_it_cannot_tile(dev, E, H, F, why):
-    """Head or FF slices not a multiple of 16 wide, or more heads than a
-    cluster holds: ValueError, never another kernel or the plain version."""
-    w, ck, cv = _decode_inputs(dev, 4, seed=0, E=E, F=F)
-    before = fd.fused_greedy_decode_cuda.launches
-    with pytest.raises(ValueError, match=why):
-        fd.fused_greedy_decode_cuda(fd.cast_weights(w, torch.bfloat16), ck.bfloat16(),
-                                    cv.bfloat16(), num_heads=H, steps=6)
-    assert fd.fused_greedy_decode_cuda.launches == before
+    """Head slices 12 wide (padded to 16), sixteen heads (two a CTA of a
+    cluster of 8), FF slices 24 wide (padded to 32) and rows 40 and 42
+    wide (padded to 48; three heads of 14 in a cluster of 3) run, held to
+    the plain version as the flagship is (float32: every token and logits
+    within 1e-4; bfloat16: at least 99% of tokens identical), with and
+    without early stop; a width the kernel cannot tile (rows wider than
+    512) is a ValueError, never another kernel or the plain version."""
+    w, ck, cv = _decode_inputs(dev, 24, seed=E + H + F, E=E, F=F)
+    if why is not None:
+        before = fd.fused_greedy_decode_cuda.launches
+        with pytest.raises(ValueError, match=why):
+            fd.fused_greedy_decode_cuda(fd.cast_weights(w, torch.bfloat16), ck.bfloat16(),
+                                        cv.bfloat16(), num_heads=H, steps=6)
+        assert fd.fused_greedy_decode_cuda.launches == before
+        return
+    for eos_id in (None, EOS_ID):
+        kw = dict(num_heads=H, steps=6, go_id=0, eps=1e-5, eos_id=eos_id)
+        for dt in (torch.float32, torch.bfloat16):
+            wd = fd.cast_weights(w, dt)
+            ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
+            before = fd.fused_greedy_decode_cuda.launches
+            out = fd.fused_greedy_decode_cuda(wd, ckd, cvd, packed=fd.pack_cluster_tables(wd, H),
+                                              **kw)
+            ref = fd.fused_greedy_decode_plain(wd, ckd, cvd, **kw)
+            assert fd.fused_greedy_decode_cuda.launches == before + 1
+            assert torch.isfinite(out).all()
+            agree = (out.argmax(-1) == ref.argmax(-1)).float().mean().item()
+            if dt == torch.float32:
+                torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+                assert agree == 1.0
+            else:
+                assert agree >= 0.99
 
 
 def test_fused_decode_dispatch_launches_kernel_on_cuda(dev):
@@ -209,28 +233,34 @@ def _pruned_agreement(a, b):
     return same / len(a)
 
 
-@pytest.mark.parametrize("B", [1, 7, 64])
+@pytest.mark.parametrize("B", [1, 7, 13, 64, 300])
 @pytest.mark.parametrize("K", [1, 5, 8])
 @pytest.mark.parametrize("early_stop", [False, True])
-def test_fused_beam_kernel_matches_plain(dev, B, K, early_stop):
-    """One batch row per CTA, K beams as its tile (K=1 and 5 in the 5-beam
-    build, 8 in the 8-beam one); with early stop the [s]
-    logit is raised so rows stop at different steps.  float32: identical
-    tokens and scores within 1e-4 (summation order only); bfloat16: at
-    least 90% of the beams identical up to their first [s] (a rounding
-    that lands the other way can swap two close beams) and every score
-    finite.  Both: beams best first, bit-equal from run to run."""
+@pytest.mark.parametrize("cls0", [False, True])
+def test_fused_beam_kernel_matches_plain(dev, B, K, early_stop, cls0):
+    """The grid kernel from one ragged row tile (B=1, 7, 13) to tiles in
+    waves (B=300 at K=8: 38 tiles of 64 beam rows a phase), at K=1, 5 and
+    8, with a random cls0 row or the [GO] embedding; with early stop the
+    [s] logit is raised so rows stop at different steps.  float32:
+    identical tokens and scores within 1e-4 (summation order only);
+    bfloat16: at least 90% of the beams identical up to their first [s]
+    (a rounding that lands the other way can swap two close beams) and
+    every score finite.  Both: beams best first, bit-equal from run to
+    run."""
     w, ck, cv = _decode_inputs(dev, B, seed=B + K, T=8)
     if early_stop:
         w = w._replace(head_b=w.head_b + 4.0 * (torch.arange(97, device=dev) == EOS_ID))
-    kw = dict(beam_size=K, num_heads=4, steps=8, go_id=0, eos_id=EOS_ID, early_stop=early_stop)
+    kw = dict(beam_size=K, num_heads=4, steps=8, go_id=0, eos_id=EOS_ID, early_stop=early_stop,
+              cls0=_cls0(dev, B, seed=B * K) if cls0 else None)
     for dt in (torch.float32, torch.bfloat16):
         wd = fd.cast_weights(w, dt)
         ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
+        before = fb.fused_beam_decode_cuda.launches
         tok, sc = fb.fused_beam_decode_cuda(wd, ckd, cvd, **kw)
         tok2, sc2 = fb.fused_beam_decode_cuda(wd, ckd, cvd, **kw)
         ref_tok, ref_sc = fb.fused_beam_decode_plain(wd, ckd, cvd, **kw)
         torch.cuda.synchronize()
+        assert fb.fused_beam_decode_cuda.launches == before + 2
         assert torch.equal(tok, tok2) and torch.equal(sc, sc2)
         assert tok.shape == (B, K, 8) and sc.shape == (B, K) and torch.isfinite(sc).all()
         assert (sc[:, 1:] <= sc[:, :-1]).all()
@@ -239,6 +269,70 @@ def test_fused_beam_kernel_matches_plain(dev, B, K, early_stop):
             torch.testing.assert_close(sc, ref_sc, atol=1e-4, rtol=0)
         else:
             assert _pruned_agreement(tok, ref_tok) >= 0.9
+
+
+# (B, K, E, H, F, C, steps, Tm): widths the CUDA-core K4 served, at which a
+# first layout of the grid kernel refused or cut its plan: class counts
+# past 2,478 at K=5 (the top-K tile beside the product's rings), 1,500 at
+# K=8 and 20,000 at K=1; a head of 512 columns (the attention's queries
+# and one position of keys at a time, rows in groups in float32, the
+# layernorm's rows staged a chunk at a time); 300 steps (positions staged
+# in chunks); 15,000 beam rows (column tiles of 256 in float32, 128 in
+# bf16, cut to what fits beside the rings; float32 stages the layernorm's
+# rows a chunk at a time)
+BEAM_WIDE = {"C=3000,K=5": (16, 5, 64, 4, 128, 3000, 8, 8),
+             "C=1500,K=8": (8, 8, 64, 4, 128, 1500, 8, 8),
+             "C=20000,K=1": (4, 1, 64, 4, 128, 20000, 8, 8),
+             "hd=512": (16, 5, 512, 1, 256, 97, 8, 8),
+             "T=300": (2, 5, 64, 4, 128, 97, 300, 26),
+             "B=3000": (3000, 5, 256, 8, 256, 97, 8, 8)}
+
+
+@pytest.mark.parametrize("case", sorted(BEAM_WIDE))
+def test_fused_beam_kernel_serves_the_cuda_core_kernels_widths(dev, case):
+    """The grid kernel at widths the CUDA-core K4 served (BEAM_WIDE): its
+    plan fits, and it agrees with the plain version as in
+    test_fused_beam_kernel_matches_plain: float32 identical tokens and
+    scores within 1e-4, bfloat16 at least 90% of the beams identical up to
+    their first [s]; bit-equal from run to run."""
+    B, K, E, H, F, C, T, Tm = BEAM_WIDE[case]
+    w, ck, cv = _decode_inputs(dev, B, seed=C + E + T, E=E, F=F, C=C, T=T, Tm=Tm)
+    kw = dict(beam_size=K, num_heads=H, steps=T, go_id=0, eos_id=EOS_ID, early_stop=False)
+    for dt in (torch.float32, torch.bfloat16):
+        wd = fd.cast_weights(w, dt)
+        ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
+        tok, sc = fb.fused_beam_decode_cuda(wd, ckd, cvd, **kw)
+        tok2, sc2 = fb.fused_beam_decode_cuda(wd, ckd, cvd, **kw)
+        ref_tok, ref_sc = fb.fused_beam_decode_plain(wd, ckd, cvd, **kw)
+        assert torch.equal(tok, tok2) and torch.equal(sc, sc2)
+        assert tok.shape == (B, K, T) and torch.isfinite(sc).all()
+        if dt == torch.float32:
+            assert torch.equal(tok, ref_tok)
+            torch.testing.assert_close(sc, ref_sc, atol=1e-4, rtol=0)
+        else:
+            assert _pruned_agreement(tok, ref_tok) >= 0.9
+
+
+def test_fused_beam_kernel_profile_and_barrier_floor(dev):
+    """``profile=`` counts cycles in every phase, barrier and part of the
+    grid kernel at the flagship's widths (L cut to 2) without changing its
+    result; the barrier-only launch runs and raises for a grid that cannot
+    be resident."""
+    w, ck, cv = _decode_inputs(dev, 192, seed=5, E=256, F=2048, T=8)
+    wd = fd.cast_weights(w, torch.bfloat16)
+    ckd, cvd = ck.bfloat16(), cv.bfloat16()
+    kw = dict(beam_size=5, num_heads=8, steps=8, early_stop=True)
+    prof = torch.zeros(fb.PROFILE_SLOTS, dtype=torch.int64, device=dev)
+    tok, sc = fb.fused_beam_decode_cuda(wd, ckd, cvd, profile=prof, **kw)
+    ref_tok, ref_sc = fb.fused_beam_decode_cuda(wd, ckd, cvd, **kw)
+    assert torch.equal(tok, ref_tok) and torch.equal(sc, ref_sc)
+    assert (prof > 0).all()
+    with pytest.raises(ValueError, match="profile"):
+        fb.fused_beam_decode_cuda(wd, ckd, cvd, profile=prof[:3], **kw)
+    fb.barrier_floor_cuda(37, dev)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fb.barrier_floor_cuda(1, dev, ctas=1 << 20)
 
 
 def test_fused_beam_kernel_tie_order(dev):
@@ -288,11 +382,15 @@ def test_fused_beam_wrapper_refuses_bad_inputs(dev):
         fb.fused_beam_decode_cuda(w32, ck, cv, beam_size=5, num_heads=5, steps=6)
     with pytest.raises(ValueError):  # more steps than positional rows
         fb.fused_beam_decode_cuda(w32, ck, cv, beam_size=5, num_heads=4, steps=7)
-    with pytest.raises(ValueError):  # more beams than a CTA holds
+    with pytest.raises(ValueError):  # more beams than the kernel serves
         fb.fused_beam_decode_cuda(w32, ck, cv, beam_size=9, num_heads=4, steps=6)
-    wide, ckw, cvw = _decode_inputs(dev, 2, seed=2, F=12288)
+    # 20000 classes: one batch row's top-K tile (5 x 20000 logits) does not
+    # fit a CTA's shared memory
+    wide, ckw, cvw = _decode_inputs(dev, 2, seed=2, C=20000)
+    before = fb.fused_beam_decode_cuda.launches
     with pytest.raises(ValueError, match="shared memory"):
         fb.fused_beam_decode_cuda(wide, ckw, cvw, **kw)
+    assert fb.fused_beam_decode_cuda.launches == before
 
 
 def test_fused_decode_early_stop_kernel_matches_plain(dev):

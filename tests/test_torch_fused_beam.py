@@ -224,16 +224,6 @@ def test_beam_dispatch_and_kernel_wrapper_checks():
     assert fb.fused_beam_decode_cuda.launches == before
 
 
-def test_beam_smem_at_the_flagship():
-    """One CTA's shared memory at the flagship (K=5, E=256, F=2048, C=97,
-    H=8, T=25, Tm=26) fits Hopper's 227 KB in both compute types, and at
-    eight beams too; the widest beam a CTA holds is eight."""
-    for vec in (8, 4):
-        for K in (5, fb.MAX_BEAMS):
-            assert fb.smem_bytes(K, 256, 2048, 97, 8, 26, 25, vec) <= fb.SMEM_LIMIT
-    assert fb.smem_bytes(5, 256, 2048, 97, 8, 26, 25, 8) == 115700
-
-
 @pytest.mark.parametrize("cls0,eos_bias", [(False, 0.5), (True, 3.0)], ids=["emb", "cls0"])
 def test_plain_early_stop_matches_pallas_kernel(cls0, eos_bias):
     """K1e: the greedy plain loop with ``eos_id`` against the Pallas

@@ -1,14 +1,16 @@
-"""Time K1, the float greedy decode kernel, of a checkout of this repository
-on the card, so that two checkouts can be compared on one card, in turns.
+"""Time K1, the float greedy decode kernel, and K4, the beam-search kernel, of
+a checkout of this repository on the card, so that two checkouts can be
+compared on one card, in turns.
 
     python3 time_k1.py [--repo DIR]
 
 It imports the port from DIR (default: this checkout), whose kernels build
 in DIR's ``kernels/_build``, and takes the rest from this checkout's
 ``chip_smoke.py``: the trained flagship (``BUNDLE``), the seeded B=192
-crops it serves, the cross K/V its encoder makes of them, and ``k1_times``
-(bf16 at B=192 at full length and with early stop, and at B=1).  Prints the
-card's name and power limit, then one JSON line.
+crops it serves, the cross K/V its encoder makes of them, ``k1_times``
+(bf16 at B=192 at full length and with early stop, and at B=1) and
+``k4_times`` (bf16, K=5, at B=192 with early stop and at full length, and at
+B=1).  Prints the card's name and power limit, then one JSON line.
 """
 
 from __future__ import annotations
@@ -34,10 +36,12 @@ def main(argv=None) -> int:
         raise SystemExit("time_k1: no CUDA device; K1 runs only on the card")
     from multimodal_scene_text_recognition_tpu_torch import api
     from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
+    from multimodal_scene_text_recognition_tpu_torch.ops import fused_beam as fb
     from multimodal_scene_text_recognition_tpu_torch.ops import fused_decode as fd
 
-    if not os.path.abspath(fd.__file__).startswith(repo + os.sep):
-        raise SystemExit(f"time_k1: imported {fd.__file__}, not the port of {repo}")
+    for mod in (fd, fb):
+        if not os.path.abspath(mod.__file__).startswith(repo + os.sep):
+            raise SystemExit(f"time_k1: imported {mod.__file__}, not the port of {repo}")
     card = chip_smoke.card_line()
     B = chip_smoke.B
     model = api.get_model(chip_smoke.BUNDLE)
@@ -46,8 +50,10 @@ def main(argv=None) -> int:
     # a checkout whose K1 reads repacked tables takes them, as its served path does
     kw = {"packed": dec.cluster_tables(torch.bfloat16)} if hasattr(dec, "cluster_tables") else {}
     times = chip_smoke.k1_times(fd, dec, ck, cv, **kw)
+    k4 = chip_smoke.k4_times(fb, dec, ck, cv)
     print(card, flush=True)
-    print(json.dumps({"repo": repo, "card": card, "batch": B, "k1_bf16_ms": times}), flush=True)
+    print(json.dumps({"repo": repo, "card": card, "batch": B, "k1_bf16_ms": times,
+                      "k4_bf16_ms": k4}), flush=True)
     return 0
 
 
