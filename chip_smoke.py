@@ -38,8 +38,10 @@ probe's own entry point.  Every phase prints one flushed line
 with the elapsed seconds; any failure raises and the script exits
 non-zero.  ``--mutants`` also builds copies of the beam kernel with one
 bf16 rounding dropped each (the ReLU outputs': rounded toward zero), of
-K1q with one of three rounding faults each,
-of K1 with one bf16 rounding dropped each (the ReLU outputs': rounded
+K1q's cluster kernel with one of four faults each (three roundings, and
+the abs-max of a K-split input taken over a CTA's own slice) and of its
+wide-row kernel with one of the three roundings each (K1Q_WIDE_MUTANTS),
+each held at the flagship and read at a padded or wide width, of K1 with one bf16 rounding dropped each (the ReLU outputs': rounded
 toward zero; read with and without cls0), and of the probe's kernels with
 one of four rounding faults each, and prints whether their limits catch
 them; and copies of K1 with one part of its step left out each, timed
@@ -48,7 +50,11 @@ cluster plan and the weight bytes a call reads from L2), its times
 (``k1_times``: B=192 at full length and with early stop, B=1) and its
 cycles by phase (``fused_greedy_decode_cuda(profile=)``); a second K1
 phase holds it at widths it serves by padding or by grouping heads
-(K1_WIDTHS).  The K4 phase prints its grid plan (``beam_plan``), its
+(K1_WIDTHS).  The int8 phase prints K1q's plan, times (``k1q_times``),
+cycles by phase and L2 bytes a call likewise, and holds it at widths its
+units pad and at E=640, which its plan sends to the wide-row kernel
+(K1Q_WIDTHS), and times both its kernels by batch (K1Q_SWEEP, behind the
+route's K1Q_WIDE_BATCH).  The K4 phase prints its grid plan (``beam_plan``), its
 times (``k4_times``: B=192 with early stop and at full length, B=1), the
 floor of its grid barriers and its cycles by phase, barrier and part
 (``fused_beam_decode_cuda(profile=)``).  A watchdog turns a hang into a
@@ -65,6 +71,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import inspect
 import json
 import os
 import shutil
@@ -790,11 +797,12 @@ def first_eos_steps(tokens, steps: int):
 
 def pruned_agreement(a, b) -> float:
     """Share of token rows ([..., T]) equal up to and including the first
-    [s] of ``b``."""
+    [s] of ``b`` (in float64: a float32 mean puts 99 rows of 100 below
+    0.99)."""
     a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
     n = first_eos_steps(b[:, None], b.shape[-1])
     keep = torch.arange(b.shape[-1], device=b.device)[None] < n[:, None]
-    return ((a == b) | ~keep).all(-1).float().mean().item()
+    return ((a == b) | ~keep).all(-1).double().mean().item()
 
 
 def loop_cost(w, ck, K, row_steps, dt_bytes, out_bytes):
@@ -1114,41 +1122,91 @@ def k4_times(fb, dec, ck, cv) -> dict:
 
 
 # the K1q faults its limits must catch, for --mutants: (name, text in
-# fused_decode.cu, replacement)
+# K1_SOURCE.cu or the shared headers, replacement)
+K1_SOURCE = "fused_decode_cluster"  # K1 and K1q's cluster kernel
 K1Q_MUTANTS = (
-    ("roundf (half away from zero) for rintf", "float v = rintf(quant_input<T>(",
-     "float v = roundf(quant_input<T>("),
+    ("roundf (half away from zero) for rintf",
+     "const float q = rintf(__fmul_rn(quant_input<T>(v), inv));",
+     "const float q = roundf(__fmul_rn(quant_input<T>(v), inv));"),
     ("quantizing the bf16-rounded input", "__device__ float quant_input(float v) {\n  return v;",
      "__device__ float quant_input(float v) {\n  return Num<T>::round(v);"),
+    ("rounding the ReLU output of ff1", "MODE == kQRelu ? fmaxf(y, 0.0f) : y",
+     "MODE == kQRelu ? Num<T>::round(fmaxf(y, 0.0f)) : y"),
+    ("the abs-max of a K-split input over the CTA's own slice only",
+     "for (int g = 0; g < G; ++g) m = fmaxf(m, amx[g * R + r]);", "m = amx[h * R + r];"),
+)
+
+
+# the same three rounding faults in K1q's wide-row kernel (fused_decode.cu),
+# which serves batches of at most K1Q_WIDE_BATCH rows and rows wider than
+# the cluster kernel takes: (name, text in fused_decode.cu, replacement)
+K1Q_WIDE_SOURCE = "fused_decode"
+K1Q_WIDE_MUTANTS = (
+    ("roundf (half away from zero) for rintf", "float v = rintf(quant_input<T>(",
+     "float v = roundf(quant_input<T>("),
+    K1Q_MUTANTS[1],
     ("rounding the ReLU output of ff1", "return RELU ? fmaxf(v, 0.0f) : v;",
      "return RELU ? Num<T>::round(fmaxf(v, 0.0f)) : v;"),
 )
 
+# the served int8 path's bucket at which check_k1q holds the wide-row
+# kernel through the wrapper, on all B crops a bucket at a time
+K1Q_WIDE_BUCKET = 64
 
-def k1q_vs_plain(fd, dec, ck, cv, dt, early_stop: bool, cls0=None) -> dict:
+
+def k1q_packed(dec, dt):
+    """The int8 units K1q reads on the cluster kernel, cached by the
+    decoder; None for a checkout whose K1q reads none."""
+    if "int8" not in inspect.signature(dec.cluster_tables).parameters:
+        return None
+    return dec.cluster_tables(dt, int8=True)
+
+
+def k1q_vs_plain(fd, dec, ck, cv, dt, early_stop: bool, cls0=None, batch=None) -> dict:
     """K1q against its plain version on the trained decoder's int8 tables
-    in compute type ``dt`` (with ``cls0`` its step-0 row): the largest
-    logit difference, the share of rows identical up to their first [s],
-    the steps each row took."""
-    T = dec.max_text_length
+    in compute type ``dt`` (with ``cls0`` its step-0 row), through
+    ``fused_greedy_decode_cuda`` on all rows at once or, with ``batch``,
+    ``batch`` rows a call (each call on the kernel its route picks, whose
+    counter must move): the largest logit difference, the share of rows
+    identical up to their first [s], the steps each row took, the kernel."""
+    T, B = dec.max_text_length, ck.shape[1]
     wq, scales = dec.fused_weights(dt, int8=True)
     ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
+    L, _, Tm, E = ckd.shape
+    F, C = wq.ff1_w.shape[2], wq.head_w.shape[1]
     kw = dict(num_heads=dec.num_heads, steps=T, go_id=0, eos_id=1 if early_stop else None,
-              eps=1e-5, scales=scales, cls0=cls0)
-    out = fd.fused_greedy_decode_cuda(wq, ckd, cvd, **kw)
-    ref = fd.fused_greedy_decode_plain(wq, ckd, cvd, **kw)
+              eps=1e-5, scales=scales)
+    counters = {"cluster": "launches_int8", "wide": "launches_int8_wide"}
+    outs, refs, kernels = [], [], set()
+    for r0 in range(0, B, batch or B):
+        rows = slice(r0, min(B, r0 + (batch or B)))
+        k, v = (t[:, rows].contiguous() for t in (ckd, cvd))
+        c0 = None if cls0 is None else cls0[rows].contiguous()
+        route = fd.k1q_route(k.shape[1], L, E, dec.num_heads, F, C, T, Tm, dt)
+        counter = counters[route.kernel]
+        before = getattr(fd.fused_greedy_decode_cuda, counter)
+        packed = k1q_packed(dec, dt) if route.kernel == "cluster" else None
+        outs.append(fd.fused_greedy_decode_cuda(wq, k, v, packed=packed, cls0=c0, **kw))
+        refs.append(fd.fused_greedy_decode_plain(wq, k, v, cls0=c0, **kw))
+        if getattr(fd.fused_greedy_decode_cuda, counter) != before + 1:
+            raise AssertionError(f"K1q at B={k.shape[1]}: the {route.kernel} kernel's counter "
+                                 f"did not move")
+        kernels.add(route.kernel)
+    out, ref = torch.cat(outs), torch.cat(refs)
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
         raise AssertionError(f"K1q ({dt}, early stop {early_stop}) produced non-finite logits")
     ids = out.argmax(-1)
     return dict(err=(out - ref).abs().max().item(), agree=pruned_agreement(ids, ref.argmax(-1)),
-                steps=first_eos_steps(ids, T) if early_stop else torch.full_like(ids[:, 0], T))
+                steps=first_eos_steps(ids, T) if early_stop else torch.full_like(ids[:, 0], T),
+                kernel="/".join(sorted(kernels)))
 
 
-def k1q_results(fd, dec, ck, cv, dts=(torch.float32, torch.bfloat16), cls0=None) -> dict:
+def k1q_results(fd, dec, ck, cv, dts=(torch.float32, torch.bfloat16), cls0=None,
+                batch=None) -> dict:
     """K1q against its plain version in each compute type of ``dts``, early
-    stop on and off (with ``cls0`` its step-0 row)."""
-    return {(dt, es): k1q_vs_plain(fd, dec, ck, cv, dt, es, cls0)
+    stop on and off (with ``cls0`` its step-0 row; ``batch`` rows a call)."""
+    return {(dt, es): k1q_vs_plain(fd, dec, ck, cv, dt, es, cls0, batch)
             for dt in dts for es in (False, True)}
 
 
@@ -1193,12 +1251,203 @@ def k1q_cost(wq, scales, ck, row_steps, dt_bytes: int, out_bytes: int):
     return bound_ms, bound_by, nbytes, int8_ops, float_ops
 
 
+def k1q_times(fd, dec, ck, cv) -> dict:
+    """K1q bf16 ms on ``dec``'s int8 tables and the cross K/V ``ck``, ``cv``
+    [L, B, Tm, E], as :func:`k1_times` times K1: at full length, with
+    early stop, and at full length on the first row alone; with the
+    decoder's int8 units where its K1q reads them."""
+    bf16 = torch.bfloat16
+    wq, scales = dec.fused_weights(bf16, int8=True)
+    ckd, cvd = ck.to(bf16).contiguous(), cv.to(bf16).contiguous()
+    one = [t[:, :1].contiguous() for t in (ckd, cvd)]
+    kw = dict(num_heads=dec.num_heads, steps=dec.max_text_length, go_id=0, eps=1e-5,
+              scales=scales, packed=k1q_packed(dec, bf16))
+    k1q = fd.fused_greedy_decode_cuda
+    return dict(full=cuda_ms(lambda: k1q(wq, ckd, cvd, **kw), 10),
+                early_stop=cuda_ms(lambda: k1q(wq, ckd, cvd, eos_id=1, **kw), 10),
+                b1=cuda_ms(lambda: k1q(wq, *one, **kw), 10))
+
+
+# (E, H, F, route) of K1q beyond the flagship: widths its units pad to the
+# int8 k-step of 32 (heads of 12, sixteen heads, FF slices of 24, rows of 36
+# in a cluster of one), and rows wider than the cluster kernel's exchange
+# holds, which the plan sends to the wide-row kernel (fused_decode.cu)
+K1Q_WIDTHS = ((48, 4, 128, "cluster"), (256, 16, 2048, "cluster"), (64, 4, 96, "cluster"),
+              (36, 3, 100, "cluster"), (640, 8, 1024, "wide"))
+
+
+# K1q at K1Q_WIDTHS against its plain version: both products are exact, but
+# a float32 sum of another order (attention, layernorm) moves an activation
+# across a rounding boundary of its int8 step now and then, and that moves
+# every later logit of its row.  The chance grows with the values a row
+# quantizes a step, L(5E + F), and the shift with the logits' scale: on an
+# H100 with random tables (logits ~10) E=256 with sixteen heads read 0.334
+# and E=640 0.399-0.555 with every token equal, and once (E=640, B=100) a
+# row took the other token at a near tie in float32.  So the float32 logits
+# are held on each row up to and at its first differing token (past it the
+# rows decode different prefixes), and the rows to a share: one row of
+# B=100 may differ.
+K1Q_WIDTHS_F32_TOL = 1.0
+K1Q_WIDTHS_F32_ROWS = 0.99
+K1Q_WIDTHS_BF16_ROWS = 0.9  # the card tests' limit at random widths
+K1Q_WIDTHS_BATCH = 100  # past K1Q_WIDE_BATCH: the cluster kernel where it tiles
+
+
+def err_to_first_flip(got, ref) -> tuple:
+    """The largest |logit difference| over each row's steps up to and at
+    its first differing token (every step of a row whose tokens agree), and
+    for each row whose tokens differ (row, step, the plain version's top-2
+    gap at that step)."""
+    diff = got.argmax(-1) != ref.argmax(-1)
+    upto = (diff.int().cumsum(-1) - diff.int()) == 0
+    err = torch.where(upto, (got - ref).abs().amax(-1), 0.0).max().item()
+    top2 = ref.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    flips = [(r, int(diff[r].int().argmax()), gap[r, int(diff[r].int().argmax())].item())
+             for r in diff.any(-1).nonzero().flatten().tolist()]
+    return err, flips
+
+
+def k1q_width_reading(fd, E, H, F, want) -> dict:
+    """K1q at one of K1Q_WIDTHS (seeded random tables, L=2, B=
+    K1Q_WIDTHS_BATCH, T=6, C=97) through the route its plan picks (which
+    must be ``want``, and whose counter must move), against its plain
+    version in f32 and bf16: per type the error up to each row's first
+    differing token, the share of [s]-pruned rows identical, the error over
+    whole rows and the flips (:func:`err_to_first_flip`)."""
+    counters = {"cluster": "launches_int8", "wide": "launches_int8_wide"}
+    Bw = K1Q_WIDTHS_BATCH
+    w, ck, cv = random_decoder(2, E, F, 97, 6, 8, Bw, seed=E + H + F)
+    wq, scales = fd.quantize_fused_weights(w)
+    route = fd.k1q_route(Bw, 2, E, H, F, 97, 6, 8, torch.bfloat16)
+    if route.kernel != want:
+        raise AssertionError(f"K1q at E={E}, H={H}, F={F}: route {route.kernel}, not {want}")
+    kw = dict(num_heads=H, steps=6, go_id=0, eps=1e-5, scales=scales)
+    r = dict(route=route)
+    for dt in (torch.float32, torch.bfloat16):
+        wd = fd.cast_weights(wq, dt)
+        ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
+        packed = fd.pack_cluster_tables_int8(wd, H) if want == "cluster" else None
+        before = getattr(fd.fused_greedy_decode_cuda, counters[want])
+        got = fd.fused_greedy_decode_cuda(wd, ckd, cvd, packed=packed, **kw)
+        ref = fd.fused_greedy_decode_plain(wd, ckd, cvd, **kw)
+        torch.cuda.synchronize()
+        if getattr(fd.fused_greedy_decode_cuda, counters[want]) != before + 1:
+            raise AssertionError(f"K1q at E={E}: the {want} kernel's counter did not move")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"K1q at E={E}, H={H}, F={F} ({dt}): non-finite logits")
+        err, flips = err_to_first_flip(got, ref)
+        r[dt] = dict(err=err, rows=pruned_agreement(got.argmax(-1), ref.argmax(-1)),
+                     err_all=(got - ref).abs().max().item(), flips=flips)
+    return r
+
+
+def k1q_widths_ok(r: dict) -> bool:
+    f32, bf16 = r[torch.float32], r[torch.bfloat16]
+    return (f32["err"] <= K1Q_WIDTHS_F32_TOL and f32["rows"] >= K1Q_WIDTHS_F32_ROWS
+            and bf16["rows"] >= K1Q_WIDTHS_BF16_ROWS)
+
+
+def k1q_width_line(r: dict) -> str:
+    def flips(x):
+        return ", ".join(f"row {i} step {t} top-2 gap {g:.4g}" for i, t, g in x["flips"][:4])
+
+    return "; ".join(
+        f"{str(dt)[6:]} max |logit diff| {r[dt]['err']:.3e} up to each row's first differing "
+        f"token ({r[dt]['err_all']:.3e} on whole rows), rows {r[dt]['rows']:.4f}"
+        + (f", {len(r[dt]['flips'])} rows differ ({flips(r[dt])})" if r[dt]["flips"] else "")
+        for dt in (torch.float32, torch.bfloat16))
+
+
+def check_k1q_widths(fd) -> dict:
+    """K1q at K1Q_WIDTHS through the route its plan picks, against its plain
+    version (:func:`k1q_width_reading`), held to K1Q_WIDTHS_F32_TOL and
+    K1Q_WIDTHS_F32_ROWS in f32 and K1Q_WIDTHS_BF16_ROWS in bf16."""
+    out = {}
+    for E, H, F, want in K1Q_WIDTHS:
+        r = k1q_width_reading(fd, E, H, F, want)
+        route = r["route"]
+        log(f"K1q at E={E}, H={H}, F={F} ({route.kernel} kernel"
+            + (f", clusters of {route.plan.G} CTAs" if route.plan else f": {route.why}")
+            + "): " + k1q_width_line(r))
+        if not k1q_widths_ok(r):
+            raise AssertionError(f"K1q at E={E}, H={H}, F={F} outside its limits: "
+                                 + k1q_width_line(r))
+        out[f"{E},{H},{F}"] = {"route": route.kernel, "f32_err": r[torch.float32]["err"],
+                               "f32_rows": r[torch.float32]["rows"],
+                               "f32_flips": r[torch.float32]["flips"],
+                               "bf16_err": r[torch.bfloat16]["err"],
+                               "bf16_rows": r[torch.bfloat16]["rows"]}
+    return out
+
+
+# batches at which check_k1q times K1q on both of its kernels (the route
+# takes the one-row-a-CTA kernel up to K1Q_WIDE_BATCH rows)
+K1Q_SWEEP = (1, 8, 64, 96, 128, 192)
+
+
+def k1q_sweep(fd, dec, ck, cv) -> dict:
+    """K1q bf16 ms on both kernels, whatever the route would pick, at each
+    batch of K1Q_SWEEP (the first rows of ``ck``, ``cv``), at full length
+    and with early stop: the measurement behind K1Q_WIDE_BATCH."""
+    bf16 = torch.bfloat16
+    wq, scales = dec.fused_weights(bf16, int8=True)
+    packed = dec.cluster_tables(bf16, int8=True)
+    T, H = dec.max_text_length, dec.num_heads
+    L, _, Tm, E = ck.shape
+    F, C = wq.ff1_w.shape[2], wq.head_w.shape[1]
+    wide_fn = fd.launcher("fused_decode", "fused_decode_int8")
+    kw = dict(num_heads=H, steps=T, go_id=0, eps=1e-5, scales=scales)
+
+    def wide(k, v, eos):  # the one-row-a-CTA kernel, launched directly
+        B = k.shape[1]
+        kc = torch.zeros(L, B, T, E, dtype=bf16, device=k.device)
+        out = fd._logits_buffer(B, T, C, eos, k.device)
+        fd.launch(wide_fn, wq, k, v, (kc, torch.zeros_like(kc), out) + tuple(scales),
+                  (B, T, L, E, F, C, H, Tm, 0, -1 if eos is None else eos), num_heads=H,
+                  eps=1e-5, what="K1q sweep")
+        return out
+
+    def cluster(k, v, eos):  # the cluster kernel, launched directly
+        B = k.shape[1]
+        plan = fd.cluster_plan(B, L, E, H, F, C, T, Tm, bf16, int8=True)
+        kc = torch.zeros(L, B, T, E, dtype=bf16, device=k.device)
+        out = fd._logits_buffer(B, T, C, eos, k.device)
+        fd.launch(fd.launcher("fused_decode_cluster", "fused_decode_cluster_int8"), wq, k, v,
+                  (kc, torch.zeros_like(kc), out, packed, None) + tuple(scales),
+                  (B, T, L, E, F, C, H, Tm, 0, -1 if eos is None else eos, plan.smem, plan.G),
+                  num_heads=H, eps=1e-5, what="K1q sweep")
+        return out
+
+    out = {}
+    for B in K1Q_SWEEP:
+        k, v = (t[:, :B].to(bf16).contiguous() for t in (ck, cv))
+        for eos in (None, 1):
+            ref = fd.fused_greedy_decode_plain(wq, k, v, eos_id=eos, **kw)
+            for name, fn in (("cluster", cluster), ("one row a CTA", wide)):
+                got = fn(k, v, eos)
+                torch.cuda.synchronize()
+                if pruned_agreement(got.argmax(-1), ref.argmax(-1)) < K1Q_BF16_AGREE:
+                    raise AssertionError(f"K1q sweep: the {name} kernel at B={B} parts from the "
+                                         f"plain version")
+                out[B, eos is not None, name] = cuda_ms(lambda: fn(k, v, eos), 10)
+    log("K1q bf16 ms by batch, cluster / one row a CTA (full length; early stop): " + "; ".join(
+        f"B={B} {out[B, False, 'cluster']:.3f} / {out[B, False, 'one row a CTA']:.3f} "
+        f"({out[B, True, 'cluster']:.3f} / {out[B, True, 'one row a CTA']:.3f})"
+        for B in K1Q_SWEEP) + f"; the route takes the one-row-a-CTA kernel up to "
+        f"{fd.K1Q_WIDE_BATCH} rows")
+    return {f"{B},{'early_stop' if es else 'full'},{name}": ms
+            for (B, es, name), ms in out.items()}
+
+
 def check_k1q(fd, model_q, image, step, k1: dict, k1e: dict):
     """K1q against its plain version at full width on the trained decoder's
     int8 tables and the cross K/V that the served int8 step (``step``: its
-    rectify and features stages) makes from the B=192 crops; then its time
-    with early stop and at full length beside K1's, the plain version's,
-    and the bound."""
+    rectify and features stages) makes from the B=192 crops; two launches
+    bit-equal; the same at the served bucket of K1Q_WIDE_BUCKET rows, which
+    the route sends to the wide-row kernel; then its plan, times with early
+    stop, at full length and at B=1 beside K1's, cycles by phase, the plain
+    version's time and the bound; then K1q at K1Q_WIDTHS."""
     dec = model_q.decoder
     with torch.no_grad():
         enc = model_q.encoder(step.features(step.rectify(image)))
@@ -1211,14 +1460,44 @@ def check_k1q(fd, model_q, image, step, k1: dict, k1e: dict):
     if not k1q_bf16_ok(res):
         raise AssertionError(f"K1q bf16 outside its limits (logits {K1Q_BF16_LOGIT_TOL}, rows "
                              f"{K1Q_BF16_AGREE}): " + k1q_line(res))
+    wide = k1q_results(fd, dec, ck, cv, batch=K1Q_WIDE_BUCKET)
+    log(f"K1q vs plain at the served bucket B={K1Q_WIDE_BUCKET} (all {ck.shape[1]} rows, "
+        f"{wide[torch.float32, False]['kernel']} kernel): " + k1q_line(wide))
+    if {r["kernel"] for r in wide.values()} != {"wide"}:
+        raise AssertionError(f"K1q at B={K1Q_WIDE_BUCKET} did not take the wide-row kernel")
+    if not (k1q_f32_ok(wide) and k1q_bf16_ok(wide)):
+        raise AssertionError(f"K1q at B={K1Q_WIDE_BUCKET} outside its limits: " + k1q_line(wide))
 
     dt = torch.bfloat16
     wq, scales = dec.fused_weights(dt, int8=True)
     ckd, cvd = ck.to(dt).contiguous(), cv.to(dt).contiguous()
-    kw = dict(num_heads=dec.num_heads, steps=dec.max_text_length, go_id=0, eps=1e-5,
-              scales=scales)
-    ms = cuda_ms(lambda: fd.fused_greedy_decode_cuda(wq, ckd, cvd, eos_id=1, **kw), 10)
-    ms_full = cuda_ms(lambda: fd.fused_greedy_decode_cuda(wq, ckd, cvd, **kw), 10)
+    T, H = dec.max_text_length, dec.num_heads
+    kw = dict(num_heads=H, steps=T, go_id=0, eps=1e-5, scales=scales)
+    packed = dec.cluster_tables(dt, int8=True)
+    first, again = (fd.fused_greedy_decode_cuda(wq, ckd, cvd, packed=packed, **kw)
+                    for _ in range(2))
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError("K1q bf16: two launches on the same input differ")
+    L, _, Tm, E = ckd.shape
+    F, C = wq.ff1_w.shape[2], wq.head_w.shape[1]
+    route = fd.k1q_route(B, L, E, H, F, C, T, Tm, dt)
+    if route.kernel != "cluster":
+        raise AssertionError(f"K1q at the flagship takes the {route.kernel} kernel")
+    plan = route.plan
+    log(f"K1q bf16 launch: G={plan.G} CTAs a cluster, R={plan.R} rows a cluster, "
+        f"{plan.clusters} clusters ({plan.ctas} CTAs), {plan.smem} B shared memory a CTA; "
+        f"weight units read from L2 {plan.cta_step_bytes / 1e6:.3f} MB a CTA a step, "
+        f"{plan.call_bytes(T) / 1e9:.3f} GB a full-length call")
+    times = k1q_times(fd, dec, ck, cv)
+    ms, ms_full, ms_b1 = times["early_stop"], times["full"], times["b1"]
+    b1_route = fd.k1q_route(1, L, E, H, F, C, T, Tm, dt).kernel
+    prof = torch.zeros(len(fd.INT8_CLUSTER_PHASES), dtype=torch.int64, device=ckd.device)
+    fd.fused_greedy_decode_cuda(wq, ckd, cvd, packed=packed, profile=prof, **kw)
+    cycles = prof.tolist()
+    shares = {p: c / sum(cycles) for p, c in zip(fd.INT8_CLUSTER_PHASES, cycles)}
+    log(f"K1q bf16 B=192: {sum(cycles)} cycles of CTA 0's first thread, by phase "
+        + ", ".join(f"{p} {v:.3f}" for p, v in shares.items()))
     plain_ms = cuda_ms(lambda: fd.fused_greedy_decode_plain(wq, ckd, cvd, eos_id=1, **kw), 2)
     steps = res[dt, True]["steps"]
     out_bytes = B * dec.max_text_length * wq.head_w.shape[1] * 4
@@ -1228,19 +1507,32 @@ def check_k1q(fd, model_q, image, step, k1: dict, k1e: dict):
     bound_full, bound_by_full = k1q_cost(wq, scales, ckd, full, 2, out_bytes)[:2]
     log(f"K1q bf16: {ms:.3f} ms with early stop (steps per row mean "
         f"{steps.float().mean().item():.2f}, max {steps.max().item()}), {ms_full:.3f} ms at full "
-        f"length; K1 (float tables, same run) {k1['ms']:.3f} ms at full length, K1e "
+        f"length, {ms_b1:.3f} ms at B=1 ({b1_route} kernel); two launches bit-identical; K1 "
+        f"(float tables, same "
+        f"run) {k1['ms']:.3f} ms at full length, K1e "
         f"{k1e['ms']:.3f} ms with early stop; plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
         f"({bound_by}; {int8_ops / 1e9:.1f} G int8 ops, {float_ops / 1e9:.1f} GFLOP, "
         f"{nbytes / 1e6:.2f} MB), {bound_full:.4f} ms at full length ({bound_by_full})")
     r32 = [res[torch.float32, es] for es in (False, True)]
     r16 = [res[dt, es] for es in (False, True)]
+    widths = check_k1q_widths(fd)
+    sweep = k1q_sweep(fd, dec, ck, cv)
     k1q = dict(name="fused_decode_int8", route="cuda",
-               source="multimodal_scene_text_recognition_tpu_torch/kernels/fused_decode.cu",
+               source="multimodal_scene_text_recognition_tpu_torch/kernels/fused_decode_cluster.cu",
+               wide_row_source="multimodal_scene_text_recognition_tpu_torch/kernels/fused_decode.cu",
                replaces="multimodal_scene_text_recognition_tpu/ops/fused_decode.py:239",
                jax="ops/fused_decode.py::_decode_kernel, quantized=True",
                max_abs_err=max(r["err"] for r in r32), max_abs_err_bf16=max(r["err"] for r in r16),
                rows_identical_f32=min(r["agree"] for r in r32),
-               rows_identical_bf16=min(r["agree"] for r in r16), ms=ms, ms_full_length=ms_full,
+               rows_identical_bf16=min(r["agree"] for r in r16),
+               wide_bucket=K1Q_WIDE_BUCKET,
+               wide_max_abs_err=max(wide[torch.float32, es]["err"] for es in (False, True)),
+               wide_max_abs_err_bf16=max(wide[dt, es]["err"] for es in (False, True)),
+               wide_rows_identical_bf16=min(wide[dt, es]["agree"] for es in (False, True)),
+               ms=ms, ms_full_length=ms_full,
+               ms_b1=ms_b1, b1_kernel=b1_route, wide_row_max_batch=fd.K1Q_WIDE_BATCH,
+               phase_shares=shares, clusters=plan.clusters, cluster_ctas=plan.G,
+               l2_weight_bytes_full_length=plan.call_bytes(T), widths=widths, batch_ms=sweep,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                bound_ms_full_length=bound_full, bound_by_full_length=bound_by_full,
                library_ms=None, mean_steps=steps.float().mean().item(),
@@ -1249,15 +1541,39 @@ def check_k1q(fd, model_q, image, step, k1: dict, k1e: dict):
     return k1q, (dec, ck, cv)
 
 
+# the width at which --mutants reads each K1q kernel's faults beside the
+# sound kernel, at K1Q_WIDTHS' limits: a padded cluster width (sixteen
+# heads of 16) and the wide-row kernel's E=640
+K1Q_MUTANT_WIDTHS = {K1_SOURCE: (256, 16, 2048, "cluster"),
+                     K1Q_WIDE_SOURCE: (640, 8, 1024, "wide")}
+
+
 def check_k1q_mutants(fd, build, dec, ck, cv):
-    """K1q's limits against broken copies of it (K1Q_MUTANTS), each held
-    against the plain version as the kernel is, in bf16 and in f32."""
-    with mutant_libraries(build, "fused_decode", K1Q_MUTANTS) as paths:
-        for (name, _, _), path in zip(K1Q_MUTANTS, paths):
-            with loaded_as(build, "fused_decode", path):
-                res = k1q_results(fd, dec, ck, cv)
-            log(f"K1q mutant {name}: {k1q_line(res)}; caught by the bf16 limits "
-                f"{not k1q_bf16_ok(res)}, by the f32 limits {not k1q_f32_ok(res)}")
+    """K1q's limits against broken copies of its two kernels: K1Q_MUTANTS
+    of the cluster kernel, held on all rows at once, and K1Q_WIDE_MUTANTS
+    of the wide-row kernel, held a served bucket of K1Q_WIDE_BUCKET rows at
+    a time, each against the plain version as the kernel is, in bf16 and in
+    f32; raises if the limits miss one.  Each is also read at its kernel's
+    width of K1Q_MUTANT_WIDTHS against K1Q_WIDTHS' limits (printed, not
+    required)."""
+    missed = []
+    for source, mutants, batch in ((K1_SOURCE, K1Q_MUTANTS, None),
+                                   (K1Q_WIDE_SOURCE, K1Q_WIDE_MUTANTS, K1Q_WIDE_BUCKET)):
+        E, H, F, want = K1Q_MUTANT_WIDTHS[source]
+        with mutant_libraries(build, source, mutants) as paths:
+            for (name, _, _), path in zip(mutants, paths):
+                with loaded_as(build, source, path):
+                    res = k1q_results(fd, dec, ck, cv, batch=batch)
+                    wr = k1q_width_reading(fd, E, H, F, want)
+                caught = not (k1q_bf16_ok(res) and k1q_f32_ok(res))
+                log(f"K1q mutant of {source}.cu, {name}: {k1q_line(res)}; caught by the bf16 "
+                    f"limits {not k1q_bf16_ok(res)}, by the f32 limits {not k1q_f32_ok(res)}; "
+                    f"at E={E}, H={H}, F={F}: {k1q_width_line(wr)}; caught by the widths' "
+                    f"limits {not k1q_widths_ok(wr)}")
+                if not caught:
+                    missed.append(f"{source}.cu: {name}")
+    if missed:
+        raise AssertionError(f"K1q's limits missed the mutants {missed}")
 
 
 def int8_phase(api, fd, fb, gs, build, crops, texts, btexts, k1, k1e, mutants: bool):
@@ -1276,22 +1592,40 @@ def int8_phase(api, fd, fb, gs, build, crops, texts, btexts, k1, k1e, mutants: b
     if rec_q.int8_scales_path != SCALES or rec_q._int8_absmax is None:
         raise AssertionError(f"the int8 recognizer did not load {SCALES}")
     fd.fused_greedy_decode_cuda.launches = fd.fused_greedy_decode_cuda.launches_int8 = 0
+    fd.fused_greedy_decode_cuda.launches_int8_wide = 0
     gs.grid_sample_cuda.launches = 0
     texts_q = rec_q.recognize(crops)
     launches = {"fused_decode_int8": fd.fused_greedy_decode_cuda.launches_int8,
                 "grid_sample": gs.grid_sample_cuda.launches,
-                "fused_decode (float)": fd.fused_greedy_decode_cuda.launches}
+                "fused_decode (float)": fd.fused_greedy_decode_cuda.launches,
+                "fused_decode_int8 (wide rows)": fd.fused_greedy_decode_cuda.launches_int8_wide}
     log(f"served {len(texts_q)} crops in int8 mode; kernel launches {launches}; "
         f"e.g. {texts_q[:4]}")
     if launches["fused_decode_int8"] < 1 or launches["grid_sample"] < 1:
         raise AssertionError(f"the int8 served path did not launch K1q and K2: {launches}")
-    if launches["fused_decode (float)"] != 0:
-        raise AssertionError("the int8 served path launched the float decode kernel")
+    if launches["fused_decode (float)"] != 0 or launches["fused_decode_int8 (wide rows)"] != 0:
+        raise AssertionError(f"the int8 served path launched another decode kernel: {launches}")
     if len(texts_q) != B or not any(texts_q):
         raise AssertionError("the int8 recognizer returned no strings")
+    # a request of K1Q_WIDE_BUCKET crops, a served bucket the route sends to
+    # the wide-row kernel
+    small = crops[:K1Q_WIDE_BUCKET]
+    fd.fused_greedy_decode_cuda.launches_int8 = fd.fused_greedy_decode_cuda.launches_int8_wide = 0
+    texts_s = rec_q.recognize(small)
+    launches_s = {"fused_decode_int8": fd.fused_greedy_decode_cuda.launches_int8,
+                  "fused_decode_int8 (wide rows)": fd.fused_greedy_decode_cuda.launches_int8_wide}
     model_q.set_use_kernels(False)
+    plain_s = rec_q.recognize(small)
     plain_q = rec_q.recognize(crops)
     model_q.set_use_kernels(True)
+    agree_s = sum(a == b for a, b in zip(texts_s, plain_s)) / len(small)
+    log(f"served {len(small)} crops in int8 mode: K1q launches {launches_s}; strings, kernels "
+        f"vs plain versions, {agree_s:.4f} identical (limit 0.98)")
+    if launches_s != {"fused_decode_int8": 0, "fused_decode_int8 (wide rows)": 1}:
+        raise AssertionError(f"the int8 call of {len(small)} crops did not take the wide-row "
+                             f"kernel once: {launches_s}")
+    if not agree_s >= 0.98:
+        raise AssertionError(f"int8 end-to-end agreement at {len(small)} crops {agree_s} < 0.98")
     agree_q = sum(a == b for a, b in zip(texts_q, plain_q)) / B
     vs_bf16 = sum(a == b for a, b in zip(texts_q, texts)) / B
     log(f"int8 strings, kernels vs plain versions: {agree_q:.4f} identical (limit 0.98); "
@@ -1330,6 +1664,7 @@ def int8_phase(api, fd, fb, gs, build, crops, texts, btexts, k1, k1e, mutants: b
     step_q = rec_q._int8_steps[None]  # the greedy step the served calls ran
     k1q, (dec, ck, cv) = check_k1q(fd, model_q, image, step_q, k1, k1e)
     k1q["launches"] = launches["fused_decode_int8"]
+    k1q["launches_wide_bucket"] = launches_s["fused_decode_int8 (wide rows)"]
     if mutants:
         phase("K1q mutants")
         check_k1q_mutants(fd, build, dec, ck, cv)
@@ -1516,7 +1851,6 @@ def greedy_vs_plain(fd, dec, ck, cv, dt, early_stop: bool, cls0) -> dict:
 # K1's bf16 roundings dropped (the ReLU outputs': rounded toward zero) one
 # at a time, for --mutants: (name, text in K1_SOURCE.cu or the shared
 # headers, replacement); they set the limit of K1 with a random cls0
-K1_SOURCE = "fused_decode_cluster"
 K1_MUTANTS = (
     ("probabilities", "pr[s] = Num<T>::round(pr[s] / sum);", "pr[s] = pr[s] / sum;"),
     ("q*K products",
@@ -1616,10 +1950,12 @@ def check_cls0_kernels(fd, fb, build, dec, ck, cv, mutants: bool) -> tuple:
                             f"{CLS0_BF16_LOGIT_TOL} and 0.99 in bf16)")
     if mutants:
         check_k1_cls0_mutants(fd, build, dec, ck, cv, cls0)
-    q = k1q_results(fd, dec, ck, cv, cls0=cls0)
-    log("K1q with cls0 vs plain: " + k1q_line(q))
-    if not (k1q_f32_ok(q) and k1q_bf16_ok(q)):
-        failures.append("K1q with cls0 outside K1q's limits: " + k1q_line(q))
+    for batch in (None, K1Q_WIDE_BUCKET):
+        q = k1q_results(fd, dec, ck, cv, cls0=cls0, batch=batch)
+        where = f"{q[f32, False]['kernel']} kernel" + (f", B={batch}" if batch else "")
+        log(f"K1q with cls0 vs plain ({where}): " + k1q_line(q))
+        if not (k1q_f32_ok(q) and k1q_bf16_ok(q)):
+            failures.append(f"K1q with cls0 ({where}) outside K1q's limits: " + k1q_line(q))
     b = {(dt, es): beam_vs_plain(fb, dec, ck, cv, dt, es, cls0)
          for dt in (f32, bf16) for es in (False, True)}
     for (dt, es), r in b.items():
@@ -1631,7 +1967,7 @@ def check_cls0_kernels(fd, fb, build, dec, ck, cv, mutants: bool) -> tuple:
 
     # times in bf16, each with cls0 beside the same launch without it
     wd, (wq, scales) = dec.fused_weights(bf16), dec.fused_weights(bf16, int8=True)
-    packed = dec.cluster_tables(bf16)
+    packed, packed_q = dec.cluster_tables(bf16), dec.cluster_tables(bf16, int8=True)
     ckd, cvd = ck.to(bf16).contiguous(), cv.to(bf16).contiguous()
     kw = dict(num_heads=H, steps=T, go_id=0, eps=1e-5)
     bkw = dict(beam_size=BEAM, num_heads=H, steps=T, go_id=0, eos_id=1, eps=1e-5)
@@ -1639,9 +1975,11 @@ def check_cls0_kernels(fd, fb, build, dec, ck, cv, mutants: bool) -> tuple:
         "K1": lambda c: fd.fused_greedy_decode_cuda(wd, ckd, cvd, cls0=c, packed=packed, **kw),
         "K1e": lambda c: fd.fused_greedy_decode_cuda(wd, ckd, cvd, eos_id=1, cls0=c,
                                                      packed=packed, **kw),
-        "K1q": lambda c: fd.fused_greedy_decode_cuda(wq, ckd, cvd, scales=scales, cls0=c, **kw),
+        "K1q": lambda c: fd.fused_greedy_decode_cuda(wq, ckd, cvd, scales=scales, cls0=c,
+                                                     packed=packed_q, **kw),
         "K1q early stop": lambda c: fd.fused_greedy_decode_cuda(wq, ckd, cvd, eos_id=1,
-                                                                scales=scales, cls0=c, **kw),
+                                                                scales=scales, cls0=c,
+                                                                packed=packed_q, **kw),
         "K4": lambda c: fb.fused_beam_decode_cuda(wd, ckd, cvd, cls0=c, **bkw),
         "K4 early stop": lambda c: fb.fused_beam_decode_cuda(wd, ckd, cvd, early_stop=True,
                                                              cls0=c, **bkw)}

@@ -3,8 +3,11 @@
 //
 // Replaces the TPU kernel multimodal_scene_text_recognition_tpu/ops/
 // fused_decode.py::_decode_kernel with quantized=True (K1q,
-// fused_decode_int8), with its eos_id early stop and its cls0 step-0 row;
-// the float mode (K1) is fused_decode_cluster.cu.  For T steps it embeds
+// fused_decode_int8), with its eos_id early stop and its cls0 step-0 row,
+// where ops/fused_decode.k1q_route sends it: batches of at most 96 rows
+// (one CTA a row beats a 16-row cluster tile there on an H100) and rows
+// wider than the cluster kernel's 512; elsewhere K1q is the int8 mode of
+// fused_decode_cluster.cu, as K1 is its float mode.  For T steps it embeds
 // the previous token, runs L decoder layers (packed qkv -> self-attention
 // KV-cache write -> causal attention -> out-proj -> LN -> cross-q ->
 // attention over the precomputed memory K/V -> out-proj -> LN -> ReLU FF ->
@@ -51,9 +54,9 @@
 // takes the first index of the maximum.
 //
 // Bound: each CTA reads every int8 table of a step through __ldg (8.65 MB
-// at the flagship), so the kernel is bound in practice by L2 reads per SM,
-// as K1 was before its cluster design; the dp4a products are CUDA-core
-// work.  The cluster split and IMMA products are later work.
+// at the flagship), so the kernel is bound in practice by L2 reads per SM
+// once many rows run at once (from ~96 rows at the flagship); the dp4a
+// products are CUDA-core work.
 
 #include <stdint.h>
 

@@ -1,10 +1,13 @@
 // Whole greedy decode loop of the transformer decoder in one kernel, one
-// thread-block cluster per tile of batch rows (K1, float mode).
+// thread-block cluster per tile of batch rows (K1 in float mode, K1q in
+// int8 mode).
 //
 // Replaces the TPU kernel multimodal_scene_text_recognition_tpu/ops/
-// fused_decode.py::_decode_kernel in float mode, with its eos_id early stop
-// (K1e) and its cls0 step-0 row (K1-cls0); the quantized mode (K1q) is
-// fused_decode.cu.  For T steps it embeds the previous token, runs L
+// fused_decode.py::_decode_kernel in float mode and with quantized=True,
+// with its eos_id early stop (K1e) and its cls0 step-0 row (K1-cls0); in
+// int8 mode, batches of at most 96 rows and rows wider than this kernel's
+// exchange holds take fused_decode.cu (ops/fused_decode.k1q_route).  For T
+// steps it embeds the previous token, runs L
 // decoder layers (packed qkv -> self-attention KV-cache write -> causal
 // attention -> out-proj -> LN -> cross-q -> attention over the precomputed
 // memory K/V -> out-proj -> LN -> ReLU FF -> LN), the final LN and the class
@@ -98,6 +101,32 @@
 // emitted eos_id writes no further logits (the caller prefilled them with
 // the eos_id one-hot), and a cluster leaves its loop once every row of its
 // tile has stopped.
+//
+// Int8 mode (K1q, template flag Q).  The six projections run as the TPU
+// kernel's quantized `lin`: each quantizes its float32 input row as it
+// stands (not rounded to T: the residual stream, the attention contexts
+// and the ReLU output of ff1 stay unrounded) with the row's abs-max (scale
+// abs-max / 127, the IEEE quotient 127 / max(abs-max, 1e-12), rintf, half
+// to even, clipped to +-127), multiplies it by its int8 table on mma.sync
+// m16n8k32 s8 -> s32, exact, and dequantizes as acc * ((abs-max / 127) *
+// channel scale) + bias in that order, without contraction.  The units
+// (pack_cluster_tables_int8) are a 32-deep k-step of 16 output columns, so
+// the rows, head and FF slices are padded to multiples of 32; the class
+// head's units stay in T, as in float mode.  Where a row is whole in every
+// CTA (qkv, cross-q and ff1 read the normalised rows) its abs-max is
+// local: the layernorm that writes the row quantizes it.  The K-split
+// inputs (the attention context, the ReLU hidden) are split across the
+// cluster, so before each of those three projections every CTA sends the
+// maxima of its slice of the R rows to every CTA (counted stores on a third
+// mbarrier) and quantizes its slice once all G have arrived; max is exact
+// and order-free, so the G copies agree bit for bit.  The K-split partials
+// travel as int32, the owner sums them exactly and converts the total once
+// before it dequantizes, as the TPU kernel converts the whole int32 product.
+// Embedding, attention, layernorms and the class head are float mode's,
+// but for the order of the attention's sums over positions (the softmax's
+// denominator and the context), which int8 mode takes as the plain
+// version's PyTorch reduction does on the card (context_in_order): its int8
+// steps turn any other order's last-bit differences into visible ones.
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -135,18 +164,22 @@ struct Params {
   const T *ck, *cv;   // cross K/V [L, B, Tm, E]
   T *kc, *vc;         // self-attention caches [L, B, T, E]
   float* logits;      // [B, T, C]
-  const char* packed;  // weight units (pack_cluster_tables)
-  long long* prof;     // [15] cycles by phase, or null (see Marks)
+  const char* packed;  // weight units (pack_cluster_tables, pack_cluster_tables_int8)
+  long long* prof;     // [15] cycles by phase ([18] in int8 mode), or null (see Marks)
+  // int8 mode: the per-channel scales [L, N] of the six projections (qkv,
+  // out, cross-q, cross-out, ff1, ff2)
+  const float* qs[6];
   int B, steps, L, E, F, C, H, Tm, go_id;
   int eos_id;          // < 0: no early stop
   int G;               // CTAs a cluster (cluster_size)
   float eps, scale;    // layernorm epsilon, 1/sqrt(head_dim)
 };
 
-__device__ __host__ int pad16(int n) { return (n + 15) / 16 * 16; }
+// n rounded up to a multiple of k
+__device__ __host__ int padk(int n, int k) { return (n + k - 1) / k * k; }
 
 // CTAs a cluster: the largest divisor of H that is at most kMaxCluster and
-// divides Ep / 4 (Ep: the rows' width padded to a multiple of 16)
+// divides Ep / 4 (Ep: the rows' width padded to a multiple of the k-step)
 __host__ int cluster_size(int Ep, int H) {
   for (int g = kMaxCluster; g >= 1; --g)
     if (H % g == 0 && Ep % (4 * g) == 0) return g;
@@ -155,27 +188,33 @@ __host__ int cluster_size(int Ep, int H) {
 
 // The shapes every CTA derives from Params in the same way as the packer:
 // the [K, N] slice a CTA owns of each projection (its heads' columns and
-// its FF columns padded to multiples of 16, the head's N padded to Cp),
-// cut into items of kCols output columns; item i belongs to warp i %
-// kWarps, which reads its K / 16 units in k order.
-template <typename T>
+// its FF columns padded to multiples of the k-step, 16, or 32 in int8
+// mode; the head's N padded to Cp), cut into items of a unit's output
+// columns; item i belongs to warp i % kWarps, which reads its K / k-step
+// units in k order.  The class head's units are T's in either mode.
+template <typename T, bool Q>
 struct Geometry {
-  static constexpr int kCols = sizeof(T) == 2 ? 16 : 8;  // output columns of a unit
-  int Ep, Hc, hd, hdp, W, Fg, Fgp, Cp, lda, ldb, S;
+  static constexpr int kCols = sizeof(T) == 2 ? 16 : 8;  // output columns of a unit in T
+  static constexpr int kColsP = Q ? 16 : kCols;  // ... of a unit of the six projections
+  static constexpr int kStep = Q ? 32 : 16;      // their k-step, and the widths' padding
+  int Ep, Hc, hd, hdp, W, Fg, Fgp, Cp, lda, ldb, lda8, ldb8, ldf, S;
   int K[kProj], N[kProj];
   int layer_units;  // units of a CTA's layer (all its warps)
 
   __device__ __host__ Geometry(const Params<T>& p) {
-    Ep = pad16(p.E);            // the rows' width, padded
+    Ep = padk(p.E, kStep);      // the rows' width, padded
     Hc = p.H / p.G;             // heads a CTA
     hd = p.E / p.H;             // a head's true width
-    hdp = pad16(hd);            // ... padded
+    hdp = padk(hd, kStep);      // ... padded
     W = Hc * hdp;               // a CTA's padded head columns of q (or k, or v)
     Fg = (p.F + p.G - 1) / p.G;  // FF columns a CTA (the last may own fewer)
-    Fgp = pad16(Fg);
+    Fgp = padk(Fg, kStep);
     Cp = (p.C + kWarps * kCols - 1) / (kWarps * kCols) * (kWarps * kCols);
     lda = Ep + 8;
     ldb = (W > Fgp ? W : Fgp) + 8;
+    lda8 = Ep + 16;  // bytes: the 8 row groups of a fragment load in distinct banks
+    ldf = W > Fgp ? W : Fgp;
+    ldb8 = ldf + 16;
     S = p.steps > p.Tm ? p.steps : p.Tm;
     const int k[kProj] = {Ep, W, Ep, W, Ep, Fgp, Ep};
     const int n[kProj] = {3 * W, Ep, W, Ep, Fgp, Ep, Cp};
@@ -183,7 +222,7 @@ struct Geometry {
     for (int i = 0; i < kProj; ++i) {
       K[i] = k[i];
       N[i] = n[i];
-      if (i < kProj - 1) layer_units += N[i] / kCols * (K[i] / 16);
+      if (i < kProj - 1) layer_units += N[i] / kColsP * (K[i] / kStep);
     }
   }
 
@@ -191,10 +230,24 @@ struct Geometry {
   __device__ __host__ int units(int w, int p0, int p1) const {
     int u = 0;
     for (int i = p0; i < p1; ++i) {
-      const int items = N[i] / kCols;
-      u += (items / kWarps + (w < items % kWarps)) * (K[i] / 16);
+      const bool head = i == kProj - 1;
+      const int items = N[i] / (head ? kCols : kColsP);
+      u += (items / kWarps + (w < items % kWarps)) * (K[i] / (head ? 16 : kStep));
     }
     return u;
+  }
+
+  // bytes of the A operand of the E-wide inputs: in T (float mode, and the
+  // class head's in int8 mode) and int8, in one region
+  __device__ __host__ size_t a_bytes(int R) const {
+    const size_t t = sizeof(T) * (size_t)R * lda;
+    return Q && (size_t)R * lda8 > t ? (size_t)R * lda8 : t;
+  }
+
+  // bytes of the K-split inputs: their A operand in T, or in int8 mode in
+  // int8 [R][ldb8] after the float32 rows [R][ldf] it is quantized from
+  __device__ __host__ size_t b_bytes(int R) const {
+    return Q ? (size_t)R * ldb8 + 4 * (size_t)R * ldf : sizeof(T) * (size_t)R * ldb;
   }
 
   // float32 elements of the scratch that holds the attention's chunk sums
@@ -205,13 +258,15 @@ struct Geometry {
   }
 
   // bytes of shared memory: the weight ring, then the float32 residual
-  // rows, the two A operands in T, the N-split outputs, the exchange's
+  // rows, the two A operands, the N-split outputs, the exchange's
   // receive and gather buffers, the scratch, the attention scores and the
-  // token flags
+  // token flags; in int8 mode then the abs-max exchange's buffer
+  // [kMaxCluster][R] and the rows' scales (abs-max / 127) of the N-split
+  // and the K-split inputs
   __device__ __host__ size_t smem_bytes(int R, int D) const {
-    return (size_t)kWarps * D * kUnit + 4 * (size_t)R * Ep + sizeof(T) * (size_t)R * (lda + ldb) +
+    return (size_t)kWarps * D * kUnit + 4 * (size_t)R * Ep + a_bytes(R) + b_bytes(R) +
            4 * (size_t)R * 3 * W + 8 * (size_t)R * Ep + 4 * (size_t)red_floats(R) +
-           4 * (size_t)R * S + 8 * (size_t)R;
+           4 * (size_t)R * S + 8 * (size_t)R + (Q ? 4 * (size_t)R * (kMaxCluster + 2) : 0);
   }
 };
 
@@ -308,14 +363,16 @@ __device__ void wait_phase(uint32_t bar, uint32_t parity) {
         " selp.u32 %0, 1, 0, p;\n}" : "=r"(done) : "r"(bar), "r"(parity) : "memory");
 }
 
-// The accumulator of one item: R rows by one unit's columns.
+// The accumulator of one item: R rows by one unit's columns (kCols), its
+// A operand of type In, kK deep a unit.
 template <typename T, int R>
 struct Frag;
 
 // bf16: mma.sync m16n8k16, R / 16 row tiles by two 8-column tiles
 template <int R>
 struct Frag<__nv_bfloat16, R> {
-  static constexpr int kMT = R / 16;
+  using In = __nv_bfloat16;
+  static constexpr int kMT = R / 16, kK = 16, kCols = 16;
   float c[kMT][2][4];
 
   __device__ void zero() {
@@ -383,6 +440,8 @@ struct Frag<__nv_bfloat16, R> {
 // of each 16-deep step of column g for all R rows
 template <int R>
 struct Frag<float, R> {
+  using In = float;
+  static constexpr int kK = 16, kCols = 8;
   float c[R];
 
   __device__ void zero() {
@@ -436,11 +495,123 @@ struct Frag<float, R> {
   }
 };
 
+// int8 (K1q's six projections): mma.sync m16n8k32 s8 -> s32, R / 16 row
+// tiles by two 8-column tiles; the A fragments are bf16's with four k-values
+// a word (mma.cuh), the unit's lane (g, q) holds k 4q..4q+3 and 16+4q..
+// 16+4q+3 of columns g and 8 + g.  Integer sums are exact, so the tensor
+// cores accumulate in place.
+template <int R>
+struct FragQ {
+  using In = int8_t;
+  static constexpr int kMT = R / 16, kK = 32, kCols = 16;
+  int c[kMT][2][4];
+
+  __device__ void zero() {
+#pragma unroll
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) c[m][n][i] = 0;
+  }
+
+  struct AFrag {
+    uint32_t v[kMT][4];
+  };
+  __device__ static AFrag load_a(const int8_t* A, int lda, int k0, int lane) {
+    const int g = lane >> 2, q = lane & 3;
+    AFrag f;
+#pragma unroll
+    for (int m = 0; m < kMT; ++m) {
+      const int8_t* a = A + (m * 16 + g) * lda + k0 + 4 * q;
+      f.v[m][0] = word(a);
+      f.v[m][1] = word(a + 8 * lda);
+      f.v[m][2] = word(a + 16);
+      f.v[m][3] = word(a + 8 * lda + 16);
+    }
+    return f;
+  }
+
+  __device__ void mac(const AFrag& af, uint4 w) {
+    const uint32_t b0[2] = {w.x, w.y}, b1[2] = {w.z, w.w};
+#pragma unroll
+    for (int m = 0; m < kMT; ++m) {
+      mma(c[m][0], af.v[m], b0);
+      mma(c[m][1], af.v[m], b1);
+    }
+  }
+
+  __device__ void finish() {}
+
+  template <typename Fn>
+  __device__ void each(int lane, Fn f) const {
+    const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          f(m * 16 + g + (i >> 1) * 8, n * 8 + 2 * q + (i & 1), c[m][n][i]);
+  }
+};
+
+// -- int8 mode's quantization (the TPU kernel's quantized `lin`) --
+
+// The float32 value K1q quantizes: as it stands (not rounded to T).
+template <typename T>
+__device__ float quant_input(float v) {
+  return v;
+}
+
+// 127 / max(abs-max, 1e-12), the IEEE quotient
+__device__ float inv_scale(float ax) { return __fdiv_rn(127.0f, fmaxf(ax, 1e-12f)); }
+
+// clamp(rint(v * inv), -127, 127), half to even
+template <typename T>
+__device__ int8_t quant8(float v, float inv) {
+  const float q = rintf(__fmul_rn(quant_input<T>(v), inv));
+  return (int8_t)fminf(fmaxf(q, -127.0f), 127.0f);
+}
+
+// acc * (xscale * s) + b in float32, in that order and without contraction
+// (xscale: the row's abs-max / 127)
+template <typename T>
+__device__ float dequant(int acc, float xscale, float s, const T* b, int j) {
+  return __fadd_rn(__fmul_rn(__int2float_rn(acc), __fmul_rn(xscale, s)), Num<T>::load(b + j));
+}
+
+// max |row[k]| over k < K, by the calling warp (every lane gets it)
+template <typename T>
+__device__ float row_absmax(const float* row, int K) {
+  float m = 0.0f;
+  for (int k = threadIdx.x & 31; k < K; k += 32) m = fmaxf(m, fabsf(quant_input<T>(row[k])));
+  return warp_max(m);
+}
+
+// dst[k] = quant8(row[k]) for k < K (a multiple of 4) with the row's
+// abs-max ax, by the calling warp, four values a lane; returns ax / 127
+template <typename T>
+__device__ float quantize_row(const float* row, int K, float ax, int8_t* dst) {
+  const float inv = inv_scale(ax);
+  for (int k = 4 * (threadIdx.x & 31); k < K; k += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(row + k);
+    *reinterpret_cast<char4*>(dst + k) =
+        make_char4(quant8<T>(v.x, inv), quant8<T>(v.y, inv), quant8<T>(v.z, inv),
+                   quant8<T>(v.w, inv));
+  }
+  return __fdiv_rn(ax, 127.0f);
+}
+
 // How a projection leaves its output.
 enum Store {
   kBias = 0,       // float32 out[r][n] = acc + bias
   kReluRoundT = 1, // T out[r][n] = round_T(relu(acc + bias)): the FF hidden
   kPartial = 2,    // a K-split partial sum, to the owner of column n (see exchange_ln)
+  // int8 mode (int32 acc, dequantized with the row's scale and the column's)
+  kQBias = 3,      // float32 out[r][n] = dequant(acc)
+  kQRelu = 4,      // float32 out[r][n] = relu(dequant(acc)): the FF hidden, unrounded
+  kQPartial = 5,   // an int32 K-split partial sum, to the owner of column n
 };
 
 // The output columns of a CTA's slice are segments of segp columns, of
@@ -451,46 +622,54 @@ enum Store {
 // hidden's is stored as 0 (the next product reads it).  A K-split partial
 // (kPartial) goes to CTA s (segp = E / G columns each), row off + r of its
 // receive buffer [G * R][segp], its bytes counted on that CTA's receive
-// mbarrier `bar`.
+// mbarrier `bar`.  In int8 mode the column's scale is at s[the bias's
+// index] and row r's (abs-max / 127) at xscale[r].
 struct Cols {
   int segp, segw, per, part_stride, seg_stride, off;
   uint32_t bar;  // kPartial: the owners' receive mbarrier (its address in every CTA)
+  const float* s;       // int8 mode: the per-channel scales of the layer
+  const float* xscale;  // int8 mode: the input rows' scales [R]
 };
 
-template <typename T, int MODE>
-__device__ void store(void* out, int ldo, int r, int n, float v, const T* bias, Cols cols) {
+template <typename T, int MODE, typename V>
+__device__ void store(void* out, int ldo, int r, int n, V v, const T* bias, Cols cols) {
   const int s = n / cols.segp, d = n - s * cols.segp;
   if (d >= cols.segw) {
     if (MODE == kReluRoundT) static_cast<T*>(out)[r * ldo + n] = Num<T>::from_f(0.0f);
+    if (MODE == kQRelu) static_cast<float*>(out)[r * ldo + n] = 0.0f;
     return;
   }
   const int bi = s / cols.per * cols.part_stride + s % cols.per * cols.seg_stride + cols.off + d;
-  if (MODE == kBias) {
+  if constexpr (MODE == kBias) {
     static_cast<float*>(out)[r * ldo + n] = epilogue<T, kPlain>(v, bias, bi);
-  } else if (MODE == kReluRoundT) {
+  } else if constexpr (MODE == kReluRoundT) {
     static_cast<T*>(out)[r * ldo + n] = Num<T>::from_f(epilogue<T, kReluRound>(v, bias, bi));
+  } else if constexpr (MODE == kQBias || MODE == kQRelu) {
+    const float y = dequant<T>(v, cols.xscale[r], __ldg(cols.s + bi), bias, bi);
+    static_cast<float*>(out)[r * ldo + n] = MODE == kQRelu ? fmaxf(y, 0.0f) : y;
   } else {  // into the receive buffer of the column's owner, at this CTA's slot
     const float* dst = static_cast<const float*>(out) + (cols.off + r) * cols.segp + d;
-    store_counted(remote(smem_u32(dst), s), v, remote(cols.bar, s));
+    float bits;  // an int32 partial travels as its bits
+    if constexpr (MODE == kQPartial) bits = __int_as_float(v); else bits = v;
+    store_counted(remote(smem_u32(dst), s), bits, remote(cols.bar, s));
   }
 }
 
-// One projection of the R rows A [R][lda] (T, the input already rounded)
-// by the CTA's slice [K][N] of a weight, read from the stream: output
-// column tiles of kCols (items); item i belongs to warp i % kWarps, which
-// sums its K in one chain of 16-deep steps, in k order, as the plain
-// version's product does.  A warp takes its items two at a time (i and i +
-// kWarps), their units interleaved by k-step, so that two independent
-// chains share each A fragment and overlap their latencies.  Not inlined:
-// one body serves the seven call sites of a step.
-template <typename T, int R, int D, int MODE>
-__device__ __noinline__ void project(Stream<D>* stream, const T* A, int lda, int K, int N,
-                                     const T* bias, Cols cols, void* out, int ldo) {
-  constexpr int kCols = Geometry<T>::kCols;
-  using F = Frag<T, R>;
+// One projection of the R rows A [R][lda] (the input already rounded to
+// T, or quantized to int8) by the CTA's slice [K][N] of a weight, read from
+// the stream: output column tiles of F::kCols (items); item i belongs to
+// warp i % kWarps, which sums its K in one chain of F::kK-deep steps, in k
+// order, as the plain version's product does.  A warp takes its items two
+// at a time (i and i + kWarps), their units interleaved by k-step, so that
+// two independent chains share each A fragment and overlap their
+// latencies.  Not inlined: one body serves the seven call sites of a step.
+template <typename T, typename F, int D, int MODE>
+__device__ __noinline__ void project(Stream<D>* stream, const typename F::In* A, int lda, int K,
+                                     int N, const T* bias, Cols cols, void* out, int ldo) {
+  constexpr int kCols = F::kCols;
   Stream<D> st = *stream;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int KS = K / 16, items = N / kCols;
+  const int KS = K / F::kK, items = N / kCols;
   for (int c0 = warp; c0 < items; c0 += 2 * kWarps) {
     const int c1 = c0 + kWarps;
     const bool pair = c1 < items;
@@ -498,7 +677,7 @@ __device__ __noinline__ void project(Stream<D>* stream, const T* A, int lda, int
     f0.zero();
     f1.zero();
     for (int k = 0; k < KS; ++k) {
-      const typename F::AFrag a = F::load_a(A, lda, k * 16, lane);
+      const typename F::AFrag a = F::load_a(A, lda, k * F::kK, lane);
       f0.mac(a, st.peek());
       st.next();
       if (pair) {
@@ -507,12 +686,12 @@ __device__ __noinline__ void project(Stream<D>* stream, const T* A, int lda, int
       }
     }
     f0.finish();
-    f0.each(lane, [&](int r, int j, float v) {
+    f0.each(lane, [&](int r, int j, auto v) {
       store<T, MODE>(out, ldo, r, c0 * kCols + j, v, bias, cols);
     });
     if (pair) {
       f1.finish();
-      f1.each(lane, [&](int r, int j, float v) {
+      f1.each(lane, [&](int r, int j, auto v) {
         store<T, MODE>(out, ldo, r, c1 * kCols + j, v, bias, cols);
       });
     }
@@ -539,11 +718,16 @@ __device__ float widen<__nv_bfloat16>(uint4 v, int i) {  // bf16 is the high hal
   return __uint_as_float(i & 1 ? u & 0xffff0000u : u << 16);
 }
 
+// *p = v in the type of p: rounded to bf16, or float32 as it stands
+__device__ void put(float* p, float v) { *p = v; }
+__device__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // Attention of head h for the R rows over `len` positions, each warp for
 // its RW = R / kWarps rows at once: q[r * ldq + d] (float32, rounded to T
 // here), K/V at kv + row * row_stride + s * ps (the head's columns; row =
-// r0 + r, clamped to the batch).  Writes the context, rounded to T, to
-// ctx[r * ldc + d], and zeros to its padding columns hd <= d < hdp.  A lane
+// r0 + r, clamped to the batch).  Writes the context to ctx[r * ldc + d]
+// (O: rounded to T, or float32 as summed for int8 mode), and zeros to its
+// padding columns hd <= d < hdp.  A lane
 // scores a position of each of the warp's rows (their keys' head slices in
 // 16-byte loads, all in flight at once), the softmax is a warp reduction,
 // and the context is summed over chunks of kChunk positions, a lane a (row,
@@ -552,10 +736,74 @@ __device__ float widen<__nv_bfloat16>(uint4 v, int i) {  // bf16 is the high hal
 // floats).  So a phase waits on L2 about twice; only its end synchronises
 // the block.  A head width that is not a whole number of 16-byte groups
 // takes the same steps a value at a time.
-template <typename T, int R>
+// The sum over positions s < len of round_T(pr[s] * V[s][c]) for the
+// context columns of a warp's RW rows, in the order the plain version's
+// PyTorch reduction over positions takes on the card: four interleaved
+// sums, position s added to sum s % 4 in order, then ((a0 + a1) + a2) + a3.
+// That is ATen/native/cuda/Reduce.cuh (torch 2.11-2.13): a sum over a
+// non-innermost axis splits the outputs across lanes (setReduceConfig),
+// and with fewer than 64 values an output (positions here: at most 26) it
+// does not split them across warps or CTAs, so one thread sums an output
+// in thread_reduce_impl with vt0 = 4 accumulators, gpu_reduce_kernel's
+// default.  Another torch, or more positions, may sum in another order.
+// Int8 mode sums so, because its int8 steps turn any other order's last-bit
+// differences into visible ones (PERF.md §6).  A lane takes one of the
+// four sums of a (row, 16 bytes of columns; one column where a head is not
+// a whole number of 16-byte groups), its loads kChunk at a time, and the
+// four lanes of an output meet by shuffles.  Writes ctx[r * ldc + d] for d
+// < hd and zeros to the padding columns hd <= d < hdp.
+template <typename T, int R, typename O>
+__device__ void context_in_order(const float* probs, int S, const T* const* vr, int ps, int hd,
+                                 int hdp, int len, O* ctx, int ldc) {
+  constexpr int VW = Vec<T>::kW, RW = R / kWarps;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool vec = hd % VW == 0;
+  const int cw = vec ? VW : 1, groups = hd / cw, items = RW * groups * 4;
+  for (int base = 0; base < items; base += 32) {  // every lane takes part in the shuffles
+    const int i = base + lane, k = i & 3, o = i >> 2;
+    const bool active = i < items;  // the four lanes of an output alike
+    const int w = active ? o / groups : 0, d = (o - w * groups) * cw;
+    const float* pr = probs + (warp + w * kWarps) * S;
+    float acc[VW];
+#pragma unroll
+    for (int i2 = 0; i2 < VW; ++i2) acc[i2] = 0.0f;
+    for (int s0 = k; active && s0 < len; s0 += 4 * kChunk) {
+      if (vec) {
+        uint4 vv[kChunk];
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j)
+          if (s0 + 4 * j < len) vv[j] = load16(vr[w] + (size_t)(s0 + 4 * j) * ps + d);
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j)
+          if (s0 + 4 * j < len)
+#pragma unroll
+            for (int i2 = 0; i2 < VW; ++i2)
+              acc[i2] += Num<T>::round(pr[s0 + 4 * j] * widen<T>(vv[j], i2));
+      } else {
+        for (int j = 0; j < kChunk && s0 + 4 * j < len; ++j)
+          acc[0] += Num<T>::round(pr[s0 + 4 * j] *
+                                  Num<T>::to_f(vr[w][(size_t)(s0 + 4 * j) * ps + d]));
+      }
+    }
+#pragma unroll
+    for (int i2 = 0; i2 < VW; ++i2) {
+      const float a1 = __shfl_down_sync(0xffffffffu, acc[i2], 1);
+      const float a2 = __shfl_down_sync(0xffffffffu, acc[i2], 2);
+      const float a3 = __shfl_down_sync(0xffffffffu, acc[i2], 3);
+      if (active && k == 0 && i2 < cw)
+        put(ctx + (warp + w * kWarps) * ldc + d + i2, ((acc[i2] + a1) + a2) + a3);
+    }
+  }
+  for (int i = lane; i < RW * (hdp - hd); i += 32) {
+    const int w = i / (hdp - hd);
+    put(ctx + (warp + w * kWarps) * ldc + hd + i - w * (hdp - hd), 0.0f);
+  }
+}
+
+template <typename T, int R, bool Q, typename O>
 __device__ void attend_head(const float* q, int ldq, const T* K, const T* V, size_t row_stride,
                             int ps, int hd, int hdp, int len, int r0, int nrows, float scale,
-                            float* probs, int S, T* ctx, int ldc, float* part) {
+                            float* probs, int S, O* ctx, int ldc, float* part) {
   constexpr int VW = Vec<T>::kW, RW = R / kWarps;
   constexpr int kLoads = 4;  // 16-byte loads of a key in flight a row
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -616,10 +864,24 @@ __device__ void attend_head(const float* q, int ldq, const T* K, const T* V, siz
       pr[s] = e;
       sum += e;
     }
-    sum = warp_sum(sum);
+    if constexpr (Q) {  // in the plain version's order, as the context (context_in_order)
+      __syncwarp();
+      float a = 0.0f;
+      for (int s = lane; lane < 4 && s < len; s += 4) a += pr[s];
+      const float a1 = __shfl_sync(0xffffffffu, a, 1), a2 = __shfl_sync(0xffffffffu, a, 2);
+      const float a3 = __shfl_sync(0xffffffffu, a, 3);
+      sum = __shfl_sync(0xffffffffu, ((a + a1) + a2) + a3, 0);
+    } else {
+      sum = warp_sum(sum);
+    }
     for (int s = lane; s < len; s += 32) pr[s] = Num<T>::round(pr[s] / sum);
   }
   __syncwarp();
+  if constexpr (Q) {
+    context_in_order<T, R>(probs, S, vr, ps, hd, hdp, len, ctx, ldc);
+    __syncthreads();
+    return;
+  }
   for (int i = lane; i < RW * chunks * groups; i += 32) {
     const int w = i / (chunks * groups), rest = i - w * chunks * groups;
     const int c = rest / groups, s0 = c * kChunk;
@@ -658,7 +920,7 @@ __device__ void attend_head(const float* q, int ldq, const T* K, const T* V, siz
       acc = rp[d];
       for (int c = 1; c < chunks; ++c) acc += rp[c * hd + d];
     }
-    ctx[r * ldc + d] = Num<T>::from_f(acc);
+    put(ctx + r * ldc + d, acc);
   }
   __syncthreads();
 }
@@ -684,11 +946,26 @@ __device__ void attend_head(const float* q, int ldq, const T* K, const T* V, siz
 // its next receive phase, which needs every CTA's next partials, each sent
 // after that CTA's layernorm read its gather buffer.  The layernorm runs
 // one warp a row, four adjacent columns a lane per 128.
-template <typename T, int R>
+//
+// In int8 mode (Q) the partials are int32: the owner sums them exactly,
+// converts the total to float32 once and dequantizes it with the row's
+// scale qt.xscale and the column's qt.s before the bias; and where qt.xq is
+// not null the normalised rows go, quantized with their own abs-max, to
+// the int8 A operand qt.xq [R][qt.ldq] (their scales to qt.xq_scale) in
+// place of xa.
+struct Quant {
+  const float* s;       // the K-split projection's per-channel scales [E]
+  const float* xscale;  // its input rows' scales [R]
+  int8_t* xq;           // the next N-split projection's A operand, or null
+  int ldq;
+  float* xq_scale;      // ... and its rows' scales [R]
+};
+
+template <typename T, int R, bool Q>
 __device__ void exchange_ln(const float* recv, float* gath, uint32_t recv_bar, uint32_t gath_bar,
                             uint32_t parity, int G, int h, const T* bias, float* xs, const T* s,
                             const T* b, const T* fs, const T* fb, int E, int Ep, float eps,
-                            T* xa, int lda) {
+                            T* xa, int lda, Quant qt) {
   constexpr int J = kMaxE / 128, RW = R / kWarps;  // 128-column runs of a row, rows a warp
   const int Es = Ep / G, q4 = Es / 4;
   wait_phase(recv_bar, parity);  // every partial slice of this CTA's columns
@@ -698,17 +975,33 @@ __device__ void exchange_ln(const float* recv, float* gath, uint32_t recv_bar, u
   const uint32_t gath_at = smem_u32(gath);
   for (int i = threadIdx.x; i < R * q4; i += blockDim.x) {
     const int r = i / q4, c = (i - r * q4) * 4, e = h * Es + c;
-    float4 a = *reinterpret_cast<const float4*>(recv + r * Es + c);
-    for (int g = 1; g < G; ++g) {
-      const float4 o = *reinterpret_cast<const float4*>(recv + (g * R + r) * Es + c);
-      a.x += o.x; a.y += o.y; a.z += o.z; a.w += o.w;
-    }
     const float4 xr = *reinterpret_cast<const float4*>(xs + r * Ep + e);
-    float bv[4];  // the padding columns' bias is 0 (their partials and residual are too)
+    float4 y;
+    if constexpr (Q) {
+      int4 a = *reinterpret_cast<const int4*>(recv + r * Es + c);
+      for (int g = 1; g < G; ++g) {
+        const int4 o = *reinterpret_cast<const int4*>(recv + (g * R + r) * Es + c);
+        a.x += o.x; a.y += o.y; a.z += o.z; a.w += o.w;
+      }
+      const int av[4] = {a.x, a.y, a.z, a.w};
+      float v[4];  // the padding columns' are 0 (as their residual is)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) bv[i] = e + i < E ? Num<T>::to_f(bias[e + i]) : 0.0f;
-    const float4 y = make_float4(xr.x + (a.x + bv[0]), xr.y + (a.y + bv[1]),
-                                 xr.z + (a.z + bv[2]), xr.w + (a.w + bv[3]));
+      for (int k = 0; k < 4; ++k)
+        v[k] = e + k < E ? dequant<T>(av[k], qt.xscale[r], __ldg(qt.s + e + k), bias, e + k)
+                         : 0.0f;
+      y = make_float4(xr.x + v[0], xr.y + v[1], xr.z + v[2], xr.w + v[3]);
+    } else {
+      float4 a = *reinterpret_cast<const float4*>(recv + r * Es + c);
+      for (int g = 1; g < G; ++g) {
+        const float4 o = *reinterpret_cast<const float4*>(recv + (g * R + r) * Es + c);
+        a.x += o.x; a.y += o.y; a.z += o.z; a.w += o.w;
+      }
+      float bv[4];  // the padding columns' bias is 0 (their partials and residual are too)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) bv[i] = e + i < E ? Num<T>::to_f(bias[e + i]) : 0.0f;
+      y = make_float4(xr.x + (a.x + bv[0]), xr.y + (a.y + bv[1]), xr.z + (a.z + bv[2]),
+                      xr.w + (a.w + bv[3]));
+    }
     for (int g = 0; g < G; ++g)
       store_counted(remote(gath_at + 4 * (r * Ep + e), g), y, remote(gath_bar, g));
   }
@@ -768,6 +1061,29 @@ __device__ void exchange_ln(const float* recv, float* gath, uint32_t recv_bar, u
 #pragma unroll
   for (int w = 0; w < RW; ++w) {
     const int r = warp + w * kWarps;
+    if (Q && qt.xq != nullptr) {  // quantized with the row's abs-max (padding: 0)
+      float m = 0.0f;
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        if (4 * lane + 128 * j < Ep)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) m = fmaxf(m, fabsf(quant_input<T>(x[w][j][i])));
+      m = warp_max(m);
+      const float inv = inv_scale(m);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int e = 4 * lane + 128 * j;
+        if (e < Ep) {
+          *reinterpret_cast<float4*>(xs + r * Ep + e) =
+              make_float4(x[w][j][0], x[w][j][1], x[w][j][2], x[w][j][3]);
+          *reinterpret_cast<char4*>(qt.xq + r * qt.ldq + e) =
+              make_char4(quant8<T>(x[w][j][0], inv), quant8<T>(x[w][j][1], inv),
+                         quant8<T>(x[w][j][2], inv), quant8<T>(x[w][j][3], inv));
+        }
+      }
+      if (lane == 0) qt.xq_scale[r] = __fdiv_rn(m, 127.0f);
+      continue;
+    }
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int e = 4 * lane + 128 * j;
@@ -781,11 +1097,68 @@ __device__ void exchange_ln(const float* recv, float* gath, uint32_t recv_bar, u
   }
 }
 
+// The cluster-wide abs-max of the R rows of a K-split input, then the
+// rows quantized with it (int8 mode).  src [R][lds] holds this CTA's Kc
+// columns of each row (float32, padding 0).  Each warp takes the maxima of
+// its rows' slices and stores them into every CTA's amx [kMaxCluster][R]
+// at row h, counted on that CTA's mbarrier `bar` (one phase an exchange,
+// `parity` as exchange_ln's, armed again by thread 0 as soon as it
+// completes); once all G have arrived it takes the maximum over them (in
+// rank order; max is exact, so every CTA gets the same), quantizes its
+// slice into dst [R][ldd] and writes the rows' scales (abs-max / 127) to
+// xscale.  amx is written again only after every CTA has read it: the
+// next maxima go out after the sender's next gather phase, which needs
+// every CTA's sums, each stored after that CTA quantized this exchange's
+// slice.  Synchronises the block before it returns.
+template <typename T, int R>
+__device__ void quantize_split(const float* src, int lds, int Kc, float* amx, uint32_t bar,
+                               uint32_t parity, int G, int h, int8_t* dst, int ldd,
+                               float* xscale) {
+  constexpr int RW = R / kWarps;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int w = 0; w < RW; ++w) {
+    const int r = warp + w * kWarps;
+    const float m = row_absmax<T>(src + r * lds, Kc);
+    if (lane < G) store_counted(remote(smem_u32(amx + h * R + r), lane), m, remote(bar, lane));
+  }
+  wait_phase(bar, parity);
+  if (threadIdx.x == 0) expect_bytes(bar, 4u * G * R);
+#pragma unroll
+  for (int w = 0; w < RW; ++w) {
+    const int r = warp + w * kWarps;
+    float m = 0.0f;
+    for (int g = 0; g < G; ++g) m = fmaxf(m, amx[g * R + r]);
+    const float xs = quantize_row<T>(src + r * lds, Kc, m, dst + r * ldd);
+    if (lane == 0) xscale[r] = xs;
+  }
+  __syncthreads();
+}
+
+// The N-split input rows src [R][lds] (K columns, whole in every CTA)
+// quantized with their own abs-max into dst [R][ldd], their scales to
+// xscale (int8 mode, the embedded rows).  Synchronises the block.
+template <typename T, int R>
+__device__ void quantize_rows(const float* src, int lds, int K, int8_t* dst, int ldd,
+                              float* xscale) {
+  constexpr int RW = R / kWarps;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int w = 0; w < RW; ++w) {
+    const int r = warp + w * kWarps;
+    const float xs = quantize_row<T>(src + r * lds, K, row_absmax<T>(src + r * lds, K),
+                                     dst + r * ldd);
+    if (lane == 0) xscale[r] = xs;
+  }
+  __syncthreads();
+}
+
 // The cycles the first thread of CTA 0 spends in each phase of a step (the
 // embedding, the fourteen phases of a layer and the class head, the
-// logits and argmax), summed over the launch into prof[phase]; a phase ends
-// where that thread leaves it, so a barrier's wait counts to the phase it
-// closes.  prof is null unless the caller asks for the profile.
+// logits and argmax; in int8 mode then the three abs-max exchanges of a
+// layer), summed over the launch into prof[phase]; a phase ends where that
+// thread leaves it, so a barrier's wait counts to the phase it closes.
+// prof is null unless the caller asks for the profile.
 struct Marks {
   long long* prof;
   long long t0;
@@ -798,27 +1171,37 @@ struct Marks {
   }
 };
 
-template <typename T>
+template <typename T, bool Q>
 __global__ void __launch_bounds__(kThreads, 1) decode_cluster_kernel(Params<T> p) {
   constexpr int R = kRows, D = kDepth;
+  using FT = Frag<T, R>;  // products in T: every one in float mode, the class head's in int8
+  using FQ = FragQ<R>;    // int8 mode's six projections
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cl = cg::this_cluster();
-  const Geometry<T> geo(p);
+  const Geometry<T, Q> geo(p);
   const int E = p.E, Ep = geo.Ep, C = p.C, T_ = p.steps, L = p.L, G = p.G, Hc = geo.Hc;
   const int hd = geo.hd;
   const int hdp = geo.hdp, W = geo.W, Fg = geo.Fg, Fgp = geo.Fgp;
-  const int lda = geo.lda, ldb = geo.ldb, S = geo.S;
+  const int lda = geo.lda, ldb = geo.ldb, lda8 = geo.lda8, ldb8 = geo.ldb8, ldf = geo.ldf;
+  const int S = geo.S;
   char* ring = reinterpret_cast<char*>(smem);       // [kWarps][D][32 lanes][16 B]
   float* xs = reinterpret_cast<float*>(ring + (size_t)kWarps * D * kUnit);  // [R][Ep]
   T* xa = reinterpret_cast<T*>(xs + R * Ep);        // [R][lda] A operand of E-wide inputs
-  T* xb = xa + R * lda;                             // [R][ldb] A operand of the K-split inputs
-  float* qv = reinterpret_cast<float*>(xb + R * ldb);  // [R][3W] its heads' q, k, v / cross q
+  int8_t* xa8 = reinterpret_cast<int8_t*>(xa);      // int8: [R][lda8] ... of the N-split ones
+  unsigned char* kin = reinterpret_cast<unsigned char*>(xa) + geo.a_bytes(R);
+  T* xb = reinterpret_cast<T*>(kin);                // [R][ldb] A operand of the K-split inputs
+  int8_t* xb8 = reinterpret_cast<int8_t*>(kin);     // int8: [R][ldb8] ... quantized from
+  float* hf = reinterpret_cast<float*>(kin + R * ldb8);  // int8: [R][ldf] the float32 rows
+  float* qv = reinterpret_cast<float*>(kin + geo.b_bytes(R));  // [R][3W] q, k, v / cross q
   float* recv = qv + R * 3 * W;                     // [G][R][Ep/G] partials of this CTA's columns
   float* gath = recv + R * Ep;                      // [R][Ep] the rows before the layernorm
   float* red = gath + R * Ep;                       // attention chunk sums; the head's logits
   float* probs = red + geo.red_floats(R);           // [R][S]
   int* tok = reinterpret_cast<int*>(probs + R * S); // [R]
   int* done = tok + R;                              // [R] rows that have emitted eos_id
+  float* amx = reinterpret_cast<float*>(done + R);  // int8: [kMaxCluster][R] slices' abs-max
+  float* xsa = amx + kMaxCluster * R;               // int8: [R] scales of the N-split inputs
+  float* xsk = xsa + R;                             // int8: [R] ... of the K-split inputs
 
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -856,15 +1239,21 @@ __global__ void __launch_bounds__(kThreads, 1) decode_cluster_kernel(Params<T> p
   }
   __syncthreads();
 
-  // the exchange's mbarriers, one phase an exchange; set up before any
-  // CTA of the cluster can count bytes on them
-  __shared__ __align__(8) unsigned long long bars[2];
+  // the exchanges' mbarriers (partials, gathered rows; in int8 mode the
+  // slices' abs-max), one phase an exchange; set up before any CTA of the
+  // cluster can count bytes on them
+  __shared__ __align__(8) unsigned long long bars[3];
   const uint32_t recv_bar = smem_u32(&bars[0]), gath_bar = smem_u32(&bars[1]);
+  const uint32_t amax_bar = smem_u32(&bars[2]);
   if (tid == 0) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(recv_bar) : "memory");
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(gath_bar) : "memory");
     expect_bytes(recv_bar, 4u * R * Ep);  // the first exchange's
     expect_bytes(gath_bar, 4u * R * Ep);
+    if (Q) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(amax_bar) : "memory");
+      expect_bytes(amax_bar, 4u * G * R);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   cl.sync();
@@ -882,15 +1271,22 @@ __global__ void __launch_bounds__(kThreads, 1) decode_cluster_kernel(Params<T> p
         x += p.pe[t * E + e];
       }
       xs[i] = x;
-      xa[r * lda + e] = Num<T>::from_f(x);
+      if (!Q) xa[r * lda + e] = Num<T>::from_f(x);
     }
     __syncthreads();
+    if (Q) quantize_rows<T, R>(xs, Ep, Ep, xa8, lda8, xsa);
     mark.at(0);
 
     for (int l = 0; l < L; ++l) {
       // -- self attention of this CTA's heads over the running KV cache --
-      project<T, R, D, kBias>(&st, xa, lda, Ep, 3 * W, p.b_qkv + (size_t)l * 3 * E,
-                              Cols{hdp, hd, Hc, E, hd, h * Hc * hd}, qv, 3 * W);
+      const Cols qkv{hdp, hd, Hc, E, hd, h * Hc * hd, 0, Q ? p.qs[0] + (size_t)l * 3 * E : nullptr,
+                     xsa};
+      if constexpr (Q)
+        project<T, FQ, D, kQBias>(&st, xa8, lda8, Ep, 3 * W, p.b_qkv + (size_t)l * 3 * E, qkv, qv,
+                                  3 * W);
+      else
+        project<T, FT, D, kBias>(&st, xa, lda, Ep, 3 * W, p.b_qkv + (size_t)l * 3 * E, qkv, qv,
+                                 3 * W);
       __syncthreads();
       mark.at(1);
       T* kc = p.kc + l * cache_l + h * Hc * hd;
@@ -903,58 +1299,97 @@ __global__ void __launch_bounds__(kThreads, 1) decode_cluster_kernel(Params<T> p
       }
       __syncthreads();
       mark.at(2);
-      for (int j = 0; j < Hc; ++j)
-        attend_head<T, R>(qv + j * hdp, 3 * W, kc + j * hd, vc + j * hd, (size_t)T_ * E, E, hd,
-                          hdp, t + 1, r0, nrows, p.scale, probs, S, xb + j * hdp, ldb, red);
+      for (int j = 0; j < Hc; ++j) {
+        if constexpr (Q)
+          attend_head<T, R, Q>(qv + j * hdp, 3 * W, kc + j * hd, vc + j * hd, (size_t)T_ * E, E, hd,
+                            hdp, t + 1, r0, nrows, p.scale, probs, S, hf + j * hdp, ldf, red);
+        else
+          attend_head<T, R, Q>(qv + j * hdp, 3 * W, kc + j * hd, vc + j * hd, (size_t)T_ * E, E, hd,
+                            hdp, t + 1, r0, nrows, p.scale, probs, S, xb + j * hdp, ldb, red);
+      }
       mark.at(3);
       const Cols partial{Ep / G, Ep / G, 1, 0, 0, h * R, recv_bar};
-      project<T, R, D, kPartial>(&st, xb, ldb, W, Ep, nullptr, partial, recv, 0);
+      if constexpr (Q) {
+        quantize_split<T, R>(hf, ldf, W, amx, amax_bar, ex & 1, G, h, xb8, ldb8, xsk);
+        mark.at(15);
+        project<T, FQ, D, kQPartial>(&st, xb8, ldb8, W, Ep, nullptr, partial, recv, 0);
+      } else {
+        project<T, FT, D, kPartial>(&st, xb, ldb, W, Ep, nullptr, partial, recv, 0);
+      }
       mark.at(4);
-      exchange_ln<T, R>(recv, gath, recv_bar, gath_bar, ex++ & 1, G, h, p.b_out + (size_t)l * E,
-                        xs, p.n1_s + l * E, p.n1_b + l * E, nullptr, nullptr, E, Ep, p.eps, xa,
-                        lda);
+      exchange_ln<T, R, Q>(recv, gath, recv_bar, gath_bar, ex++ & 1, G, h,
+                           p.b_out + (size_t)l * E, xs, p.n1_s + l * E, p.n1_b + l * E, nullptr,
+                           nullptr, E, Ep, p.eps, xa, lda,
+                           Quant{Q ? p.qs[1] + (size_t)l * E : nullptr, xsk, xa8, lda8, xsa});
       __syncthreads();
       mark.at(5);
 
       // -- cross attention of this CTA's heads over the precomputed memory K/V --
-      project<T, R, D, kBias>(&st, xa, lda, Ep, W, p.cb_q + (size_t)l * E,
-                              Cols{hdp, hd, Hc, 0, hd, h * Hc * hd}, qv, W);
+      const Cols cq{hdp, hd, Hc, 0, hd, h * Hc * hd, 0, Q ? p.qs[2] + (size_t)l * E : nullptr, xsa};
+      if constexpr (Q)
+        project<T, FQ, D, kQBias>(&st, xa8, lda8, Ep, W, p.cb_q + (size_t)l * E, cq, qv, W);
+      else
+        project<T, FT, D, kBias>(&st, xa, lda, Ep, W, p.cb_q + (size_t)l * E, cq, qv, W);
       __syncthreads();
       mark.at(6);
       for (int j = 0; j < Hc; ++j) {
         const size_t at = l * mem_l + (size_t)(h * Hc + j) * hd;
-        attend_head<T, R>(qv + j * hdp, W, p.ck + at, p.cv + at, (size_t)p.Tm * E, E, hd, hdp,
-                          p.Tm, r0, nrows, p.scale, probs, S, xb + j * hdp, ldb, red);
+        if constexpr (Q)
+          attend_head<T, R, Q>(qv + j * hdp, W, p.ck + at, p.cv + at, (size_t)p.Tm * E, E, hd, hdp,
+                            p.Tm, r0, nrows, p.scale, probs, S, hf + j * hdp, ldf, red);
+        else
+          attend_head<T, R, Q>(qv + j * hdp, W, p.ck + at, p.cv + at, (size_t)p.Tm * E, E, hd, hdp,
+                            p.Tm, r0, nrows, p.scale, probs, S, xb + j * hdp, ldb, red);
       }
       mark.at(7);
-      project<T, R, D, kPartial>(&st, xb, ldb, W, Ep, nullptr, partial, recv, 0);
+      if constexpr (Q) {
+        quantize_split<T, R>(hf, ldf, W, amx, amax_bar, ex & 1, G, h, xb8, ldb8, xsk);
+        mark.at(16);
+        project<T, FQ, D, kQPartial>(&st, xb8, ldb8, W, Ep, nullptr, partial, recv, 0);
+      } else {
+        project<T, FT, D, kPartial>(&st, xb, ldb, W, Ep, nullptr, partial, recv, 0);
+      }
       mark.at(8);
-      exchange_ln<T, R>(recv, gath, recv_bar, gath_bar, ex++ & 1, G, h, p.cb_o + (size_t)l * E,
-                        xs, p.n2_s + l * E, p.n2_b + l * E, nullptr, nullptr, E, Ep, p.eps, xa,
-                        lda);
+      exchange_ln<T, R, Q>(recv, gath, recv_bar, gath_bar, ex++ & 1, G, h,
+                           p.cb_o + (size_t)l * E, xs, p.n2_s + l * E, p.n2_b + l * E, nullptr,
+                           nullptr, E, Ep, p.eps, xa, lda,
+                           Quant{Q ? p.qs[3] + (size_t)l * E : nullptr, xsk, xa8, lda8, xsa});
       __syncthreads();
       mark.at(9);
 
       // -- feed-forward: this CTA's Fg hidden columns stay in it --
       const int fw = min(Fg, max(0, p.F - h * Fg));  // of which real
-      project<T, R, D, kReluRoundT>(&st, xa, lda, Ep, Fgp, p.ff1_b + (size_t)l * p.F,
-                                    Cols{Fgp, fw, 1, 0, 0, h * Fg}, xb, ldb);
+      const Cols ff{Fgp, fw, 1, 0, 0, h * Fg, 0, Q ? p.qs[4] + (size_t)l * p.F : nullptr, xsa};
+      if constexpr (Q)
+        project<T, FQ, D, kQRelu>(&st, xa8, lda8, Ep, Fgp, p.ff1_b + (size_t)l * p.F, ff, hf,
+                                  ldf);
+      else
+        project<T, FT, D, kReluRoundT>(&st, xa, lda, Ep, Fgp, p.ff1_b + (size_t)l * p.F, ff, xb,
+                                       ldb);
       __syncthreads();
       mark.at(10);
-      project<T, R, D, kPartial>(&st, xb, ldb, Fgp, Ep, nullptr, partial, recv, 0);
+      if constexpr (Q) {
+        quantize_split<T, R>(hf, ldf, Fgp, amx, amax_bar, ex & 1, G, h, xb8, ldb8, xsk);
+        mark.at(17);
+        project<T, FQ, D, kQPartial>(&st, xb8, ldb8, Fgp, Ep, nullptr, partial, recv, 0);
+      } else {
+        project<T, FT, D, kPartial>(&st, xb, ldb, Fgp, Ep, nullptr, partial, recv, 0);
+      }
       mark.at(11);
-      const bool last = l == L - 1;  // then the final norm follows
-      exchange_ln<T, R>(recv, gath, recv_bar, gath_bar, ex++ & 1, G, h, p.ff2_b + (size_t)l * E,
-                        xs, p.n3_s + l * E, p.n3_b + l * E, last ? p.fn_s : nullptr,
-                        last ? p.fn_b : nullptr, E, Ep, p.eps, xa, lda);
+      const bool last = l == L - 1;  // then the final norm follows, and the head reads T
+      exchange_ln<T, R, Q>(recv, gath, recv_bar, gath_bar, ex++ & 1, G, h,
+                           p.ff2_b + (size_t)l * E, xs, p.n3_s + l * E, p.n3_b + l * E,
+                           last ? p.fn_s : nullptr, last ? p.fn_b : nullptr, E, Ep, p.eps, xa, lda,
+                           Quant{Q ? p.qs[5] + (size_t)l * E : nullptr, xsk,
+                                 last ? nullptr : xa8, lda8, xsa});
       __syncthreads();
       mark.at(12);
     }
 
     // -- class head, in every CTA alike --
     float* lg = red;  // [R][Cp]
-    project<T, R, D, kBias>(&st, xa, lda, Ep, geo.Cp, p.head_b, Cols{geo.Cp, C, 1, 0, 0, 0}, lg,
-                            geo.Cp);
+    project<T, FT, D, kBias>(&st, xa, lda, Ep, geo.Cp, p.head_b, Cols{geo.Cp, C, 1, 0, 0, 0}, lg,
+                             geo.Cp);
     __syncthreads();
     mark.at(13);
     if (h == 0) {
@@ -996,12 +1431,12 @@ __global__ void __launch_bounds__(kThreads, 1) decode_cluster_kernel(Params<T> p
   cl.sync();  // no CTA leaves while the cluster may still use its shared memory
 }
 
-template <typename T>
+template <typename T, bool Q>
 int launch(const Params<T>& p, int smem_expected, cudaStream_t stream) {
-  const Geometry<T> geo(p);
+  const Geometry<T, Q> geo(p);
   const size_t smem = geo.smem_bytes(kRows, kDepth);
   if ((int)smem != smem_expected) return (int)cudaErrorInvalidValue;
-  const auto kernel = decode_cluster_kernel<T>;
+  const auto kernel = decode_cluster_kernel<T, Q>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1026,7 +1461,7 @@ int launch(const Params<T>& p, int smem_expected, cudaStream_t stream) {
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool Q>
 int run(const void* const* ptr, const int* dim, float eps, float scale, const float* cls0,
         cudaStream_t stream) {
   Params<T> p;
@@ -1046,6 +1481,7 @@ int run(const void* const* ptr, const int* dim, float eps, float scale, const fl
   p.logits = (float*)ptr[nw + 5];
   p.packed = (const char*)ptr[nw + 6];
   p.prof = (long long*)ptr[nw + 7];
+  for (int j = 0; j < 6; ++j) p.qs[j] = Q ? (const float*)ptr[nw + 8 + j] : nullptr;
   p.B = dim[0]; p.steps = dim[1]; p.L = dim[2]; p.E = dim[3]; p.F = dim[4];
   p.C = dim[5]; p.H = dim[6]; p.Tm = dim[7]; p.go_id = dim[8]; p.eos_id = dim[9];
   const int smem = dim[10];
@@ -1053,10 +1489,11 @@ int run(const void* const* ptr, const int* dim, float eps, float scale, const fl
   p.eps = eps;
   p.scale = scale;
   // the caller's cluster plan (ops/fused_decode.cluster_plan) must be this one
-  if (p.H < 1 || p.E % p.H || pad16(p.E) > kMaxE || p.G != cluster_size(pad16(p.E), p.H))
+  const int Ep = padk(p.E, Geometry<T, Q>::kStep);
+  if (p.H < 1 || p.E % p.H || Ep > kMaxE || p.G != cluster_size(Ep, p.H))
     return (int)cudaErrorInvalidValue;
   if (p.B == 0 || p.steps == 0) return 0;
-  return launch<T>(p, smem, stream);
+  return launch<T, Q>(p, smem, stream);
 }
 
 }  // namespace
@@ -1073,7 +1510,21 @@ extern "C" int fused_decode_cluster(int dtype, const void* const* ptr, const int
                                     float scale, const void* cls0, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float* c0 = (const float*)cls0;
-  if (dtype == 0) return run<float>(ptr, dim, eps, scale, c0, s);
-  if (dtype == 1) return run<__nv_bfloat16>(ptr, dim, eps, scale, c0, s);
+  if (dtype == 0) return run<float, false>(ptr, dim, eps, scale, c0, s);
+  if (dtype == 1) return run<__nv_bfloat16, false>(ptr, dim, eps, scale, c0, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1q: as fused_decode_cluster, with the units of pack_cluster_tables_int8
+// (the six projections int8, the class head in the compute type; the int8
+// tables' own slots are not read), an int64 [18] profile, and then the six
+// per-channel scales [L, N] float32 (qkv, out, cross-q, cross-out, ff1,
+// ff2).  dtype: the compute type of the other tables, as above.
+extern "C" int fused_decode_cluster_int8(int dtype, const void* const* ptr, const int* dim,
+                                         float eps, float scale, const void* cls0, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* c0 = (const float*)cls0;
+  if (dtype == 0) return run<float, true>(ptr, dim, eps, scale, c0, s);
+  if (dtype == 1) return run<__nv_bfloat16, true>(ptr, dim, eps, scale, c0, s);
   return (int)cudaErrorInvalidValue;
 }

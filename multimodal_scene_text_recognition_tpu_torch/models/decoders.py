@@ -34,6 +34,7 @@ from ..charset import EOS_ID, GO_ID
 from ..ops.attention import attend, attend_ancestry, causal_mask, qkv_projections
 from ..ops.fused_beam import NEG, fused_beam_decode
 from ..ops.fused_decode import (cast_weights, fused_greedy_decode, pack_cluster_tables,
+                                pack_cluster_tables_int8,
                                 quantize_fused_weights, stack_decoder_weights)
 from .encoders import Drop
 from .layers import EPS, FusionMLP, MultiHeadAttention, layer_norm, positional_rows, \
@@ -78,7 +79,8 @@ class TransformerDecoder(nn.Module):
         self.early_stop, self.beam_fused, self.int8 = early_stop, beam_fused, int8
         self.use_kernels = True
         # (dtype, int8) -> (parameter versions, cast weight tables and, for
-        # int8, their scales); (dtype, "cluster") -> (versions, K1's units)
+        # int8, their scales); (dtype, "cluster", int8) -> (versions, the
+        # cluster kernel's units: K1's, or with int8 K1q's)
         self._fused = {}
         self.hid_to_emb = nn.Linear(memory_dim, d_model)
         self.emb = nn.Embedding(num_classes, d_model)
@@ -145,17 +147,23 @@ class TransformerDecoder(nn.Module):
     def _versions(self):
         return tuple((p.data_ptr(), p._version) for p in self.parameters())
 
-    def cluster_tables(self, dtype: torch.dtype | None = None) -> torch.Tensor:
-        """The float tables of :meth:`fused_weights` in ``dtype`` repacked
-        once for K1's cluster kernel (``ops.fused_decode.pack_cluster_tables``),
-        kept as those are."""
+    def cluster_tables(self, dtype: torch.dtype | None = None, int8: bool = False) -> torch.Tensor:
+        """The tables of :meth:`fused_weights` in ``dtype`` repacked once
+        for the cluster kernel: the float ones for K1
+        (``ops.fused_decode.pack_cluster_tables``), or with ``int8`` the
+        int8 ones and the class head for K1q
+        (``ops.fused_decode.pack_cluster_tables_int8``); kept as those are."""
         dtype = dtype or self.dtype
         key = self._versions()
-        hit = self._fused.get((dtype, "cluster"))
+        hit = self._fused.get((dtype, "cluster", int8))
         if hit is None or hit[0] != key:
             with torch.no_grad():
-                packed = pack_cluster_tables(self.fused_weights(dtype), self.num_heads)
-            hit = self._fused[dtype, "cluster"] = (key, packed)
+                if int8:
+                    packed = pack_cluster_tables_int8(self.fused_weights(dtype, int8=True)[0],
+                                                      self.num_heads)
+                else:
+                    packed = pack_cluster_tables(self.fused_weights(dtype), self.num_heads)
+            hit = self._fused[dtype, "cluster", int8] = (key, packed)
         return hit[1]
 
     def teacher_forced(self, enc_out: torch.Tensor, text: torch.Tensor,

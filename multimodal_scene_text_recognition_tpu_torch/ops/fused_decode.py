@@ -9,12 +9,16 @@ decoder weights and the per-layer cross-attention K/V:
   exact casts.  The CPU path and the oracle of the kernel.
 * :func:`fused_greedy_decode_cuda`, the CUDA kernels that replace the TPU
   kernel ``ops/fused_decode.py::_decode_kernel``: K1 in float mode
-  (``kernels/fused_decode_cluster.cu``: one thread-block cluster of H CTAs
-  per tile of R rows, the weights split across the cluster, read from the
-  units :func:`pack_cluster_tables` lays out, and run on the tensor cores
-  in bf16; :func:`cluster_plan` is its launch), K1q with ``scales``
-  (``kernels/fused_decode.cu``: the six projections int8 x int8 -> int32,
-  tables from :func:`quantize_fused_weights`).
+  (``kernels/fused_decode_cluster.cu``: one thread-block cluster of up to
+  8 CTAs per tile of R rows, the weights split across the cluster, read
+  from the units :func:`pack_cluster_tables` lays out, and run on the
+  tensor cores in bf16; :func:`cluster_plan` is its launch), K1q with
+  ``scales`` (tables from :func:`quantize_fused_weights`): the same
+  kernel's int8 mode, its six projections int8 x int8 -> int32 on the
+  tensor cores from the units of :func:`pack_cluster_tables_int8`, or, for
+  small batches and for rows wider than the cluster kernel takes,
+  ``kernels/fused_decode.cu`` (one row a CTA, ``__dp4a``); :func:`k1q_route`
+  picks by the shapes.
 
 With ``cls0`` [B, E] float32 (the semantic CLS vector of
 ``cls_decoder_init``) the step-0 input row is ``cls0 + pe[0]`` in float32,
@@ -315,7 +319,7 @@ _N_TABLES = 23  # FusedDecodeWeights fields before pe
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
 THREADS = 256  # threads per CTA (kThreads in the decode kernels)
-_ROWS = 1  # batch rows per CTA of K1q (kRows in fused_decode.cu)
+_ROWS = 1  # batch rows per CTA of K1q's wide-row route (kRows in fused_decode.cu)
 
 
 def check_cls0(cls0: Optional[torch.Tensor], B: int, E: int, device: torch.device,
@@ -419,7 +423,8 @@ def launcher(name: str, fn_name: Optional[str] = None):
 
 
 def decode_smem_bytes(E: int, F: int, C: int, H: int, S: int, vec: int) -> int:
-    """Shared memory of one K1q CTA (``smem_bytes`` in fused_decode.cu):
+    """Shared memory of one CTA of K1q's wide-row route (``smem_bytes`` in
+    fused_decode.cu):
     float32 rows, the split-K sums, the token and stop flags, the row
     abs-max and its inverse, a max per warp and the int8 row."""
     R = _ROWS
@@ -429,10 +434,12 @@ def decode_smem_bytes(E: int, F: int, C: int, H: int, S: int, vec: int) -> int:
 
 # -- K1's cluster design (kernels/fused_decode_cluster.cu) --------------------
 
-# the phases of a step K1's profile tells apart (Marks in the kernel)
+# the phases of a step K1's profile tells apart (Marks in the kernel); K1q's
+# adds the cluster-wide abs-max before each K-split projection
 CLUSTER_PHASES = ("embedding", "qkv", "cache write", "self-attention", "out-proj", "exchange 1",
                   "cross-q", "cross-attention", "cross-out", "exchange 2", "ff1", "ff2",
                   "exchange 3", "class head", "logits, argmax, stop")
+INT8_CLUSTER_PHASES = CLUSTER_PHASES + ("abs-max 1", "abs-max 2", "abs-max 3")
 # rows a cluster owns (kRows in the kernel): the M side of one mma.sync tile;
 # tiles of 32 rows were slower at B=192 on an H100 (PERF.md)
 CLUSTER_ROWS = 16
@@ -441,13 +448,22 @@ MAX_CLUSTER = 8  # CTAs a cluster (one a head): the portable cluster size
 _WARPS = THREADS // 32
 _UNIT = 512  # bytes of one weight unit: 16 a lane
 _MAX_E = 512  # row width the kernel's exchange holds in registers
-_KK = torch.tensor([2 * q + (j % 2) + 8 * (j // 2) for q in range(4) for j in range(4)])
+_INT8_COLS, _INT8_STEP = 16, 32  # an int8 unit: two m16n8k32 n8 tiles, 32 deep
 
 
 def unit_cols(dtype: torch.dtype) -> int:
     """Output columns of one weight unit: 16 in bf16 (two mma.sync n8
     tiles), 8 in float32 (one column a lane quad)."""
     return 16 if dtype.itemsize == 2 else 8
+
+
+def _kk(step: int) -> torch.Tensor:
+    """The k order of a unit's lanes within one k-step: lane quad q holds
+    the words at k = w q and w q + step / 2 (w = step / 8 values a 32-bit
+    fragment word: two bf16, or in float32 the same k-values; four int8)."""
+    w = step // 8
+    return torch.tensor([w * q + (j % w) + step // 2 * (j // w)
+                         for q in range(4) for j in range(2 * w)])
 
 
 class ClusterPlan(NamedTuple):
@@ -481,12 +497,15 @@ class ClusterPlan(NamedTuple):
 
 
 class ClusterWidths(NamedTuple):
-    """How K1 cuts the widths: rows of E padded to ``Ep`` columns, ``G``
-    CTAs a cluster, ``Hc`` heads a CTA of ``hd`` columns each (padded to
-    ``hdp``), ``Fg`` FF columns a CTA (the last may own fewer; padded to
+    """How K1 (K1q) cuts the widths: rows of E padded to ``Ep`` columns,
+    ``G`` CTAs a cluster, ``Hc`` heads a CTA of ``hd`` columns each (padded
+    to ``hdp``), ``Fg`` FF columns a CTA (the last may own fewer; padded to
     ``Fgp``), the class head padded to ``Cp`` columns, ``un`` output
-    columns a weight unit, and the [K, N] slice a CTA owns of each of the
-    seven projections (qkv, out, cross-q, cross-out, ff1, ff2, head)."""
+    columns and ``ks`` k-values a weight unit of the six projections (16 a
+    k-step in float mode, 32 in int8 mode, which is also the padding), ``hu``
+    output columns a unit of the class head (16 deep, in the compute type),
+    and the [K, N] slice a CTA owns of each of the seven projections (qkv,
+    out, cross-q, cross-out, ff1, ff2, head)."""
 
     Ep: int
     G: int
@@ -497,7 +516,17 @@ class ClusterWidths(NamedTuple):
     Fgp: int
     Cp: int
     un: int
+    ks: int
+    hu: int
     shapes: Tuple[Tuple[int, int], ...]
+
+    def kinds(self):
+        """(output columns, k-step) of a unit of each of the seven slices."""
+        return [(self.un, self.ks)] * 6 + [(self.hu, 16)]
+
+    def unit_counts(self):
+        """Units of each of the seven slices (its columns by its k-steps)."""
+        return [N // u * (K // k) for (K, N), (u, k) in zip(self.shapes, self.kinds())]
 
 
 def cluster_size(Ep: int, H: int) -> int:
@@ -508,52 +537,110 @@ def cluster_size(Ep: int, H: int) -> int:
     return next((g for g in range(MAX_CLUSTER, 0, -1) if H % g == 0 and Ep % (4 * g) == 0), 0)
 
 
-def _pad16(n: int) -> int:
-    return -(-n // 16) * 16
+def _pad(n: int, k: int) -> int:
+    return -(-n // k) * k
 
 
-def _cluster_shapes(E: int, H: int, F: int, C: int, dtype: torch.dtype) -> ClusterWidths:
+def _cluster_shapes(E: int, H: int, F: int, C: int, dtype: torch.dtype,
+                    int8: bool = False) -> ClusterWidths:
     """The cut of the widths (``Geometry`` in the kernel computes the
-    same): rows of E zero-padded to Ep, a multiple of 16 (the mma.sync
-    k-step); a cluster of G = :func:`cluster_size` CTAs, each owning H / G
-    heads and ceil(F / G) FF columns, zero-padded to multiples of 16 too.
-    Raises ValueError where the kernel cannot tile the widths: heads that
-    do not divide E, or E beyond the exchange's registers."""
+    same): rows of E zero-padded to Ep, a multiple of the k-step of the
+    six projections' units (16, or 32 in int8 mode); a cluster of G =
+    :func:`cluster_size` CTAs, each owning H / G heads and ceil(F / G) FF
+    columns, zero-padded to multiples of the k-step too.  Raises ValueError
+    where the kernel cannot tile the widths: heads that do not divide E, or
+    E beyond the exchange's registers."""
+    what = "fused int8 decode" if int8 else "fused decode"
     if H < 1 or E % H:
-        raise ValueError(f"fused decode: {H} heads do not divide E={E}")
+        raise ValueError(f"{what}: {H} heads do not divide E={E}")
     if E > _MAX_E:
-        raise ValueError(f"fused decode: E={E} exceeds the cluster kernel's {_MAX_E}")
-    Ep = _pad16(E)
+        raise ValueError(f"{what}: E={E} exceeds the cluster kernel's {_MAX_E}")
+    hu = unit_cols(dtype)
+    un, ks = (_INT8_COLS, _INT8_STEP) if int8 else (hu, 16)
+    Ep = _pad(E, ks)
     G = cluster_size(Ep, H)
     Hc, hd, Fg = H // G, E // H, -(-F // G)
-    hdp, Fgp = _pad16(hd), _pad16(Fg)
-    un = unit_cols(dtype)
-    Cp = -(-C // (_WARPS * un)) * _WARPS * un
+    hdp, Fgp = _pad(hd, ks), _pad(Fg, ks)
+    Cp = -(-C // (_WARPS * hu)) * _WARPS * hu
     W = Hc * hdp
     shapes = ((Ep, 3 * W), (W, Ep), (Ep, W), (W, Ep), (Ep, Fgp), (Fgp, Ep), (Ep, Cp))
-    return ClusterWidths(Ep, G, Hc, hd, hdp, Fg, Fgp, Cp, un, shapes)
+    return ClusterWidths(Ep, G, Hc, hd, hdp, Fg, Fgp, Cp, un, ks, hu, shapes)
 
 
 def cluster_plan(B: int, L: int, E: int, H: int, F: int, C: int, T: int, Tm: int,
-                 dtype: torch.dtype) -> ClusterPlan:
-    """The launch of K1's cluster kernel for these widths (``Geometry`` in
-    the kernel computes the same): G = :func:`cluster_size` CTAs a
-    cluster, :data:`CLUSTER_ROWS` rows a cluster, ceil(B / CLUSTER_ROWS)
-    clusters.  Raises ValueError for widths the kernel cannot tile
-    (:func:`_cluster_shapes`) or shared memory beyond the card's."""
-    cw = _cluster_shapes(E, H, F, C, dtype)
-    units = [N // cw.un * (K // 16) for K, N in cw.shapes]
+                 dtype: torch.dtype, int8: bool = False) -> ClusterPlan:
+    """The launch of K1's cluster kernel (``int8``: of K1q, its int8 mode)
+    for these widths (``Geometry`` in the kernel computes the same): G =
+    :func:`cluster_size` CTAs a cluster, :data:`CLUSTER_ROWS` rows a
+    cluster, ceil(B / CLUSTER_ROWS) clusters.  Raises ValueError for widths
+    the kernel cannot tile (:func:`_cluster_shapes`) or shared memory
+    beyond the card's."""
+    cw = _cluster_shapes(E, H, F, C, dtype, int8)
+    units = cw.unit_counts()
     R, depth, es, Ep = CLUSTER_ROWS, _DEPTH, dtype.itemsize, cw.Ep
     W = cw.Hc * cw.hdp
+    ldf = max(W, cw.Fgp)
     red = max(R * cw.Cp, -(-max(T, Tm) // 8) * R * cw.hd)  # the head's logits, the attention's chunks
-    smem = (_WARPS * depth * _UNIT + 4 * R * Ep + es * R * ((Ep + 8) + max(W, cw.Fgp) + 8)
+    if int8:  # A operands: the head's in T and the N-split inputs' int8 in one region; the
+        # K-split inputs' int8, then their float32 rows; then the abs-max exchange and scales
+        operands = max(es * R * (Ep + 8), R * (Ep + 16)) + R * (ldf + 16) + 4 * R * ldf
+        operands += 4 * R * (MAX_CLUSTER + 2)
+    else:
+        operands = es * R * ((Ep + 8) + ldf + 8)
+    smem = (_WARPS * depth * _UNIT + 4 * R * Ep + operands
             + 4 * R * 3 * W + 8 * R * Ep + 4 * red + 4 * R * max(T, Tm) + 8 * R)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"fused decode: {smem} bytes of shared memory a CTA ({dtype}) "
-                         f"exceed {SMEM_LIMIT}")
+        raise ValueError(f"{'fused int8 decode' if int8 else 'fused decode'}: {smem} bytes of "
+                         f"shared memory a CTA ({dtype}) exceed {SMEM_LIMIT}")
     return ClusterPlan(G=cw.G, R=R, clusters=-(-B // R), smem=smem, depth=depth, Cp=cw.Cp,
                        shapes=cw.shapes, units=sum(units[:-1]), head_units=units[-1],
                        cta_step_bytes=(L * sum(units[:-1]) + units[-1]) * _UNIT)
+
+
+# K1q's batches that take the wide-row kernel: a cluster runs a whole
+# 16-row tile however few rows it has, and the wide-row kernel one CTA a
+# row.  On an H100 (bf16, the trained flagship; chip_smoke.py's K1Q_SWEEP,
+# PERF.md §6) the wide-row kernel took 6.54-7.28 ms at full length for
+# B <= 64 and 8.34 at B=96 against the cluster's 8.44-8.99; from B=128 the
+# cluster kernel was faster (9.27 against 10.05, and 9.46 against 10.94 at
+# B=192).  The crossover was measured at those widths in bf16 only; the
+# route applies it to every width and to float32 unmeasured.
+K1Q_WIDE_BATCH = 96
+
+
+class K1qRoute(NamedTuple):
+    """Where K1q runs for given shapes: ``kernel`` "cluster" (the cluster
+    kernel's int8 mode, launched as ``plan``) or "wide" (``fused_decode.cu``,
+    one row a CTA, for batches up to :data:`K1Q_WIDE_BATCH` rows and for
+    widths the cluster plan refuses: ``why``)."""
+
+    kernel: str
+    plan: Optional[ClusterPlan]
+    why: str = ""
+
+
+def k1q_route(B: int, L: int, E: int, H: int, F: int, C: int, T: int, Tm: int,
+              dtype: torch.dtype) -> K1qRoute:
+    """K1q's kernel for these shapes, chosen before any launch: for at
+    most :data:`K1Q_WIDE_BATCH` rows the wide-row kernel where its shared
+    memory fits, else the cluster kernel's int8 mode where
+    :func:`cluster_plan` tiles the widths; for more rows the other way
+    round.  Raises ValueError where neither kernel takes the shapes (heads
+    that do not divide E: neither)."""
+    if H < 1 or E % H:
+        raise ValueError(f"fused int8 decode: {H} heads do not divide E={E}")
+    smem = decode_smem_bytes(E, F, C, H, max(T, Tm), 16 // dtype.itemsize)
+    if B <= K1Q_WIDE_BATCH and smem <= SMEM_LIMIT:
+        return K1qRoute("wide", None, f"fused int8 decode: B={B} rows, at most {K1Q_WIDE_BATCH}")
+    try:
+        plan = cluster_plan(B, L, E, H, F, C, T, Tm, dtype, int8=True)
+        return K1qRoute("cluster", plan)
+    except ValueError as refused:
+        why = str(refused)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{why}; and the wide-row int8 kernel's {smem} bytes of shared memory "
+                         f"per CTA exceed {SMEM_LIMIT}")
+    return K1qRoute("wide", None, why)
 
 
 def _slices(w: FusedDecodeWeights, cw: ClusterWidths):
@@ -585,24 +672,25 @@ def _slices(w: FusedDecodeWeights, cw: ClusterWidths):
             head[None, None])
 
 
-def _to_units(m: torch.Tensor, un: int) -> torch.Tensor:
-    """[A, B, K, N] -> its units [A, B, items, K/16, 32, vals]: unit (column
-    tile c, k-step k) holds lane (g, q)'s k-values {2q, 2q+1, 2q+8, 2q+9}
-    of columns c * un + nt * 8 + g, nt < un / 8 (its mma.sync B fragments
-    in bf16)."""
+def _to_units(m: torch.Tensor, un: int, step: int = 16) -> torch.Tensor:
+    """[A, B, K, N] -> its units [A, B, items, K/step, 32, vals]: unit
+    (column tile c, k-step k) holds lane (g, q)'s k-values :func:`_kk` of
+    columns c * un + nt * 8 + g, nt < un / 8: its mma.sync B fragments
+    (bf16, m16n8k16: k 2q, 2q+1, 2q+8, 2q+9; int8, m16n8k32: k 4q..4q+3,
+    16+4q..16+4q+3), or in float32 the same four k-values of one column."""
     A, B, K, N = m.shape
-    ks, nc, nt = K // 16, N // un, un // 8
-    x = m.reshape(A, B, ks, 16, nc, nt, 8).index_select(3, _KK.to(m.device))
-    x = x.reshape(A, B, ks, 4, 4, nc, nt, 8).permute(0, 1, 5, 2, 7, 3, 6, 4)
-    return x.reshape(A, B, nc, ks, 32, nt * 4)
+    ks, nc, nt, jn = K // step, N // un, un // 8, step // 4
+    x = m.reshape(A, B, ks, step, nc, nt, 8).index_select(3, _kk(step).to(m.device))
+    x = x.reshape(A, B, ks, 4, jn, nc, nt, 8).permute(0, 1, 5, 2, 7, 3, 6, 4)
+    return x.reshape(A, B, nc, ks, 32, nt * jn)
 
 
-def _from_units(x: torch.Tensor, K: int, N: int, un: int) -> torch.Tensor:
+def _from_units(x: torch.Tensor, K: int, N: int, un: int, step: int = 16) -> torch.Tensor:
     """The inverse of :func:`_to_units`."""
     A, B = x.shape[:2]
-    ks, nc, nt = K // 16, N // un, un // 8
-    x = x.reshape(A, B, nc, ks, 8, 4, nt, 4).permute(0, 1, 3, 5, 7, 2, 6, 4)
-    x = x.reshape(A, B, ks, 16, nc, nt, 8).index_select(3, torch.argsort(_KK).to(x.device))
+    ks, nc, nt, jn = K // step, N // un, un // 8, step // 4
+    x = x.reshape(A, B, nc, ks, 8, 4, nt, jn).permute(0, 1, 3, 5, 7, 2, 6, 4)
+    x = x.reshape(A, B, ks, step, nc, nt, 8).index_select(3, torch.argsort(_kk(step)).to(x.device))
     return x.reshape(A, B, K, N)
 
 
@@ -612,6 +700,15 @@ def _warp_passes(items: int):
     the last alone where c + 8 is past the end."""
     return [[(c, c + _WARPS) if c + _WARPS < items else (c,)
              for c in range(w, items, 2 * _WARPS)] for w in range(_WARPS)]
+
+
+def _runs(parts) -> torch.Tensor:
+    """Units [A, B, items, k-steps, 32, vals] of projections ``parts`` as
+    the warps read them: warp by warp, each warp's passes of every part
+    (:func:`_warp_passes`, the two tiles' k-steps interleaved) -> [A, B,
+    units, 32, vals]."""
+    return torch.cat([p[:, :, list(tiles)].transpose(2, 3).flatten(2, 3) for w in range(_WARPS)
+                      for p in parts for tiles in _warp_passes(p.shape[2])[w]], 2)
 
 
 def pack_cluster_tables(w: FusedDecodeWeights, num_heads: int) -> torch.Tensor:
@@ -627,30 +724,36 @@ def pack_cluster_tables(w: FusedDecodeWeights, num_heads: int) -> torch.Tensor:
     F, C = w.ff1_w.shape[2], w.head_w.shape[1]
     cw = _cluster_shapes(E, num_heads, F, C, w.w_qkv.dtype)
     parts = [_to_units(m.detach(), cw.un) for m in _slices(w, cw)]
-
-    def runs(ps):  # warp by warp, each warp's passes of every projection of ps
-        return [p[:, :, list(tiles)].transpose(2, 3).flatten(2, 3) for w in range(_WARPS)
-                for p in ps for tiles in _warp_passes(p.shape[2])[w]]
-
-    layers = torch.cat(runs(parts[:-1]), 2)  # [L, H, units, 32, vals]
-    return torch.cat([layers.reshape(-1), torch.cat(runs(parts[-1:]), 2).reshape(-1)]).contiguous()
+    return torch.cat([_runs(parts[:-1]).reshape(-1), _runs(parts[-1:]).reshape(-1)]).contiguous()
 
 
-def unpack_cluster_tables(packed: torch.Tensor, *, L: int, E: int, H: int, F: int,
-                          C: int) -> dict:
-    """The inverse of :func:`pack_cluster_tables`: the tables w_qkv, w_out,
-    cw_q, cw_o, ff1_w, ff2_w [L, in, out] and head_w [E, C], their padding
-    dropped."""
-    cw = _cluster_shapes(E, H, F, C, packed.dtype)
-    G, Hc, hd, hdp, Fg, un, shapes = cw.G, cw.Hc, cw.hd, cw.hdp, cw.Fg, cw.un, cw.shapes
-    vals = 16 // packed.itemsize
-    units = [N // un * (K // 16) for K, N in shapes]
-    n_layers = L * G * sum(units[:-1]) * 32 * vals
-    blocks = (packed[:n_layers].reshape(L, G, -1, 32, vals),
-              packed[n_layers:].reshape(1, 1, -1, 32, vals))
-    items = [torch.zeros(A, B, N // un, K // 16, 32, vals, dtype=packed.dtype,
-                         device=packed.device)
-             for (A, B), (K, N) in zip([(L, G)] * 6 + [(1, 1)], shapes)]
+def pack_cluster_tables_int8(w: FusedDecodeWeights, num_heads: int) -> torch.Tensor:
+    """K1q's weight units: ``w`` as :func:`quantize_fused_weights` leaves
+    it (the six projection tables int8 in K1q's layout, the class head in
+    the compute type) laid out as :func:`pack_cluster_tables` lays out K1's,
+    but the six tables' units int8 m16n8k32 B fragments (32 deep, 16
+    columns; widths padded to multiples of 32), the head's in the compute
+    type.  One flat int8 tensor of bytes (the head's units after the
+    layers', as bytes); :func:`unpack_cluster_tables_int8` is its
+    inverse."""
+    tables = {n: unpack_int8_table(getattr(w, n).detach()) for n in QUANTIZED}  # [L, in, out]
+    L, E, _ = tables["w_qkv"].shape
+    F, C = tables["ff1_w"].shape[2], w.head_w.shape[1]
+    cw = _cluster_shapes(E, num_heads, F, C, w.head_w.dtype, int8=True)
+    slices = _slices(w._replace(**tables, head_w=w.head_w.detach()), cw)
+    layers = _runs([_to_units(m, cw.un, cw.ks) for m in slices[:-1]])
+    head = _runs([_to_units(slices[-1], cw.hu)])
+    return torch.cat([layers.reshape(-1), head.reshape(-1).view(torch.int8)]).contiguous()
+
+
+def _unpack(blocks, cw: ClusterWidths, L: int, E: int, F: int, C: int) -> dict:
+    """The tables, their padding dropped, from ``blocks``: the layers'
+    units [L, G, U, 32, vals] and the head's [1, 1, UH, 32, vals]."""
+    G, Hc, hd, hdp, Fg, shapes, kinds = cw.G, cw.Hc, cw.hd, cw.hdp, cw.Fg, cw.shapes, cw.kinds()
+    items = [torch.zeros(A, B, N // u, K // k, 32, blk.shape[-1], dtype=blk.dtype,
+                         device=blk.device)
+             for (A, B), (K, N), (u, k), blk in zip([(L, G)] * 6 + [(1, 1)], shapes, kinds,
+                                                     [blocks[0]] * 6 + [blocks[1]])]
     for block, ps in ((blocks[0], range(6)), (blocks[1], range(6, 7))):
         at = 0
         for w in range(_WARPS):
@@ -660,7 +763,8 @@ def unpack_cluster_tables(packed: torch.Tensor, *, L: int, E: int, H: int, F: in
                     run = block[:, :, at:at + n].unflatten(2, (-1, len(tiles)))
                     items[p][:, :, list(tiles)] = run.transpose(2, 3)
                     at += n
-    qkv, out, cq, co, f1, f2, head = (_from_units(x, K, N, un) for x, (K, N) in zip(items, shapes))
+    qkv, out, cq, co, f1, f2, head = (_from_units(x, K, N, u, k)
+                                      for x, (K, N), (u, k) in zip(items, shapes, kinds))
     # the rows' padding (as K or N) dropped
     qkv, cq, f1, head = (m.narrow(2, 0, E) for m in (qkv, cq, f1, head))
     out, co, f2 = (m.narrow(3, 0, E) for m in (out, co, f2))
@@ -681,6 +785,31 @@ def unpack_cluster_tables(packed: torch.Tensor, *, L: int, E: int, H: int, F: in
         head_w=head[0, 0, :, :C])
 
 
+def unpack_cluster_tables(packed: torch.Tensor, *, L: int, E: int, H: int, F: int,
+                          C: int) -> dict:
+    """The inverse of :func:`pack_cluster_tables`: the tables w_qkv, w_out,
+    cw_q, cw_o, ff1_w, ff2_w [L, in, out] and head_w [E, C], their padding
+    dropped."""
+    cw = _cluster_shapes(E, H, F, C, packed.dtype)
+    vals = 16 // packed.itemsize
+    units = cw.unit_counts()
+    n_layers = L * cw.G * sum(units[:-1]) * 32 * vals
+    return _unpack((packed[:n_layers].reshape(L, cw.G, -1, 32, vals),
+                    packed[n_layers:].reshape(1, 1, -1, 32, vals)), cw, L, E, F, C)
+
+
+def unpack_cluster_tables_int8(packed: torch.Tensor, *, L: int, E: int, H: int, F: int,
+                               C: int, dtype: torch.dtype) -> dict:
+    """The inverse of :func:`pack_cluster_tables_int8` (the head in
+    ``dtype``): the int8 tables w_qkv, w_out, cw_q, cw_o, ff1_w, ff2_w [L,
+    in, out] and head_w [E, C], their padding dropped."""
+    cw = _cluster_shapes(E, H, F, C, dtype, int8=True)
+    n_layers = L * cw.G * sum(cw.unit_counts()[:-1]) * _UNIT
+    return _unpack((packed[:n_layers].reshape(L, cw.G, -1, 32, 16),
+                    packed[n_layers:].view(dtype).reshape(1, 1, -1, 32, 16 // dtype.itemsize)),
+                   cw, L, E, F, C)
+
+
 def fused_greedy_decode_cuda(w: FusedDecodeWeights, cross_k: torch.Tensor,
                              cross_v: torch.Tensor, *, num_heads: int,
                              steps: int, go_id: int = 0, eos_id: Optional[int] = None,
@@ -696,53 +825,80 @@ def fused_greedy_decode_cuda(w: FusedDecodeWeights, cross_k: torch.Tensor,
     clusters of :data:`CLUSTER_ROWS` rows (:func:`cluster_plan`, which
     raises ValueError for widths it cannot tile); with ``profile`` (int64
     [len(CLUSTER_PHASES)] on the device) it adds the cycles the first
-    thread of CTA 0 spent in each phase.  Returns logits [B, T, C]."""
+    thread of CTA 0 spent in each phase.  K1q runs where :func:`k1q_route`
+    says: on the cluster kernel with ``packed`` = :func:`pack_cluster_tables_int8`
+    of ``w`` (required) and ``profile`` int64 [len(INT8_CLUSTER_PHASES)], or
+    on the wide-row kernel, which reads no ``packed`` and keeps no profile.
+    Returns logits [B, T, C]."""
     ids = [go_id] + ([] if eos_id is None else [eos_id])
     what = "fused decode" if scales is None else "fused int8 decode"
     L, B, Tm, E, F, C = check_kernel_inputs(w, cross_k, cross_v, num_heads=num_heads,
                                             steps=steps, class_ids=ids, what=what,
                                             scales=scales, cls0=cls0)
-    dt, T, H = w.b_qkv.dtype, steps, num_heads
+    dt, T, H, dev = w.b_qkv.dtype, steps, num_heads, cross_k.device
     if scales is None:
         plan = cluster_plan(B, L, E, H, F, C, T, Tm, dt)
-        want = (L * plan.G * plan.units + plan.head_units) * _UNIT // dt.itemsize
-        if (packed is None or packed.dtype != dt or packed.device != cross_k.device
-                or not packed.is_contiguous() or packed.numel() != want):
-            raise ValueError(f"{what}: packed must be pack_cluster_tables of the tables, "
-                             f"contiguous {dt} on {cross_k.device} with {want} elements")
-        if profile is not None and (profile.dtype != torch.int64
-                                    or profile.device != cross_k.device
-                                    or profile.shape != (len(CLUSTER_PHASES),)):
-            raise ValueError(f"{what}: profile must be int64 [{len(CLUSTER_PHASES)}] on "
-                             f"{cross_k.device}")
+        phases, maker, dtp = CLUSTER_PHASES, "pack_cluster_tables", dt
     else:
-        smem = decode_smem_bytes(E, F, C, H, max(T, Tm), 16 // dt.itemsize)
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"{what}: {smem} bytes of shared memory per CTA "
-                             f"exceed {SMEM_LIMIT}")
+        route = k1q_route(B, L, E, H, F, C, T, Tm, dt)
+        plan = route.plan
+        phases, maker, dtp = INT8_CLUSTER_PHASES, "pack_cluster_tables_int8", torch.int8
+        if plan is None and profile is not None:
+            raise ValueError(f"{what}: the wide-row kernel ({route.why}) keeps no profile")
+    if plan is not None:
+        want = (L * plan.G * plan.units + plan.head_units) * _UNIT // dtp.itemsize
+        if (packed is None or packed.dtype != dtp or packed.device != dev
+                or not packed.is_contiguous() or packed.numel() != want):
+            raise ValueError(f"{what}: packed must be {maker} of the tables, contiguous {dtp} "
+                             f"on {dev} with {want} elements")
+        if profile is not None and (profile.dtype != torch.int64 or profile.device != dev
+                                    or profile.shape != (len(phases),)):
+            raise ValueError(f"{what}: profile must be int64 [{len(phases)}] on {dev}")
     # caches zeroed before use, as the TPU kernel's are
-    kc = torch.zeros(L, B, T, E, dtype=dt, device=cross_k.device)
+    kc = torch.zeros(L, B, T, E, dtype=dt, device=dev)
     vc = torch.zeros_like(kc)
-    logits = _logits_buffer(B, T, C, eos_id, cross_k.device)
+    logits = _logits_buffer(B, T, C, eos_id, dev)
     dims = (B, T, L, E, F, C, H, Tm, go_id, -1 if eos_id is None else eos_id)
     if scales is None:
         launch(launcher("fused_decode_cluster"), w, cross_k, cross_v,
                (kc, vc, logits, packed, profile), dims + (plan.smem, plan.G), num_heads=H,
                eps=eps, what=what, cls0=cls0)
         fused_greedy_decode_cuda.launches += 1
+    elif plan is not None:
+        launch(launcher("fused_decode_cluster", "fused_decode_cluster_int8"), w, cross_k,
+               cross_v, (kc, vc, logits, packed, profile) + tuple(scales),
+               dims + (plan.smem, plan.G), num_heads=H, eps=eps, what=what, cls0=cls0)
+        fused_greedy_decode_cuda.launches_int8 += 1
     else:
         launch(launcher("fused_decode", "fused_decode_int8"), w, cross_k, cross_v,
                (kc, vc, logits) + tuple(scales), dims, num_heads=H, eps=eps, what=what,
                cls0=cls0)
-        fused_greedy_decode_cuda.launches_int8 += 1
+        fused_greedy_decode_cuda.launches_int8_wide += 1
     if cls0 is not None:
         fused_greedy_decode_cuda.launches_cls0 += 1
     return logits
 
 
 fused_greedy_decode_cuda.launches = 0  # K1 (float mode)
-fused_greedy_decode_cuda.launches_int8 = 0  # K1q
-fused_greedy_decode_cuda.launches_cls0 = 0  # either, with a cls0 row
+fused_greedy_decode_cuda.launches_int8 = 0  # K1q on the cluster kernel
+fused_greedy_decode_cuda.launches_int8_wide = 0  # K1q on the wide-row kernel
+fused_greedy_decode_cuda.launches_cls0 = 0  # any of them, with a cls0 row
+
+
+def packed_units(w: FusedDecodeWeights, cross_k: torch.Tensor, *, num_heads: int, steps: int,
+                 dtype: torch.dtype, scales: Optional[FusedDecodeScales],
+                 units: Optional[Callable[..., torch.Tensor]]) -> Optional[torch.Tensor]:
+    """The weight units the CUDA kernel will read, from the caller's
+    ``units``: ``units(dtype)`` for K1, ``units(dtype, int8=True)`` for K1q
+    where :func:`k1q_route` picks the cluster kernel; None where no units
+    are read (the wide-row K1q) or the caller keeps none."""
+    if units is None:
+        return None
+    if scales is None:
+        return units(dtype)
+    L, B, Tm, E = cross_k.shape
+    route = k1q_route(B, L, E, num_heads, w.ff1_w.shape[2], w.head_w.shape[1], steps, Tm, dtype)
+    return units(dtype, int8=True) if route.kernel == "cluster" else None
 
 
 def fused_greedy_decode(w: FusedDecodeWeights, cross_k: torch.Tensor,
@@ -752,7 +908,7 @@ def fused_greedy_decode(w: FusedDecodeWeights, cross_k: torch.Tensor,
                         plain: bool = False,
                         scales: Optional[FusedDecodeScales] = None,
                         cls0: Optional[torch.Tensor] = None,
-                        units: Optional[Callable[[torch.dtype], torch.Tensor]] = None
+                        units: Optional[Callable[..., torch.Tensor]] = None
                         ) -> torch.Tensor:
     """Greedy decode -> logits [B, steps, C] float32.
 
@@ -763,9 +919,12 @@ def fused_greedy_decode(w: FusedDecodeWeights, cross_k: torch.Tensor,
     of :func:`quantize_fused_weights`) selects the quantized mode.  ``cls0``
     [B, E] float32 replaces the [GO] embedding at step 0 (both versions
     raise on another type or shape).  CPU tensors (or ``plain=True``) take
-    the plain version; CUDA tensors launch the kernel, K1 with the tables
-    ``units(dtype)`` returns (:func:`pack_cluster_tables` of ``w`` in
-    ``dtype``, which the caller keeps; called only when K1 runs).
+    the plain version; CUDA tensors launch the kernel, with the units
+    ``units`` returns (:func:`packed_units`: ``units(dtype)``,
+    :func:`pack_cluster_tables` of ``w`` in ``dtype``, for K1;
+    ``units(dtype, int8=True)``, :func:`pack_cluster_tables_int8`, for K1q
+    on the cluster kernel; the caller keeps them, and they are asked for
+    only where the kernel reads them).
     """
     w = cast_weights(w, dtype)
     ck = cross_k.detach().to(dtype).contiguous()
@@ -774,5 +933,6 @@ def fused_greedy_decode(w: FusedDecodeWeights, cross_k: torch.Tensor,
               scales=scales, cls0=None if cls0 is None else cls0.detach())
     if plain or ck.device.type == "cpu":
         return fused_greedy_decode_plain(w, ck, cv, **kw)
-    packed = None if scales is not None or units is None else units(dtype)
+    packed = packed_units(w, ck, num_heads=num_heads, steps=steps, dtype=dtype, scales=scales,
+                          units=units)
     return fused_greedy_decode_cuda(w, ck, cv, packed=packed, **kw)
