@@ -32,10 +32,10 @@ against the plain path's, and splits each call's time by stage, the
 fusion MLPs as a stage of their own.  The gemm probe phase holds the
 int8-vs-bf16 probe's two chain kernels (P1, P2) against their plain
 versions at 1, 4 and 30 steps, on a tie input and a NaN input, checks both
-end all NaN at the probe's 200 steps, times each against its bound, its
-plain version and the same chain through library products, and runs the
-probe's own entry point.  Every phase prints one flushed line
-with the elapsed seconds; any failure raises and the script exits
+end all NaN at the probe's 200 steps, prints their launch plan
+(``probe_plan``), times each against its bound, its plain version and the
+same chain through library products, and runs the probe's own entry point.
+Every phase prints one flushed line with the elapsed seconds; any failure raises and the script exits
 non-zero.  ``--mutants`` also builds copies of the beam kernel with one
 bf16 rounding dropped each (the ReLU outputs': rounded toward zero), of
 K1q's cluster kernel with one of four faults each (three roundings, and
@@ -43,9 +43,10 @@ the abs-max of a K-split input taken over a CTA's own slice) and of its
 wide-row kernel with one of the three roundings each (K1Q_WIDE_MUTANTS),
 each held at the flagship and read at a padded or wide width, of K1 with one bf16 rounding dropped each (the ReLU outputs': rounded
 toward zero; read with and without cls0), and of the probe's kernels with
-one of four rounding faults each, and prints whether their limits catch
-them; and copies of K1 with one part of its step left out each, timed
-beside it (K1_TIMING_VARIANTS).  The K1 phase prints K1's launch (its
+one of four rounding faults or a chain CTA's own abs-max each
+(PROBE_MUTANTS), and prints whether their limits catch them; and copies of
+K1 and of the probe's kernels with one part of their step left out each,
+timed beside them (K1_TIMING_VARIANTS, PROBE_TIMING_VARIANTS).  The K1 phase prints K1's launch (its
 cluster plan and the weight bytes a call reads from L2), its times
 (``k1_times``: B=192 at full length and with early stop, B=1) and its
 cycles by phase (``fused_greedy_decode_cuda(profile=)``); a second K1
@@ -220,7 +221,8 @@ def device_ms(fn, iters: int = 10) -> float:
     """Mean device time in ms of one ``fn()`` call: the summed durations of
     the kernels it launches, by ``torch.profiler``.  CUDA events over
     back-to-back calls also count the host's launch cost wherever a call's
-    device work is shorter than it (tens of microseconds here)."""
+    device work is shorter than it (tens of microseconds here).  Raises
+    where the profiler saw no kernel of the calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -231,7 +233,35 @@ def device_ms(fn, iters: int = 10) -> float:
         torch.cuda.synchronize()
     busy_us = sum(e.time_range.end - e.time_range.start for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if busy_us <= 0:
+        raise AssertionError("the profiler saw no kernel of the timed calls run on the card")
     return busy_us / 1e3 / iters
+
+
+_FLUSH = []  # a 128 MB buffer, written to push what a call reads out of the 50 MB L2
+
+
+def queued_ms(fn, reps: int = 5, cold: bool = False) -> float:
+    """Mean ms of one ``fn()`` on the card, by CUDA events around the call
+    alone: a spin kernel holds the card until the call is queued behind it,
+    so the events bracket the call's device work and not the host's launch
+    of it (no profiler).  ``cold``: 128 MB are written before each timed
+    call (the L2 holds 50)."""
+    if cold and not _FLUSH:
+        _FLUSH.append(torch.empty(32 << 20, dtype=torch.float32, device="cuda"))
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        if cold:
+            _FLUSH[0].fill_(1.0)
+        torch.cuda._sleep(1_000_000)  # ~0.5 ms, longer than any launch here
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -340,8 +370,10 @@ def bn_check(bn, shape, dtype, seed: int) -> dict:
     """K3 against its plain version at one shape: twice, bit-equal from run
     to run, within BN_TOL of the sum of |terms| per channel (raises
     otherwise).  Then the device ms of the kernel, the plain version and the
-    library call, the kernel's ms by CUDA events, and the bound (x and dy
-    read once, mean and rstd read, dgamma and dbeta written)."""
+    library call, warm and, for the kernel and the library call, on a cold
+    L2 (``queued_ms``: CUDA events around one queued call), the kernel's ms by
+    CUDA events over back-to-back calls, and the bound (x and dy read once,
+    mean and rstd read, dgamma and dbeta written)."""
     x, dy, mean, rstd = bn_inputs(shape, dtype, seed)
     got = bn.bn_bwd_sums_cuda(x, dy, mean, rstd)
     again = bn.bn_bwd_sums_cuda(x, dy, mean, rstd)
@@ -362,9 +394,11 @@ def bn_check(bn, shape, dtype, seed: int) -> dict:
         raise AssertionError(f"bn_bwd_reduce disagrees with its plain version at {shape} "
                              f"{dtype}: {out}")
     kernel = lambda: bn.bn_bwd_sums_cuda(x, dy, mean, rstd)  # noqa: E731
-    out["ms"] = device_ms(kernel)
-    out["plain_ms"] = device_ms(lambda: bn.bn_bwd_sums_plain(x, dy, mean, rstd))
-    out["library_ms"] = device_ms(lambda: library_bn_sums(x, dy, mean, rstd))
+    out["ms"] = queued_ms(kernel, 10)
+    out["plain_ms"] = queued_ms(lambda: bn.bn_bwd_sums_plain(x, dy, mean, rstd), 10)
+    out["library_ms"] = queued_ms(lambda: library_bn_sums(x, dy, mean, rstd), 10)
+    out["cold_ms"] = queued_ms(kernel, cold=True)
+    out["library_cold_ms"] = queued_ms(lambda: library_bn_sums(x, dy, mean, rstd), cold=True)
     n = x.numel()
     out["bound_ms"], out["bound_by"] = bound(2 * n * x.element_size() + 4 * shape[1] * 4,
                                              4 * n, PEAK_F32_FLOPS)
@@ -378,7 +412,8 @@ def bn_line(shape, dtype, r: dict) -> str:
             f"repeatable {r['repeat']}; device time: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, native_batch_norm_backward {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); kernel by CUDA events "
-            f"{r['events_ms']:.4f} ms")
+            f"{r['events_ms']:.4f} ms; on a cold L2 kernel {r['cold_ms']:.4f} ms, "
+            f"native_batch_norm_backward {r['library_cold_ms']:.4f} ms")
 
 
 def check_bn_bwd_reduce(bn):
@@ -401,31 +436,43 @@ def check_bn_bwd_reduce(bn):
 # to ops/gemm_probe.BF16_CHAIN_TOL (max |diff| over max |acc|, by depth;
 # measured on the card and stated there).  At the probe's 200 steps the
 # chain has overflowed: both versions of both kernels must be all NaN.  On
-# an H100 the four PROBE_MUTANTS were caught: roundf by the tie input and
-# at 4 and 30 steps (random data hits no tie at the first step), the
+# an H100 the first four PROBE_MUTANTS were caught: roundf by the tie input
+# and at 4 and 30 steps (random data hits no tie at the first step), the
 # contraction from the second step on, toward-zero bf16 by every P2 limit;
 # fmaxf by none of these (the 200-step chain ends all NaN with it too),
-# which the NaN input now catches.
+# which the NaN input now catches.  The fifth, a chain CTA that quantizes
+# with the abs-max of its own 16 rows instead of the cluster's, must be
+# caught by bit-equality.
 PROBE_DEPTHS = (1, 4, 30)
 PROBE_TIE_DEPTHS = (1, 4)
 
 # the faults the probe's limits must catch, for --mutants: (name, text in
 # gemm_probe.cu, replacement)
 PROBE_MUTANTS = (
-    ("P1 roundf for rintf", "rintf(", "roundf("),
+    ("P1 roundf for half to even", "__fadd_rn(y, kRound)", "__fadd_rn(roundf(y), kRound)"),
     ("P1 acc + a*q contracted to an FMA", "acc = __fadd_rn(acc, o);",
      "acc = acc + (float)a * s;"),
     ("P1 fmaxf for the NaN-propagating max", "nan_max(__uint_as_float(m), 1e-12f)",
      "fmaxf(__uint_as_float(m), 1e-12f)"),
     ("P2 x rounded to bf16 toward zero", "__float2bfloat16_rn(", "__float2bfloat16_rz("),
+    ("P1 a chain CTA's own abs-max for the cluster's",
+     "for (int s = lane; s < G * kMmaWarps; s += 32) m = max(m, sh.slots[q][s]);",
+     "for (int s = lane; s < kMmaWarps; s += 32) m = max(m, sh.slots[q][rank * kMmaWarps + s]);"),
 )
-# copies of P1 with one part of a step left out, timed (not checked) with
-# --mutants to split P1's step against P2's: (name, text, replacement)
+# copies with one part of the new step left out, timed (not checked) with
+# --mutants to split a step: the chain alone (no wide CTAs, so no history
+# published; P1 and P2), and P1's chain without its cluster abs-max
+# exchange (each CTA its own warps' maxima, no cluster barrier):
+# (name, text, replacement, kernels timed)
 PROBE_TIMING_VARIANTS = (
-    ("without reading the abs-max slots", "for (int s = lane; s < nslots; s += 32)",
-     "for (int s = lane; s < 0; s += 32)"),
-    ("without publishing the abs-max", "if (feeds) publish_max(", "if (false) publish_max("),
-    ("multiplying where it divides by inv", "__fdiv_rn(wsc", "__fmul_rn(wsc"),
+    ("the chain alone",
+     "p.wide = (p.B + kWideRows<Q> - 1) / kWideRows<Q> * ((p.F - kE) / kWideCols);",
+     "p.wide = 0;", ("p1", "p2")),
+    ("P1 without the cluster abs-max exchange",
+     ("if (lane < G) st_async(&sh.slots[q][rank * kMmaWarps + warp], &sh.amax_bar[q], lane, m);",
+      "mbar_wait(&sh.amax_bar[q], (it >> 1) & 1);",
+      "if (tid == 0 && it + 2 < p.iters) mbar_expect(&sh.amax_bar[q], amax_bytes);"),
+     ("if (lane == 0) sh.slots[q][rank * kMmaWarps + warp] = m;", "", ""), ("p1",)),
 )
 
 
@@ -532,15 +579,39 @@ def graphed(fn):
     return graph.replay
 
 
+def step_times(kernel, iters: int) -> dict:
+    """ms of ``kernel(n)`` at 0, 30 and ``iters`` steps, by CUDA events over
+    1 warm + 10 back-to-back calls (which also count the host's cost of a
+    call where it exceeds the device's) and as device time (``queued_ms``),
+    and the us a step of device time over the first 30 (finite) steps and
+    over the overflowed rest."""
+    ms_0, ms_30, ms = (cuda_ms(lambda: kernel(n), 10) for n in (0, 30, iters))
+    dev = [queued_ms(lambda: kernel(n), 10) for n in (0, 30, iters)]
+    return dict(ms=ms, ms_0_steps=ms_0, ms_30_steps=ms_30, device_ms=dev[2],
+                device_ms_0_steps=dev[0], device_ms_30_steps=dev[1],
+                step_us_finite=(dev[1] - dev[0]) / 30 * 1e3,
+                step_us_overflowed=(dev[2] - dev[1]) / (iters - 30) * 1e3)
+
+
+def step_line(t: dict, iters: int) -> str:
+    return (f"{t['ms']:.4f} ms at {iters} steps, {t['ms_0_steps']:.4f} at 0, "
+            f"{t['ms_30_steps']:.4f} at 30 (CUDA events); device time {t['device_ms']:.4f} / "
+            f"{t['device_ms_0_steps']:.4f} / {t['device_ms_30_steps']:.4f} ms; a step "
+            f"{t['step_us_finite']:.3f} us over the first 30, {t['step_us_overflowed']:.3f} us "
+            f"over the rest")
+
+
 def check_gemm_probe(gp, probe, build, mutants: bool):
     """P1 and P2 against their plain versions (PROBE_DEPTHS, the tie
     input, all NaN at 200 steps), raising on any broken limit; then each
     at the probe's 200 steps: ms (CUDA events, 1 warm + 10 calls, with the
     launch count checked), rate, bound, the plain version's ms and the
-    library chain's ms, eager and as one CUDA graph.  Then the probe's own
-    entry point (``scripts/probe_int8.main(["--run"])``) with the launch
+    library chain's ms, eager and as one CUDA graph.  Then the probe's
+    own entry point (``scripts/probe_int8.main(["--run"])``) with the launch
     counts set to 0 just before it and read just after.  ``mutants`` holds
-    broken copies of the kernels to the same limits."""
+    broken copies of the kernels to the same limits (raising if one is
+    missed) and times PROBE_TIMING_VARIANTS: the chain's us a step and the
+    wide part's ms (the whole less the chain alone)."""
     x, wq, ws, wbf = gp.probe_inputs(0)
     xt = gp.tie_input(0)
     r = probe_errors(gp, x, wq, ws, wbf, xt)
@@ -548,32 +619,44 @@ def check_gemm_probe(gp, probe, build, mutants: bool):
     broken = probe_caught(gp, r)
     if broken:
         raise AssertionError(f"the gemm probe kernels break their limits: {broken}")
+    for name, int8 in (("p1", True), ("p2", False)):
+        log(f"{name} plan: {gp.probe_plan(gp.B, gp.F, int8)}")
+    kernels = {"p1": lambda n: gp.int8_chain_cuda(x, wq, ws, n),
+               "p2": lambda n: gp.bf16_chain_cuda(x, wbf, n)}
+    variants = {}
     if mutants:
-        with mutant_libraries(build, "gemm_probe", PROBE_MUTANTS + PROBE_TIMING_VARIANTS) as paths:
+        variants_in = [v[:3] for v in PROBE_TIMING_VARIANTS]
+        with mutant_libraries(build, "gemm_probe", PROBE_MUTANTS + tuple(variants_in)) as paths:
+            missed = []
             for (name, _, _), path in zip(PROBE_MUTANTS, paths):
                 with loaded_as(build, "gemm_probe", path):
                     rm = probe_errors(gp, x, wq, ws, wbf, xt)
-                log(f"probe mutant {name}: {probe_line(rm)}; caught by "
-                    f"{probe_caught(gp, rm) or 'no limit'}")
-            for (name, _, _), path in zip(PROBE_TIMING_VARIANTS, paths[len(PROBE_MUTANTS):]):
+                caught = probe_caught(gp, rm)
+                log(f"probe mutant {name}: {probe_line(rm)}; caught by {caught or 'no limit'}")
+                if not caught:
+                    missed.append(name)
+            for (name, _, _, which), path in zip(PROBE_TIMING_VARIANTS,
+                                                 paths[len(PROBE_MUTANTS):]):
                 with loaded_as(build, "gemm_probe", path):
-                    ms = [cuda_ms(lambda: gp.int8_chain_cuda(x, wq, ws, n), 10)
-                          for n in (30, gp.ITERS)]
-                log(f"P1 {name}: {ms[0]:.4f} ms at 30 steps, {ms[1]:.4f} ms at {gp.ITERS} "
-                    f"(timing only)")
+                    for k in which:
+                        variants[(k, name)] = step_times(kernels[k], gp.ITERS)
+                        log(f"{k} {name}: {step_line(variants[(k, name)], gp.ITERS)} "
+                            f"(timing only)")
+            if missed:
+                raise AssertionError(f"the probe's limits missed the mutants {missed}")
 
     wq_cm = wq.t().contiguous().t()
     ops = 2 * gp.B * gp.E * gp.F * gp.ITERS
     out_bytes = gp.B * gp.F * 4
     rows = {}
-    for name, kernel, plain, library, nbytes, peak in (
-            ("p1", lambda n: gp.int8_chain_cuda(x, wq, ws, n),
-             lambda n: gp.int8_chain_plain(x, wq, ws, n),
+    for name, plain, library, nbytes, peak in (
+            ("p1", lambda n: gp.int8_chain_plain(x, wq, ws, n),
              lambda n: library_int8_chain(x, wq_cm, ws, n),
              x.numel() * 4 + wq.numel() + ws.numel() * 4 + out_bytes, PEAK_INT8_OPS),
-            ("p2", lambda n: gp.bf16_chain_cuda(x, wbf, n), lambda n: gp.bf16_chain_plain(x, wbf, n),
+            ("p2", lambda n: gp.bf16_chain_plain(x, wbf, n),
              lambda n: library_bf16_chain(x, wbf, n),
              x.numel() * 4 + wbf.numel() * 2 + out_bytes, PEAK_BF16_FLOPS)):
+        kernel = kernels[name]
         counter = gp.int8_chain_cuda if name == "p1" else gp.bf16_chain_cuda
         before = counter.launches
         ms = cuda_ms(lambda: kernel(gp.ITERS), 10)
@@ -584,22 +667,34 @@ def check_gemm_probe(gp, probe, build, mutants: bool):
         bound_ms, bound_by = bound(nbytes, ops, peak)
         # the launch, weight staging and output alone; the first 30 steps,
         # whose values are finite; the overflowed rest (inf and NaN operands)
-        ms_0, ms_30 = (cuda_ms(lambda: kernel(n), 10) for n in (0, 30))
+        t = step_times(kernel, gp.ITERS)
+        ms_0, ms_30 = t["ms_0_steps"], t["ms_30_steps"]
         rows[name] = dict(
-            ms=ms, tf_s=ops / ms / 1e9, ms_0_steps=ms_0, ms_30_steps=ms_30,
-            step_us_finite=(ms_30 - ms_0) / 30 * 1e3,
-            step_us_overflowed=(ms - ms_30) / (gp.ITERS - 30) * 1e3,
+            t, ms=ms, tf_s=ops / ms / 1e9,
             plain_ms=cuda_ms(lambda: plain(gp.ITERS), 10),
             library_ms_eager=cuda_ms(lambda: library(gp.ITERS), 10),
             library_ms=cuda_ms(graphed(lambda: library(gp.ITERS)), 10),
             bound_ms=bound_ms, bound_by=bound_by, library_err_4=library_err)
         log(f"{name} at {gp.ITERS} steps: kernel {ms:.4f} ms ({rows[name]['tf_s']:.2f} TF/s; "
-            f"{ms_0:.4f} ms at 0 steps, {ms_30:.4f} at 30; a step {rows[name]['step_us_finite']:.3f}"
-            f" us over the first 30, {rows[name]['step_us_overflowed']:.3f} us over the rest), "
+            f"{ms_0:.4f} ms at 0 steps, {ms_30:.4f} at 30; device time {t['device_ms']:.4f} / "
+            f"{t['device_ms_0_steps']:.4f} / {t['device_ms_30_steps']:.4f} ms; a step "
+            f"{rows[name]['step_us_finite']:.3f} us over the first 30, "
+            f"{rows[name]['step_us_overflowed']:.3f} us over the rest), "
             f"plain {rows[name]['plain_ms']:.3f} ms, library chain "
             f"{rows[name]['library_ms_eager']:.3f} ms eager / {rows[name]['library_ms']:.3f} "
             f"ms as one CUDA graph (at 4 steps {library_err:.3e} of max |acc| off the plain "
             f"version), bound {bound_ms:.4f} ms ({bound_by}); CUDA events, 1 warm + 10 calls")
+        alone = variants.get((name, "the chain alone"))
+        if alone is not None:
+            rows[name]["chain_alone"] = alone
+            rows[name]["wide_part_ms"] = ms - alone["ms"]
+            log(f"{name}: the chain {alone['step_us_finite']:.3f} us a step finite, "
+                f"{alone['step_us_overflowed']:.3f} overflowed; the wide part "
+                f"{rows[name]['wide_part_ms']:.4f} ms of {ms:.4f} (the whole less the chain "
+                f"alone)")
+        exchange = variants.get((name, "P1 without the cluster abs-max exchange"))
+        if exchange is not None:
+            rows[name]["without_exchange"] = exchange
 
     gp.int8_chain_cuda.launches = gp.bf16_chain_cuda.launches = 0
     res = probe.main(["--run"])
@@ -613,7 +708,8 @@ def check_gemm_probe(gp, probe, build, mutants: bool):
                  source="multimodal_scene_text_recognition_tpu_torch/kernels/gemm_probe.cu",
                  replaces=f"scripts/probe_int8_pallas.py:{line}",
                  jax=f"scripts/probe_int8_pallas.py::{fn}", launches=launches[name],
-                 max_abs_err=r[f"abs_err_{name}"], probe_tf_s=res[f"{kind}_tf_s"], **rows[name])
+                 max_abs_err=r[f"abs_err_{name}"], probe_tf_s=res[f"{kind}_tf_s"],
+                 **rows[name])
             for name, fn, line, kind in (("p1", "kern_int8", 21, "int8"),
                                          ("p2", "kern_bf16", 42, "bf16"))]
 
@@ -946,26 +1042,35 @@ MUTANTS = (
 )
 
 
+def _edits(old, new):
+    """A mutant's (text, replacement) pairs: one pair, or tuples of texts
+    and of their replacements."""
+    return tuple(zip(old, new)) if isinstance(old, tuple) else ((old, new),)
+
+
 @contextlib.contextmanager
 def mutant_libraries(build, source: str, mutants):
     """Copies of kernel ``source`` (its .cu and the shared headers), each
     with one (name, text, replacement) of ``mutants`` applied wherever the
-    text stands, built all at once in a temporary directory; yields their
-    library paths.  Raises if a text is in no source or a copy fails to
-    build."""
+    text stands (text and replacement may be tuples, applied pairwise),
+    built all at once in a temporary directory; yields their library
+    paths.  Raises if a text is in no source or a copy fails to build."""
     names = (f"{source}.cu", *sorted(p.name for p in build.KERNEL_DIR.glob("*.cuh")))
     sources = {n: (build.KERNEL_DIR / n).read_text() for n in names}
-    for name, old, _ in mutants:
-        if not any(old in text for text in sources.values()):
-            raise AssertionError(f"mutant {name}: its text is in no source of the kernel")
+    for name, old, new in mutants:
+        for o, _ in _edits(old, new):
+            if not any(o in text for text in sources.values()):
+                raise AssertionError(f"mutant {name}: its text is in no source of the kernel")
     tmp = tempfile.mkdtemp(prefix=f"{source}_mutants_")
     procs = []
     try:
         for i, (_, old, new) in enumerate(mutants):
             os.makedirs(os.path.join(tmp, str(i)))
             for n, text in sources.items():
+                for o, r in _edits(old, new):
+                    text = text.replace(o, r)
                 with open(os.path.join(tmp, str(i), n), "w") as f:
-                    f.write(text.replace(old, new))
+                    f.write(text)
             cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", os.path.join(tmp, f"{i}.so"),
                    os.path.join(tmp, str(i), f"{source}.cu")]
             procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -2342,19 +2447,20 @@ def train_phase(api, bn, gs):
     tally = {}
     for key in shapes:
         tally[key] = tally.get(key, 0) + 1
-    totals, bound_by, worst, worst_abs = np.zeros(5), set(), 0.0, 0.0
+    totals, bound_by, worst, worst_abs = np.zeros(7), set(), 0.0, 0.0
     for i, ((shape, dtype), n) in enumerate(tally.items()):
         r = bn_check(bn, shape, dtype, 100 + i)
         log(f"  K3 x{n} at " + bn_line(shape, dtype, r))
         bound_by.add(r["bound_by"])
         totals += n * np.array([r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                               "events_ms")])
+                                               "events_ms", "cold_ms", "library_cold_ms")])
         worst, worst_abs = max(worst, r["err"]), max(worst_abs, r["err_abs"])
     nbytes = sum(2 * int(np.prod(s)) * (2 if d == torch.bfloat16 else 4) for s, d in shapes)
     log(f"K3 per train step ({per_step} launches, {nbytes / 1e9:.3f} GB of x and dy), device "
         f"time: kernel {totals[0]:.4f} ms, plain {totals[1]:.4f} ms, library {totals[2]:.4f} ms, "
         f"bound {totals[3]:.4f} ms; kernel by CUDA events {totals[4]:.4f} ms, in the profiled "
-        f"step {prof['bn_bwd_reduce_ms']} ms")
+        f"step {prof['bn_bwd_reduce_ms']} ms; on a cold L2 (queued_ms) kernel {totals[5]:.4f} ms, "
+        f"native_batch_norm_backward {totals[6]:.4f} ms")
     summary = {"batch": B, "steps": TRAIN_STEPS, "loss_kernels": [m["loss"] for m in kmetrics],
                "loss_plain": [m["loss"] for m in pmetrics],
                "grad_norm_kernels": [m["grad_norm"] for m in kmetrics],
@@ -2372,6 +2478,7 @@ def train_phase(api, bn, gs):
               ms=totals[0], plain_ms=totals[1], library_ms=totals[2], bound_ms=totals[3],
               bound_by="/".join(sorted(bound_by)), per="train step (all 36 launches)",
               ms_events=totals[4], ms_in_profiled_step=sum(prof["bn_bwd_reduce_ms"].values()),
+              ms_cold=totals[5], library_ms_cold=totals[6],
               step_bytes=nbytes, max_abs_err=worst_abs, max_err_of_sum_terms=worst)
     return summary, k3, kcounts[-1][1]
 

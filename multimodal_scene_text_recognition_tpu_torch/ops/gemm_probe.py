@@ -19,8 +19,10 @@ Each comes in two versions: the plain PyTorch one (``*_plain``, the CPU
 path and the card's reference) and the CUDA kernel
 ``kernels/gemm_probe.cu`` (``*_cuda``), which replaces the Pallas kernels
 ``kern_int8`` and ``kern_bf16`` and runs the whole chain in one launch on
-the tensor cores.  The dispatchers take the plain version for CPU tensors
-and the kernel for CUDA tensors.
+the tensor cores: chain CTAs carry the first E columns from step to step
+(P1's in one thread-block cluster, which shares the abs-max), wide CTAs
+trail them over the other columns (:func:`probe_plan`).  The dispatchers
+take the plain version for CPU tensors and the kernel for CUDA tensors.
 
 The chain grows by about sqrt(E) = 16 a step, so in float32 it overflows
 after some 32 steps and the probe's own 200-step output is all NaN (in
@@ -30,6 +32,7 @@ JAX and here); only a chain of 30 steps or fewer has numbers to compare.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -41,9 +44,17 @@ from .precision import full_fp32
 B, E, F = 192, 256, 2048
 ITERS = 200  # chained products inside the kernel, to amortize its launch
 
-# the kernels' CTA: 32 rows of x by 128 output columns; their E is fixed at
-# the probe's 256
-_ROWS, _COLS = 32, 128
+# the kernels' geometry (kernels/gemm_probe.cu): a chain CTA owns 16 rows
+# of x, a wide CTA a tile of 128 of the columns past E by 64 rows (P1) or
+# 32 (P2) and a ring of 4 A operands; P1's chain CTAs form one cluster of
+# at most 16; E is fixed at the probe's 256; 288 threads a CTA (8 warps
+# that multiply, one that signals); P1's inv history keeps 4 floats a step
+# and chain CTA
+_CHAIN_ROWS, _WIDE_COLS, _MAX_CLUSTER, _STAGES = 16, 128, 16, 4
+_INV_STRIDE = 4
+_STATIC_SMEM = 1328  # the kernel's `Shared`: abs-max slots, mbarriers, inv by ring buffer
+_CHAIN_RING = 8      # a chain CTA's ring of A operands
+SMEM_LIMIT = 232_448  # bytes of shared memory a CTA may have on an H100
 
 # P2's kernel against its plain version on probe_inputs(0), max |diff| over
 # max |plain acc|, by the chain's steps.  Both sum the same exact bf16
@@ -123,8 +134,66 @@ def bf16_chain_plain(x: torch.Tensor, wbf: torch.Tensor, iters: int = ITERS) -> 
     return acc
 
 
+@dataclass(frozen=True)
+class ProbePlan:
+    """The launch of P1 (``int8``) or P2 for x [B, E] and w [E, F]."""
+
+    chain_ctas: int    # B / 16, each 16 rows of x through every step
+    rows: int          # rows of x a chain CTA owns
+    cluster: int       # CTAs a cluster: P1's chain CTAs, 1 for P2
+    wide_ctas: int     # tiles of columns E..F
+    wide_tile: tuple   # (rows, columns) of a wide tile
+    grid: int          # CTAs of the cooperative launch (P1: whole clusters)
+    smem_bytes: int    # shared memory a CTA (dynamic and static)
+    scratch_bytes: int  # the history of A operands (P1 and inv) and the step counts
+
+
+def probe_plan(B: int, F: int, int8: bool, iters: int = ITERS) -> ProbePlan:
+    """The kernels' geometry for x [B, 256] and w [256, F] (the C launcher
+    computes the same).  Raises ValueError where the kernel refuses the
+    shape: B not a positive multiple of 32, F not a multiple of 128 from
+    256 up, or, for P1, more than 16 chain CTAs (B > 256) for its cluster.
+    Whether the grid can be resident is checked at the launch."""
+    if B <= 0 or B % 32 or F < E or F % _WIDE_COLS:
+        raise ValueError(f"the probe's kernels take x [B, {E}] with B a positive multiple of "
+                         f"32 and w [{E}, F] with F >= {E} a multiple of {_WIDE_COLS}; got "
+                         f"B={B}, F={F}")
+    chain = B // _CHAIN_ROWS
+    if int8 and chain > _MAX_CLUSTER:
+        raise ValueError(f"the int8 chain's cluster holds at most {_MAX_CLUSTER} CTAs of "
+                         f"{_CHAIN_ROWS} rows: B <= {_MAX_CLUSTER * _CHAIN_ROWS}, got B={B}")
+    wide_rows = 64 if int8 else 32
+    wide = -(-B // wide_rows) * ((F - E) // _WIDE_COLS)
+    es, ld = (1, E + 16) if int8 else (2, E + 8)
+    smem = (max(E + _CHAIN_RING * _CHAIN_ROWS, _WIDE_COLS + _STAGES * wide_rows) * ld * es
+            + _STATIC_SMEM)
+    cluster = chain if int8 else 1
+    steps = max(iters, 1)
+    scratch = chain * 4 + (steps * B * E * es + (steps * chain * _INV_STRIDE * 4 if int8 else 0)
+                           if wide else 0)
+    return ProbePlan(chain, _CHAIN_ROWS, cluster, wide, (wide_rows, _WIDE_COLS),
+                     -(-(chain + wide) // cluster) * cluster, smem, scratch)
+
+
+def _shape(what: str, x: torch.Tensor, w: torch.Tensor, ws=None,
+           iters: int = ITERS) -> ProbePlan:
+    """The plan for the wrappers' operands, through :func:`probe_plan`'s
+    refusals (ValueError)."""
+    tensors = (x, w) + (() if ws is None else (ws,))
+    nb, ne = x.shape if x.dim() == 2 else (0, 0)
+    nf = w.shape[1] if w.dim() == 2 else 0
+    if (x.dim() != 2 or w.shape != (ne, nf) or ne != E
+            or (ws is not None and ws.shape != (1, nf))):
+        raise ValueError(f"{what}: x [B, {E}], w [{E}, F]" + ("" if ws is None else ", ws [1, F]")
+                         + f"; got {[tuple(t.shape) for t in tensors]}")
+    try:
+        return probe_plan(nb, nf, ws is not None, iters)
+    except ValueError as e:
+        raise ValueError(f"{what}: {e}") from None
+
+
 def _check(what: str, x: torch.Tensor, w: torch.Tensor, w_dtype: torch.dtype,
-           iters: int, ws=None) -> None:
+           iters: int, ws=None) -> ProbePlan:
     tensors = (x, w) + (() if ws is None else (ws,))
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError(f"{what} takes CUDA tensors on one device")
@@ -133,26 +202,36 @@ def _check(what: str, x: torch.Tensor, w: torch.Tensor, w_dtype: torch.dtype,
         raise TypeError(f"{what}: x float32, w {w_dtype}"
                         + ("" if ws is None else ", ws float32")
                         + f", got {[t.dtype for t in tensors]}")
-    nb, ne = x.shape if x.dim() == 2 else (0, 0)
-    nf = w.shape[1] if w.dim() == 2 else 0
-    if (x.dim() != 2 or w.shape != (ne, nf) or ne != E or nb == 0
-            or nb % _ROWS or nf % _COLS or nf < ne
-            or (ws is not None and ws.shape != (1, nf))):
-        raise ValueError(f"{what}: x [B, {E}] with B a multiple of {_ROWS}, w "
-                         f"[{E}, F] with F >= {E} a multiple of {_COLS}"
-                         + ("" if ws is None else ", ws [1, F]")
-                         + f"; got {[tuple(t.shape) for t in tensors]}")
+    plan = _shape(what, x, w, ws, iters)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what}: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: inputs must start on 16-byte boundaries")
     if iters < 0:
         raise ValueError(f"{what}: iters must be >= 0, got {iters}")
+    return plan
+
+
+def _scratch(x: torch.Tensor, plan: ProbePlan, iters: int, int8: bool):
+    """The history of A operands [iters, B, E] (int8 or bf16; empty where
+    no wide CTA reads it), P1's inv history [iters, B/16, 4] and the zeroed
+    step counts [B/16]."""
+    nb = x.shape[0]
+    steps = max(iters, 1) if plan.wide_ctas else 0
+    hist = torch.empty(steps, nb, E, dtype=torch.int8 if int8 else torch.bfloat16,
+                       device=x.device)
+    inv = torch.empty(steps if int8 else 0, plan.chain_ctas, _INV_STRIDE, dtype=torch.float32,
+                      device=x.device)
+    ready = torch.zeros(plan.chain_ctas, dtype=torch.int32, device=x.device)
+    return hist, inv, ready
 
 
 def _launch(fn_name: str, what: str, ptrs, nb: int, nf: int, iters: int,
             device: torch.device) -> None:
     fn = getattr(build.load("gemm_probe"), fn_name)
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     with torch.cuda.device(device):  # the launcher uses the current device
         rc = fn(*ptrs, nb, nf, iters, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
@@ -162,17 +241,16 @@ def _launch(fn_name: str, what: str, ptrs, nb: int, nf: int, iters: int,
 def int8_chain_cuda(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
                     iters: int = ITERS) -> torch.Tensor:
     """Launch P1 on x f32 [B, 256], wq int8 [256, F], ws f32 [1, F] (CUDA,
-    contiguous; B a multiple of 32, F >= 256 a multiple of 128) -> acc f32
-    [B, F].  One launch runs the whole chain; the launch is refused (and
-    this raises) if its B/32 x F/128 CTAs cannot all be resident."""
-    _check("int8_chain_cuda", x, wq, torch.int8, iters, ws)
+    contiguous; B a multiple of 32 up to 256, F >= 256 a multiple of 128)
+    -> acc f32 [B, F].  One cooperative launch runs the whole chain
+    (:func:`probe_plan`); it is refused (and this raises) if its CTAs
+    cannot all be resident."""
+    plan = _check("int8_chain_cuda", x, wq, torch.int8, iters, ws)
     nb, nf = x.shape[0], wq.shape[1]
     out = torch.empty(nb, nf, dtype=torch.float32, device=x.device)
-    xbuf = torch.empty(2, nb, E, dtype=torch.float32, device=x.device)
-    slots = torch.empty(2, nb // _ROWS * (E // _COLS), dtype=torch.int32,
-                        device=x.device)
+    hist, inv, ready = _scratch(x, plan, iters, True)
     _launch("gemm_probe_int8", "int8 chain",
-            [t.data_ptr() for t in (x, wq, ws, out, xbuf, slots)], nb, nf, iters, x.device)
+            [t.data_ptr() for t in (x, wq, ws, out, hist, inv, ready)], nb, nf, iters, x.device)
     int8_chain_cuda.launches += 1
     return out
 
@@ -181,14 +259,15 @@ int8_chain_cuda.launches = 0
 
 
 def bf16_chain_cuda(x: torch.Tensor, wbf: torch.Tensor, iters: int = ITERS) -> torch.Tensor:
-    """Launch P2 on x f32 [B, 256] and wbf bf16 [256, F] (the shapes and
-    the refusal of :func:`int8_chain_cuda`) -> acc f32 [B, F]."""
-    _check("bf16_chain_cuda", x, wbf, torch.bfloat16, iters)
+    """Launch P2 on x f32 [B, 256] and wbf bf16 [256, F] (the shapes of
+    :func:`int8_chain_cuda` with any B a multiple of 32, and its refusal of
+    a grid that cannot be resident) -> acc f32 [B, F]."""
+    plan = _check("bf16_chain_cuda", x, wbf, torch.bfloat16, iters)
     nb, nf = x.shape[0], wbf.shape[1]
     out = torch.empty(nb, nf, dtype=torch.float32, device=x.device)
-    xbuf = torch.empty(2, nb, E, dtype=torch.float32, device=x.device)
+    hist, _, ready = _scratch(x, plan, iters, False)
     _launch("gemm_probe_bf16", "bf16 chain",
-            [t.data_ptr() for t in (x, wbf, out, xbuf)], nb, nf, iters, x.device)
+            [t.data_ptr() for t in (x, wbf, out, hist, ready)], nb, nf, iters, x.device)
     bf16_chain_cuda.launches += 1
     return out
 

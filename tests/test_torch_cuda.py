@@ -1017,11 +1017,15 @@ def test_chain_kernels_end_all_nan_at_the_probes_length(dev):
         assert torch.isnan(out).all()
 
 
-def test_chain_kernels_at_another_shape(dev):
-    """B=64, F=384 (2 x 3 CTAs): the tiles and the feedback of the first
-    256 columns do not depend on the probe's own shape."""
+@pytest.mark.parametrize("B", [64, 32, 96, 160])
+def test_chain_kernels_at_another_shape(dev, B):
+    """F=384 (one column of wide tiles): B=64 is 4 chain CTAs (P1's in a
+    cluster of 4) and one 64-row wide tile (P2: two of 32); B=32, 96 and
+    160 end P1's last wide tile after 32 of its 64 rows.  The tiles and the
+    feedback of the first 256 columns do not depend on the probe's own
+    shape."""
     g = torch.Generator(device=dev).manual_seed(5)
-    x = torch.randn(64, 256, generator=g, device=dev)
+    x = torch.randn(B, 256, generator=g, device=dev)
     w = torch.randn(256, 384, generator=g, device=dev)
     ws = w.abs().amax(dim=0, keepdim=True) / 127.0
     wq = torch.clamp(torch.round(w / ws), -127, 127).to(torch.int8)
@@ -1050,7 +1054,10 @@ def test_chain_wrappers_refuse_bad_inputs(dev):
             (p1, (x[:100], wq, ws), ValueError), (p1, (x, wq[:, :200], ws[:, :200]), ValueError),
             (p1, (x[:, :128].contiguous(), wq[:128], ws), ValueError),
             (p1, (x, wq, ws[:, :1024]), ValueError), (p2, (x, wbf[:, :1000]), ValueError),
-            (p1, (x.t().contiguous().t(), wq, ws), ValueError), (p2, (x, wbf.cpu()), ValueError)):
+            (p1, (x.t().contiguous().t(), wq, ws), ValueError), (p2, (x, wbf.cpu()), ValueError),
+            (p1, (torch.zeros(288, 256, device=dev), wq, ws), ValueError),
+            (p1, (torch.zeros(192 * 256 + 1, device=dev)[1:].view(192, 256), wq, ws),
+             ValueError)):
         with pytest.raises(exc):
             call(*args)
     with pytest.raises(ValueError, match="iters"):
@@ -1058,13 +1065,28 @@ def test_chain_wrappers_refuse_bad_inputs(dev):
 
 
 def test_chain_launch_too_large_to_be_resident_raises(dev):
-    """B=4096 makes 16 x 128 CTAs, more than the card holds at once: the
-    cooperative launch is refused and the wrapper raises."""
+    """P2 at B=4096 makes 256 chain and 1792 wide CTAs, P1 at B=256 and
+    F=8192 16 and 248 in clusters of 16: more than the card holds at once,
+    so the cooperative launch is refused and the wrapper raises.  P1 at
+    B=4096 would need a cluster of 256 and is refused before any launch."""
     x = torch.zeros(4096, 256, device=dev)
     _, wq, ws, wbf = gp.probe_inputs(0, dev)
-    before = gp.bf16_chain_cuda.launches
+    before = gp.bf16_chain_cuda.launches, gp.int8_chain_cuda.launches
     with pytest.raises(RuntimeError, match="launch failed"):
         gp.bf16_chain_cuda(x, wbf, 1)
+    wide_q = torch.zeros(256, 8192, dtype=torch.int8, device=dev)
     with pytest.raises(RuntimeError, match="launch failed"):
+        gp.int8_chain_cuda(x[:256], wide_q, torch.ones(1, 8192, device=dev), 1)
+    with pytest.raises(ValueError, match="cluster"):
         gp.int8_chain_cuda(x, wq, ws, 1)
-    assert gp.bf16_chain_cuda.launches == before
+    assert (gp.bf16_chain_cuda.launches, gp.int8_chain_cuda.launches) == before
+
+
+def test_chain_kernels_repeat_bit_for_bit(dev):
+    """Two launches of each kernel at 30 steps give the same acc bit for
+    bit: the wide CTAs read each step's A operand (and P1's inv) from the
+    history in the order the chain wrote it, however far the chain ran
+    ahead."""
+    x, wq, ws, wbf = gp.probe_inputs(0, dev)
+    for call in (lambda: gp.int8_chain_cuda(x, wq, ws, 30), lambda: gp.bf16_chain_cuda(x, wbf, 30)):
+        assert torch.equal(call(), call())
