@@ -15,8 +15,10 @@ phases turn TF32 on first: the model must not use it.  Then trains the
 flagship through ``api.get_trainer`` for a few steps at B=192, once with the
 kernels and once with their plain versions from the same weights and
 dropout seed, and checks that the two agree and that the training run went
-through the warp and BatchNorm-backward kernels; K3 is held against its
-plain version at every BatchNorm shape of the step.  The int8 phase serves
+through the warp and BatchNorm-backward kernels (K3: the whole backward,
+sums and dx, one launch a BatchNorm); K3 is held against its plain version
+at every BatchNorm shape of the step, and the step's device time is split
+by kernel.  The int8 phase serves
 the flagship in the JAX package's int8 mode (int8 loc-net, backbone and
 encoder with the committed activation scales, the whole greedy loop in
 K1q), greedily and by beam search, holds K1q against its plain version on
@@ -44,7 +46,10 @@ wide-row kernel with one of the three roundings each (K1Q_WIDE_MUTANTS),
 each held at the flagship and read at a padded or wide width, of K1 with one bf16 rounding dropped each (the ReLU outputs': rounded
 toward zero; read with and without cls0), and of the probe's kernels with
 one of four rounding faults or a chain CTA's own abs-max each
-(PROBE_MUTANTS), and prints whether their limits catch them; and copies of
+(PROBE_MUTANTS), and prints whether their limits catch them, of K3 with
+one of four faults each (K3_MUTANTS: a CTA's partial sums dropped, dx
+before the sums are final, the kept rows never written, dbeta's sign),
+each of which its checks must catch; and copies of
 K1 and of the probe's kernels with one part of their step left out each,
 timed beside them (K1_TIMING_VARIANTS, PROBE_TIMING_VARIANTS).  The K1 phase prints K1's launch (its
 cluster plan and the weight bytes a call reads from L2), its times
@@ -103,13 +108,52 @@ PEAK_INT8_OPS = 1979e12
 # toward zero (K1_MUTANTS) it was 0.111-0.231 off with every token still
 # equal, so the limit sits between the two.
 BF16_LOGIT_TOL = 0.1
-# K3 vs its plain version: max over channels of |kernel - plain| over the
-# sum of |terms| (at least 1).  Both sum float32 in another order: 2.7e-9 to
-# 3.2e-8 on an H100; one element left out of the ragged shape's 231 per
-# channel would be ~4e-3 off.
+# K3 vs its plain version (the whole backward, ops/batchnorm.bn_bwd_plain):
+# dgamma and dbeta as the max over channels of |kernel - plain| over the sum
+# of |terms| (at least 1).  Both sum float32 in another order: this kernel
+# is 1.5e-7 to 3.8e-7 off on an H100 at the step's shapes (the sums-only
+# kernel before it, on inputs without dy's offsets, 2.7e-9 to 3.2e-8); one
+# element left out of the ragged shape's 231 per channel would be ~4e-3
+# off, the last CTA's partial sums 7.6e-3 (K3_MUTANTS).  dx in
+# float32 within BN_DX_TOL of its scale (max |dx|); in bfloat16 within one
+# bf16 step of the plain value, or BN_DX_TOL of the scale where the step is
+# smaller (near 0): the sums' last-bit differences move dx's float32 value
+# by ~1e-7 of its terms, and so its rounding by at most one step.
 BN_TOL = 1e-6
+BN_DX_TOL = 1e-5
 BN_SHAPES = (((192, 64, 32, 100), torch.bfloat16), ((192, 512, 4, 26), torch.bfloat16),
              ((192, 128, 16, 50), torch.float32), ((3, 96, 7, 11), torch.bfloat16))
+# the BatchNorm inputs of one flagship train step at B=192 (bf16), by count:
+# 36 launches, 462,028,800 elements (tests/test_torch_bn_plan.py reads them
+# off the model; train_phase checks them against the step's own)
+TRAIN_BN_SHAPES = {(192, 64, 32, 100): 2, (192, 128, 16, 50): 5, (192, 256, 8, 25): 7,
+                   (192, 512, 4, 12): 1, (192, 32, 32, 100): 1, (192, 512, 4, 26): 18,
+                   (192, 512, 2, 27): 1, (192, 512, 1, 26): 1}
+# Broken copies of K3 (--mutants), each of which bn_mutant_caught must catch
+# at BN_MUTANT_SHAPES: the last CTA's partial sums left out, dx read before
+# the sums are final (no second grid barrier), the rows kept in shared memory
+# never written, and the sign of dbeta's term.
+K3_SOURCE = "bn_backward"
+K3_MUTANTS = (
+    ("one CTA's partial dropped", ("pg[i] = s < p.spans ?", "pb[i] = s < p.spans ?"),
+     ("pg[i] = s < p.spans - 1 ?", "pb[i] = s < p.spans - 1 ?")),
+    ("pass 2 before the sums are final", "grid.sync();  // the sums are final", ""),
+    ("kept rows never written", "dx_row(x0, d0, at(j));",
+     "if (q >= p.slots) dx_row(x0, d0, at(j));"),
+    ("dbeta term's sign", "__fsub_rn(__fsub_rn(df[k], bn[k])", "__fsub_rn(__fadd_rn(df[k], bn[k])"),
+)
+BN_MUTANT_SHAPES = (((192, 64, 32, 100), torch.bfloat16), ((192, 512, 4, 26), torch.bfloat16),
+                    ((16, 512, 4, 26), torch.float32))
+# Copies of K3 that stop early (--mutants), timed at TRAIN_BN_SHAPES beside
+# it: what a launch costs, and what the sums and pass 1 cost without dx.
+K3_TIMING_VARIANTS = (
+    ("launch only", "  cg::grid_group grid = cg::this_grid();\n",
+     "  if (p.N > 0) return;\n  cg::grid_group grid = cg::this_grid();\n"),
+    ("pass 1 and the CTAs' partial sums", "grid.sync();  // every CTA's partial sums are written",
+     "return;"),
+    ("the sums, without pass 2", "grid.sync();  // the sums are final",
+     "grid.sync();\n  return;"),
+)
 TRAIN_STEPS = 3
 # Kernel vs plain training runs (same weights, batch and dropout masks),
 # relative differences.  A step's gradient is bitwise repeatable on the card,
@@ -293,9 +337,10 @@ def make_crops(n: int, seed: int):
     return crops
 
 
-def check_grid_sample(gs):
-    """K2 against its plain version at B=192 on seeded grids, including
-    points outside [-1, 1] and on integer pixel coordinates."""
+def grid_sample_inputs():
+    """Seeded K2 inputs at B=192: crops [192, 32, 100, 1] and grids [192,
+    32, 100, 2] with points outside [-1, 1], on integer pixel coordinates
+    and on both corners."""
     rng = np.random.default_rng(0)
     H, W = 32, 100
     img = torch.from_numpy(rng.random((B, H, W, 1), dtype=np.float32)).cuda()
@@ -307,8 +352,13 @@ def check_grid_sample(gs):
     flat[:, n:n + 16] = [1.0, 1.0]
     flat[:, n + 16:n + 32] = [-1.0, -1.0]
     flat[:, n + 32:2 * n] *= 4.0
-    grid = torch.from_numpy(g).cuda()
+    return img, torch.from_numpy(g).cuda()
 
+
+def check_grid_sample(gs):
+    """K2 against its plain version at B=192 on ``grid_sample_inputs``."""
+    img, grid = grid_sample_inputs()
+    H, W = img.shape[1:3]
     out = gs.grid_sample_cuda(img, grid)
     ref = gs.grid_sample_plain(img, grid)
     torch.cuda.synchronize()
@@ -342,90 +392,177 @@ def check_grid_sample(gs):
 
 
 def bn_inputs(shape, dtype, seed: int):
-    """x (a per-channel offset on unit noise), dy, both channels-last as the
-    backbone's convs hand them over, and x's float32 batch mean and rstd, on
-    the card."""
+    """x and dy (a per-channel offset on unit noise each, so that dbeta's
+    term of dx counts), both channels-last as the backbone's convs hand
+    them over, x's float32 batch mean and rstd, and a float32 weight near 1,
+    on the card."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     C, cl = shape[1], torch.channels_last
-    x = (torch.randn(shape, generator=g, device="cuda")
-         + torch.randn((1, C, 1, 1), generator=g, device="cuda")).to(dtype).contiguous(
-             memory_format=cl)
-    dy = torch.randn(shape, generator=g, device="cuda").to(dtype).contiguous(memory_format=cl)
+
+    def act():
+        return (torch.randn(shape, generator=g, device="cuda")
+                + torch.randn((1, C, 1, 1), generator=g, device="cuda")).to(dtype).contiguous(
+                    memory_format=cl)
+
+    x, dy = act(), act()
     xf = x.float()
     mean = xf.mean(dim=(0, 2, 3))
     rstd = torch.rsqrt(xf.var(dim=(0, 2, 3), unbiased=False) + 1e-5)
-    return x, dy, mean, rstd
+    weight = 1.0 + 0.1 * torch.randn(C, generator=g, device="cuda")
+    return x, dy, mean, rstd, weight
 
 
-def library_bn_sums(x, dy, mean, rstd):
-    """(dgamma, dbeta) by one PyTorch call, the yardstick of K3 (never on
-    the port's path)."""
-    _, dgamma, dbeta = torch.ops.aten.native_batch_norm_backward(
-        dy, x, torch.ones_like(mean), None, None, mean, rstd, True, 1e-5,
-        [False, True, True])
-    return dgamma, dbeta
+def library_bn_backward(x, dy, mean, rstd, weight):
+    """(dx, dgamma, dbeta) by one PyTorch call, the yardstick of K3 (never
+    on the port's path)."""
+    return torch.ops.aten.native_batch_norm_backward(
+        dy, x, weight, None, None, mean, rstd, True, 1e-5, [True, True, True])
 
 
-def bn_check(bn, shape, dtype, seed: int) -> dict:
-    """K3 against its plain version at one shape: twice, bit-equal from run
-    to run, within BN_TOL of the sum of |terms| per channel (raises
-    otherwise).  Then the device ms of the kernel, the plain version and the
-    library call, warm and, for the kernel and the library call, on a cold
-    L2 (``queued_ms``: CUDA events around one queued call), the kernel's ms by
-    CUDA events over back-to-back calls, and the bound (x and dy read once,
-    mean and rstd read, dgamma and dbeta written)."""
-    x, dy, mean, rstd = bn_inputs(shape, dtype, seed)
-    got = bn.bn_bwd_sums_cuda(x, dy, mean, rstd)
-    again = bn.bn_bwd_sums_cuda(x, dy, mean, rstd)
-    ref = bn.bn_bwd_sums_plain(x, dy, mean, rstd)
-    lib = library_bn_sums(x, dy, mean, rstd)
-    torch.cuda.synchronize()
+def bn_errors(x, dy, mean, rstd, got, ref) -> dict:
+    """The kernel's (dx, dgamma, dbeta) ``got`` against the plain version's
+    ``ref``: the sums' error over the sum of |terms| (``err``), dx's max
+    |diff| over its scale (``dx_err``) and, in bfloat16, in bf16 steps at
+    the plain value where that scale's floor does not cover it
+    (``dx_steps``), and whether all are within their limits (``ok``)."""
     dyf = dy.float()
     xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
     scales = ((dyf * xhat).abs().sum(dim=(0, 2, 3)), dyf.abs().sum(dim=(0, 2, 3)))
     del dyf, xhat
-    out = dict(err_abs=max((a - b).abs().max().item() for a, b in zip(got, ref)),
-               err=max(((a - b).abs() / sc.clamp(min=1.0)).max().item()
-                       for a, b, sc in zip(got, ref, scales)),
-               lib_err=max(((a - b).abs() / sc.clamp(min=1.0)).max().item()
-                           for a, b, sc in zip(lib, ref, scales)),
-               repeat=all(torch.equal(a, b) for a, b in zip(got, again)))
-    if not (out["err"] <= BN_TOL and out["repeat"]):
-        raise AssertionError(f"bn_bwd_reduce disagrees with its plain version at {shape} "
+    err = max(((a - b).abs() / sc.clamp(min=1.0)).max().item()
+              for a, b, sc in zip(got[1:], ref[1:], scales))
+    d, r = got[0].float(), ref[0].float()
+    diff = (d - r).abs()
+    floor = BN_DX_TOL * r.abs().max().item()
+    steps = 0.0
+    if got[0].dtype == torch.bfloat16:
+        _, e = torch.frexp(r)
+        step = torch.where(r == 0, 0.0, torch.ldexp(torch.ones_like(r), e - 8))
+        steps = torch.where(diff <= floor, 0.0, diff / step.clamp(min=1e-30)).max().item()
+        dx_ok = steps <= 1.0
+    else:
+        dx_ok = diff.max().item() <= floor
+    out = dict(err=err, err_abs=max((a - b).abs().max().item() for a, b in zip(got, ref)),
+               dx_err=diff.max().item() / max(r.abs().max().item(), 1e-30), dx_steps=steps)
+    out["ok"] = err <= BN_TOL and dx_ok
+    return out
+
+
+def bn_check(bn, shape, dtype, seed: int) -> dict:
+    """K3 against its plain version at one shape: twice, bit-equal from run
+    to run, the sums within BN_TOL of the sum of |terms| per channel and dx
+    within its limits (``bn_errors``; raises otherwise).  Then the device
+    ms of the kernel, the plain version and the library call, warm and, for
+    the kernel and the library call, on a cold L2 (``queued_ms``: CUDA
+    events around one queued call), the kernel's ms by CUDA events over
+    back-to-back calls, and the bound (x and dy read once, dx written once,
+    mean, rstd and weight read, dgamma and dbeta written)."""
+    x, dy, mean, rstd, w = bn_inputs(shape, dtype, seed)
+    got = bn.bn_bwd_cuda(x, dy, mean, rstd, w)
+    again = bn.bn_bwd_cuda(x, dy, mean, rstd, w)
+    ref = bn.bn_bwd_plain(x, dy, mean, rstd, w)
+    lib = library_bn_backward(x, dy, mean, rstd, w)
+    torch.cuda.synchronize()
+    out = bn_errors(x, dy, mean, rstd, got, ref)
+    out["lib"] = bn_errors(x, dy, mean, rstd, lib, ref)
+    out["repeat"] = all(torch.equal(a, b) for a, b in zip(got, again))
+    if not (out["ok"] and out["repeat"]):
+        raise AssertionError(f"bn_backward disagrees with its plain version at {shape} "
                              f"{dtype}: {out}")
-    kernel = lambda: bn.bn_bwd_sums_cuda(x, dy, mean, rstd)  # noqa: E731
+    del got, again, ref, lib
+    kernel = lambda: bn.bn_bwd_cuda(x, dy, mean, rstd, w)  # noqa: E731
+    library = lambda: library_bn_backward(x, dy, mean, rstd, w)  # noqa: E731
     out["ms"] = queued_ms(kernel, 10)
-    out["plain_ms"] = queued_ms(lambda: bn.bn_bwd_sums_plain(x, dy, mean, rstd), 10)
-    out["library_ms"] = queued_ms(lambda: library_bn_sums(x, dy, mean, rstd), 10)
+    out["plain_ms"] = queued_ms(lambda: bn.bn_bwd_plain(x, dy, mean, rstd, w), 10)
+    out["library_ms"] = queued_ms(library, 10)
     out["cold_ms"] = queued_ms(kernel, cold=True)
-    out["library_cold_ms"] = queued_ms(lambda: library_bn_sums(x, dy, mean, rstd), cold=True)
+    out["library_cold_ms"] = queued_ms(library, cold=True)
     n = x.numel()
-    out["bound_ms"], out["bound_by"] = bound(2 * n * x.element_size() + 4 * shape[1] * 4,
-                                             4 * n, PEAK_F32_FLOPS)
+    out["bound_ms"], out["bound_by"] = bound(3 * n * x.element_size() + 5 * shape[1] * 4,
+                                             12 * n, PEAK_F32_FLOPS)
     out["events_ms"] = cuda_ms(kernel, 50, warmup=3)
     return out
 
 
 def bn_line(shape, dtype, r: dict) -> str:
-    return (f"{list(shape)} {str(dtype)[6:]}: error {r['err']:.3e} of sum |terms| (limit "
-            f"{BN_TOL:g}; library call {r['lib_err']:.3e}), max |diff| {r['err_abs']:.3e}, "
-            f"repeatable {r['repeat']}; device time: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, native_batch_norm_backward {r['library_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); kernel by CUDA events "
-            f"{r['events_ms']:.4f} ms; on a cold L2 kernel {r['cold_ms']:.4f} ms, "
-            f"native_batch_norm_backward {r['library_cold_ms']:.4f} ms")
+    return (f"{list(shape)} {str(dtype)[6:]}: sums {r['err']:.3e} of sum |terms| (limit "
+            f"{BN_TOL:g}; library call {r['lib']['err']:.3e}), dx {r['dx_err']:.3e} of its "
+            f"scale, {r['dx_steps']:.2f} bf16 steps past {BN_DX_TOL:g} of it (library call "
+            f"{r['lib']['dx_err']:.3e}, {r['lib']['dx_steps']:.2f}), max |diff| "
+            f"{r['err_abs']:.3e}, repeatable {r['repeat']}; device time: kernel {r['ms']:.4f} "
+            f"ms, plain {r['plain_ms']:.4f} ms, native_batch_norm_backward "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); kernel "
+            f"by CUDA events {r['events_ms']:.4f} ms; on a cold L2 kernel {r['cold_ms']:.4f} "
+            f"ms, native_batch_norm_backward {r['library_cold_ms']:.4f} ms")
 
 
-def check_bn_bwd_reduce(bn):
+def check_bn_backward(bn):
     """K3 against its plain version on the flagship's shapes at B=192 and a
     ragged one, with the kernel's, plain version's, library call's and
     bound's ms at each shape; the worst errors."""
     worst = worst_abs = 0.0
     for i, (shape, dtype) in enumerate(BN_SHAPES):
         r = bn_check(bn, shape, dtype, seed=i)
-        log("bn_bwd_reduce " + bn_line(shape, dtype, r))
+        log("bn_backward " + bn_line(shape, dtype, r))
         worst, worst_abs = max(worst, r["err"]), max(worst_abs, r["err_abs"])
     return worst, worst_abs
+
+
+def bn_mutant_caught(bn, shape, dtype) -> tuple:
+    """Whether the checks of ``bn_check`` catch the K3 library now loaded
+    at one shape: it runs on other inputs first (so that memory it leaves
+    unwritten or reads too early holds another call's values), then on the
+    checked inputs twice.  Returns (caught, errors)."""
+    bn.bn_bwd_cuda(*bn_inputs(shape, dtype, 7))
+    x, dy, mean, rstd, w = bn_inputs(shape, dtype, 8)
+    got = bn.bn_bwd_cuda(x, dy, mean, rstd, w)
+    again = bn.bn_bwd_cuda(x, dy, mean, rstd, w)
+    r = bn_errors(x, dy, mean, rstd, got, bn.bn_bwd_plain(x, dy, mean, rstd, w))
+    r["repeat"] = all(torch.equal(a, b) for a, b in zip(got, again))
+    return not (r["ok"] and r["repeat"]), r
+
+
+def bn_step_times(bn) -> dict:
+    """K3's bf16 ms warm and cold (``queued_ms``) summed over the train
+    step's 36 launches (TRAIN_BN_SHAPES, seeded inputs)."""
+    warm = cold = 0.0
+    for i, (shape, n) in enumerate(TRAIN_BN_SHAPES.items()):
+        args = bn_inputs(shape, torch.bfloat16, 300 + i)
+        warm += n * queued_ms(lambda: bn.bn_bwd_cuda(*args), 10)
+        cold += n * queued_ms(lambda: bn.bn_bwd_cuda(*args), cold=True)
+        del args
+    return {"warm": warm, "cold": cold}
+
+
+def time_k3_variants(bn, build) -> dict:
+    """K3's step sums (``bn_step_times``) with each of K3_TIMING_VARIANTS
+    built in (their results are wrong and not read), beside the kernel."""
+    out = {"kernel": bn_step_times(bn)}
+    with mutant_libraries(build, K3_SOURCE, K3_TIMING_VARIANTS) as paths:
+        for (name, _, _), path in zip(K3_TIMING_VARIANTS, paths):
+            with loaded_as(build, K3_SOURCE, path):
+                out[name] = bn_step_times(bn)
+    out["kernel again"] = bn_step_times(bn)
+    log("K3 ms a train step, warm / cold, stopped early: " + "; ".join(
+        f"{k} {t['warm']:.4f} / {t['cold']:.4f}" for k, t in out.items()))
+    return out
+
+
+def check_bn_mutants(bn, build):
+    """K3's checks against K3_MUTANTS: each copy of the kernel is held at
+    BN_MUTANT_SHAPES as the kernel is; raises if one is caught at none."""
+    with mutant_libraries(build, K3_SOURCE, K3_MUTANTS) as paths:
+        for (name, _, _), path in zip(K3_MUTANTS, paths):
+            with loaded_as(build, K3_SOURCE, path):
+                seen = [(shape, dtype, *bn_mutant_caught(bn, shape, dtype))
+                        for shape, dtype in BN_MUTANT_SHAPES]
+            torch.cuda.synchronize()
+            for shape, dtype, caught, r in seen:
+                log(f"K3 mutant ({name}) at {list(shape)} {str(dtype)[6:]}: sums {r['err']:.3e}, "
+                    f"dx {r['dx_err']:.3e} ({r['dx_steps']:.2f} steps), repeatable "
+                    f"{r['repeat']}; caught {caught}")
+            if not any(c for _, _, c, _ in seen):
+                raise AssertionError(f"K3 mutant ({name}) passed the checks")
 
 
 # -- the int8-vs-bf16 GEMM probe: P1 (int8 chain) and P2 (bf16 chain)
@@ -1844,8 +1981,9 @@ def stage_times(model, rec, crops, decode, reps: int = 10, rectify=None, feature
 
 def kernel_profile(fn, calls: int):
     """``torch.profiler`` over ``calls`` warm calls of ``fn()``: device time
-    per kernel name (the largest 12), the wall time of the calls, and the
-    share of it with no kernel running (the card's idle share)."""
+    per kernel name (its first 80 characters; the largest 12), the wall
+    time of the calls, the share of it with no kernel running (the card's
+    idle share), and K3's device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1870,12 +2008,14 @@ def kernel_profile(fn, calls: int):
         elif t > last:
             busy_us += t - last
             last = t
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:12]
-    bn_ms = {part: sum(v for k, v in per_name.items() if f"bn_bwd_{part}" in k)
-             for part in ("partial", "finalize")}
+    short = {}  # by the first 80 characters of the name: instantiations of one template add up
+    for k, v in per_name.items():
+        short[k[:80]] = short.get(k[:80], 0.0) + v
+    top = sorted(short.items(), key=lambda kv: -kv[1])[:12]
+    bn_ms = sum(v for k, v in per_name.items() if "bn_backward_kernel" in k)
     return {"calls": calls, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-            "idle_share": 1.0 - busy_us / 1e3 / wall_ms, "bn_bwd_reduce_ms": bn_ms,
-            "kernels_ms": {k[:80]: v for k, v in top}}
+            "idle_share": 1.0 - busy_us / 1e3 / wall_ms, "bn_backward_ms": bn_ms,
+            "kernels_ms": dict(top)}
 
 
 # -- the semantic phase: the cls0 rows of K1/K1e/K1q and K4, and the served
@@ -2356,13 +2496,13 @@ def train_run(api, bn, gs, batch, use_kernels: bool, steps: int = TRAIN_STEPS,
     hooks = [m.register_forward_hook(lambda mod, inp, out: shapes.append(
         (tuple(inp[0].shape), inp[0].dtype))) for m in trainer.model.modules()
         if isinstance(m, BatchNorm2d)]
-    bn.bn_bwd_sums_cuda.launches = 0
+    bn.bn_bwd_cuda.launches = 0
     gs.grid_sample_cuda.launches = 0
     metrics, counts = [], []
     for _ in range(steps):
         m = trainer(batch)
         metrics.append({k: v.item() for k, v in m.items()})
-        counts.append((bn.bn_bwd_sums_cuda.launches, gs.grid_sample_cuda.launches))
+        counts.append((bn.bn_bwd_cuda.launches, gs.grid_sample_cuda.launches))
     for h in hooks:
         h.remove()
     return trainer, metrics, counts, shapes[:len(shapes) // steps]
@@ -2407,8 +2547,10 @@ def train_phase(api, bn, gs):
     log(f"train step: median {ms_step:.2f} ms of {step_ms} ({B / ms_step * 1e3:.1f} crops/s), "
         f"profile of one step: wall {prof['wall_ms']:.2f} ms, kernels busy "
         f"{prof['device_busy_ms']:.2f} ms, idle share {prof['idle_share']:.4f} "
-        f"({prof['idle_share_of_unprofiled_step']:.4f} of the unprofiled step), K3 in the "
-        f"step {prof['bn_bwd_reduce_ms']} ms; peak memory {peak_gb:.1f} GB")
+        f"({prof['idle_share_of_unprofiled_step']:.4f} of the unprofiled step), the BatchNorm "
+        f"backward (K3) {prof['bn_backward_ms']:.4f} ms of it; peak memory {peak_gb:.1f} GB")
+    log("train step, device ms by kernel (largest 12): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in prof["kernels_ms"].items()))
     if prof["device_busy_ms"] <= 0:
         raise AssertionError("the profiler saw no kernel run on the card during a train step")
     del trainer
@@ -2447,6 +2589,8 @@ def train_phase(api, bn, gs):
     tally = {}
     for key in shapes:
         tally[key] = tally.get(key, 0) + 1
+    if {s: n for (s, _), n in tally.items()} != TRAIN_BN_SHAPES:
+        raise AssertionError(f"the step's BatchNorm shapes {tally} are not TRAIN_BN_SHAPES")
     totals, bound_by, worst, worst_abs = np.zeros(7), set(), 0.0, 0.0
     for i, ((shape, dtype), n) in enumerate(tally.items()):
         r = bn_check(bn, shape, dtype, 100 + i)
@@ -2455,12 +2599,13 @@ def train_phase(api, bn, gs):
         totals += n * np.array([r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                "events_ms", "cold_ms", "library_cold_ms")])
         worst, worst_abs = max(worst, r["err"]), max(worst_abs, r["err_abs"])
-    nbytes = sum(2 * int(np.prod(s)) * (2 if d == torch.bfloat16 else 4) for s, d in shapes)
-    log(f"K3 per train step ({per_step} launches, {nbytes / 1e9:.3f} GB of x and dy), device "
-        f"time: kernel {totals[0]:.4f} ms, plain {totals[1]:.4f} ms, library {totals[2]:.4f} ms, "
-        f"bound {totals[3]:.4f} ms; kernel by CUDA events {totals[4]:.4f} ms, in the profiled "
-        f"step {prof['bn_bwd_reduce_ms']} ms; on a cold L2 (queued_ms) kernel {totals[5]:.4f} ms, "
-        f"native_batch_norm_backward {totals[6]:.4f} ms")
+    nbytes = sum(3 * int(np.prod(s)) * (2 if d == torch.bfloat16 else 4) for s, d in shapes)
+    log(f"K3 per train step ({per_step} launches, {nbytes / 1e9:.3f} GB of x and dy read and "
+        f"dx written), device time: kernel {totals[0]:.4f} ms, plain {totals[1]:.4f} ms, "
+        f"native_batch_norm_backward {totals[2]:.4f} ms, bound {totals[3]:.4f} ms; kernel by "
+        f"CUDA events {totals[4]:.4f} ms, in the profiled step {prof['bn_backward_ms']:.4f} ms; "
+        f"on a cold L2 (queued_ms) kernel {totals[5]:.4f} ms, native_batch_norm_backward "
+        f"{totals[6]:.4f} ms")
     summary = {"batch": B, "steps": TRAIN_STEPS, "loss_kernels": [m["loss"] for m in kmetrics],
                "loss_plain": [m["loss"] for m in pmetrics],
                "grad_norm_kernels": [m["grad_norm"] for m in kmetrics],
@@ -2470,14 +2615,14 @@ def train_phase(api, bn, gs):
                "k3_alone_step1": k3_alone,
                "ms_per_step": ms_step, "crops_per_s": B / ms_step * 1e3,
                "profile": prof, "peak_memory_gb": peak_gb}
-    k3 = dict(name="bn_bwd_reduce", route="cuda",
-              source="multimodal_scene_text_recognition_tpu_torch/kernels/bn_bwd_reduce.cu",
+    k3 = dict(name="bn_backward", route="cuda",
+              source="multimodal_scene_text_recognition_tpu_torch/kernels/bn_backward.cu",
               replaces="multimodal_scene_text_recognition_tpu/ops/batchnorm.py:41",
-              jax="ops/batchnorm.py::_bn_bwd_reduce_kernel",
+              jax="ops/batchnorm.py::_bn_bwd_reduce_kernel and _bn_bwd's dx",
               launches=kcounts[-1][0], launches_per_step=per_step,
               ms=totals[0], plain_ms=totals[1], library_ms=totals[2], bound_ms=totals[3],
               bound_by="/".join(sorted(bound_by)), per="train step (all 36 launches)",
-              ms_events=totals[4], ms_in_profiled_step=sum(prof["bn_bwd_reduce_ms"].values()),
+              ms_events=totals[4], ms_in_profiled_step=prof["bn_backward_ms"],
               ms_cold=totals[5], library_ms_cold=totals[6],
               step_bytes=nbytes, max_abs_err=worst_abs, max_err_of_sum_terms=worst)
     return summary, k3, kcounts[-1][1]
@@ -2537,8 +2682,14 @@ def main() -> int:
     phase("grid_sample vs plain")
     k2 = check_grid_sample(gs)
 
-    phase("bn_bwd_reduce vs plain")
-    bn_err, bn_err_abs = check_bn_bwd_reduce(bn)
+    phase("bn_backward vs plain")
+    bn_err, bn_err_abs = check_bn_backward(bn)
+    k3_variants = None
+    if "--mutants" in sys.argv[1:]:
+        phase("bn_backward mutants")
+        check_bn_mutants(bn, build)
+        phase("bn_backward timing variants")
+        k3_variants = time_k3_variants(bn, build)
 
     phase("gemm probe (P1, P2) vs plain")
     p1, p2 = check_gemm_probe(gp, probe_int8, build, "--mutants" in sys.argv[1:])
@@ -2688,6 +2839,8 @@ def main() -> int:
     train, k3, k2_train = train_phase(api, bn, gs)
     k3["max_abs_err"] = max(k3["max_abs_err"], bn_err_abs)
     k3["max_err_of_sum_terms"] = max(k3["max_err_of_sum_terms"], bn_err)
+    if k3_variants is not None:
+        k3["step_ms_stopped_early"] = k3_variants
     k2["launches_train"] = k2_train
 
     phase("report")

@@ -7,7 +7,8 @@ Two versions of one function:
   ``out[n] = sum_r sum_c wy[n, r] * wx[n, c] * I[r, c]`` with
   ``w = relu(1 - |src - idx|)``.  The CPU path and the oracle of the kernel.
 * :func:`grid_sample_cuda`, the CUDA kernel ``kernels/grid_sample.cu`` (one
-  thread per output pixel, four taps), which replaces the TPU kernel
+  CTA a crop, the crop's image staged in shared memory, four taps a pixel,
+  four pixels a thread), which replaces the TPU kernel
   ``ops/grid_sample.py::_grid_sample_kernel``.
 
 :func:`grid_sample` picks by device: the plain version for CPU tensors, the
@@ -53,17 +54,22 @@ def grid_sample_plain(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, Ho, Wo, C)
 
 
+# the shared memory one CTA may take on the H100 (227 KB): the crop's image
+_SMEM_MAX = 232448
+
+
 def _lib():
     lib = build.load("grid_sample")
     fn = lib.grid_sample_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def grid_sample_cuda(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel on single-channel float32 CUDA tensors:
-    img [B, H, W, 1], grid [B, Ho, Wo, 2] -> [B, Ho, Wo, 1]."""
+    img [B, H, W, 1], grid [B, Ho, Wo, 2] -> [B, Ho, Wo, 1].  A crop's
+    image must fit one CTA's shared memory (H * W at most 58108 pixels)."""
     B, H, W, C = img.shape
     _, Ho, Wo, two = grid.shape
     if img.device.type != "cuda" or grid.device != img.device:
@@ -74,11 +80,17 @@ def grid_sample_cuda(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"grid_sample_cuda: bad shapes {tuple(img.shape)}, {tuple(grid.shape)}")
     if not (img.is_contiguous() and grid.is_contiguous()):
         raise ValueError("grid_sample_cuda: image and grid must be contiguous")
+    if H * W * 4 + 16 > _SMEM_MAX:  # the CTA's mbarrier takes the rest
+        raise ValueError(f"grid_sample_cuda: a {H}x{W} image does not fit a CTA's shared memory")
+    N = Ho * Wo
     out = torch.empty(B, Ho, Wo, 1, dtype=torch.float32, device=img.device)
+    quad = N % 4 == 0 and grid.data_ptr() % 16 == 0
+    bulk = (H * W) % 4 == 0 and img.data_ptr() % 16 == 0
     fn = _lib()
     with torch.cuda.device(img.device):  # the launcher uses the current device
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        rc = fn(img.data_ptr(), grid.data_ptr(), out.data_ptr(), B, H, W, Ho * Wo, stream)
+        rc = fn(img.data_ptr(), grid.data_ptr(), out.data_ptr(), B, H, W, N, int(quad),
+                int(bulk), stream)
     if rc != 0:
         raise RuntimeError(f"grid_sample kernel launch failed: CUDA error {rc}")
     grid_sample_cuda.launches += 1

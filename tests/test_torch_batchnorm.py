@@ -1,7 +1,8 @@
 """Train-mode BatchNorm of the PyTorch port against the JAX package on the
-CPU: the forward, the plain version of the backward reduction (the function
-the CUDA kernel computes) against the JAX Pallas kernel in interpret mode,
-the gradients, and the running-statistics update."""
+CPU: the forward, the plain version of the backward reduction against the
+JAX Pallas kernel in interpret mode, the plain version of the whole backward
+(the function the CUDA kernel computes) against ``jax.vjp``, the
+gradients, and the running-statistics update."""
 
 from unittest import mock
 
@@ -189,11 +190,60 @@ def test_cpu_tensors_take_the_plain_reduction():
     """On the CPU the wrapper never reaches the kernel; the kernel's
     wrapper refuses CPU tensors instead of falling back."""
     x = torch.randn(2, 4, 3, 3)
-    mean, rstd = torch.zeros(4), torch.ones(4)
-    before = bn.bn_bwd_sums_cuda.launches
+    mean, rstd, weight = torch.zeros(4), torch.ones(4), torch.ones(4)
+    before = bn.bn_bwd_cuda.launches
     for plain in (False, True):
-        dg, db = bn.bn_bwd_sums(x, x, mean, rstd, plain=plain)
+        dx, dg, db = bn.bn_bwd(x, x, mean, rstd, weight, plain=plain)
         torch.testing.assert_close(db, x.sum(dim=(0, 2, 3)))
-    assert bn.bn_bwd_sums_cuda.launches == before
+        assert dx.shape == x.shape and dx.dtype == x.dtype
+    assert bn.bn_bwd_cuda.launches == before
     with pytest.raises(ValueError):
-        bn.bn_bwd_sums_cuda(x, x, mean, rstd)
+        bn.bn_bwd_cuda(x, x, mean, rstd, weight)
+
+
+def _bf16_steps(got, want):
+    """|got - want| in bf16 steps at ``want``: the spacing of bfloat16
+    numbers in want's binade (the smallest normal's below it)."""
+    want = want.astype(np.float64)
+    exp = np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126)))
+    return np.abs(got.astype(np.float64) - want) / 2.0 ** (exp - 7)
+
+
+@pytest.mark.parametrize("shape", [(3, 3, 7, 11), (5, 32, 3, 7), (2, 128, 5, 9)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_backward_matches_jax_vjp(shape, dtype):
+    """``bn_bwd_plain`` (the kernel's oracle) against ``jax.vjp`` of the
+    JAX ``bn_train`` on the same x, dy (a per-channel offset on each, so
+    that dbeta's term counts) and weight, at C = 3, 32 and 128 with N =
+    231, 105 and 90 rows (no multiple of a tile or of 16).  float32: dx,
+    dgamma and dbeta within 1e-5 of their scale (the sums run in another
+    order).  bfloat16: dgamma and dbeta as in float32, dx within one bf16
+    step of JAX's (float32 values on either side of a rounding boundary),
+    or 1e-5 of dx's scale where that is larger (near 0)."""
+    x, w, _ = _inputs(shape, shape[1])
+    rng = np.random.default_rng(shape[1] + 1)
+    C = shape[1]
+    dy = (rng.normal(size=shape) + rng.normal(size=(1, C, 1, 1))).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    xt, dyt = torch.from_numpy(x).to(tdt), torch.from_numpy(dy).to(tdt)
+    xf = xt.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    rstd = torch.rsqrt(var + 1e-5)
+    dx, dg, db = bn.bn_bwd_plain(xt, dyt, mean, rstd, torch.from_numpy(w))
+    assert dx.dtype == tdt and dg.dtype == db.dtype == torch.float32
+
+    (jy, jmean, jvar), vjp = jax.vjp(lambda a, s, b: jbn.bn_train(a, s, b),
+                                     jnp.asarray(_nhwc(xt), jdt), jnp.asarray(w),
+                                     jnp.zeros(C, jnp.float32))
+    jdx, jdg, jdb = vjp((jnp.asarray(_nhwc(dyt), jdt), jnp.zeros_like(jmean),
+                         jnp.zeros_like(jvar)))
+    jdx = np.asarray(jdx, np.float32)
+    for got, want in ((dg.numpy(), np.asarray(jdg)), (db.numpy(), np.asarray(jdb))):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+    scale = 1e-5 * np.abs(jdx).max()
+    if dtype == "float32":
+        np.testing.assert_allclose(_nhwc(dx), jdx, rtol=0, atol=scale)
+    else:
+        err = np.abs(_nhwc(dx) - jdx)
+        assert np.all((_bf16_steps(_nhwc(dx), jdx) <= 1.0) | (err <= scale)), err.max()

@@ -35,11 +35,15 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,H,W,Ho,Wo", [(3, 32, 100, 32, 100), (5, 7, 9, 4, 6), (2, 1, 1, 3, 3)])
+@pytest.mark.parametrize("B,H,W,Ho,Wo", [(3, 32, 100, 32, 100), (5, 7, 9, 4, 6), (2, 1, 1, 3, 3),
+                                         (7, 32, 100, 5, 7), (9, 5, 6, 7, 11),
+                                         (193, 32, 100, 32, 100)])
 def test_grid_sample_kernel_matches_plain(dev, B, H, W, Ho, Wo):
     """atol 1e-5 (float32, the same taps; only FMA contraction differs),
     on grids with integer coordinates, the far edges and points far outside
-    [-1, 1]; (2, 1, 1) is the degenerate one-pixel image."""
+    [-1, 1]; (2, 1, 1) is the degenerate one-pixel image.  Odd B, Ho*Wo not
+    a multiple of 4 (a pixel a thread) and H*W not a multiple of 4 (the
+    image staged without the bulk copy) each run."""
     rng = np.random.default_rng(B * 100 + H)
     img = torch.from_numpy(rng.random((B, H, W, 1), dtype=np.float32)).to(dev)
     g = ((rng.random((B, Ho, Wo, 2)) * 2 - 1) * 3).astype(np.float32)
@@ -448,18 +452,22 @@ def test_f32_model_is_immune_to_the_callers_tf32(dev):
 
 
 def _bn_inputs(dev, shape, dtype, seed):
-    """Channels-last x and dy (the layout of the backbone's convs), x's
-    float32 batch mean and rstd."""
+    """Channels-last x and dy (the layout of the backbone's convs), each
+    with a per-channel offset, x's float32 batch mean and rstd, and a
+    weight."""
     rng = np.random.default_rng(seed)
     C = shape[1]
     cl = torch.channels_last
-    x = torch.from_numpy((rng.normal(size=shape) + rng.normal(size=(1, C, 1, 1)))
-                         .astype(np.float32)).to(dev, dtype).contiguous(memory_format=cl)
-    dy = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
-        dev, dtype).contiguous(memory_format=cl)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev, dtype).contiguous(memory_format=cl)
+
+    x = t(rng.normal(size=shape) + rng.normal(size=(1, C, 1, 1)))
+    dy = t(rng.normal(size=shape) + rng.normal(size=(1, C, 1, 1)))
     mean = x.float().mean(dim=(0, 2, 3))
     rstd = torch.rsqrt(x.float().var(dim=(0, 2, 3), unbiased=False) + 1e-5)
-    return x, dy, mean, rstd
+    weight = torch.from_numpy((1.0 + 0.1 * rng.normal(size=C)).astype(np.float32)).to(dev)
+    return x, dy, mean, rstd, weight
 
 
 def bn_reduction_error(x, dy, mean, rstd, got):
@@ -473,35 +481,62 @@ def bn_reduction_error(x, dy, mean, rstd, got):
                for g, r, s in zip(got, ref, scales))
 
 
+def bn_dx_ok(got, ref) -> bool:
+    """dx against the plain version's: float32 within 1e-5 of its scale
+    (max |dx|); bfloat16 within one bf16 step of the plain value, or that
+    1e-5 of the scale where the step is smaller (near 0).  The sums differ
+    in the last float32 bits (another order), which moves dx's float32
+    value by ~1e-7 of the terms and its bf16 rounding by at most a step."""
+    err = (got.float() - ref.float()).abs()
+    floor = 1e-5 * ref.float().abs().max().item()
+    if got.dtype == torch.float32:
+        return err.max().item() <= floor
+    _, e = torch.frexp(ref.float())
+    step = torch.where(ref == 0, 0.0, torch.ldexp(torch.ones_like(err), e - 8))
+    return bool((err <= torch.clamp(step, min=floor)).all())
+
+
 @pytest.mark.parametrize("shape", [(3, 32, 7, 11), (8, 64, 16, 50), (16, 512, 4, 26),
                                    (5, 512, 2, 27), (3, 96, 7, 11), (1, 64, 1, 1),
-                                   (4, 3, 5, 9)])
+                                   (4, 3, 5, 9), (192, 512, 4, 26), (48, 64, 32, 100)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bn_bwd_reduce_kernel_matches_plain(dev, shape, dtype):
-    """C = 32, 64, 96, 512, 3: multiples of the 16-byte load and (C = 3)
-    not, so both load paths run; B*H*W of 231 to 13312 rows, so the chunks
-    end ragged; C = 512 float32 takes two channel groups.  Within
-    1e-6 of the sum of |terms| per channel (float32 sums in another order;
-    one element dropped from the smallest case would be 1e-2 off).  The
-    same inputs give bit-equal sums twice (no atomics)."""
-    x, dy, mean, rstd = _bn_inputs(dev, shape, dtype, seed=shape[1] + shape[3])
-    got = bn.bn_bwd_sums_cuda(x, dy, mean, rstd)
+    """The whole backward kernel against ``bn_bwd_plain``.  C = 32, 64, 96,
+    512, 3: multiples of the 16-byte load and (C = 3) not, so both paths
+    run; B*H*W of 1 to 153600 rows, so the spans end ragged, and at [192,
+    512, 4, 26] and [48, 64, 32, 100] more rows a thread than its ring keeps
+    (38 and 35 in bf16), so pass 2 reads rows again.  dgamma and dbeta within 1e-6 of the sum of
+    |terms| per channel (float32 sums in another order; one element dropped
+    from the smallest case would be 1e-2 off); dx as ``bn_dx_ok``.  The
+    same inputs give bit-equal results twice (no atomics); dx keeps x's
+    type and channels-last layout."""
+    x, dy, mean, rstd, w = _bn_inputs(dev, shape, dtype, seed=shape[1] + shape[3])
+    dx, dg, db = bn.bn_bwd_cuda(x, dy, mean, rstd, w)
     torch.cuda.synchronize()
-    assert bn_reduction_error(x, dy, mean, rstd, got) <= 1e-6
-    again = bn.bn_bwd_sums_cuda(x, dy, mean, rstd)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = bn.bn_bwd_plain(x, dy, mean, rstd, w)
+    assert dx.dtype == dtype and dx.is_contiguous(memory_format=torch.channels_last)
+    assert bn_reduction_error(x, dy, mean, rstd, (dg, db)) <= 1e-6
+    assert bn_dx_ok(dx, ref[0])
+    again = bn.bn_bwd_cuda(x, dy, mean, rstd, w)
+    assert all(torch.equal(a, b) for a, b in zip((dx, dg, db), again))
 
 
 def test_bn_bwd_reduce_wrapper_refuses_bad_inputs(dev):
-    x, dy, mean, rstd = _bn_inputs(dev, (2, 8, 4, 4), torch.float32, seed=0)
+    x, dy, mean, rstd, w = _bn_inputs(dev, (2, 8, 4, 4), torch.float32, seed=0)
     with pytest.raises(TypeError):  # x and dy of two types
-        bn.bn_bwd_sums_cuda(x, dy.bfloat16(), mean, rstd)
+        bn.bn_bwd_cuda(x, dy.bfloat16(), mean, rstd, w)
     with pytest.raises(TypeError):
-        bn.bn_bwd_sums_cuda(x.half(), dy.half(), mean, rstd)
+        bn.bn_bwd_cuda(x.half(), dy.half(), mean, rstd, w)
     with pytest.raises(ValueError):  # NCHW is not copied into channels-last
-        bn.bn_bwd_sums_cuda(x.contiguous(), dy, mean, rstd)
+        bn.bn_bwd_cuda(x.contiguous(), dy, mean, rstd, w)
     with pytest.raises(ValueError):
-        bn.bn_bwd_sums_cuda(x, dy, mean[:4], rstd)
+        bn.bn_bwd_cuda(x, dy.contiguous(), mean, rstd, w)
+    with pytest.raises(ValueError):
+        bn.bn_bwd_cuda(x, dy, mean[:4], rstd, w)
+    with pytest.raises(ValueError):
+        bn.bn_bwd_cuda(x, dy, mean, rstd, w.double())
+    with pytest.raises(ValueError):  # one device
+        bn.bn_bwd_cuda(x, dy, mean, rstd, w.cpu())
 
 
 def test_train_step_kernels_match_plain(dev):
@@ -521,11 +556,11 @@ def test_train_step_kernels_match_plain(dev):
     for use_kernels in (True, False):
         trainer = api.get_trainer(cfg=cfg, seed=3)
         trainer.model.set_use_kernels(use_kernels)
-        bn.bn_bwd_sums_cuda.launches = gs.grid_sample_cuda.launches = 0
+        bn.bn_bwd_cuda.launches = gs.grid_sample_cuda.launches = 0
         m = trainer(batch)
         torch.cuda.synchronize()
         out.append((m["loss"].item(), m["grad_norm"].item(),
-                    bn.bn_bwd_sums_cuda.launches, gs.grid_sample_cuda.launches))
+                    bn.bn_bwd_cuda.launches, gs.grid_sample_cuda.launches))
     (loss_k, norm_k, k3, k2), (loss_p, norm_p, k3_p, k2_p) = out
     assert (k3, k2, k3_p, k2_p) == (36, 1, 0, 0)
     assert np.isfinite([loss_k, norm_k]).all()

@@ -515,13 +515,13 @@ def test_every_batchnorm_backward_gets_channels_last(monkeypatch):
     backwards get both in that layout from the convs and autograd, the
     loc-net's global mean and the column mean included, with no copy."""
     seen = []
-    real = bnops.bn_bwd_sums
+    real = bnops.bn_bwd
 
-    def spy(x, dy, mean, rstd, plain=False):
+    def spy(x, dy, mean, rstd, weight, plain=False):
         seen.append(all(t.is_contiguous(memory_format=torch.channels_last) for t in (x, dy)))
-        return real(x, dy, mean, rstd, plain)
+        return real(x, dy, mean, rstd, weight, plain)
 
-    monkeypatch.setattr(bnops, "bn_bwd_sums", spy)
+    monkeypatch.setattr(bnops, "bn_bwd", spy)
     cfg = ModelConfig(**TINY, use_tps=True, decode_fused=True)
     api.get_trainer(cfg=cfg, device="cpu")(make_batch(2, 0))
     assert len(seen) == 36 and all(seen)
