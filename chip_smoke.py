@@ -31,7 +31,16 @@ no bundle holds trained fusion weights) through ``Recognizer.recognize(
 crops, semantics=)`` with seeded objects, greedily, by beam search, with
 the logit fusion and in int8, checks the cls0 launches, the strings
 against the plain path's, and splits each call's time by stage, the
-fusion MLPs as a stage of their own.  The gemm probe phase holds the
+fusion MLPs as a stage of their own.  The stepper phases serve the
+trained bundle with ``decode_fused=False`` greedily through the
+single-position stepper in bf16 and f32, its strings held against K1's and
+its time beside K1's; serve the semantic configuration with the three
+per-layer fusion sites on greedily and by beam search through the stepper
+(no K1 or K4 launch), hold its two beam forms against each other and 16 of
+its rows in f32 against the same model on the CPU; train it for three
+steps with the kernels and with their plain versions (36 K3 and 1 K2
+launches a step); and serve crops of other sizes, resized on the host,
+against the same crops resized by the plain routes.  The gemm probe phase holds the
 int8-vs-bf16 probe's two chain kernels (P1, P2) against their plain
 versions at 1, 4 and 30 steps, on a tie input and a NaN input, checks both
 end all NaN at the probe's 200 steps, prints their launch plan
@@ -91,7 +100,7 @@ import time
 import numpy as np
 import torch
 
-WATCHDOG_S = 480
+WATCHDOG_S = 600
 BUNDLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "assets", "trained", "synth_openvocab_xxl.params.npz")
 SCALES = BUNDLE.replace(".params.npz", ".scales.npz")  # persisted int8 activation scales
@@ -2467,6 +2476,312 @@ def semantic_phase(api, fd, fb, gs, build, crops, mutants: bool):
     return k1c, k4c, summary
 
 
+# -- greedy decoding through the stepper, the per-layer fusion sites,
+# -- training with every fusion hook, and crop resizing
+
+SITES_ROWS = 16  # rows of the fusion-site model held against the CPU in float32
+SITES_CPU_TOL = 1e-4  # of max(1, max |logit|)
+
+
+def call_ms(fn, reps: int = 3):
+    """The median CUDA-event ms of ``reps`` warm calls of ``fn()`` (one
+    warm-up call first), each timed alone, and the samples."""
+    fn()
+    samples = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end))
+    return statistics.median(samples), samples
+
+
+def encoded(model, rec, crops, sem=None):
+    """The memory and step-0 rows the decoder of ``model`` reads for
+    ``crops`` (and their objects), and the semantic vectors."""
+    image, overlap, scene, ious = rec.prepare(crops, len(crops), semantics=sem)
+    with torch.no_grad(), model.precision():
+        s = model.semantics(overlap, scene, ious)
+        enc = model.encoder(model.features(model.rectify(image)), semantics=s)
+        memory, cls0 = model.decoder.memory_and_cls0(enc, s)
+    return memory, cls0, s
+
+
+def stepper_phase(api, fd, gs, crops):
+    """The trained bundle under ``decode_fused=False`` (the flagship's other
+    settings): greedy decoding through the stepper, served on the 192
+    crops in bf16 and in f32 (TF32 off), its strings held against the K1
+    path's (100% identical in f32, at least 98% in bf16), its decoder's
+    and whole call's ms (CUDA events, median of 3 warm calls) beside K1's,
+    and the decoder stage's share of the call."""
+    from multimodal_scene_text_recognition_tpu_torch.config import FLAGSHIP
+    from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
+
+    summary, failures = {}, []
+    for dt in ("bfloat16", "float32"):
+        runs = {}
+        for name, fused in (("K1", True), ("stepper", False)):
+            cfg = dataclasses.replace(FLAGSHIP, compute_dtype=dt, decode_fused=fused)
+            model = api.get_model(BUNDLE, cfg)
+            rec = Recognizer(model, batch_sizes=(B,))
+            fd.fused_greedy_decode_cuda.launches = 0
+            gs.grid_sample_cuda.launches = 0
+            texts = rec.recognize(crops)
+            n = {"fused_decode": fd.fused_greedy_decode_cuda.launches,
+                 "grid_sample": gs.grid_sample_cuda.launches}
+            if n["grid_sample"] < 1 or (n["fused_decode"] > 0) != fused:
+                raise AssertionError(f"{dt} {name} greedy call launched {n}")
+            memory, _, _ = encoded(model, rec, crops)
+
+            def decode():
+                with torch.no_grad(), model.precision():
+                    return model.decoder.greedy_from_memory(memory)
+
+            logits = decode()
+            if logits.shape != (B, 25, 97) or not torch.isfinite(logits).all():
+                raise AssertionError(f"{dt} {name} logits: shape {tuple(logits.shape)} or "
+                                     f"non-finite")
+            dec_ms, dec_samples = call_ms(decode)
+            call, _ = call_ms(lambda: rec.recognize(crops))
+            stages = stage_times(model, rec, crops,
+                                 lambda enc: model.decoder.greedy_decode(enc).argmax(-1), reps=3)
+            runs[name] = dict(texts=texts, launches=n, decoder_ms=dec_ms,
+                              decoder_ms_samples=dec_samples, ms_per_call=call,
+                              stage_ms=stages,
+                              decoder_share=stages["decoder"] / sum(stages.values()))
+            del model, rec, memory, logits
+            torch.cuda.empty_cache()
+        agree = sum(a == b for a, b in zip(runs["K1"]["texts"], runs["stepper"]["texts"])) / B
+        limit = 1.0 if dt == "float32" else 0.98
+        st, k1 = runs["stepper"], runs["K1"]
+        log(f"stepper greedy {dt}: strings vs K1's {agree:.4f} identical (limit {limit}); "
+            f"decoder {st['decoder_ms']:.3f} ms (samples {st['decoder_ms_samples']}) against "
+            f"K1's {k1['decoder_ms']:.3f}; whole call {st['ms_per_call']:.2f} ms against "
+            f"{k1['ms_per_call']:.2f}; decoder share {st['decoder_share']:.3f} against "
+            f"{k1['decoder_share']:.3f}; stepper stage ms " + ", ".join(
+                f"{k} {v:.3f}" for k, v in st["stage_ms"].items()))
+        if not agree >= limit:
+            failures.append(f"{dt}: strings vs K1's {agree} < {limit}")
+        for r in runs.values():
+            del r["texts"]
+        summary[dt] = {"string_agreement_vs_k1": agree, **{n: r for n, r in runs.items()}}
+    if failures:
+        raise AssertionError("stepper greedy vs K1: " + "; ".join(failures))
+    return summary
+
+
+def sites_config(flagship):
+    """The semantic configuration with the three per-layer fusion sites on:
+    every fusion hook of the JAX package; greedy decoding and beam search
+    run the stepper."""
+    return dataclasses.replace(semantic_config(flagship), multihead_pre_target=True,
+                               multihead_pre_memory=True, multihead_post_memory=True)
+
+
+def fusion_sites_phase(api, fd, fb, gs, crops):
+    """``sites_config`` with random weights from SEMANTIC_SEED and the
+    objects of ``make_semantics``, served on the 192 crops greedily (the
+    stepper, early stop) and by beam search (k=5: the fused beam gives way
+    to the stepper's ancestry form), with no K1 or K4 launch; the two
+    calls' ms and the two beam forms' (ancestry, reorder) agreement in
+    bf16, printed; then SITES_ROWS rows in f32 on the card held against
+    the same model on the CPU: greedy logits within SITES_CPU_TOL of
+    max(1, max |logit|), tokens identical, and the ancestry and reorder
+    beam forms on the card and the ancestry form on the CPU with identical
+    tokens, scores within SITES_CPU_TOL of their size.
+
+    The forms are held in float32 only: this random decoder's next-token
+    distribution is nearly flat (a beam's 25 steps sum to -50 to -65), so
+    its K-th and (K+1)-th candidates often lie closer than a bf16 rounding,
+    and the two forms' attention sums, in other orders, then keep other
+    beams."""
+    from multimodal_scene_text_recognition_tpu_torch.config import FLAGSHIP
+    from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
+
+    cfg = sites_config(FLAGSHIP)
+    sem = make_semantics(B, SEMANTIC_SEED)
+    model = api.get_model(None, cfg, seed=SEMANTIC_SEED)
+    rec = Recognizer(model, batch_sizes=(1, 8, 64, B))
+    fd.fused_greedy_decode_cuda.launches = fb.fused_beam_decode_cuda.launches = 0
+    gs.grid_sample_cuda.launches = 0
+    texts = rec.recognize(crops, semantics=sem)
+    btexts, bscores = rec.recognize(crops, BEAM, return_scores=True, semantics=sem)
+    n = {"fused_decode": fd.fused_greedy_decode_cuda.launches,
+         "fused_beam": fb.fused_beam_decode_cuda.launches,
+         "grid_sample": gs.grid_sample_cuda.launches}
+    log(f"fusion sites: served {len(texts)} crops greedily and by beam search; kernel launches "
+        f"{n}; e.g. {texts[:2]}, {list(zip(btexts[:2], bscores[:2]))}")
+    if n["fused_decode"] or n["fused_beam"] or n["grid_sample"] != 2:
+        raise AssertionError(f"the fusion-site calls launched {n}: expected the stepper and 2 K2")
+    if len(btexts) != B or not np.isfinite(bscores).all() or max(bscores) > 0:
+        raise AssertionError("fusion sites beam: missing strings or bad scores")
+    greedy_ms, greedy_samples = call_ms(lambda: rec.recognize(crops, semantics=sem))
+    beam_ms, beam_samples = call_ms(lambda: rec.recognize(crops, BEAM, semantics=sem))
+    dec = model.decoder
+    stages = semantic_stage_times(
+        model, rec, crops, sem, lambda m, c, s: dec.greedy_from_memory(m, c, s).argmax(-1),
+        reps=3)
+    memory, cls0, s = encoded(model, rec, crops, sem)
+    with torch.no_grad():
+        forms = {r: dec.beam_from_memory(memory, cls0, BEAM, reorder_caches=r, semantics=s)
+                 for r in (False, True)}
+        step_ms = {"ancestry": call_ms(lambda: dec.beam_from_memory(
+            memory, cls0, BEAM, semantics=s))[0], "reorder": call_ms(lambda: dec.beam_from_memory(
+                memory, cls0, BEAM, reorder_caches=True, semantics=s))[0]}
+    forms_bf16 = (forms[False][0] == forms[True][0]).all(-1).float().mean().item()
+    score_diff = (forms[False][1] - forms[True][1]).abs().max().item()
+    log(f"fusion sites: greedy {greedy_ms:.2f} ms per {B}-crop call (samples {greedy_samples}), "
+        f"beam {beam_ms:.2f} (samples {beam_samples}); greedy stage ms " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; bf16 beam forms: ancestry {step_ms['ancestry']:.2f} ms, reorder "
+        f"{step_ms['reorder']:.2f} ms, best beams identical {forms_bf16:.4f} (printed only), "
+        f"scores max |diff| {score_diff:.3e}")
+    del model, rec, memory, cls0, s, forms
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    card = api.get_model(None, cfg32, seed=SEMANTIC_SEED)
+    host = api.get_model(None, cfg32, device="cpu", seed=SEMANTIC_SEED)
+    rows = {k: v[:SITES_ROWS] for k, v in sem.items()}
+    r = SITES_ROWS
+    batch = Recognizer(card, batch_sizes=(r,)).prepare(crops[:r], r, semantics=rows)
+    with torch.no_grad():
+        got = card(batch[0], batch[1], scene=batch[2], ious=batch[3]).cpu()
+        want = host(*(t.cpu() for t in batch[:2]), scene=batch[2].cpu(), ious=batch[3].cpu())
+        beams = {}
+        for name, model, reorder in (("card ancestry", card, False), ("card reorder", card, True),
+                                     ("CPU ancestry", host, False)):
+            memory, cls0, s = encoded(model, Recognizer(model, batch_sizes=(r,)), crops[:r], rows)
+            t, sc = model.decoder.beam_from_memory(memory, cls0, BEAM, reorder_caches=reorder,
+                                                   semantics=s)
+            beams[name] = (t.cpu(), sc.cpu())
+    scale = max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    tokens_same = torch.equal(got.argmax(-1), want.argmax(-1))
+    ref_t, ref_s = beams["CPU ancestry"]
+    beams_same = all(torch.equal(t, ref_t) for t, _ in beams.values())
+    beam_err = max((sc - ref_s).abs().max().item() for _, sc in beams.values())
+    beam_scale = ref_s.abs().max().item()
+    log(f"fusion sites f32, card vs CPU on {r} rows: greedy max |logit diff| {err:.3e} (limit "
+        f"{SITES_CPU_TOL:g} x {scale:.3f}), tokens identical {tokens_same}; beam (k={BEAM}) "
+        f"card ancestry, card reorder and CPU ancestry tokens identical {beams_same}, scores "
+        f"max |diff| {beam_err:.3e} (limit {SITES_CPU_TOL:g} x {beam_scale:.3f})")
+    del card, host
+    torch.cuda.empty_cache()
+    if not (tokens_same and err <= SITES_CPU_TOL * scale and beams_same
+            and beam_err <= SITES_CPU_TOL * beam_scale):
+        raise AssertionError(f"fusion sites f32: card vs CPU logits {err} (limit "
+                             f"{SITES_CPU_TOL * scale}), tokens identical {tokens_same}; beam "
+                             f"forms identical {beams_same}, scores {beam_err}")
+    return {"launches": n, "greedy_ms_per_call": greedy_ms, "greedy_ms_samples": greedy_samples,
+            "beam_ms_per_call": beam_ms, "beam_ms_samples": beam_samples, "stage_ms": stages,
+            "beam_form_ms": step_ms, "bf16_beam_forms_identical_share": forms_bf16,
+            "bf16_beam_forms_score_diff": score_diff, "f32_vs_cpu_max_abs_err": err,
+            "f32_vs_cpu_scale": scale, "f32_beam_forms_identical": beams_same,
+            "f32_beam_score_diff": beam_err}
+
+
+def train_hooks_phase(api, bn, gs):
+    """``sites_config`` (every fusion hook and site) trained for
+    TRAIN_STEPS bf16 steps at B=192 from SEMANTIC_SEED's weights, with the
+    kernels and with their plain versions, held to the train phase's
+    limits (TRAIN_LOSS_TOL, TRAIN_NORM_TOL); 36 K3 and 1 K2 launches a
+    step; the median step ms and the peak memory."""
+    from multimodal_scene_text_recognition_tpu_torch.config import FLAGSHIP
+
+    cfg = sites_config(FLAGSHIP)
+    batch = make_train_batch(B, 4321, FLAGSHIP.chars)
+    batch.update(make_semantics(B, 4322))
+    torch.cuda.reset_peak_memory_stats()
+    trainer, kmetrics, kcounts, shapes = train_run(api, bn, gs, batch, use_kernels=True, cfg=cfg)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms_step, step_samples = call_ms(lambda: trainer(batch))
+    del trainer
+    torch.cuda.empty_cache()
+    trainer, pmetrics, pcounts, _ = train_run(api, bn, gs, batch, use_kernels=False, cfg=cfg)
+    del trainer
+    torch.cuda.empty_cache()
+    want = [(36 * (i + 1), i + 1) for i in range(TRAIN_STEPS)]
+    diffs = rel_diffs(kmetrics, pmetrics)
+    loss_diffs, norm_diff = [d[0] for d in diffs], diffs[0][1]
+    log(f"train with every hook: kernels {kmetrics}, K3/K2 launches after each step {kcounts}; "
+        f"plain {pmetrics}, launches {pcounts}; relative loss {[f'{d:.3e}' for d in loss_diffs]} "
+        f"(limits {TRAIN_LOSS_TOL}), step-1 grad norm {norm_diff:.3e} (limit {TRAIN_NORM_TOL:g}); "
+        f"median step {ms_step:.2f} ms of {step_samples} ({B / ms_step * 1e3:.1f} crops/s), "
+        f"peak memory {peak_gb:.3f} GB")
+    for m in kmetrics + pmetrics:
+        if not np.isfinite([m["loss"], m["grad_norm"]]).all():
+            raise AssertionError(f"non-finite training metrics with the hooks: {m}")
+    if len(shapes) != 36 or kcounts != want or any(c != (0, 0) for c in pcounts):
+        raise AssertionError(f"training with the hooks launched K3/K2 {kcounts} with "
+                             f"{len(shapes)} BatchNorms a step (expected {want}), plain {pcounts}")
+    if not (all(d <= t for d, t in zip(loss_diffs, TRAIN_LOSS_TOL))
+            and norm_diff <= TRAIN_NORM_TOL):
+        raise AssertionError(f"kernel and plain training runs with the hooks disagree: {diffs}")
+    return {"batch": B, "steps": TRAIN_STEPS, "metrics_kernels": kmetrics,
+            "metrics_plain": pmetrics, "rel_diff_by_step": diffs, "ms_per_step": ms_step,
+            "ms_samples": step_samples, "crops_per_s": B / ms_step * 1e3,
+            "peak_memory_gb": peak_gb, "launches": kcounts[-1]}
+
+
+def make_resize_crops(n: int, seed: int):
+    """Seeded crops of other sizes: ``make_crops``' glyph-like crops
+    resampled to heights 16-64 and widths 40-400 by the plain bilinear
+    route; even ones uint8, odd ones float in [0, 1]."""
+    from multimodal_scene_text_recognition_tpu_torch.ops.resize import crop_resize_gray_plain
+
+    rng = np.random.default_rng(seed)
+    box = np.array([[0, 0, 100, 32]], np.float32)
+    out = []
+    for i, c in enumerate(make_crops(n, seed)):
+        h, w = int(rng.integers(16, 65)), int(rng.integers(40, 401))
+        r = crop_resize_gray_plain([c], box, h, w)[0, ..., 0]
+        out.append(np.round(r * 255).astype(np.uint8) if i % 2 == 0 else r)
+    return out
+
+
+def resize_phase(api, gs, crops):
+    """192 seeded crops of other sizes (``make_resize_crops``), half uint8
+    and half float, served on the trained flagship: the strings must be
+    those of the same crops resized first by the plain routes on the host
+    (the C++'s numpy mirror, the float bicubic); ``prepare``'s ms for the
+    batch beside the 32x100 batch's."""
+    from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
+    from multimodal_scene_text_recognition_tpu_torch.ops.resize import (crop_resize_gray_plain,
+                                                                        resize_float)
+
+    model = api.get_model(BUNDLE)
+    rec = Recognizer(model, batch_sizes=(1, 8, 64, B))
+    other = make_resize_crops(B, 77)
+    gs.grid_sample_cuda.launches = 0
+    texts = rec.recognize(other)
+    launches = gs.grid_sample_cuda.launches
+    resized = [crop_resize_gray_plain([c], np.array([[0, 0, c.shape[1], c.shape[0]]],
+                                                    np.float32))[0, ..., 0]
+               if c.dtype == np.uint8 else resize_float(c) for c in other]
+    plain = rec.recognize(resized)
+    same = sum(a == b for a, b in zip(texts, plain)) / B
+    prep_ms, prep_samples = call_ms(lambda: rec.prepare(other, B))
+    prep32_ms, _ = call_ms(lambda: rec.prepare(crops, B))
+    call, _ = call_ms(lambda: rec.recognize(other))
+    shapes = [c.shape for c in other]
+    log(f"resize: {B} crops of heights {min(s[0] for s in shapes)}-{max(s[0] for s in shapes)} "
+        f"and widths {min(s[1] for s in shapes)}-{max(s[1] for s in shapes)}, half uint8 and "
+        f"half float; K2 launches {launches}; strings vs the plain-resized crops' {same:.4f} "
+        f"identical (limit 1.0), e.g. {texts[:3]}; prepare {prep_ms:.3f} ms (samples "
+        f"{prep_samples}) against {prep32_ms:.3f} ms for 32x100 crops; whole call "
+        f"{call:.2f} ms")
+    del model, rec
+    torch.cuda.empty_cache()
+    if launches < 1 or same != 1.0:
+        raise AssertionError(f"resize: K2 launches {launches}, strings identical {same}")
+    return {"string_agreement_vs_plain_resize": same, "prepare_ms": prep_ms,
+            "prepare_ms_samples": prep_samples, "prepare_ms_32x100": prep32_ms,
+            "ms_per_call": call}
+
+
 def make_train_batch(n: int, seed: int, chars: str):
     """One batch in the wire format: uint8 crops, label rows of seeded
     random words, overlap ids in [0, 100)."""
@@ -2481,14 +2796,19 @@ def make_train_batch(n: int, seed: int, chars: str):
 
 
 def train_run(api, bn, gs, batch, use_kernels: bool, steps: int = TRAIN_STEPS,
-              warp_kernel: bool = None):
+              warp_kernel: bool = None, cfg=None):
     """``steps`` steps of the trained flagship (``TrainConfig()`` defaults,
-    dropout 0.1) with the kernels or their plain versions (``warp_kernel``
-    sets K2 apart); the per-step metrics, the K3 and K2 counts after each
-    step, and the (shape, dtype) of each BatchNorm input of the first step."""
+    dropout 0.1), or of ``cfg`` with the random weights of SEMANTIC_SEED,
+    with the kernels or their plain versions (``warp_kernel`` sets K2
+    apart); the per-step metrics (with the step's CUDA-event ``ms``), the
+    K3 and K2 counts after each step, and the (shape, dtype) of each
+    BatchNorm input of the first step."""
     from multimodal_scene_text_recognition_tpu_torch.models.layers import BatchNorm2d
 
-    trainer = api.get_trainer(BUNDLE)
+    if cfg is None:
+        trainer = api.get_trainer(BUNDLE)
+    else:
+        trainer = api.get_trainer(None, cfg, seed=SEMANTIC_SEED)
     trainer.model.set_use_kernels(use_kernels)
     if warp_kernel is not None:
         trainer.model.transformation.use_kernels = warp_kernel
@@ -2500,8 +2820,12 @@ def train_run(api, bn, gs, batch, use_kernels: bool, steps: int = TRAIN_STEPS,
     gs.grid_sample_cuda.launches = 0
     metrics, counts = [], []
     for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         m = trainer(batch)
-        metrics.append({k: v.item() for k, v in m.items()})
+        end.record()
+        torch.cuda.synchronize()
+        metrics.append({**{k: v.item() for k, v in m.items()}, "ms": start.elapsed_time(end)})
         counts.append((bn.bn_bwd_cuda.launches, gs.grid_sample_cuda.launches))
     for h in hooks:
         h.remove()
@@ -2834,6 +3158,18 @@ def main() -> int:
     k1c, k4c, e2e_semantic = semantic_phase(api, fd, fb, gs, build, crops,
                                             "--mutants" in sys.argv[1:])
 
+    phase("stepper greedy vs K1")
+    stepper = stepper_phase(api, fd, gs, crops)
+
+    phase("fusion sites")
+    sites = fusion_sites_phase(api, fd, fb, gs, crops)
+
+    phase("train with the hooks")
+    train_hooks = train_hooks_phase(api, bn, gs)
+
+    phase("resize")
+    resized = resize_phase(api, gs, crops)
+
     phase("train bf16")
     torch.cuda.empty_cache()
     train, k3, k2_train = train_phase(api, bn, gs)
@@ -2842,6 +3178,9 @@ def main() -> int:
     if k3_variants is not None:
         k3["step_ms_stopped_early"] = k3_variants
     k2["launches_train"] = k2_train
+    k3["launches_train_with_hooks"] = train_hooks["launches"][0]
+    k2["launches_train_with_hooks"] = train_hooks["launches"][1]
+    k2["launches_fusion_sites"] = sites["launches"]["grid_sample"]
 
     phase("report")
     log(f"done in {time.time() - T0:.1f} s")
@@ -2857,7 +3196,8 @@ def main() -> int:
                                    "batch": B, "stage_ms": beam_stages,
                                    "decoder_share": share, "profile": beam_prof},
                       "e2e_int8": e2e_int8, "e2e_semantic": e2e_semantic,
-                      "train": train}), flush=True)
+                      "stepper": stepper, "fusion_sites": sites, "resize": resized,
+                      "train": train, "train_with_hooks": train_hooks}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [k1, k1e, k1q, k2, k3, k4, k1c, k4c, p1, p2]}),
           flush=True)

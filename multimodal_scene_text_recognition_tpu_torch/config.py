@@ -39,9 +39,11 @@ class ModelConfig:
     # fusion hooks: relevance-weighted semantics fused into the encoder's
     # input, the decoder's memory, its step-0 input (the semantic CLS
     # vector, the cls0 row of the fused decode and beam kernels) and its
-    # logits (greedy only).  Serving only: SceneTextModel refuses them in
-    # train mode, and refuses the three per-layer decoder sites
-    # (multihead_*), which need the non-fused greedy stepper.
+    # logits (greedy only); and the three per-layer decoder sites
+    # (multihead_*: an attention over the relevance-weighted semantics
+    # before the self-attention, between it and the cross-attention, after
+    # the cross-attention), which the kernels do not carry: with a site on,
+    # greedy decoding and beam search run the stepper.  All serve and train.
     pre_encoder_mlp: bool = False
     pre_decoder_mlp: bool = False
     cls_decoder_init: bool = False
@@ -51,8 +53,9 @@ class ModelConfig:
     multihead_post_memory: bool = False
     # greedy decode and beam search stop once every row (every beam of a
     # row) has emitted [s]; [s]-pruned strings and beam scores are those of
-    # the full-length loop.  The greedy loop runs only as the fused decode
-    # kernel (decode_fused=True); the scan stepper serves beam search alone.
+    # the full-length loop.  decode_fused runs the greedy loop as the fused
+    # decode kernel; without it (the JAX default) greedy decoding runs the
+    # single-position stepper, as beam search does without decode_beam_fused.
     decode_early_stop: bool = False
     decode_fused: bool = False
     # run beam search as the fused beam kernel (ops/fused_beam.py) instead

@@ -18,7 +18,9 @@ the same module paths, so only the leaf name and the layout change:
 
 The last row is the JAX package's ``MLPP``, whose layers are flat leaves of
 one module: the decoder's fusion MLPs (``relevant_mlp``, ``combine_mlp``,
-``sem_cls_mlp``, ``post_mlp``, ``post_combine_mlp``).  Its ``MLP`` (the
+``sem_cls_mlp``, ``post_mlp``, ``post_combine_mlp``) and each layer's
+fusion-site MLPs (``layer<i>.mlp_<site>``, beside its attention
+``layer<i>.mha_<site>``).  Its ``MLP`` (the
 encoder's ``sem_relevance_mlp`` and ``combine_mlp``) keeps one module per
 layer, ``fc{i}.kernel``, as any dense layer.
 """
@@ -47,7 +49,7 @@ _TRANSPOSED = {"kernel", "w_qkv", "w_out"}
 _EMBEDDINGS = ("emb", "embed", "overlap_embed", "scene_embed")
 META_KEYS = ("__step__",)
 _FLAT_LAYER = re.compile(r"(fc\d+)_(kernel|bias)")  # an MLPP leaf
-_FLAT_MLP = re.compile(r"decoder\.\w+_mlp\.fc\d+")  # a port layer of an MLPP
+_FLAT_MLP = re.compile(r"decoder\.(\w+_mlp|layer\d+\.mlp_\w+)\.fc\d+")  # a port layer of an MLPP
 
 
 def _convert(leaf: str, arr: np.ndarray) -> np.ndarray:

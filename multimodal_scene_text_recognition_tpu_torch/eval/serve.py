@@ -15,6 +15,7 @@ from ..charset import AttnCodec
 from ..models.model import make_int8_eval_step
 from ..models.resnet_int8 import (calibrate_resnet, calibrate_tps, check_scale_drift,
                                   load_activation_scales, save_activation_scales)
+from ..ops.resize import crop_resize_gray_batch, resize_float
 
 
 def scales_path_beside(bundle_path: Optional[str]) -> Optional[str]:
@@ -32,9 +33,10 @@ class Recognizer:
     """Recognition of grayscale crops through a
     :class:`~..models.model.SceneTextModel` (from ``api.get_model``).
 
-    Crops must already be ``img_h x img_w`` (32x100): float in [0, 1] or
-    uint8 (any crop whose maximum exceeds 1.5 is scaled by 1/255).  Resizing
-    other sizes is not ported yet.
+    Crops are grayscale [H, W] or [H, W, 1] of any size: float in [0, 1]
+    or uint8 (any crop whose maximum exceeds 1.5 is scaled by 1/255).  Crops
+    that are not ``img_h x img_w`` (32x100) are resized on the host as the
+    JAX package resizes them (:meth:`prepare`).
 
     ``int8_backbone=True`` serves through the int8 loc-net (with
     ``cfg.tps_int8``) and the int8 ResNet-31 (models/resnet_int8.py), in
@@ -80,7 +82,14 @@ class Recognizer:
     def prepare(self, crops: Sequence[np.ndarray], B: int, tile_real: bool = False,
                 semantics: Optional[Mapping[str, np.ndarray]] = None):
         """Stack ``crops`` into a [B, H, W, 1] float32 batch on the model's
-        device, with its semantic inputs: ``overlap`` ids [B,
+        device (JAX ``_prepare``, in its order: a crop's type is noted, the
+        crop is scaled by 1/255 where its maximum exceeds 1.5, and one that
+        is not ``img_h x img_w`` is resized: a uint8 crop, taken back to
+        bytes, by the C++ bilinear crop resize
+        (:func:`~..ops.resize.crop_resize_gray_batch`, all such crops of
+        the batch in one call), any other by the float64 bicubic resize
+        (:func:`~..ops.resize.resize_float`)), with its semantic inputs:
+        ``overlap`` ids [B,
         max_overlap_objs], ``scene`` ids [B, max_scene_objs] and ``ious``
         float32 [B, max_scene_objs].  Image pad rows are zero, or with
         ``tile_real`` copies of the real crops in turn (calibration batches
@@ -91,17 +100,31 @@ class Recognizer:
         them.  Returns ``(image, overlap, scene, ious)``."""
         m = self.cfg
         img = np.zeros((B, m.img_h, m.img_w, 1), np.float32)
+        byte_rows, byte_crops = [], []
         for i, c in enumerate(crops):
-            c = np.asarray(c).astype(np.float32)
+            c = np.asarray(c)
+            was_uint8 = c.dtype == np.uint8
+            c = c.astype(np.float32)
             if c.max() > 1.5:  # uint8-range input
                 c = c / 255.0
             if c.ndim == 2:
                 c = c[..., None]
-            if c.shape != (m.img_h, m.img_w, 1):
-                raise ValueError(
-                    f"crop {i} has shape {c.shape}; this recognizer takes "
-                    f"{m.img_h}x{m.img_w} grayscale crops (resizing is not ported)")
-            img[i] = c
+            if c.ndim != 3 or c.shape[2] != 1:
+                raise ValueError(f"crop {i} has shape {c.shape}; this recognizer takes "
+                                 f"grayscale crops [H, W] or [H, W, 1]")
+            if c.shape[:2] == (m.img_h, m.img_w):
+                img[i] = c
+            elif was_uint8:
+                # back to bytes, as JAX does: exact for byte input; a uint8
+                # crop whose maximum is at most 1.5 was not scaled, so its 1s
+                # become 255
+                byte_rows.append(i)
+                byte_crops.append((c[..., 0] * 255).astype(np.uint8))
+            else:
+                img[i, ..., 0] = resize_float(c[..., 0], m.img_h, m.img_w)
+        if byte_crops:
+            boxes = np.array([[0, 0, c.shape[1], c.shape[0]] for c in byte_crops], np.float32)
+            img[byte_rows] = crop_resize_gray_batch(byte_crops, boxes, m.img_h, m.img_w)
         if tile_real and len(crops) > 0:
             for i in range(len(crops), B):
                 img[i] = img[i % len(crops)]

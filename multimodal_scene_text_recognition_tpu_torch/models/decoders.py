@@ -2,29 +2,34 @@
 ``TransformerDecoder``).
 
 Serving: the memory projection ``hid_to_emb`` and the per-layer
-cross-attention K/V run once in float32; the whole 25-step greedy loop is
-one launch of the fused decode kernel (ops/fused_decode.py) in the compute
-type (with ``int8`` its six projections int8, K1q), and with ``beam_fused``
-the whole beam search one launch of the fused beam kernel
-(ops/fused_beam.py), in float in every mode (as in the JAX package).  Otherwise beam search runs the
-single-position stepper over KV caches, as the JAX package's XLA path does.
-Training: one teacher-forced causal pass in float32, as the JAX package
-trains its decoder.
+cross-attention K/V run once in float32; with ``fused`` the whole 25-step
+greedy loop is one launch of the fused decode kernel (ops/fused_decode.py)
+in the compute type (with ``int8`` its six projections int8, K1q), and with
+``beam_fused`` the whole beam search one launch of the fused beam kernel
+(ops/fused_beam.py), in float in every mode (as in the JAX package).
+Otherwise greedy decoding and beam search run the single-position stepper
+over KV caches, as the JAX package's XLA path does; so do both whenever a
+per-layer fusion site is on (the kernels carry none), and ``int8`` is then
+ignored, as in JAX.  Training: one teacher-forced causal pass in float32,
+as the JAX package trains its decoder.
 
-The semantic fusion hooks the fused kernels carry run in float32 around
-them: ``pre_decoder_mlp`` fuses the semantics into the memory
+The semantic fusion hooks run in float32 around the loops:
+``pre_decoder_mlp`` fuses the semantics into the memory
 (:meth:`TransformerDecoder.memory`), ``cls_decoder_init`` replaces the
 [GO] embedding at step 0 by the semantic CLS vector (:meth:`sem_cls`, the
 kernels' ``cls0`` row), and ``post_decoder_mlp`` fuses them into the
 greedy logits (:meth:`post_decoder`; beam search refuses it, as the JAX
-package does).  The per-layer fusion sites (the JAX package's
-``multihead_*`` options) and greedy decoding through the stepper are not
-ported.
+package does).  The per-layer fusion sites (``sites``, the JAX package's
+``multihead_pre_target``, ``multihead_pre_memory`` and
+``multihead_post_memory``) each add the causal attention of the stream
+over its relevance-weighted semantics inside every layer
+(:meth:`DecoderLayer.fusion`); the stepper keeps their K/V rows in caches
+of their own.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,12 +46,17 @@ from .layers import EPS, FusionMLP, MultiHeadAttention, layer_norm, positional_r
     relevance_fusion
 
 
+SITES = ("pre_target", "pre_memory", "post_memory")  # the per-layer fusion sites, in order
+
+
 class DecoderLayer(nn.Module):
     """One decoder layer (self-attention, cross-attention, ReLU FF, three
-    layernorms).  Serving runs its arithmetic in the fused kernel; the
+    layernorms) and, for each fusion site in ``sites``, an attention
+    ``mha_<site>`` and a relevance MLP ``mlp_<site>`` (2E -> E -> E -> 1).
+    Serving runs its arithmetic in the fused kernel or the stepper; the
     forward here is the teacher-forced pass (JAX ``dec_layer_full``)."""
 
-    def __init__(self, E: int, num_heads: int, ff_dim: int):
+    def __init__(self, E: int, num_heads: int, ff_dim: int, sites: Sequence[str] = ()):
         super().__init__()
         self.self_attn = MultiHeadAttention(E, num_heads)
         self.cross_attn = MultiHeadAttention(E, num_heads)
@@ -55,12 +65,35 @@ class DecoderLayer(nn.Module):
         self.norm1 = layer_norm(E)
         self.norm2 = layer_norm(E)
         self.norm3 = layer_norm(E)
+        unknown = set(sites) - set(SITES)
+        if unknown:
+            raise ValueError(f"unknown fusion sites {sorted(unknown)} (sites are {SITES})")
+        self.sites = tuple(s for s in SITES if s in sites)
+        for site in self.sites:
+            self.add_module(f"mha_{site}", MultiHeadAttention(E, num_heads))
+            self.add_module(f"mlp_{site}", FusionMLP(2 * E, E, 1, 3))
+
+    def fusion(self, site: str, x: torch.Tensor, sem: torch.Tensor, mask: torch.Tensor,
+               drop: Drop) -> torch.Tensor:
+        """Fusion site ``site``: x plus the causal attention of x over its
+        relevance-weighted semantics, the site's dropout applied twice (JAX
+        ``dec_layer_full``'s ``fusion``; causal where the reference's site
+        could not run, so that the stepper equals this pass)."""
+        rel = relevance_fusion(x, sem, getattr(self, f"mlp_{site}"))
+        return drop(x + drop(getattr(self, f"mha_{site}")(x, rel, mask)))
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor, mask: torch.Tensor,
-                drop: Drop) -> torch.Tensor:
-        """x [B, T, E] targets, memory [B, Tm, E], additive causal mask [T, T]."""
+                drop: Drop, sem: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, T, E] targets, memory [B, Tm, E], additive causal mask
+        [T, T], the semantic vectors [B, O, E] the fusion sites read."""
+        if "pre_target" in self.sites:
+            x = self.fusion("pre_target", x, sem, mask, drop)
         x = self.norm1(x + drop(self.self_attn(x, x, mask)))
+        if "pre_memory" in self.sites:
+            x = self.fusion("pre_memory", x, sem, mask, drop)
         x = self.norm2(x + drop(self.cross_attn(x, memory)))
+        if "post_memory" in self.sites:
+            x = self.fusion("post_memory", x, sem, mask, drop)
         f = self.linear2(drop(torch.relu(self.linear1(x))))
         return self.norm3(x + drop(f))
 
@@ -71,12 +104,14 @@ class TransformerDecoder(nn.Module):
                  max_text_length: int = 25, dtype: torch.dtype = torch.bfloat16,
                  early_stop: bool = False, beam_fused: bool = False, int8: bool = False,
                  pre_decoder_mlp: bool = False, cls_decoder_init: bool = False,
-                 post_decoder_mlp: bool = False):
+                 post_decoder_mlp: bool = False, fused: bool = True,
+                 sites: Sequence[str] = ()):
         super().__init__()
         self.d_model, self.num_heads, self.num_layers = d_model, num_heads, num_layers
         self.max_text_length = max_text_length
         self.dtype = dtype
         self.early_stop, self.beam_fused, self.int8 = early_stop, beam_fused, int8
+        self.fused = fused
         self.use_kernels = True
         # (dtype, int8) -> (parameter versions, cast weight tables and, for
         # int8, their scales); (dtype, "cluster", int8) -> (versions, the
@@ -87,7 +122,8 @@ class TransformerDecoder(nn.Module):
         self.emb_to_classes = nn.Linear(d_model, num_classes)
         self.final_norm = layer_norm(d_model)
         for i in range(num_layers):
-            self.add_module(f"layer{i}", DecoderLayer(d_model, num_heads, ff_dim))
+            self.add_module(f"layer{i}", DecoderLayer(d_model, num_heads, ff_dim, sites))
+        self.sites = tuple(s for s in SITES if s in sites)
         E, C = d_model, num_classes
         self.pre_decoder_mlp = pre_decoder_mlp
         self.cls_decoder_init = cls_decoder_init
@@ -166,18 +202,26 @@ class TransformerDecoder(nn.Module):
             hit = self._fused[dtype, "cluster", int8] = (key, packed)
         return hit[1]
 
-    def teacher_forced(self, enc_out: torch.Tensor, text: torch.Tensor,
-                       drop: Drop) -> torch.Tensor:
-        """Training pass: enc_out [B, Tm, memory_dim] float32, text [B, T]
-        input ids (starting with [GO]) -> logits [B, T, C] float32."""
-        memory = self.hid_to_emb(enc_out)
+    def teacher_forced(self, enc_out: torch.Tensor, text: torch.Tensor, drop: Drop,
+                       semantics: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Training pass (JAX ``__call__`` with ``train=True``): enc_out
+        [B, Tm, memory_dim] float32, text [B, T] input ids (starting with
+        [GO]) and the semantic vectors [B, O, E] the fusion hooks read ->
+        logits [B, T, C] float32.  With ``cls_decoder_init`` position 0
+        takes the semantic CLS vector in place of the [GO] embedding, before
+        the positional rows and the dropout."""
+        memory = self.memory(enc_out, semantics)
         T = text.shape[1]
+        x = self.emb(text)
+        if self.cls_decoder_init:
+            x = torch.cat([self.sem_cls(memory, semantics)[:, None], x[:, 1:]], dim=1)
         pe = positional_rows(self.max_text_length + 1, self.d_model, text.device)
-        x = drop(self.emb(text) + pe[:T])
+        x = drop(x + pe[:T])
         mask = causal_mask(T, text.device)
         for layer in self.layers():
-            x = layer(x, memory, mask, drop)
-        return self.emb_to_classes(self.final_norm(x))
+            x = layer(x, memory, mask, drop, semantics)
+        logits = self.emb_to_classes(self.final_norm(x))
+        return self.post_decoder(logits, semantics) if self.post_decoder_mlp else logits
 
     def memory(self, enc_out: torch.Tensor,
                semantics: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -215,23 +259,34 @@ class TransformerDecoder(nn.Module):
         memory = self.memory(enc_out, semantics)
         return memory, self.sem_cls(memory, semantics) if self.cls_decoder_init else None
 
+    @property
+    def uses_stepper(self) -> bool:
+        """Whether greedy decoding runs the stepper (``fused`` off, or a
+        fusion site on) rather than the fused decode (K1, K1e, K1q)."""
+        return not self.fused or bool(self.sites)
+
     def greedy_decode(self, enc_out: torch.Tensor,
                       semantics: Optional[torch.Tensor] = None) -> torch.Tensor:
         """enc_out [B, Tm, memory_dim] (and the semantic vectors [B, O, E]
         the fusion hooks read) -> logits [B, max_text_length, C] f32.
 
-        With ``early_stop`` a row stops once it has emitted [s], and its
-        later logit rows are the [s] one-hot: [s]-pruned strings are those
-        of the full-length loop.  With ``int8`` the loop's six projections
+        With ``early_stop`` the fused decode stops a row once it has
+        emitted [s] (K1e: a cluster of rows once all of its rows have), the
+        stepper the batch once every row has; the logit rows after the stop
+        are the [s] one-hot, so [s]-pruned strings are those of the
+        full-length loop.  With ``int8`` the fused loop's six projections
         run int8 (K1q)."""
-        logits = self.greedy_from_memory(*self.memory_and_cls0(enc_out, semantics))
+        logits = self.greedy_from_memory(*self.memory_and_cls0(enc_out, semantics), semantics)
         return self.post_decoder(logits, semantics) if self.post_decoder_mlp else logits
 
-    def greedy_from_memory(self, memory: torch.Tensor,
-                           cls0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def greedy_from_memory(self, memory: torch.Tensor, cls0: Optional[torch.Tensor] = None,
+                           semantics: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The greedy loop over ``memory`` [B, Tm, E] (from :meth:`memory`),
-        with step-0 rows ``cls0`` [B, E] where given: the cross-attention
-        K/V, then the fused decode (K1, K1e or K1q)."""
+        with step-0 rows ``cls0`` [B, E] where given: the stepper where
+        :attr:`uses_stepper` (the fusion sites read ``semantics``), else the
+        cross-attention K/V, then the fused decode (K1, K1e or K1q)."""
+        if self.uses_stepper:
+            return self.greedy_stepper(memory, cls0, semantics)
         ck, cv = self.cross_kv(memory)
         w, scales = self.fused_weights(int8=True) if self.int8 else (self.fused_weights(), None)
         return fused_greedy_decode(
@@ -240,22 +295,55 @@ class TransformerDecoder(nn.Module):
             eos_id=EOS_ID if self.early_stop else None, eps=EPS,
             plain=not self.use_kernels, scales=scales, cls0=cls0, units=self.cluster_tables)
 
-    def _make_stepper(self, memory: torch.Tensor):
-        """Single-position decode machinery over ``memory`` [B', Tm, E] in
-        the compute type (norm statistics and logits float32).
+    def greedy_stepper(self, memory: torch.Tensor, cls0: Optional[torch.Tensor] = None,
+                       semantics: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The greedy loop one position at a time through the stepper (JAX
+        ``greedy_decode``'s scan, or with ``early_stop`` its while loop):
+        argmax feedback, ``cls0`` in place of the [GO] embedding at step 0.
+        With ``early_stop`` the loop ends once every row has emitted [s]
+        (one host sync a step), and the rows never written are the [s]
+        one-hot.  -> logits [B, max_text_length, C] float32."""
+        B, T, C = memory.shape[0], self.max_text_length, self.emb.num_embeddings
+        dev = memory.device
+        step_all, make_caches = self._make_stepper(memory, semantics)
+        caches = make_caches()
+        pe = positional_rows(T + 1, self.d_model, dev)
+        logits = torch.zeros(B, T, C, device=dev)
+        logits[..., EOS_ID] = 1.0
+        tok = torch.full((B,), GO_ID, dtype=torch.long, device=dev)
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+        for t in range(T):
+            if self.early_stop and done.all():
+                break
+            x = cls0[:, None] if t == 0 and cls0 is not None else self.emb.weight[tok][:, None]
+            logits[:, t] = step_all(x + pe[t], t, caches)
+            tok = logits[:, t].argmax(-1)
+            done |= tok == EOS_ID
+        return logits
+
+    def _make_stepper(self, memory: torch.Tensor, sem: Optional[torch.Tensor] = None):
+        """Single-position decode machinery over ``memory`` [B', Tm, E] and
+        the semantic vectors ``sem`` [B', O, E] the fusion sites read, in
+        the compute type (norm statistics and logits float32), as JAX's
+        ``_make_stepper`` casts them.
 
         Returns ``(step_all, make_caches)``: ``step_all(x [B', 1, E], t,
         caches, anc_onehot=None)`` runs every layer, the final norm and the
-        class head for position t, writing the self-attention K/V of that
-        position into ``caches`` (``make_caches()``: [L, B', T, E] K and V,
-        zeroed) in place, and returns logits [B', C] float32.  With
-        ``anc_onehot`` [B, K, T, K] the attention reads the caches through
-        beam ancestry (:func:`~..ops.attention.attend_ancestry`).  The
-        cross-attention K/V over ``memory`` are projected once per layer.
+        class head for position t, writing the K/V of that position into
+        ``caches`` (``make_caches()``: [L, B', T, E], zeroed: ``k`` and
+        ``v`` of the self-attention, ``<site>_k`` and ``<site>_v`` of each
+        fusion site) in place, and returns logits [B', C] float32.  With
+        ``anc_onehot`` [B, K, T, K] every cached attention reads its caches
+        through beam ancestry (:func:`~..ops.attention.attend_ancestry`).
+        The cross-attention K/V over ``memory`` are projected once per
+        layer.  A fusion site attends from the position's row over the
+        cached projections of its relevance-weighted semantics
+        (:meth:`_relevance`), and adds the result to the row.
         """
         dt = self.dtype
         E, H, T, L = self.d_model, self.num_heads, self.max_text_length, self.num_layers
         memory = memory.to(dt)
+        sem = None if sem is None else sem.to(dt)
         Bp = memory.shape[0]
 
         def cast(*ts):
@@ -270,11 +358,18 @@ class TransformerDecoder(nn.Module):
             w_in, b_in = cast(ca.in_proj_weight, ca.in_proj_bias)
             _, k, v = qkv_projections(memory, memory, w_in, b_in)
             cross_kv.append((k, v))
+            sites = {}
+            for site in layer.sites:
+                mha, mlp = getattr(layer, f"mha_{site}"), getattr(layer, f"mlp_{site}")
+                sites[site] = dict(qkv=cast(mha.in_proj_weight, mha.in_proj_bias),
+                                   out=linear(mha.out_proj),
+                                   mlp=[linear(getattr(mlp, f"fc{j}"))
+                                        for j in range(mlp.num_layers)])
             layer_ws.append(dict(
                 self_in=cast(sa.in_proj_weight, sa.in_proj_bias), self_out=linear(sa.out_proj),
                 cross_q=(w_in[:E], b_in[:E]), cross_out=linear(ca.out_proj),
                 ff1=linear(layer.linear1), ff2=linear(layer.linear2),
-                norms=[linear(n) for n in (layer.norm1, layer.norm2, layer.norm3)]))
+                norms=[linear(n) for n in (layer.norm1, layer.norm2, layer.norm3)], sites=sites))
         final_norm, head = linear(self.final_norm), linear(self.emb_to_classes)
         pos = torch.arange(T, device=memory.device)
 
@@ -282,28 +377,65 @@ class TransformerDecoder(nn.Module):
             return F.layer_norm(x.float(), (E,), w[0].float(), w[1].float(), EPS).to(x.dtype)
 
         def make_caches() -> Dict[str, torch.Tensor]:
-            return {n: torch.zeros(L, Bp, T, E, dtype=dt, device=memory.device)
-                    for n in ("k", "v")}
+            names = ["k", "v"] + [f"{site}_{kv}" for site in self.sites for kv in "kv"]
+            return {n: torch.zeros(L, Bp, T, E, dtype=dt, device=memory.device) for n in names}
+
+        def cached_attend(x, src, qkv, out, prefix, i, t, caches, anc_onehot, mask):
+            """x's attention over the cached projections of ``src`` (its
+            position-t row written into the caches ``<prefix>k``/``v``)."""
+            q, k_t, v_t = qkv_projections(x, src, *qkv)
+            k, v = caches[prefix + "k"][i], caches[prefix + "v"][i]
+            k[:, t] = k_t[:, 0]
+            v[:, t] = v_t[:, 0]
+            if anc_onehot is None:
+                a = attend(q, k, v, H, mask)
+            else:
+                a = attend_ancestry(q, k, v, H, anc_onehot, mask)
+            return F.linear(a, *out)
+
+        def fusion(x, site, i, *at):
+            """Fusion site ``site`` of layer i: x plus x's cached attention
+            over its relevance-weighted semantics."""
+            s = layer_ws[i]["sites"][site]
+            rel = self._relevance(x, sem, s["mlp"])
+            return x + cached_attend(x, rel, s["qkv"], s["out"], f"{site}_", i, *at)
 
         def step_all(x, t, caches, anc_onehot=None):
             x = x.to(dt)
             mask = torch.zeros(T, device=x.device).masked_fill(pos > t, float("-inf"))
             for i, w in enumerate(layer_ws):
-                q, k_t, v_t = qkv_projections(x, x, *w["self_in"])
-                caches["k"][i, :, t] = k_t[:, 0]
-                caches["v"][i, :, t] = v_t[:, 0]
-                if anc_onehot is None:
-                    a = attend(q, caches["k"][i], caches["v"][i], H, mask)
-                else:
-                    a = attend_ancestry(q, caches["k"][i], caches["v"][i], H, anc_onehot, mask)
-                x = ln(x + F.linear(a, *w["self_out"]), w["norms"][0])
+                at = (t, caches, anc_onehot, mask)
+                if "pre_target" in w["sites"]:
+                    x = fusion(x, "pre_target", i, *at)
+                a = cached_attend(x, x, w["self_in"], w["self_out"], "", i, *at)
+                x = ln(x + a, w["norms"][0])
+                if "pre_memory" in w["sites"]:
+                    x = fusion(x, "pre_memory", i, *at)
                 a = attend(F.linear(x, *w["cross_q"]), *cross_kv[i], H)
                 x = ln(x + F.linear(a, *w["cross_out"]), w["norms"][1])
+                if "post_memory" in w["sites"]:
+                    x = fusion(x, "post_memory", i, *at)
                 f = F.linear(torch.relu(F.linear(x, *w["ff1"])), *w["ff2"])
                 x = ln(x + f, w["norms"][2])
             return F.linear(ln(x, final_norm), *head)[:, 0].float()
 
         return step_all, make_caches
+
+    @staticmethod
+    def _relevance(x: torch.Tensor, sem: torch.Tensor, mlp) -> torch.Tensor:
+        """JAX ``_relevance`` in x's type, as the stepper runs it: x
+        [B', 1, E] rows, sem [B', O, E], ``mlp`` the relevance MLP's
+        (weight, bias) pairs -> [B', 1, E].  The pair tensor [B', 1, O, 2E]
+        is formed whole (one product of its first layer, where
+        :func:`~.layers.relevance_fusion` splits it), the softmax over the
+        objects and the weighted sum in x's type."""
+        Bp, O = x.shape[0], sem.shape[1]
+        h = torch.cat([x[:, :, None].expand(Bp, 1, O, x.shape[-1]),
+                       sem[:, None].expand(Bp, 1, O, sem.shape[-1])], dim=-1)
+        for j, w in enumerate(mlp):
+            h = F.linear(torch.relu(h) if j else h, *w)
+        scores = torch.softmax(h, dim=2)  # [B', 1, O, 1]
+        return (sem[:, None] * scores).sum(dim=2)
 
     def beam_decode(self, enc_out: torch.Tensor, semantics: Optional[torch.Tensor] = None,
                     beam_size: int = 5, length_penalty: float = 0.0,
@@ -317,9 +449,9 @@ class TransformerDecoder(nn.Module):
         continuations are kept, ties to the lowest flat index (JAX's
         ``lax.top_k``).  Three forms with the same result:
 
-        * ``beam_fused`` (and not ``reorder_caches``): the fused beam kernel
-          (ops/fused_beam.py), its plain version where ``use_kernels`` is
-          off or on CPU tensors;
+        * ``beam_fused`` (and not ``reorder_caches``, and no fusion site
+          on): the fused beam kernel (ops/fused_beam.py), its plain version
+          where ``use_kernels`` is off or on CPU tensors;
         * the ancestry scan (the default otherwise): the stepper over caches
           that are never reordered, attention through each beam's ancestry;
         * ``reorder_caches=True``: the stepper with the caches gathered by
@@ -330,7 +462,8 @@ class TransformerDecoder(nn.Module):
         full-length search.  ``length_penalty`` > 0 ranks the beams by
         GNMT-normalised scores (:meth:`rank_beams`).  With
         ``cls_decoder_init`` every beam starts from its row's semantic CLS
-        vector.  ``post_decoder_mlp`` raises: its logit fusion is a
+        vector; the fusion sites' caches follow the beams as the
+        self-attention's do.  ``post_decoder_mlp`` raises: its logit fusion is a
         whole-sequence transform that per-step beam scores cannot take.
         """
         if self.post_decoder_mlp:
@@ -338,15 +471,18 @@ class TransformerDecoder(nn.Module):
                 "beam_decode does not support post_decoder_mlp (its logit fusion is a "
                 "whole-sequence transform applied after decoding); use greedy decoding")
         return self.beam_from_memory(*self.memory_and_cls0(enc_out, semantics), beam_size,
-                                     length_penalty, reorder_caches)
+                                     length_penalty, reorder_caches, semantics)
 
     def beam_from_memory(self, memory: torch.Tensor, cls0: Optional[torch.Tensor] = None,
                          beam_size: int = 5, length_penalty: float = 0.0,
-                         reorder_caches: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                         reorder_caches: bool = False,
+                         semantics: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """:meth:`beam_decode` over ``memory`` [B, Tm, E] (from
-        :meth:`memory`), with step-0 rows ``cls0`` [B, E] where given."""
+        :meth:`memory`), with step-0 rows ``cls0`` [B, E] where given, and
+        the semantic vectors [B, O, E] the fusion sites read."""
         B, K, T = memory.shape[0], beam_size, self.max_text_length
-        if self.beam_fused and not reorder_caches:
+        if self.beam_fused and not reorder_caches and not self.sites:
             ck, cv = self.cross_kv(memory)
             tokens, scores = fused_beam_decode(
                 self.fused_weights(), ck, cv, beam_size=K, num_heads=self.num_heads,
@@ -356,7 +492,9 @@ class TransformerDecoder(nn.Module):
 
         dev = memory.device
         C = self.emb.num_embeddings
-        step_all, make_caches = self._make_stepper(memory.repeat_interleave(K, dim=0))
+        step_all, make_caches = self._make_stepper(
+            memory.repeat_interleave(K, dim=0),
+            None if semantics is None else semantics.repeat_interleave(K, dim=0))
         caches = make_caches()
         pe = positional_rows(T + 1, self.d_model, dev)
         tok = torch.full((B, K), GO_ID, dtype=torch.long, device=dev)

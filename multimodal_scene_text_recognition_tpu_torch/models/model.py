@@ -8,7 +8,8 @@ Every inference entry point takes the semantic inputs of the JAX model:
 ``overlap`` [B, max_overlap_objs] ids, and as keywords ``scene``
 [B, max_scene_objs] ids and ``ious`` [B, max_scene_objs] float32, which
 default to the JAX serving defaults (zeros, and -1000 for ``ious``).  The
-semantic vectors feed the fusion hooks of the encoder and the decoder."""
+semantic vectors feed the fusion hooks of the encoder and the decoder, in
+serving and in training."""
 
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.precision import full_fp32
-from .decoders import TransformerDecoder
+from .decoders import SITES, TransformerDecoder
 from .encoders import TransformerEncoder
 from .layers import BatchNorm2d, dropout, nchw_channels_last
 from .resnet import ResNet31, to_column_sequence
@@ -32,22 +33,9 @@ from .semantic import build_semantic_embedder
 from .transformation import TPSTransform
 
 
-FUSION_FLAGS = ("pre_encoder_mlp", "pre_decoder_mlp", "cls_decoder_init", "post_decoder_mlp")
-PER_LAYER_SITES = ("multihead_pre_target", "multihead_pre_memory", "multihead_post_memory")
-
-
 class SceneTextModel(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if not cfg.decode_fused:
-            raise NotImplementedError(
-                "the port serves greedy decode through the fused decode kernel "
-                "only (decode_fused=True)")
-        sites = [f for f in PER_LAYER_SITES if getattr(cfg, f)]
-        if sites:
-            raise NotImplementedError(
-                f"the per-layer decoder fusion sites {sites} are not ported (they need the "
-                f"non-fused greedy stepper)")
         self.cfg = cfg
         dtype = getattr(torch, cfg.compute_dtype)
         if cfg.use_tps:
@@ -64,7 +52,9 @@ class SceneTextModel(nn.Module):
             cfg.dec_layers, cfg.max_text_length, dtype,
             early_stop=cfg.decode_early_stop, beam_fused=cfg.decode_beam_fused,
             int8=cfg.decode_int8, pre_decoder_mlp=cfg.pre_decoder_mlp,
-            cls_decoder_init=cfg.cls_decoder_init, post_decoder_mlp=cfg.post_decoder_mlp)
+            cls_decoder_init=cfg.cls_decoder_init, post_decoder_mlp=cfg.post_decoder_mlp,
+            fused=cfg.decode_fused,
+            sites=[s for s in SITES if getattr(cfg, f"multihead_{s}")])
         self.set_use_kernels(True)
         for mod in self.modules():  # cfg.fused_bn is K3's default
             if isinstance(mod, BatchNorm2d):
@@ -143,24 +133,22 @@ class SceneTextModel(nn.Module):
         ``train=False``: greedy logits [B, max_text_length, num_classes]
         float32 (``text`` is ignored).  ``train=True``: the teacher-forced
         pass over ``text`` [B, T] input ids, with BatchNorm on batch
-        statistics (updating the running ones) and dropout drawn from
-        ``generator`` (on the image's device) -> logits [B, T, num_classes]
-        float32.  Training with a fusion hook on is not ported and
-        raises."""
+        statistics (updating the running ones), dropout drawn from
+        ``generator`` (on the image's device) and the semantic vectors
+        through every fusion hook that is on -> logits [B, T, num_classes]
+        float32."""
         if not train:
             with self.precision():
                 return self.decode_from_columns(self.features(self.rectify(image)), overlap,
                                                 scene=scene, ious=ious)
-        hooks = [f for f in FUSION_FLAGS if getattr(self.cfg, f)]
-        if hooks:
-            raise NotImplementedError(f"training with the fusion hooks {hooks} is not ported")
         if text is None or generator is None:
             raise ValueError("train=True needs the input ids and a generator")
         drop = functools.partial(dropout, p=self.cfg.dropout, generator=generator)
         with self.precision():
             cols = self.features(self.rectify(image, train=True), train=True)
-            self.semantics(overlap, scene, ious)  # feeds only the fusion hooks, all off
-            return self.decoder.teacher_forced(self.encoder(cols, drop, train=True), text, drop)
+            sem = self.semantics(overlap, scene, ious)
+            enc = self.encoder(cols, drop, train=True, semantics=sem)
+            return self.decoder.teacher_forced(enc, text, drop, sem)
 
     def beam_decode(self, image: torch.Tensor, overlap: torch.Tensor, beam_size: int = 5,
                     length_penalty: float = 0.0, *, scene: Optional[torch.Tensor] = None,

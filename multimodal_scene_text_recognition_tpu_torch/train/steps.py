@@ -57,10 +57,11 @@ class TrainStep:
 
     ``step(batch)`` takes a batch in the JAX pipeline's wire format: numpy
     arrays or tensors ``image`` uint8 [B, H, W, 1] (or float in [0, 1]),
-    ``text`` [B, max_text_length + 2] label rows, ``overlap`` [B, n] ids;
-    other keys are ignored.  It returns 0-dim tensors on the device (not
-    synchronised): ``loss``, ``token_acc`` and ``grad_norm`` (before the
-    clip)."""
+    ``text`` [B, max_text_length + 2] label rows, ``overlap`` [B, n] ids,
+    and where present ``scene`` [B, m] ids and ``ious`` [B, m] float32
+    (else the JAX defaults: no scene objects); other keys are ignored.  It
+    returns 0-dim tensors on the device (not synchronised): ``loss``,
+    ``token_acc`` and ``grad_norm`` (before the clip)."""
 
     def __init__(self, model: torch.nn.Module, cfg: TrainConfig, steps_per_epoch: int = 1):
         self.model = model
@@ -77,12 +78,18 @@ class TrainStep:
         image = prep_image(torch.as_tensor(batch["image"]).to(self.device))
         text = torch.as_tensor(batch["text"]).to(self.device, torch.long)
         overlap = torch.as_tensor(batch["overlap"]).to(self.device, torch.long)
+        scene, ious = batch.get("scene"), batch.get("ious")
+        if scene is not None:
+            scene = torch.as_tensor(scene).to(self.device, torch.long)
+        if ious is not None:
+            ious = torch.as_tensor(ious).to(self.device, torch.float32)
         text_in, targets = text[:, :-1], text[:, 1:]
 
         self.model.train()
         self.optimizer.zero_grad()
         with self.model.precision():  # the backward too
-            logits = self.model(image, overlap, text_in, train=True, generator=self.generator)
+            logits = self.model(image, overlap, text_in, train=True, generator=self.generator,
+                                scene=scene, ious=ious)
             loss = cross_entropy(logits, targets, self.cfg.loss_counts_pad,
                                  self.cfg.label_smoothing)
             loss.backward()

@@ -139,3 +139,47 @@ def test_state_dict_to_bundle_inverts_the_bridge(bundle):
         np.testing.assert_array_equal(v, bundle[k].astype(np.float32), err_msg=k)
     with pytest.raises(KeyError):
         convert.state_dict_to_bundle({"a.num_batches_tracked": torch.zeros(())})
+
+
+def test_fusion_site_bundle_round_trip():
+    """A JAX model with all three per-layer fusion sites (and every other
+    fusion hook): its variables (``jax.eval_shape`` of ``init``, seeded
+    draws) convert into the port's state_dict, load strictly, and
+    ``state_dict_to_bundle`` gives every key back with equal values: each
+    layer's ``mha_<site>`` packed projections and its ``mlp_<site>`` flat
+    MLPP leaves (``fc<i>_kernel``/``fc<i>_bias``) among them."""
+    import jax
+
+    from multimodal_scene_text_recognition_tpu.core.config import ModelConfig as JModelConfig
+    from multimodal_scene_text_recognition_tpu.models.model import build_model
+    from multimodal_scene_text_recognition_tpu_torch.config import ModelConfig
+    from test_torch_model import SMALL
+    from test_torch_modules import flatten
+    from test_torch_semantic import variables
+
+    flags = dict(semantic_vector="combined", pre_encoder_mlp=True, pre_decoder_mlp=True,
+                 cls_decoder_init=True, post_decoder_mlp=True, multihead_pre_target=True,
+                 multihead_pre_memory=True, multihead_post_memory=True)
+    jm = build_model(JModelConfig(**SMALL, **flags))
+    k = jax.random.PRNGKey(0)
+    B = 2
+    v = variables(jm.init, 61, {"params": k, "dropout": k, "semantics": k},
+                  np.zeros((B, 32, 100, 1), np.float32), np.zeros((B, 26), np.int32),
+                  np.zeros((B, 15), np.int32), np.zeros((B, 52), np.int32),
+                  np.zeros((B, 52), np.float32), train=True)
+    flat = flatten(v)
+    for site in ("pre_target", "pre_memory", "post_memory"):
+        assert {f"params.decoder.layer1.mha_{site}.w_qkv",
+                f"params.decoder.layer1.mha_{site}.b_out",
+                f"params.decoder.layer1.mlp_{site}.fc0_kernel",
+                f"params.decoder.layer1.mlp_{site}.fc2_bias"} <= set(flat)
+    sd = convert.bundle_to_state_dict(flat)
+    assert sd["decoder.layer0.mlp_pre_target.fc0.weight"].shape == (SMALL["embed_dim"],
+                                                                     2 * SMALL["embed_dim"])
+    model = SceneTextModel(ModelConfig(**SMALL, **flags))
+    result = model.load_state_dict(sd, strict=True)
+    assert not result.missing_keys and not result.unexpected_keys
+    back = convert.state_dict_to_bundle(model.state_dict())
+    assert set(back) == set(flat)
+    for key, arr in back.items():
+        np.testing.assert_array_equal(arr, flat[key], err_msg=key)

@@ -139,18 +139,17 @@ def test_get_model_requires_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_paths_are_refused():
-    """Greedy decoding through the stepper (decode_fused=False), the three
-    per-layer decoder fusion sites, the random and BERT semantic embedders
-    and training with a fusion hook are not ported, and each says what is
-    not; early stop, the fused beam, the fusion hooks the fused kernels
-    carry (the semantic CLS step-0 input among them) in every linear
-    embedder mode, and the zero embedder are."""
+    """The random and BERT semantic embedders are not ported, and each says
+    what is not; early stop, the fused beam, the fusion hooks the fused
+    kernels carry (the semantic CLS step-0 input among them) in every
+    linear embedder mode, and the zero embedder are built.  The paths
+    lifted since (greedy decoding through the stepper, the per-layer fusion
+    sites, training with every hook) are built and run in
+    test_lifted_paths_are_built_and_run."""
     fused = dict(SMALL, decode_fused=True)
-    refused = [(ModelConfig(**SMALL), "decode_fused"),
-               (ModelConfig(**fused, semantic_source="rand"), "rand"),
-               (ModelConfig(**fused, semantic_embedding="bert"), "bert")]
-    refused += [(ModelConfig(**fused, **{site: True}), site) for site in
-                ("multihead_pre_target", "multihead_pre_memory", "multihead_post_memory")]
+    refused = [(ModelConfig(**fused, semantic_source="rand"), "rand"),
+               (ModelConfig(**fused, semantic_embedding="bert"), "bert"),
+               (ModelConfig(**SMALL, semantic_source="rand", multihead_pre_memory=True), "rand")]
     for cfg, what in refused:
         with pytest.raises(NotImplementedError, match=what):
             SceneTextModel(cfg)
@@ -160,21 +159,62 @@ def test_unported_paths_are_refused():
                                    pre_decoder_mlp=True, cls_decoder_init=True,
                                    post_decoder_mlp=True))
     SceneTextModel(ModelConfig(**fused, semantic_source="zero", cls_decoder_init=True))
-    image = torch.zeros(2, 32, 100, 1)
-    overlap = torch.zeros(2, 15, dtype=torch.long)
-    text = torch.zeros(2, 26, dtype=torch.long)
-    for hook in ("pre_encoder_mlp", "pre_decoder_mlp", "cls_decoder_init", "post_decoder_mlp"):
-        model = api.get_model(cfg=ModelConfig(**fused, **{hook: True}), device="cpu",
-                              train=True)
-        with pytest.raises(NotImplementedError, match=hook):
-            model(image, overlap, text, train=True, generator=torch.Generator())
+
+
+LIFTED = [("decode_fused", {}), ("multihead_pre_target", {"multihead_pre_target": True}),
+          ("multihead_pre_memory", {"multihead_pre_memory": True}),
+          ("multihead_post_memory", {"multihead_post_memory": True})]
+HOOK_MODULES = {"pre_encoder_mlp": "encoder.sem_relevance_mlp",
+                "pre_decoder_mlp": "decoder.relevant_mlp",
+                "cls_decoder_init": "decoder.sem_cls_mlp", "post_decoder_mlp": "decoder.post_mlp"}
+LIFTED += [(f"train {hook}", {"decode_fused": True, hook: True}) for hook in HOOK_MODULES]
+
+
+@pytest.mark.parametrize("what,changes", LIFTED, ids=[w for w, _ in LIFTED])
+def test_lifted_paths_are_built_and_run(what, changes):
+    """The configurations the port once refused are built and run at the
+    small widths: ``decode_fused=False`` (the JAX default) and each
+    per-layer fusion site serve greedily through the stepper (a site also
+    by beam search, the fused beam giving way to it), and a model with any
+    fusion hook takes a train step whose loss and gradient norm are finite
+    and whose hook's weights get a finite gradient (``sem_cls_mlp``'s is
+    zero up to rounding: the semantic CLS vector is all ones)."""
+    cfg = ModelConfig(**{**SMALL, **changes}, use_tps=False)  # the decoder's and hooks' paths
+    image = torch.from_numpy(np.stack(_crops(2, 7))[..., None].astype(np.float32) / 255)
+    overlap = torch.ones(2, 15, dtype=torch.long)
+    if what.startswith("train"):
+        trainer = api.get_trainer(cfg=cfg, device="cpu")
+        batch = {"image": image.numpy(), "text": np.tile(np.arange(27) % 97, (2, 1)),
+                 "overlap": overlap.numpy()}
+        m = trainer(batch)
+        assert np.isfinite([m["loss"].item(), m["grad_norm"].item()]).all()
+        grads = [p.grad for n, p in trainer.model.named_parameters()
+                 if n.startswith(HOOK_MODULES[what.split()[1]])]
+        assert grads and all(g is not None and torch.isfinite(g).all() for g in grads)
+        return
+    model = api.get_model(cfg=dataclasses.replace(cfg, decode_beam_fused=True), device="cpu")
+    assert model.decoder.uses_stepper
+    with torch.no_grad():
+        logits = model(image, overlap)
+        tokens, scores = model.beam_decode(image, overlap, 3)
+    assert logits.shape == (2, 25, 97) and torch.isfinite(logits).all()
+    assert tokens.shape == (2, 25) and torch.isfinite(scores).all()
 
 
 def test_recognizer_refuses_other_crop_sizes():
+    """Crops of other sizes, which the port once refused, are served: each
+    resized to 32x100 as the JAX package resizes it (tests/test_torch_resize.py
+    holds the batch to JAX ``_prepare``), a [H, W, 3] crop is still refused,
+    and float crops in [0, 1] and uint8 crops are the same input."""
     model = api.get_model(cfg=ModelConfig(**SMALL, decode_fused=True), device="cpu")
     rec = Recognizer(model, batch_sizes=(2,))
+    other = np.random.default_rng(8).integers(0, 256, (32, 64), dtype=np.uint8)
+    texts = rec.recognize([other, other[:20]])
+    assert len(texts) == 2
+    image = rec.prepare([other], 1)[0]
+    assert image.shape == (1, 32, 100, 1) and 0.0 <= image.min() and image.max() <= 1.0
     with pytest.raises(ValueError):
-        rec.recognize([np.zeros((32, 64), np.uint8)])
+        rec.recognize([np.zeros((32, 100, 3), np.uint8)])
     # float crops in [0, 1] and uint8 crops are the same input
     c = _crops(1, 3)[0]
     assert rec.recognize([c]) == rec.recognize([c.astype(np.float32) / 255.0])
