@@ -40,7 +40,16 @@ per-layer fusion sites on greedily and by beam search through the stepper
 its rows in f32 against the same model on the CPU; train it for three
 steps with the kernels and with their plain versions (36 K3 and 1 K2
 launches a step); and serve crops of other sizes, resized on the host,
-against the same crops resized by the plain routes.  The gemm probe phase holds the
+against the same crops resized by the plain routes.  The phase "train and
+validate on the committed set" loads the committed synthetic set
+(``api.get_dataset``), validates the trained flagship on its 512
+validation crops through ``api.validate`` with the kernels and with their
+plain versions (bf16 and f32) against the JAX package's accuracy
+(JAX_VAL_ACC), trains it one epoch through ``api.train`` with device data
+and validation every 10 steps, and one through the host prefetcher,
+counting K1, K2 and K3 and timing the loop beside the bare train step,
+then saves the trainer's full state, restores it into a fresh trainer
+(bit-equal) and steps both.  The gemm probe phase holds the
 int8-vs-bf16 probe's two chain kernels (P1, P2) against their plain
 versions at 1, 4 and 30 steps, on a tie input and a NaN input, checks both
 end all NaN at the probe's 200 steps, prints their launch plan
@@ -224,6 +233,23 @@ SEM_INT8_AGREE = 0.98
 # another order can flip that token, and the row's later logits then read
 # ~0.26 off (K1 with split-K sums did, on an H100; PERF.md).
 CLS0_BF16_LOGIT_TOL = 0.2
+# The JAX package's word accuracy (%) on the committed 512 validation crops
+# with the trained bundle, greedy through its XLA scan at B=192 (zero crops
+# pad the last batch), measured once on the CPU by its own api:
+#   JAX_PLATFORMS=cpu python -c "from multimodal_scene_text_recognition_tpu
+#   import api; from multimodal_scene_text_recognition_tpu.core.config import
+#   Config, ModelConfig; print(api.validate(api.get_model('assets/trained/
+#   synth_openvocab_xxl.params.npz', Config(model=ModelConfig(
+#   compute_dtype='bfloat16')))))"
+# (and compute_dtype='float32'): 494 of 512 in both.  The port's kernel
+# path must come within VAL_ACC_TOL points of it.
+JAX_VAL_ACC = {"bfloat16": 96.48438, "float32": 96.48438}
+VAL_ACC_TOL = 1.0
+# the phase "train and validate on the committed set": one epoch of the
+# 4096 training crops at B=192 (21 steps), validating every 10 steps
+LOOP_STEPS = 21
+LOOP_VALIDATION_STEPS = 10
+RESUME_LOSS_TOL = 1e-5
 
 T0 = time.time()
 PHASE = ["start"]
@@ -2483,10 +2509,12 @@ SITES_ROWS = 16  # rows of the fusion-site model held against the CPU in float32
 SITES_CPU_TOL = 1e-4  # of max(1, max |logit|)
 
 
-def call_ms(fn, reps: int = 3):
+def call_ms(fn, reps: int = 3, warm_up: bool = True):
     """The median CUDA-event ms of ``reps`` warm calls of ``fn()`` (one
-    warm-up call first), each timed alone, and the samples."""
-    fn()
+    warm-up call first, unless the caller has just made one), each timed
+    alone, and the samples."""
+    if warm_up:
+        fn()
     samples = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2953,6 +2981,277 @@ def train_phase(api, bn, gs):
 
 
 @contextlib.contextmanager
+def patched(obj, name: str, wrap):
+    """``obj.name`` replaced by ``wrap(original)`` inside the block."""
+    real = getattr(obj, name)
+    setattr(obj, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+class LoopProbe:
+    """Counts and times what a training loop does: its train steps (the
+    first step's start, every step's metrics), its validations and its
+    checkpoint saves (host wall time around each, the card synchronized)."""
+
+    def __init__(self):
+        self.t_first, self.metrics, self.validations, self.saves = None, [], [], []
+        self.starts = []  # host time at each step's call
+
+    def step(self, real):
+        def call(trainer, batch):
+            if self.t_first is None:
+                torch.cuda.synchronize()
+                self.t_first = time.perf_counter()
+            self.starts.append(time.perf_counter())
+            m = real(trainer, batch)
+            self.metrics.append(m)
+            return m
+        return call
+
+    def timed(self, into):
+        def wrap(real):
+            def call(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = real(*a, **k)
+                torch.cuda.synchronize()
+                into.append(time.perf_counter() - t)
+                return out
+            return call
+        return wrap
+
+    def run(self, fn):
+        """Run ``fn()`` (a loop) with the probes in; returns the seconds of
+        the loop's steps: from the first step's start to the end of the
+        run, less the validations and saves that fell in between."""
+        from multimodal_scene_text_recognition_tpu_torch.train import loop
+        from multimodal_scene_text_recognition_tpu_torch.train.steps import TrainStep
+
+        with patched(TrainStep, "__call__", self.step), \
+                patched(loop, "validate", self.timed(self.validations)), \
+                patched(loop, "save_checkpoint", self.timed(self.saves)):
+            n_val = len(self.validations)
+            fn()
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+        # the first validation runs before the first step
+        return t_end - self.t_first - sum(self.validations[n_val + 1:]) - sum(self.saves)
+
+    def rate_after_first_step(self, seconds: float) -> float:
+        """Crops/s of the steps after the first, of a run that ``run``
+        timed at ``seconds``."""
+        return (len(self.metrics) - 1) * B / (seconds - (self.starts[1] - self.starts[0]))
+
+
+def validation_records(model, val_set, codec):
+    """The per-crop records of a greedy validation of ``val_set`` at B=192,
+    as ``api.validate`` batches it."""
+    from multimodal_scene_text_recognition_tpu_torch.data.pipeline import Batcher, batches
+    from multimodal_scene_text_recognition_tpu_torch.eval.evaluate import validate
+    from multimodal_scene_text_recognition_tpu_torch.train.steps import make_eval_step
+
+    return validate(make_eval_step(model), batches(val_set, Batcher(codec, B), shuffle=False,
+                                                   drop_last=False),
+                    codec, return_records=True)
+
+
+def data_phase(api, fd, gs, bn):
+    """Train and validate on the committed set: load it (numpy alone);
+    validate the trained flagship on its 512 validation crops through
+    ``api.validate`` (K1 and K2 at least 3 launches each), with the kernels
+    and with their plain versions, against the JAX package's accuracy;
+    train one epoch through ``api.train`` with device data and validation
+    every 10 steps (36 K3 and 1 K2 launches a step, 3 K1 and K2 launches a
+    validation, a checkpoint on the first new best), then one epoch through
+    the host prefetcher, each beside the bare ``TrainStep``'s rate; save the
+    trainer's full state, restore it into a fresh trainer (bit-equal
+    parameters, moments and step count) and take one step from each."""
+    import importlib.util
+
+    from multimodal_scene_text_recognition_tpu_torch.charset import AttnCodec
+    from multimodal_scene_text_recognition_tpu_torch.config import FLAGSHIP, Config, TrainConfig
+    from multimodal_scene_text_recognition_tpu_torch.data.pipeline import device_batch
+    from multimodal_scene_text_recognition_tpu_torch.train import checkpoint
+
+    t = time.perf_counter()
+    train_set, val_set = api.get_dataset("synthetic")
+    load_s = time.perf_counter() - t
+    log(f"committed set: {len(train_set)} train and {len(val_set)} validation crops "
+        f"({train_set.image.dtype}, {train_set.nbytes() / 1e6:.1f} MB packed) loaded in "
+        f"{load_s:.3f} s")
+    if (len(train_set), len(val_set)) != (4096, 512) or train_set.image.dtype != np.uint8:
+        raise AssertionError("the committed set did not load as 4096 + 512 uint8 crops")
+    codec = AttnCodec(FLAGSHIP.chars, FLAGSHIP.max_text_length)
+
+    # validation of the trained flagship: kernels, plain, f32.  The
+    # accuracies and strings come from one records pass a mode (the
+    # evaluate.validate that api.validate runs); api.validate gives the
+    # launch count and the times
+    model = api.get_model(BUNDLE)
+    fd.fused_greedy_decode_cuda.launches = 0
+    gs.grid_sample_cuda.launches = 0
+    acc_api = api.validate(model)
+    val_launches = {"K1": fd.fused_greedy_decode_cuda.launches,
+                    "K2": gs.grid_sample_cuda.launches}
+    val_ms, val_samples = call_ms(lambda: api.validate(model), warm_up=False)
+    kernel = validation_records(model, val_set, codec)
+    model.set_use_kernels(False)
+    plain = validation_records(model, val_set, codec)  # also the plain path's warm-up
+    plain_ms, _ = call_ms(lambda: api.validate(model), reps=1, warm_up=False)
+    model.set_use_kernels(True)
+    acc, acc_plain = kernel.accuracy, plain.accuracy
+    same = sum(a.prediction == b.prediction
+               for a, b in zip(kernel.records, plain.records)) / len(kernel.records)
+    if acc_api != acc:
+        raise AssertionError(f"api.validate gave {acc_api}%, its records {acc}%")
+    if importlib.util.find_spec("pandas") is None:
+        try:
+            api.validate(model, return_dataframe=True)
+        except ImportError as e:
+            frame = f"ImportError as expected without pandas: {e}"
+        else:
+            raise AssertionError("validate(return_dataframe=True) ran without pandas")
+    else:
+        frame = f"a DataFrame of {len(api.validate(model, return_dataframe=True)[1])} rows"
+    del model
+    model32 = api.get_model(BUNDLE, dataclasses.replace(FLAGSHIP, compute_dtype="float32"))
+    acc32 = api.validate(model32)
+    del model32
+    torch.cuda.empty_cache()
+    log(f"validate on {len(val_set)} crops: kernels {acc}% ({val_ms:.2f} ms, samples "
+        f"{[round(x, 2) for x in val_samples]}; K1/K2 launches {val_launches}), plain "
+        f"{acc_plain}% ({plain_ms:.2f} ms), strings {same:.4f} identical (limit 0.98); f32 "
+        f"{acc32}%; the JAX package {JAX_VAL_ACC} (limit {VAL_ACC_TOL} point); "
+        f"return_dataframe: {frame}")
+    if min(val_launches.values()) < 3:
+        raise AssertionError(f"validation launched K1/K2 {val_launches}, fewer than 3")
+    if not (abs(acc - JAX_VAL_ACC["bfloat16"]) <= VAL_ACC_TOL
+            and abs(acc32 - JAX_VAL_ACC["float32"]) <= VAL_ACC_TOL and same >= 0.98):
+        raise AssertionError(f"validation: bf16 {acc}%, f32 {acc32}% against JAX "
+                             f"{JAX_VAL_ACC}, strings {same}")
+
+    # one epoch with device data, validating every 10 steps
+    results = tempfile.mkdtemp(prefix="chip_smoke_results_")
+    try:  # the checkpoints (~1.8 GB) go on every exit
+        cfg = Config(experiment="smoke", model=FLAGSHIP, train=TrainConfig(),
+                     results_dir=results)
+        trainer = api.get_trainer(BUNDLE)
+        for k in (fd.fused_greedy_decode_cuda, gs.grid_sample_cuda, bn.bn_bwd_cuda):
+            k.launches = 0
+        probe = LoopProbe()
+        loop_s = probe.run(lambda: api.train(trainer, "synthetic", LOOP_VALIDATION_STEPS,
+                                             LOOP_STEPS, cfg=cfg))
+        launches = {"K1": fd.fused_greedy_decode_cuda.launches,
+                    "K2": gs.grid_sample_cuda.launches, "K3": bn.bn_bwd_cuda.launches}
+        n_val, steps = len(probe.validations), len(probe.metrics)
+        losses = torch.stack([m["loss"] for m in probe.metrics]).tolist()
+        with open(os.path.join(results, "smoke_training_log.csv")) as f:
+            rows = f.read().splitlines()
+        ckpt = os.path.join(results, "models", "smoke", checkpoint.STATE_FILE)
+        device_rate = steps * B / loop_s
+        # the first step of a new trainer also pays its first-call costs
+        warm_rate = probe.rate_after_first_step(loop_s)
+        log(f"api.train, device data: {steps} steps in {loop_s:.3f} s of steps "
+            f"({device_rate:.1f} crops/s in the loop, {warm_rate:.1f} after its first step), "
+            f"{n_val} validations ({[round(x, 3) for x in probe.validations]} s), "
+            f"{len(probe.saves)} checkpoint saves ({[round(x, 3) for x in probe.saves]} s); "
+            f"launches {launches}; losses {[round(x, 4) for x in losses]}; CSV {rows}")
+        # validation before training, then at the first block ends (blocks of
+        # steps_per_call=8 steps: 8, 16, 21) at or past each multiple of 10
+        want = {"K1": 3 * n_val, "K2": steps + 3 * n_val, "K3": 36 * steps}
+        if (steps != LOOP_STEPS or trainer.step_count != LOOP_STEPS or n_val != 3
+                or launches != want):
+            raise AssertionError(f"the loop took {steps} steps with {n_val} validations and "
+                                 f"launched {launches}; expected {LOOP_STEPS}, 3 and {want}")
+        if (not np.isfinite(losses).all() or not os.path.exists(ckpt) or len(rows) < 3
+                or not rows[2].startswith("16,") or not probe.saves):
+            raise AssertionError(f"the loop's losses {losses}, CSV rows {rows} or checkpoint "
+                                 f"{os.path.exists(ckpt)} are wrong")
+        batch = device_batch(train_set.take(np.arange(B)), trainer.device)
+        step_ms, step_samples = call_ms(lambda: trainer(batch), reps=5)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(LOOP_STEPS):
+            trainer(batch)
+        torch.cuda.synchronize()
+        bare_rate = LOOP_STEPS * B / (time.perf_counter() - t)
+
+        # one epoch through the host prefetcher (no validation but the first)
+        cfg_host = dataclasses.replace(cfg, experiment="smoke_host", train=dataclasses.replace(
+            cfg.train, device_data=False))
+        probe_host = LoopProbe()
+        host_s = probe_host.run(lambda: api.train(trainer, "synthetic", 10 ** 6,
+                                                  trainer.step_count + LOOP_STEPS, cfg=cfg_host))
+        host_losses = torch.stack([m["loss"] for m in probe_host.metrics]).tolist()
+        host_rate = len(probe_host.metrics) * B / host_s
+        host_warm_rate = probe_host.rate_after_first_step(host_s)
+        gaps = {name: [round((b - a) * 1e3, 1) for a, b in zip(p.starts, p.starts[1:])]
+                for name, p in (("device data", probe), ("host prefetcher", probe_host))}
+        log(f"api.train, host prefetcher: {len(probe_host.metrics)} steps in {host_s:.3f} s "
+            f"({host_rate:.1f} crops/s in the loop, {host_warm_rate:.1f} after its first "
+            f"step); the bare TrainStep {step_ms:.2f} ms a step "
+            f"({B / step_ms * 1e3:.1f} crops/s, samples {[round(x, 2) for x in step_samples]}), "
+            f"{LOOP_STEPS} bare steps back to back {bare_rate:.1f} crops/s; after the first "
+            f"step, device data / bare {warm_rate / bare_rate:.4f}, host prefetcher / bare "
+            f"{host_warm_rate / bare_rate:.4f}; host ms between the loops' step calls {gaps}")
+        if len(probe_host.metrics) != LOOP_STEPS or not np.isfinite(host_losses).all():
+            raise AssertionError(f"the host route took {len(probe_host.metrics)} steps, losses "
+                                 f"{host_losses}")
+
+        # the full state: save, restore into a fresh trainer, one step each
+        path = os.path.join(results, "resume")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        checkpoint.save_checkpoint(path, trainer)
+        save_s = time.perf_counter() - t
+        nbytes = os.path.getsize(os.path.join(path, checkpoint.STATE_FILE))
+        fresh = api.get_trainer(BUNDLE)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        checkpoint.restore_checkpoint(path, fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        sa, sb = trainer.model.state_dict(), fresh.model.state_dict()
+        equal = (all(torch.equal(sa[k], sb[k]) for k in sa)
+                 and all(torch.equal(x, y)
+                         for x, y in zip(trainer.optimizer.mu + trainer.optimizer.nu,
+                                         fresh.optimizer.mu + fresh.optimizer.nu))
+                 and trainer.step_count == fresh.step_count)
+        best = api.get_trainer(BUNDLE)
+        best_step = checkpoint.restore_checkpoint(os.path.dirname(ckpt), best).step_count
+        del best
+        la, lb = trainer(batch)["loss"].item(), fresh(batch)["loss"].item()
+        rel = abs(la - lb) / abs(lb)
+        log(f"resume: saved in {save_s:.3f} s ({nbytes} bytes), restored in {restore_s:.3f} s; "
+            f"parameters, moments and step count bit-equal: {equal}; next step's loss "
+            f"{la:.6f} / {lb:.6f} (relative {rel:.2e}, limit {RESUME_LOSS_TOL:g}); the loop's "
+            f"best checkpoint restores at step {best_step}")
+        del trainer, fresh
+        torch.cuda.empty_cache()
+        if not equal or not rel <= RESUME_LOSS_TOL or best_step not in (16, 21):
+            raise AssertionError(f"resume: bit-equal {equal}, relative loss {rel}, best "
+                                 f"checkpoint at step {best_step}")
+    finally:
+        shutil.rmtree(results, ignore_errors=True)
+    return {"load_s": load_s, "val_acc": acc, "val_acc_plain": acc_plain, "val_acc_f32": acc32,
+            "val_acc_jax": JAX_VAL_ACC, "val_string_agreement": same, "val_ms": val_ms,
+            "val_ms_samples": val_samples, "val_ms_plain": plain_ms,
+            "val_launches": val_launches, "loop_steps": steps, "loop_validations": n_val,
+            "loop_launches": launches, "loop_s": loop_s, "loop_crops_per_s": device_rate,
+            "loop_crops_per_s_after_first_step": warm_rate,
+            "validation_s": probe.validations, "save_s_in_loop": probe.saves,
+            "host_loop_s": host_s, "host_loop_crops_per_s": host_rate,
+            "host_loop_crops_per_s_after_first_step": host_warm_rate,
+            "step_ms": step_ms, "step_crops_per_s": B / step_ms * 1e3,
+            "bare_steps_crops_per_s": bare_rate, "step_gaps_ms": gaps, "csv": rows,
+            "checkpoint_bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+            "resume_rel_loss": rel, "best_checkpoint_step": best_step}
+
+
+@contextlib.contextmanager
 def tf32_on():
     """TF32 allowed for float32 matmuls and convs, as a caller may set it."""
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -3182,6 +3481,14 @@ def main() -> int:
     k2["launches_train_with_hooks"] = train_hooks["launches"][1]
     k2["launches_fusion_sites"] = sites["launches"]["grid_sample"]
 
+    phase("train and validate on the committed set")
+    data = data_phase(api, fd, gs, bn)
+    k1["launches_validate"] = data["val_launches"]["K1"]
+    k1["launches_train_loop"] = data["loop_launches"]["K1"]
+    k2["launches_validate"] = data["val_launches"]["K2"]
+    k2["launches_train_loop"] = data["loop_launches"]["K2"]
+    k3["launches_train_loop"] = data["loop_launches"]["K3"]
+
     phase("report")
     log(f"done in {time.time() - T0:.1f} s")
     print(json.dumps({"e2e": {"bf16_string_agreement": agree16,
@@ -3197,7 +3504,8 @@ def main() -> int:
                                    "decoder_share": share, "profile": beam_prof},
                       "e2e_int8": e2e_int8, "e2e_semantic": e2e_semantic,
                       "stepper": stepper, "fusion_sites": sites, "resize": resized,
-                      "train": train, "train_with_hooks": train_hooks}), flush=True)
+                      "train": train, "train_with_hooks": train_hooks,
+                      "train_and_validate": data}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [k1, k1e, k1q, k2, k3, k4, k1c, k4c, p1, p2]}),
           flush=True)

@@ -1,12 +1,14 @@
-"""Model and training configuration: the fields of the JAX package's
-``ModelConfig`` and ``TrainConfig`` that the serving paths (greedy, beam,
-int8 and the semantic fusion hooks) and the train step read, with the same
+"""Model, training and data configuration: the fields of the JAX package's
+``ModelConfig``, ``TrainConfig``, ``DataConfig`` and ``Config`` that the
+serving paths (greedy, beam, int8 and the semantic fusion hooks), the train
+step, the training loop and the synthetic set read, with the same names and
 defaults (JAX counterpart: core/config.py)."""
 
 from __future__ import annotations
 
+import os
 import string
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 # 94 printable characters: string.printable minus the 6 trailing whitespace
@@ -71,6 +73,8 @@ class ModelConfig:
     tps_int8: bool = False
     max_text_length: int = 25
     chars: str = DEFAULT_CHARS
+    # the attention codec ([GO]/[s]/[PAD] + chars); "ctc" is not ported yet
+    label_codec: str = "attn"
     compute_dtype: str = "bfloat16"
     # dropout of the encoder and decoder in train mode
     dropout: float = 0.1
@@ -92,10 +96,11 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Optimisation settings the train step reads (train/state.py,
-    train/steps.py)."""
+    """Optimisation and loop settings the train step and the training loop
+    read (train/state.py, train/steps.py, train/loop.py)."""
 
     batch_size: int = 192
+    epochs: int = 8
     lr: float = 1e-4
     weight_decay: float = 0.01
     grad_clip_norm: float = 2.0
@@ -105,9 +110,57 @@ class TrainConfig:
     # linear warmup from 0 over this many steps (0 = none)
     warmup_steps: int = 0
     seed: int = 999
+    # validate every this many steps; stop after iteration_limit steps
+    validation_steps: int = 2000
+    iteration_limit: Optional[int] = None
+    # a validation accuracy (%) must beat this (then the best so far) to save
+    model_save_threshold: float = 0.0
+    # "ce" only: the CTC loss is not ported yet
+    loss: str = "ce"
     # the loss ignores [GO] targets and counts [PAD] ones; False masks [PAD] too
     loss_counts_pad: bool = True
     label_smoothing: float = 0.0
+    # keep the packed uint8 training set on the device when it is at most
+    # device_data_max_mb, and gather each batch there by index
+    device_data: bool = True
+    device_data_max_mb: int = 4096
+    # the JAX loop runs this many device-data steps in one jitted call; the
+    # port takes the same steps one by one (train/loop.py)
+    steps_per_call: int = 8
+
+
+_ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets")
+# The committed synthetic sets (scripts/render_synthetic_set.py).
+SYNTHETIC_DIR: str = os.path.join(_ASSETS, "synthetic")
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Dataset selection: the synthetic sets' sizes and their directory."""
+
+    dataset: str = "synthetic"  # only the synthetic set is ported
+    synthetic_train_size: int = 4096
+    synthetic_val_size: int = 512
+    synthetic_dir: str = SYNTHETIC_DIR
+    # the detectors' class-id -> label lists (eval.evaluate.load_class_labels)
+    class_labels_dir: str = os.path.join(_ASSETS, "features")
+
+
+@dataclass(frozen=True)
+class Config:
+    experiment: str = "tpu_rebuild"
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    results_dir: str = "./results"
+
+
+def check_recipe(cfg: Config) -> None:
+    """Raise for the label codec and loss that are not ported: CTC."""
+    if cfg.model.label_codec != "attn" or cfg.train.loss != "ce":
+        raise NotImplementedError(
+            f"label_codec={cfg.model.label_codec!r} / loss={cfg.train.loss!r}: the port "
+            "trains the attention decoder with cross-entropy only; CTC is not ported yet")
 
 
 # The flagship that serving runs: bf16 compute, whole-loop fused decode.

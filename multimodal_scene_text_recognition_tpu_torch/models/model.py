@@ -36,6 +36,9 @@ from .transformation import TPSTransform
 class SceneTextModel(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        if cfg.label_codec != "attn":
+            raise NotImplementedError(f"label_codec={cfg.label_codec!r}: the CTC codec and "
+                                      "its linear decoder are not ported yet")
         self.cfg = cfg
         dtype = getattr(torch, cfg.compute_dtype)
         if cfg.use_tps:

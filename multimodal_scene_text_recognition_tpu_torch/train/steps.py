@@ -1,18 +1,18 @@
 """The train step: forward (train) -> loss -> backward -> clip -> AdamW,
-with the BatchNorm running statistics updated by the forward (JAX
-counterpart: train/steps.py, the cross-entropy path of
-``make_train_step``)."""
+with the BatchNorm running statistics updated by the forward; and the
+greedy eval step of validation (JAX counterpart: train/steps.py, the
+cross-entropy path of ``make_train_step``, and ``make_eval_step``)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping
 
 import torch
 import torch.nn.functional as F
 
 from ..charset import GO_ID, PAD_ID
 from ..config import TrainConfig
-from .state import make_optimizer
+from .state import make_lr_schedule, make_optimizer
 
 
 def prep_image(image: torch.Tensor) -> torch.Tensor:
@@ -74,6 +74,15 @@ class TrainStep:
     def step_count(self) -> int:
         return self.optimizer.count
 
+    def configure(self, cfg: TrainConfig, steps_per_epoch: int) -> None:
+        """Take the optimizer settings of ``cfg`` and StepLR boundaries
+        ``steps_per_epoch`` apart (the training loop's), keeping the
+        moments, the step count and the dropout generator."""
+        self.cfg = cfg
+        opt = self.optimizer
+        opt.schedule = make_lr_schedule(cfg, steps_per_epoch)
+        opt.weight_decay, opt.clip_norm = cfg.weight_decay, cfg.grad_clip_norm
+
     def __call__(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         image = prep_image(torch.as_tensor(batch["image"]).to(self.device))
         text = torch.as_tensor(batch["text"]).to(self.device, torch.long)
@@ -97,3 +106,26 @@ class TrainStep:
         with torch.no_grad():
             acc = token_accuracy(logits, targets)
         return {"loss": loss.detach(), "token_acc": acc, "grad_norm": grad_norm}
+
+
+def make_eval_step(model: torch.nn.Module) -> Callable[[Mapping[str, Any]], torch.Tensor]:
+    """Greedy decode of a batch (the wire format's ``image``, ``overlap``,
+    ``scene`` and ``ious``, on the model's device) -> argmax ids [B, T].
+    The model runs in eval mode (BatchNorm on its running statistics, no
+    dropout) under ``torch.no_grad()``, and returns to its former mode.
+    ``eval_step.device`` is the model's device."""
+    device = next(model.parameters()).device
+
+    def eval_step(batch: Mapping[str, Any]) -> torch.Tensor:
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                logits = model(prep_image(batch["image"]), batch["overlap"].long(),
+                               scene=batch["scene"].long(), ious=batch["ious"])
+            return logits.argmax(dim=-1)
+        finally:
+            model.train(was_training)
+
+    eval_step.device = device
+    return eval_step

@@ -52,3 +52,35 @@ def test_no_jax_flax_pil_or_jax_package_imports(path):
 ])
 def test_guard_classifies_modules(module, bad):
     assert _forbidden(module) is bad
+
+
+def _pandas_imports(path):
+    """(line, enclosing function or None) of each import of pandas."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = []
+
+    def walk(node, func):
+        for child in ast.iter_child_nodes(node):
+            inner = child.name if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                else func
+            names = []
+            if isinstance(child, ast.Import):
+                names = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                names = [child.module]
+            if any(n.split(".")[0] == "pandas" for n in names):
+                out.append((child.lineno, func))
+            walk(child, inner)
+
+    walk(tree, None)
+    return out
+
+
+def test_pandas_is_imported_only_inside_to_dataframe():
+    """The card machine has no pandas: the port imports it in
+    ``EvalResult.to_dataframe`` alone, when that is called."""
+    found = {str(p.relative_to(ROOT)): _pandas_imports(p) for p in FILES}
+    found = {k: v for k, v in found.items() if v}
+    assert list(found) == ["multimodal_scene_text_recognition_tpu_torch/metrics.py"]
+    assert [f for _, f in found["multimodal_scene_text_recognition_tpu_torch/metrics.py"]] == \
+        ["to_dataframe"]

@@ -35,7 +35,7 @@ from multimodal_scene_text_recognition_tpu_torch.models.model import SceneTextMo
 from multimodal_scene_text_recognition_tpu_torch.models.transformation import TPSTransform
 from multimodal_scene_text_recognition_tpu_torch.ops import batchnorm as bnops
 from multimodal_scene_text_recognition_tpu_torch.ops import precision, tps
-from multimodal_scene_text_recognition_tpu_torch.train.loop import train
+from multimodal_scene_text_recognition_tpu_torch.train.loop import run_steps
 from multimodal_scene_text_recognition_tpu_torch.train.state import AdamW, make_lr_schedule
 from multimodal_scene_text_recognition_tpu_torch.train.steps import cross_entropy
 from test_torch_modules import flatten, randomize
@@ -467,14 +467,14 @@ def test_train_loop_lowers_the_loss():
     cfg = ModelConfig(**TINY, decode_fused=True)
     trainer = api.get_trainer(cfg=cfg, train_cfg=TrainConfig(lr=1e-3), device="cpu")
     batch = make_batch(8, 0)
-    out = train(trainer, [batch] * 5, num_steps=5, log_every=2)
+    out = run_steps(trainer, [batch] * 5, num_steps=5, log_every=2)
     losses = [h["loss"] for h in out["history"]]
     assert len(losses) == 5 and np.isfinite(losses).all()
     assert losses[-1] < losses[0]
     assert trainer.step_count == 5
     assert out["loss"] == pytest.approx(np.mean(losses))
     with pytest.raises(ValueError):
-        train(trainer, [batch], num_steps=2)
+        run_steps(trainer, [batch], num_steps=2)
 
 
 def test_entry_points_train_mode(monkeypatch):
