@@ -49,7 +49,15 @@ plain versions (bf16 and f32) against the JAX package's accuracy
 and validation every 10 steps, and one through the host prefetcher,
 counting K1, K2 and K3 and timing the loop beside the bare train step,
 then saves the trainer's full state, restores it into a fresh trainer
-(bit-equal) and steps both.  The gemm probe phase holds the
+(bit-equal) and steps both.  The phase "classic recognizers" runs the
+JAX package's BiLSTM-Attn and BiLSTM-CTC at full width with seeded random
+weights: BiLSTM-Attn served at B=192 in float32 (TF32 allowed by the
+caller) against the same model on the CPU, a differing string allowed
+only at a CPU top-2 gap below CLASSIC_FLIP_GAP, then in bf16 with its K2
+launch, ms, stage split and idle share; three train steps of each with
+the kernels and with their plain versions (36 K3 and 1 K2 launches a
+step); and one epoch of BiLSTM-CTC through ``api.train`` on the committed
+set, whose loss must fall, then its CTC validation of the 512 crops.  The gemm probe phase holds the
 int8-vs-bf16 probe's two chain kernels (P1, P2) against their plain
 versions at 1, 4 and 30 steps, on a tie input and a NaN input, checks both
 end all NaN at the probe's 200 steps, prints their launch plan
@@ -2810,33 +2818,35 @@ def resize_phase(api, gs, crops):
             "ms_per_call": call}
 
 
-def make_train_batch(n: int, seed: int, chars: str):
+def make_train_batch(n: int, seed: int, chars: str, codec=None):
     """One batch in the wire format: uint8 crops, label rows of seeded
-    random words, overlap ids in [0, 100)."""
+    random words (in ``codec``, default ``AttnCodec``), overlap ids in
+    [0, 100)."""
     from multimodal_scene_text_recognition_tpu_torch.charset import AttnCodec
 
     rng = np.random.default_rng(seed)
     letters = list("abcdefghijklmnopqrstuvwxyz0123456789")
     words = ["".join(rng.choice(letters, rng.integers(3, 11))) for _ in range(n)]
-    text, _ = AttnCodec(chars).encode(words)
+    text, _ = (codec or AttnCodec(chars)).encode(words)
     return {"image": np.stack(make_crops(n, seed))[..., None], "text": text,
             "overlap": rng.integers(0, 100, (n, 15)).astype(np.int32)}
 
 
 def train_run(api, bn, gs, batch, use_kernels: bool, steps: int = TRAIN_STEPS,
-              warp_kernel: bool = None, cfg=None):
+              warp_kernel: bool = None, cfg=None, train_cfg=None, seed: int = SEMANTIC_SEED):
     """``steps`` steps of the trained flagship (``TrainConfig()`` defaults,
-    dropout 0.1), or of ``cfg`` with the random weights of SEMANTIC_SEED,
-    with the kernels or their plain versions (``warp_kernel`` sets K2
-    apart); the per-step metrics (with the step's CUDA-event ``ms``), the
-    K3 and K2 counts after each step, and the (shape, dtype) of each
-    BatchNorm input of the first step."""
+    dropout 0.1), or of ``cfg`` with the random weights of ``seed`` (and
+    ``train_cfg``, default ``TrainConfig()``), with the kernels or their
+    plain versions (``warp_kernel`` sets K2 apart); the per-step metrics
+    (with the step's CUDA-event ``ms``), the K3 and K2 counts after each
+    step, and the (shape, dtype) of each BatchNorm input of the first
+    step."""
     from multimodal_scene_text_recognition_tpu_torch.models.layers import BatchNorm2d
 
     if cfg is None:
         trainer = api.get_trainer(BUNDLE)
     else:
-        trainer = api.get_trainer(None, cfg, seed=SEMANTIC_SEED)
+        trainer = api.get_trainer(None, cfg, train_cfg, seed=seed)
     trainer.model.set_use_kernels(use_kernels)
     if warp_kernel is not None:
         trainer.model.transformation.use_kernels = warp_kernel
@@ -3251,6 +3261,223 @@ def data_phase(api, fd, gs, bn):
             "resume_rel_loss": rel, "best_checkpoint_step": best_step}
 
 
+# -- the classic recognizers: BiLSTM-Attn served and trained, BiLSTM-CTC
+# -- trained and validated, at full width with seeded random weights
+
+CLASSIC_SEED = 17  # their random weights (no bundle holds them)
+# f32 BiLSTM-Attn on the card (TF32 turned on by the caller) against the
+# same model on the CPU: a row whose string differs must flip its first
+# differing token at a CPU top-2 gap below this (a rounding-level tie)
+CLASSIC_FLIP_GAP = 1e-4
+CLASSIC_SERVE_REPS = 5
+
+
+def classic_configs():
+    """BiLSTM-Attn (the reference's TPS-ResNet-BiLSTM-Attn) and BiLSTM-CTC:
+    the JAX defaults with these switches."""
+    from multimodal_scene_text_recognition_tpu_torch.config import ModelConfig
+
+    return (ModelConfig(encoder="lstm", decoder="lstm"),
+            ModelConfig(encoder="lstm", decoder="linear", label_codec="ctc"))
+
+
+def classic_serve(api, gs, crops, cfg):
+    """BiLSTM-Attn served by ``Recognizer.recognize`` at B=192: in f32 with
+    TF32 allowed by the caller against the same model on the CPU (strings,
+    and the logits up to each row's first differing token), then in bf16
+    its K2 launches, its ms a call, its stage split and the card's idle
+    share, and its strings against the plain path (printed)."""
+    from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    card = api.get_model(None, cfg32, seed=CLASSIC_SEED)
+    rec = Recognizer(card, batch_sizes=(B,))
+    with tf32_on():  # the float32 model (its LSTMs too) must not take it
+        texts32 = rec.recognize(crops)
+        image, overlap, _, _ = rec.prepare(crops, B)
+        with torch.no_grad():
+            got = card(image, overlap).cpu()
+    del card
+    host = api.get_model(None, cfg32, device="cpu", seed=CLASSIC_SEED)
+    t = time.perf_counter()
+    with torch.no_grad():
+        want = host(image.cpu(), overlap.cpu())
+    cpu_s = time.perf_counter() - t
+    del host
+    host_texts = rec.codec.decode(want.argmax(-1).numpy())
+    same = sum(a == b for a, b in zip(texts32, host_texts)) / B
+    err, flips = err_to_first_flip(got, want)
+    distinct = len(set(host_texts))
+    log(f"BiLSTM-Attn f32 with TF32 allowed by the caller, card vs CPU on {B} rows: strings "
+        f"{same:.4f} identical ({distinct} distinct strings on the CPU; e.g. "
+        f"{host_texts[:3]}), logits {tuple(got.shape)} max |diff| up to each row's first "
+        f"differing token {err:.3e}, rows that differ (row, step, CPU top-2 gap) {flips} "
+        f"(gap limit {CLASSIC_FLIP_GAP:g}); the CPU forward {cpu_s:.2f} s")
+    if got.shape != (B, cfg.max_text_length + 1, cfg.num_classes) or not torch.isfinite(
+            got).all():
+        raise AssertionError(f"BiLSTM-Attn logits: shape {tuple(got.shape)} or non-finite")
+    if any(gap >= CLASSIC_FLIP_GAP for _, _, gap in flips):
+        raise AssertionError(f"BiLSTM-Attn f32 card strings differ from the CPU's at gaps "
+                             f"{flips} (limit {CLASSIC_FLIP_GAP})")
+
+    model = api.get_model(None, cfg, seed=CLASSIC_SEED)
+    rec = Recognizer(model, batch_sizes=(B,))
+    gs.grid_sample_cuda.launches = 0
+    texts = rec.recognize(crops)
+    k2 = gs.grid_sample_cuda.launches
+    if k2 != 1 or len(texts) != B:
+        raise AssertionError(f"a served BiLSTM-Attn call launched K2 {k2} times (expected 1) "
+                             f"or returned {len(texts)} strings")
+    beam_texts, scores = rec.recognize(crops, beam_size=BEAM, return_scores=True)
+    if beam_texts != texts or any(scores):
+        raise AssertionError("BiLSTM-Attn with a beam width: not the greedy strings with 0.0")
+    model.set_use_kernels(False)
+    plain = rec.recognize(crops)
+    model.set_use_kernels(True)
+    agree = sum(a == b for a, b in zip(texts, plain)) / B
+    ms, samples = call_ms(lambda: rec.recognize(crops), reps=CLASSIC_SERVE_REPS)
+    stages = stage_times(model, rec, crops, lambda enc: model.decoder.greedy_decode(enc).argmax(-1),
+                         reps=CLASSIC_SERVE_REPS)
+    prof = kernel_profile(lambda: rec.recognize(crops), calls=3)
+    if prof["device_busy_ms"] <= 0:
+        raise AssertionError("the profiler saw no kernel run on the card")
+    log(f"BiLSTM-Attn bf16: {ms:.2f} ms per {B}-crop call (median of {CLASSIC_SERVE_REPS} warm "
+        f"calls, CUDA events; samples {[round(x, 2) for x in samples]}), "
+        f"{B / ms * 1e3:.1f} crops/s; K2 launches a call {k2}; stage ms (median of "
+        f"{CLASSIC_SERVE_REPS}) " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; profile of 3 calls: wall {prof['wall_ms']:.2f} ms, kernels busy "
+        f"{prof['device_busy_ms']:.2f} ms, idle share {prof['idle_share']:.4f}; strings, "
+        f"kernels vs plain: {agree:.4f} identical (printed only); beam_size={BEAM} gave the "
+        f"greedy strings with scores 0.0")
+    del model, rec
+    torch.cuda.empty_cache()
+    return {"f32_vs_cpu_strings": same, "f32_vs_cpu_err_to_first_flip": err,
+            "f32_vs_cpu_flips": flips, "cpu_distinct_strings": distinct, "cpu_forward_s": cpu_s,
+            "ms_per_call": ms, "ms_samples": samples, "crops_per_s": B / ms * 1e3,
+            "stage_ms": stages, "profile": prof, "k2_launches_per_call": k2,
+            "bf16_kernels_vs_plain_strings": agree}
+
+
+def classic_train(api, bn, gs, name: str, cfg, train_cfg, codec):
+    """TRAIN_STEPS bf16 steps at B=192 of ``cfg`` from CLASSIC_SEED's
+    weights, with the kernels and with their plain versions, held to the
+    train phase's limits; 36 K3 and 1 K2 launches a step; the median step
+    ms and the peak memory."""
+    batch = make_train_batch(B, 4321, cfg.chars, codec)
+    torch.cuda.reset_peak_memory_stats()
+    trainer, kmetrics, kcounts, shapes = train_run(api, bn, gs, batch, True, cfg=cfg,
+                                                   train_cfg=train_cfg, seed=CLASSIC_SEED)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms_step, step_samples = call_ms(lambda: trainer(batch))
+    del trainer
+    torch.cuda.empty_cache()
+    trainer, pmetrics, pcounts, _ = train_run(api, bn, gs, batch, False, cfg=cfg,
+                                              train_cfg=train_cfg, seed=CLASSIC_SEED)
+    del trainer
+    torch.cuda.empty_cache()
+    want = [(36 * (i + 1), i + 1) for i in range(TRAIN_STEPS)]
+    diffs = rel_diffs(kmetrics, pmetrics)
+    loss_diffs, norm_diff = [d[0] for d in diffs], diffs[0][1]
+    log(f"train {name}: kernels {kmetrics}, K3/K2 launches after each step {kcounts}; plain "
+        f"{pmetrics}, launches {pcounts}; relative loss {[f'{d:.3e}' for d in loss_diffs]} "
+        f"(limits {TRAIN_LOSS_TOL}), step-1 grad norm {norm_diff:.3e} (limit {TRAIN_NORM_TOL:g}); "
+        f"median step {ms_step:.2f} ms of {[round(x, 2) for x in step_samples]} "
+        f"({B / ms_step * 1e3:.1f} crops/s), peak memory {peak_gb:.3f} GB")
+    for m in kmetrics + pmetrics:
+        if not np.isfinite([m["loss"], m["grad_norm"]]).all():
+            raise AssertionError(f"non-finite {name} training metrics: {m}")
+    if len(shapes) != 36 or kcounts != want or any(c != (0, 0) for c in pcounts):
+        raise AssertionError(f"training {name} launched K3/K2 {kcounts} with {len(shapes)} "
+                             f"BatchNorms a step (expected {want}), plain {pcounts}")
+    if not (all(d <= t for d, t in zip(loss_diffs, TRAIN_LOSS_TOL))
+            and norm_diff <= TRAIN_NORM_TOL):
+        raise AssertionError(f"kernel and plain {name} training runs disagree: {diffs}")
+    return {"metrics_kernels": kmetrics, "metrics_plain": pmetrics, "rel_diff_by_step": diffs,
+            "ms_per_step": ms_step, "ms_samples": step_samples,
+            "crops_per_s": B / ms_step * 1e3, "peak_memory_gb": peak_gb,
+            "launches": kcounts[-1]}
+
+
+def classic_ctc_epoch(api, bn, gs, cfg, train_cfg, codec):
+    """``api.train`` of BiLSTM-CTC for one epoch of the committed set
+    (LOOP_STEPS steps at B=192, device data, the validation before training
+    only): every loss finite, the last below the first; then
+    ``eval.evaluate.validate`` with ``CTCCodec`` on the 512 committed
+    validation crops, its accuracy (no limit: one epoch from random
+    weights) and ms."""
+    from multimodal_scene_text_recognition_tpu_torch.config import Config
+    from multimodal_scene_text_recognition_tpu_torch.data.pipeline import Batcher, batches
+    from multimodal_scene_text_recognition_tpu_torch.eval.evaluate import validate
+    from multimodal_scene_text_recognition_tpu_torch.train.steps import make_eval_step
+
+    results = tempfile.mkdtemp(prefix="chip_smoke_ctc_")
+    try:
+        run_cfg = Config(experiment="smoke_ctc", model=cfg, train=train_cfg,
+                         results_dir=results)
+        trainer = api.get_trainer(None, cfg, train_cfg, seed=CLASSIC_SEED)
+        bn.bn_bwd_cuda.launches = 0
+        gs.grid_sample_cuda.launches = 0
+        probe = LoopProbe()
+        loop_s = probe.run(lambda: api.train(trainer, "synthetic", 10 ** 6, LOOP_STEPS,
+                                             cfg=run_cfg))
+        launches = {"K2": gs.grid_sample_cuda.launches, "K3": bn.bn_bwd_cuda.launches}
+    finally:
+        shutil.rmtree(results, ignore_errors=True)
+    losses = torch.stack([m["loss"] for m in probe.metrics]).tolist()
+    steps = len(losses)
+    _, val_set = api.get_dataset("synthetic", run_cfg)
+    if val_set.text.shape != (512, cfg.max_text_length):
+        raise AssertionError(f"the CTC validation rows are {val_set.text.shape}")
+
+    def run():
+        return validate(make_eval_step(trainer.model),
+                        batches(val_set, Batcher(codec, B), shuffle=False, drop_last=False),
+                        codec, return_records=True)
+
+    gs.grid_sample_cuda.launches = 0
+    result = run()
+    val_k2 = gs.grid_sample_cuda.launches
+    val_ms, val_samples = call_ms(run, reps=3, warm_up=False)
+    log(f"api.train BiLSTM-CTC, device data: {steps} steps in {loop_s:.3f} s of steps "
+        f"({steps * B / loop_s:.1f} crops/s), the initial validation "
+        f"{[round(x, 3) for x in probe.validations]} s; launches {launches}; losses "
+        f"{[round(x, 4) for x in losses]}; then validate with CTCCodec on {len(val_set)} crops: "
+        f"{result.accuracy}% ({val_ms:.2f} ms, samples {[round(x, 2) for x in val_samples]}; "
+        f"K2 launches {val_k2}), e.g. "
+        f"{[(r.ground_truth, r.prediction) for r in result.records[:3]]}")
+    want = {"K2": steps + 3 * len(probe.validations), "K3": 36 * steps}
+    if steps != LOOP_STEPS or launches != want or val_k2 != 3:
+        raise AssertionError(f"the CTC loop took {steps} steps and launched {launches} "
+                             f"(expected {LOOP_STEPS} and {want}); its validation K2 {val_k2}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"the CTC epoch's losses did not fall or are not finite: {losses}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"steps": steps, "loop_s": loop_s, "loop_crops_per_s": steps * B / loop_s,
+            "losses": losses, "launches": launches, "val_acc": result.accuracy,
+            "val_ms": val_ms, "val_ms_samples": val_samples, "val_k2_launches": val_k2}
+
+
+def classic_phase(api, bn, gs, crops):
+    """The classic recognizers at full width with seeded random weights:
+    BiLSTM-Attn served (``classic_serve``), three train steps of BiLSTM-Attn
+    (cross-entropy) and of BiLSTM-CTC, kernels against plain
+    (``classic_train``), and an epoch of BiLSTM-CTC on the committed set
+    with its CTC validation (``classic_ctc_epoch``)."""
+    from multimodal_scene_text_recognition_tpu_torch.charset import CTCCodec
+    from multimodal_scene_text_recognition_tpu_torch.config import TrainConfig
+
+    attn, ctc = classic_configs()
+    ctc_train = TrainConfig(loss="ctc")
+    ctc_codec = CTCCodec(ctc.chars, ctc.max_text_length)
+    return {"serve_bilstm_attn": classic_serve(api, gs, crops, attn),
+            "train_bilstm_attn": classic_train(api, bn, gs, "BiLSTM-Attn", attn, TrainConfig(),
+                                               None),
+            "train_bilstm_ctc": classic_train(api, bn, gs, "BiLSTM-CTC", ctc, ctc_train,
+                                              ctc_codec),
+            "epoch_bilstm_ctc": classic_ctc_epoch(api, bn, gs, ctc, ctc_train, ctc_codec)}
+
+
 @contextlib.contextmanager
 def tf32_on():
     """TF32 allowed for float32 matmuls and convs, as a caller may set it."""
@@ -3489,6 +3716,15 @@ def main() -> int:
     k2["launches_train_loop"] = data["loop_launches"]["K2"]
     k3["launches_train_loop"] = data["loop_launches"]["K3"]
 
+    phase("classic recognizers")
+    classic = classic_phase(api, bn, gs, crops)
+    k2["launches_classic_serve"] = classic["serve_bilstm_attn"]["k2_launches_per_call"]
+    for name in ("train_bilstm_attn", "train_bilstm_ctc"):
+        k3[f"launches_{name}"], k2[f"launches_{name}"] = classic[name]["launches"]
+    k2["launches_train_loop_ctc"] = classic["epoch_bilstm_ctc"]["launches"]["K2"]
+    k3["launches_train_loop_ctc"] = classic["epoch_bilstm_ctc"]["launches"]["K3"]
+    k2["launches_validate_ctc"] = classic["epoch_bilstm_ctc"]["val_k2_launches"]
+
     phase("report")
     log(f"done in {time.time() - T0:.1f} s")
     print(json.dumps({"e2e": {"bf16_string_agreement": agree16,
@@ -3505,7 +3741,7 @@ def main() -> int:
                       "e2e_int8": e2e_int8, "e2e_semantic": e2e_semantic,
                       "stepper": stepper, "fusion_sites": sites, "resize": resized,
                       "train": train, "train_with_hooks": train_hooks,
-                      "train_and_validate": data}), flush=True)
+                      "train_and_validate": data, "classic": classic}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [k1, k1e, k1q, k2, k3, k4, k1c, k4c, p1, p2]}),
           flush=True)

@@ -67,19 +67,21 @@ def get_dataset(name: str = "synthetic", cfg: Optional[Config] = None):
     ``name``, host arrays (the verbs move batches to their model's device).
     "synthetic": the committed sets, ``cfg.data.synthetic_train_size`` crops
     at ``cfg.train.seed`` and ``synthetic_val_size`` at ``seed + 1``, label
-    rows in ``cfg.model``'s codec."""
+    rows in the codec of ``cfg``'s recipe (``train.loop.build_codec``)."""
+    from .train.loop import build_codec
+
     cfg = cfg or Config()
-    return _dataset(name, cfg, "train"), _dataset(name, cfg, "val")
+    codec = build_codec(cfg)
+    return _dataset(name, cfg, "train", codec), _dataset(name, cfg, "val", codec)
 
 
-def _dataset(name: str, cfg: Config, split: str):
+def _dataset(name: str, cfg: Config, split: str, codec):
     if name == "synthetic":
         from .data.synthetic import make_dataset
 
         size, seed = ((cfg.data.synthetic_train_size, cfg.train.seed) if split == "train"
                       else (cfg.data.synthetic_val_size, cfg.train.seed + 1))
-        return make_dataset(size, seed, AttnCodec(cfg.model.chars, cfg.model.max_text_length),
-                            cfg.data.synthetic_dir)
+        return make_dataset(size, seed, codec, cfg.data.synthetic_dir)
     if name in ("cocotext", "textocr", "synth", "cocotext_single_image_val"):
         raise NotImplementedError(f"dataset {name!r}: its loader is not ported yet; the port "
                                   "trains and validates on the committed synthetic set")
@@ -120,8 +122,11 @@ def _val_batches(model, dataset: str, cfg: Optional[Config]):
     from .data.pipeline import Batcher, batches
 
     cfg = _config(model, None, cfg)
+    # AttnCodec whatever the recipe, as the JAX package's validate and
+    # evaluate decode (a CTC model's strings come from the training loop's
+    # validation, or from eval.evaluate.validate given a CTCCodec)
     codec = AttnCodec(cfg.model.chars, cfg.model.max_text_length)
-    val_samples = _dataset(dataset, cfg, "val")  # the training set is not loaded
+    val_samples = _dataset(dataset, cfg, "val", codec)  # the training set is not loaded
     return cfg, codec, batches(val_samples, Batcher(codec, cfg.train.batch_size),
                                shuffle=False, drop_last=False)
 
@@ -132,7 +137,9 @@ def validate(model: Union[SceneTextModel, TrainStep], dataset: str = "synthetic"
     """Greedy validation of ``model`` (or a trainer's) on ``dataset``'s
     validation set in batches of ``cfg.train.batch_size``, the short last
     one padded with zero crops: the word accuracy in percent, or with ``return_dataframe``
-    ``(accuracy, DataFrame of the per-crop records)`` (needs pandas)."""
+    ``(accuracy, DataFrame of the per-crop records)`` (needs pandas).  The
+    ids are decoded by ``AttnCodec`` whatever ``label_codec`` says, as the
+    JAX package's ``validate`` decodes them."""
     from .eval.evaluate import validate as run
 
     model = _model_of(model)

@@ -1,8 +1,9 @@
 """Model, training and data configuration: the fields of the JAX package's
 ``ModelConfig``, ``TrainConfig``, ``DataConfig`` and ``Config`` that the
-serving paths (greedy, beam, int8 and the semantic fusion hooks), the train
-step, the training loop and the synthetic set read, with the same names and
-defaults (JAX counterpart: core/config.py)."""
+serving paths (greedy, beam, int8 and the semantic fusion hooks), the
+classic recognizers (BiLSTM encoder, LSTM-attention and linear decoders,
+CTC), the train step, the training loop and the synthetic set read, with
+the same names and defaults (JAX counterpart: core/config.py)."""
 
 from __future__ import annotations
 
@@ -18,6 +19,12 @@ DEFAULT_CHARS: str = string.printable[:-6]
 
 @dataclass(frozen=True)
 class ModelConfig:
+    # the sequence encoder and the decoder (JAX models/model.py): the
+    # BiLSTM encoder's output is lstm_hidden wide, the transformer's
+    # hidden_dim, and the decoder's memory takes that width.  The Oscar
+    # encoder is not ported yet.
+    encoder: str = "transformer"  # lstm | transformer | oscar
+    decoder: str = "transformer"  # lstm | transformer | linear
     use_tps: bool = True
     embed_dim: int = 256
     hidden_dim: int = 512
@@ -29,6 +36,10 @@ class ModelConfig:
     dec_layers: int = 6
     num_heads: int = 8
     ff_dim: int = 2048
+    lstm_hidden: int = 256  # the BiLSTM encoder's and the LSTM decoder's width
+    # "reference": the transformer encoder norms the residual stream before
+    # each add (the reference model's order); "standard": textbook post-LN
+    encoder_norm_style: str = "reference"
     # semantic vectors: detector class ids embedded per crop (JAX
     # models/semantic.py).  SceneTextModel refuses what is not ported: the
     # "rand" source and the "bert" embedding.
@@ -73,7 +84,8 @@ class ModelConfig:
     tps_int8: bool = False
     max_text_length: int = 25
     chars: str = DEFAULT_CHARS
-    # the attention codec ([GO]/[s]/[PAD] + chars); "ctc" is not ported yet
+    # "attn": [GO]/[s]/[PAD] + chars (the attention decoders); "ctc": blank
+    # + chars (CTCCodec, with decoder="linear" and TrainConfig(loss="ctc"))
     label_codec: str = "attn"
     compute_dtype: str = "bfloat16"
     # dropout of the encoder and decoder in train mode
@@ -85,8 +97,9 @@ class ModelConfig:
 
     @property
     def num_classes(self) -> int:
-        # [GO], [s], [PAD] + charset
-        return 3 + len(self.chars)
+        if self.label_codec == "ctc":
+            return 1 + len(self.chars)  # [CTCblank] + charset
+        return 3 + len(self.chars)  # [GO], [s], [PAD] + charset
 
     @property
     def num_cols(self) -> int:
@@ -115,7 +128,8 @@ class TrainConfig:
     iteration_limit: Optional[int] = None
     # a validation accuracy (%) must beat this (then the best so far) to save
     model_save_threshold: float = 0.0
-    # "ce" only: the CTC loss is not ported yet
+    # "ce": cross-entropy over the decoder's steps; "ctc": the CTC loss over
+    # per-column logits (decoder="linear", label_codec="ctc")
     loss: str = "ce"
     # the loss ignores [GO] targets and counts [PAD] ones; False masks [PAD] too
     loss_counts_pad: bool = True
@@ -153,14 +167,6 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
     results_dir: str = "./results"
-
-
-def check_recipe(cfg: Config) -> None:
-    """Raise for the label codec and loss that are not ported: CTC."""
-    if cfg.model.label_codec != "attn" or cfg.train.loss != "ce":
-        raise NotImplementedError(
-            f"label_codec={cfg.model.label_codec!r} / loss={cfg.train.loss!r}: the port "
-            "trains the attention decoder with cross-entropy only; CTC is not ported yet")
 
 
 # The flagship that serving runs: bf16 compute, whole-loop fused decode.

@@ -15,6 +15,11 @@ the same module paths, so only the leaf name and the layout change:
     w_out [E, E] / b_out                   -> out_proj.weight [E, E] / out_proj.bias
     batch_stats mean / var                 -> running_mean / running_var
     fc{i}_kernel [in, out] / fc{i}_bias    -> fc{i}.weight [out, in] / fc{i}.bias
+    w_ih [I, 4H] / w_hh [H, 4H]            -> w_ih [4H, I] / w_hh [4H, H]
+    b_ih / b_hh [4H]                       -> b_ih / b_hh
+    <fwd|bwd>.w_ih / w_hh / b_ih / b_hh    -> <fwd|bwd>.weight_ih_l0 [4H, I] /
+                                              weight_hh_l0 [4H, H] / bias_ih_l0 /
+                                              bias_hh_l0
 
 The last row is the JAX package's ``MLPP``, whose layers are flat leaves of
 one module: the decoder's fusion MLPs (``relevant_mlp``, ``combine_mlp``,
@@ -23,6 +28,13 @@ fusion-site MLPs (``layer<i>.mlp_<site>``, beside its attention
 ``layer<i>.mha_<site>``).  Its ``MLP`` (the
 encoder's ``sem_relevance_mlp`` and ``combine_mlp``) keeps one module per
 layer, ``fc{i}.kernel``, as any dense layer.
+
+The LSTM rows: the LSTM-attention decoder keeps its cell's four leaves on
+itself, under JAX's names; each direction of a BiLSTM block
+(``encoder.l<i>.fwd`` and ``.bwd``) is an ``nn.LSTM``, which names them as
+torch does.  Both biases map as they are (gates i, f, g, o in both
+packages); the decoder's ``i2h``, ``h2h``, ``score`` and ``generator``, a
+block's ``proj`` and the linear decoder's ``head`` are dense layers.
 """
 
 from __future__ import annotations
@@ -45,7 +57,12 @@ _LEAF = {
     "mean": "running_mean",
     "var": "running_var",
 }
-_TRANSPOSED = {"kernel", "w_qkv", "w_out"}
+_LEAF.update({k: k for k in ("w_ih", "w_hh", "b_ih", "b_hh")})  # the LSTM decoder's cell
+# the same leaves in an nn.LSTM (a BiLSTM block's fwd and bwd)
+_LSTM_LEAF = {"w_ih": "weight_ih_l0", "w_hh": "weight_hh_l0", "b_ih": "bias_ih_l0",
+              "b_hh": "bias_hh_l0"}
+_LSTM_MODULES = ("fwd", "bwd")
+_TRANSPOSED = {"kernel", "w_qkv", "w_out", "w_ih", "w_hh"}
 _EMBEDDINGS = ("emb", "embed", "overlap_embed", "scene_embed")
 META_KEYS = ("__step__",)
 _FLAT_LAYER = re.compile(r"(fc\d+)_(kernel|bias)")  # an MLPP leaf
@@ -81,7 +98,10 @@ def bundle_to_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tens
             collection == "batch_stats" and leaf in ("mean", "var"))
         if not ok or not path:
             raise KeyError(f"bundle key {key!r} has no counterpart in the port")
-        name = f"{path}.{_LEAF[leaf]}"
+        port_leaf = _LEAF[leaf]
+        if leaf in _LSTM_LEAF and path.rsplit(".", 1)[-1] in _LSTM_MODULES:
+            port_leaf = _LSTM_LEAF[leaf]
+        name = f"{path}.{port_leaf}"
         if name in out:
             raise KeyError(f"bundle keys collide on {name!r}")
         out[name] = torch.from_numpy(np.ascontiguousarray(_convert(leaf, flat[key])))
@@ -99,6 +119,9 @@ def _bundle_leaf(path: str, leaf: str, t: torch.Tensor) -> str:
     """The JAX leaf name of the port entry ``<path>.<leaf>``.  ``weight``
     is ambiguous: a norm's scale (one dimension), an embedding table (the
     modules named ``emb`` and ``embed``, as in the JAX tree) or a kernel."""
+    lstm = {v: k for k, v in _LSTM_LEAF.items()}
+    if leaf in lstm:
+        return lstm[leaf]
     if leaf != "weight":
         return next(k for k, v in _LEAF.items() if v == leaf)
     if t.dim() == 1:
@@ -111,7 +134,7 @@ def state_dict_to_bundle(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np
     as float32 ``{dotted key: array}`` in the JAX package's layout, which
     ``np.savez`` writes as a bundle the JAX package loads.  An entry with no
     counterpart raises."""
-    port_leaves = sorted(set(_LEAF.values()), key=len, reverse=True)
+    port_leaves = sorted(set(_LEAF.values()) | set(_LSTM_LEAF.values()), key=len, reverse=True)
     out: Dict[str, np.ndarray] = {}
     for name, t in state_dict.items():
         leaf = next((k for k in port_leaves if name.endswith("." + k)), None)

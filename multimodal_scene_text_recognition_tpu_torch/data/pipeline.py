@@ -3,7 +3,8 @@ prefetch and the move to the device (JAX counterpart: data/pipeline.py).
 
 The fixed-shape wire format of a batch:
   image  uint8 [B, 32, 100, 1] (float32 in [0, 1] where the source is float)
-  text   int32 [B, max_text_length + 2] (AttnCodec rows)
+  text   int32 label rows: AttnCodec's [B, max_text_length + 2], or
+         CTCCodec's [B, max_text_length] for the CTC recipe
   overlap int32 [B, 15]; scene int32 [B, 52]; ious float32 [B, 52]
 plus the host-only ``anno_id``, ``labels`` and, on a padded batch,
 ``valid``.  Training drops the short final batch; evaluation pads it with
@@ -20,7 +21,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..charset import AttnCodec
+from ..charset import Codec
 
 DEVICE_KEYS = ("image", "text", "overlap", "scene", "ious")
 
@@ -48,7 +49,7 @@ class PackedSamples:
         self.labels = labels
 
     @classmethod
-    def from_samples(cls, samples: Sequence, codec: AttnCodec) -> "PackedSamples":
+    def from_samples(cls, samples: Sequence, codec: Codec) -> "PackedSamples":
         """Pack sample-like objects (``.image .label .overlap .scene .ious
         .anno_id``); a :class:`PackedSamples` is returned as it is.  Images
         are quantized one by one into the uint8 pack."""
@@ -126,7 +127,7 @@ def packed_batches(packed: PackedSamples, batch_size: int, shuffle: bool = True,
 class Batcher:
     """Collate sample-like objects into fixed-shape numpy batches."""
 
-    def __init__(self, codec: AttnCodec, batch_size: int):
+    def __init__(self, codec: Codec, batch_size: int):
         self.codec = codec
         self.batch_size = batch_size
 

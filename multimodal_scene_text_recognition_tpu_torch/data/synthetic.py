@@ -18,7 +18,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from ..charset import AttnCodec
+from ..charset import AttnCodec, Codec
 from ..config import DEFAULT_CHARS, SYNTHETIC_DIR
 from .pipeline import PackedSamples
 
@@ -41,7 +41,7 @@ def committed_sets(directory: str = SYNTHETIC_DIR) -> Dict[int, Tuple[int, str]]
     return out
 
 
-def make_dataset(size: int, seed: int = 0, codec: Optional[AttnCodec] = None,
+def make_dataset(size: int, seed: int = 0, codec: Optional[Codec] = None,
                  directory: Optional[str] = None) -> PackedSamples:
     """The JAX renderer's ``make_dataset(size, seed)`` at its defaults, as
     :class:`PackedSamples` (uint8 images), label rows encoded by ``codec``

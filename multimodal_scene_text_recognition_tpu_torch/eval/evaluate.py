@@ -12,18 +12,18 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Set
 
 import numpy as np
 
-from ..charset import AttnCodec
+from ..charset import Codec
 from ..data.pipeline import device_batch
 from ..metrics import EvalResult, PredRecord
 
 
-def _decoded(eval_step: Callable, batch: Dict, codec: AttnCodec):
+def _decoded(eval_step: Callable, batch: Dict, codec: Codec):
     ids = eval_step(device_batch(batch, eval_step.device))
     valid = batch.get("valid", np.ones(len(batch["labels"]), bool))
     return codec.decode(ids.cpu().numpy()), valid
 
 
-def validate(eval_step: Callable, batches: Iterable[Dict[str, np.ndarray]], codec: AttnCodec,
+def validate(eval_step: Callable, batches: Iterable[Dict[str, np.ndarray]], codec: Codec,
              print_samples: bool = False, return_records: bool = False) -> EvalResult:
     """Greedy validation: exact-match word accuracy in percent, rounded to 5
     decimals, over the valid rows of ``batches``; with ``return_records``
@@ -61,7 +61,7 @@ def tags_for(ids: Sequence[int], class_labels: List[str]) -> List[str]:
 
 
 def error_diff_eval(eval_step: Callable, batches: Iterable[Dict[str, np.ndarray]],
-                    codec: AttnCodec, base_error_ids: Set[str],
+                    codec: Codec, base_error_ids: Set[str],
                     class_labels: Optional[List[str]] = None,
                     semantic_vector: str = "overlap",
                     print_sem: bool = False) -> Dict[str, object]:

@@ -51,13 +51,25 @@ class Recognizer:
     clip later traffic).  Persisted scales are checked once against the
     first traffic seen, and a drift past 2x warns.  A model with random
     weights (``api.get_model(None, ...)``) has no bundle and so no
-    persisted scales: it calibrates on its first call's crops.
+    persisted scales: it calibrates on its first call's crops.  The
+    int8 backbone serves the transformer encoder and decoder only: with the
+    classic recognizers' BiLSTM encoder or LSTM or linear decoder it is not
+    ported yet.
+
+    Strings are decoded by ``AttnCodec`` whatever ``label_codec`` says, as
+    the JAX package's Recognizer decodes them.
     """
 
     def __init__(self, model, batch_sizes: Sequence[int] = (1, 8, 64),
                  int8_backbone: bool = False, int8_scales_path: Optional[str] = None):
         self.model = model
         self.cfg = model.cfg
+        if int8_backbone and (self.cfg.encoder, self.cfg.decoder) != ("transformer",
+                                                                       "transformer"):
+            raise NotImplementedError(
+                f"int8_backbone with encoder={self.cfg.encoder!r}, decoder="
+                f"{self.cfg.decoder!r}: int8 serving of the classic recognizers is not "
+                "ported yet")
         self.codec = AttnCodec(self.cfg.chars, self.cfg.max_text_length)
         self.batch_sizes = tuple(sorted(batch_sizes))
         self.device = next(model.parameters()).device
@@ -196,7 +208,9 @@ class Recognizer:
 
         ``beam_size`` > 0 decodes by beam search of that width, and a
         crop's score is its best beam's cumulative log-probability; greedy
-        decoding (``beam_size=0``) scores every crop 0.0.  ``semantics``:
+        decoding (``beam_size=0``, and any ``beam_size`` with a decoder
+        other than the transformer, as in the JAX package) scores every
+        crop 0.0.  ``semantics``:
         the crops' detected objects for the fusion hooks, a dict of
         ``overlap`` ids [N, max_overlap_objs], ``scene`` ids [N,
         max_scene_objs] and ``ious`` [N, max_scene_objs] (any of them; see
@@ -210,7 +224,7 @@ class Recognizer:
             sem = None if semantics is None else {k: np.asarray(v)[i:i + n]
                                                   for k, v in semantics.items()}
             image, overlap, scene, ious = self.prepare(chunk, self._bucket(n), semantics=sem)
-            if beam_size:
+            if beam_size and self.cfg.decoder == "transformer":
                 if self.int8_backbone:
                     ids, best = self._ensure_int8(chunk, beam_size)(image, overlap, scene, ious)
                 else:

@@ -1,5 +1,6 @@
-"""Transformer decoder (JAX counterpart: models/decoders.py
-``TransformerDecoder``).
+"""The decoders (JAX counterpart: models/decoders.py): the transformer
+decoder, and the classic recognizers' LSTM-attention decoder and per-column
+linear decoder (at the end of the module).
 
 Serving: the memory projection ``hid_to_emb`` and the per-layer
 cross-attention K/V run once in float32; with ``fused`` the whole 25-step
@@ -553,3 +554,100 @@ class TransformerDecoder(nn.Module):
         best = torch.argmax(ranked, dim=1)  # first index of the maximum
         rows = torch.arange(seqs.shape[0], device=seqs.device)
         return seqs[rows, best], ranked[rows, best]
+
+
+class LSTMAttentionDecoder(nn.Module):
+    """The additive-attention LSTM decoder (JAX ``LSTMAttentionDecoder``).
+
+    Each step scores the memory by ``score(tanh(i2h(memory) + h2h(h)))``,
+    softmaxes the scores over the memory's positions, and feeds the cell
+    the context beside the one-hot of the previous class, ``[context ;
+    one_hot(prev)]`` in that order (``w_ih`` [4H, I + C], ``w_hh`` [4H, H],
+    ``b_ih``, ``b_hh``: torch's layout, gates i, f, g, o); ``generator``
+    maps h to the class logits.  h and c start at zero.  Everything runs in
+    float32.  It has no dropout, fusion hook, early stop, kernel or beam
+    search, as in the JAX package."""
+
+    def __init__(self, num_classes: int, input_dim: int = 256, hidden_dim: int = 256,
+                 max_text_length: int = 25):
+        super().__init__()
+        I, H, C = input_dim, hidden_dim, num_classes
+        self.num_classes, self.max_text_length = C, max_text_length
+        self.i2h = nn.Linear(I, H, bias=False)
+        self.h2h = nn.Linear(H, H)
+        self.score = nn.Linear(H, 1, bias=False)
+        self.w_ih = nn.Parameter(torch.empty(4 * H, I + C))
+        self.w_hh = nn.Parameter(torch.empty(4 * H, H))
+        self.b_ih = nn.Parameter(torch.empty(4 * H))
+        self.b_hh = nn.Parameter(torch.empty(4 * H))
+        self.generator = nn.Linear(H, C)
+
+    def _start(self, enc_out: torch.Tensor):
+        """enc_out as float32, its projection ``i2h`` (once for every
+        step), and the zero h and c."""
+        enc_out = enc_out.float()
+        h = enc_out.new_zeros(enc_out.shape[0], self.w_hh.shape[1])
+        return enc_out, self.i2h(enc_out), h, h
+
+    def _step(self, enc_out, proj_mem, h, c, onehot):
+        """One step: attend over the memory with h, then the cell on
+        ``[context ; onehot]`` -> (h, c)."""
+        e = self.score(torch.tanh(proj_mem + self.h2h(h)[:, None]))  # [B, Tm, 1]
+        context = (torch.softmax(e, dim=1) * enc_out).sum(dim=1)
+        # gates i, f, g, o from both biases, as JAX's lstm_cell; on the card
+        # the nonlinearities and the state update are one fused launch
+        return torch.lstm_cell(torch.cat([context, onehot], dim=-1), (h, c), self.w_ih,
+                               self.w_hh, self.b_ih, self.b_hh)
+
+    def teacher_forced(self, enc_out: torch.Tensor, text: torch.Tensor, drop: Drop = None,
+                       semantics: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """enc_out [B, Tm, I], text [B, T] input ids (from [GO]) -> logits
+        [B, T, C] float32, step t fed the one-hot of ``text[:, t]``;
+        ``drop`` and ``semantics`` are ignored."""
+        enc_out, proj_mem, h, c = self._start(enc_out)
+        onehots = F.one_hot(text.long(), self.num_classes).float()
+        hidden = []
+        for t in range(text.shape[1]):
+            h, c = self._step(enc_out, proj_mem, h, c, onehots[:, t])
+            hidden.append(h)
+        return self.generator(torch.stack(hidden, dim=1))
+
+    def greedy_decode(self, enc_out: torch.Tensor,
+                      semantics: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """enc_out [B, Tm, I] -> logits [B, max_text_length + 1, C] float32
+        (one step more than the transformer decoder's, for [s]), step 0
+        fed [GO] and each later step the previous one's argmax."""
+        enc_out, proj_mem, h, c = self._start(enc_out)
+        prev = torch.full((enc_out.shape[0],), GO_ID, dtype=torch.long, device=enc_out.device)
+        logits = []
+        for _ in range(self.max_text_length + 1):
+            h, c = self._step(enc_out, proj_mem, h, c, F.one_hot(prev, self.num_classes).float())
+            logits.append(self.generator(h))
+            prev = logits[-1].argmax(dim=-1)
+        return torch.stack(logits, dim=1)
+
+    def beam_decode(self, *args, **kwargs):
+        raise NotImplementedError("beam decode requires the TF decoder")
+
+
+class LinearDecoder(nn.Module):
+    """Per-column class logits, ``head`` of each encoder column (JAX
+    ``LinearDecoder``): [B, Tm, in_dim] -> [B, Tm, C] float32, in training
+    and serving alike; the CTC recipe's decoder."""
+
+    def __init__(self, num_classes: int, in_dim: int = 512):
+        super().__init__()
+        self.head = nn.Linear(in_dim, num_classes)
+
+    def greedy_decode(self, enc_out: torch.Tensor,
+                      semantics: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.head(enc_out.float())
+
+    def teacher_forced(self, enc_out: torch.Tensor, text: torch.Tensor, drop: Drop = None,
+                       semantics: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The columns' logits; ``text``, ``drop`` and ``semantics`` are
+        ignored."""
+        return self.head(enc_out.float())
+
+    def beam_decode(self, *args, **kwargs):
+        raise NotImplementedError("beam decode requires the TF decoder")

@@ -1,5 +1,11 @@
-"""Transformer encoder over the visual columns (JAX counterpart:
-models/encoders.py, ``TransformerEncoder`` with the reference norm order).
+"""Sequence encoders over the visual columns (JAX counterpart:
+models/encoders.py): ``BiLSTMEncoder``, two BiLSTM blocks, and
+``TransformerEncoder``, in the reference model's norm order or textbook
+post-LN (``norm_style``).
+
+The BiLSTM encoder runs in float32 whatever the compute type, as the JAX
+package's does (its columns are cast to float32 and its parameters stay
+float32); it takes no semantics and has no dropout, as there.
 
 ``drop`` is the dropout of train mode (``x -> x`` at eval), applied at the
 JAX module's sites: the positional encoding's output, the attention output
@@ -17,6 +23,7 @@ import torch
 from torch import nn
 
 from ..ops.int8 import int8_linear
+from ..ops.lstm import bilstm
 from .layers import FusionMLP, MultiHeadAttention, layer_norm, positional_rows, relevance_fusion
 
 Drop = Callable[[torch.Tensor], torch.Tensor]
@@ -26,12 +33,48 @@ def no_dropout(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-class EncoderLayer(nn.Module):
-    """Attention reads the un-normed input; the residual stream is normed
-    before each add (the reference model's order)."""
+class BiLSTMBlock(nn.Module):
+    """A bidirectional LSTM (``fwd`` and ``bwd``, one ``nn.LSTM`` each) and
+    the projection of its [B, T, 2H] states to ``out_dim``."""
 
-    def __init__(self, d_model: int, num_heads: int, ff_dim: int):
+    def __init__(self, input_dim: int, hidden_dim: int, out_dim: int):
         super().__init__()
+        self.fwd = nn.LSTM(input_dim, hidden_dim, batch_first=True)
+        self.bwd = nn.LSTM(input_dim, hidden_dim, batch_first=True)
+        self.proj = nn.Linear(2 * hidden_dim, out_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj(bilstm(x, self.fwd, self.bwd))
+
+
+class BiLSTMEncoder(nn.Module):
+    """Two stacked BiLSTM blocks ``l0`` and ``l1``: [B, T, input_dim] ->
+    [B, T, out_dim] float32."""
+
+    def __init__(self, input_dim: int = 512, hidden_dim: int = 256, out_dim: int = 256):
+        super().__init__()
+        self.l0 = BiLSTMBlock(input_dim, hidden_dim, out_dim)
+        self.l1 = BiLSTMBlock(out_dim, hidden_dim, out_dim)
+
+    def forward(self, cols: torch.Tensor, drop: Drop = no_dropout, train: bool = False,
+                semantics: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``drop``, ``train`` and ``semantics`` are taken and ignored, as
+        the JAX encoder ignores them."""
+        return self.l1(self.l0(cols.float()))
+
+
+class EncoderLayer(nn.Module):
+    """With ``norm_style="reference"`` attention reads the un-normed input
+    and the residual stream is normed before each add (the reference
+    model's order); with ``"standard"`` each sublayer's sum is normed
+    (post-LN)."""
+
+    def __init__(self, d_model: int, num_heads: int, ff_dim: int,
+                 norm_style: str = "reference"):
+        super().__init__()
+        if norm_style not in ("reference", "standard"):
+            raise ValueError(f"unknown encoder_norm_style {norm_style!r}")
+        self.norm_style = norm_style
         self.self_attn = MultiHeadAttention(d_model, num_heads)
         self.linear1 = nn.Linear(d_model, ff_dim)
         self.linear2 = nn.Linear(ff_dim, d_model)
@@ -45,16 +88,22 @@ class EncoderLayer(nn.Module):
                 return int8_linear(h, mod.weight.t(), mod.bias).to(h.dtype)
             return mod(h)
 
+        def ff(h):
+            return dense(self.linear2, drop(torch.relu(dense(self.linear1, h))))
+
         a = self.self_attn(x, x, int8=int8)
+        if self.norm_style == "standard":
+            x = self.norm1(x + drop(a))
+            return self.norm2(x + drop(ff(x)))
         x = self.norm1(x) + drop(a)
-        f = dense(self.linear2, drop(torch.relu(dense(self.linear1, x))))
-        return self.norm2(x) + drop(f)
+        return self.norm2(x) + drop(ff(x))
 
 
 class TransformerEncoder(nn.Module):
     def __init__(self, d_model: int = 512, num_heads: int = 8, ff_dim: int = 2048,
                  num_layers: int = 6, max_len: int = 26, int8: bool = False,
-                 pre_encoder_mlp: bool = False, embed_dim: int = 256):
+                 pre_encoder_mlp: bool = False, embed_dim: int = 256,
+                 norm_style: str = "reference"):
         super().__init__()
         self.max_len, self.d_model, self.num_layers = max_len, d_model, num_layers
         self.int8, self.pre_encoder_mlp = int8, pre_encoder_mlp
@@ -63,7 +112,7 @@ class TransformerEncoder(nn.Module):
             self.sem_relevance_mlp = FusionMLP(width, d_model, 1, 3)
             self.combine_mlp = FusionMLP(width, d_model, d_model, 3)
         for i in range(num_layers):
-            self.add_module(f"layer{i}", EncoderLayer(d_model, num_heads, ff_dim))
+            self.add_module(f"layer{i}", EncoderLayer(d_model, num_heads, ff_dim, norm_style))
         self.final_norm = layer_norm(d_model)
 
     def fuse(self, cols: torch.Tensor, semantics: Optional[torch.Tensor]) -> torch.Tensor:

@@ -1,5 +1,9 @@
 """Model assembly: TPS -> ResNet-31 -> semantics -> encoder -> decoder
-(JAX counterpart: models/model.py): greedy inference, beam search, the
+(JAX counterpart: models/model.py), with the encoder (transformer or
+BiLSTM) and the decoder (transformer, LSTM-attention or per-column linear)
+that the configuration names; the decoder's memory is as wide as the
+encoder's output.  Greedy inference, beam search (the transformer decoder
+only, as in the JAX package), the
 teacher-forced training pass, and the int8 serving step that splices the
 int8 loc-net and backbone in front of the encoder and decoder
 (:func:`make_int8_eval_step`, JAX models/resnet_int8.make_int8_eval_step).
@@ -23,8 +27,8 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.precision import full_fp32
-from .decoders import SITES, TransformerDecoder
-from .encoders import TransformerEncoder
+from .decoders import SITES, LinearDecoder, LSTMAttentionDecoder, TransformerDecoder
+from .encoders import BiLSTMEncoder, TransformerEncoder
 from .layers import BatchNorm2d, dropout, nchw_channels_last
 from .resnet import ResNet31, to_column_sequence
 from .resnet_int8 import QConv, quantize_resnet, quantize_tps, resnet31_int8_forward, \
@@ -36,9 +40,6 @@ from .transformation import TPSTransform
 class SceneTextModel(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.label_codec != "attn":
-            raise NotImplementedError(f"label_codec={cfg.label_codec!r}: the CTC codec and "
-                                      "its linear decoder are not ported yet")
         self.cfg = cfg
         dtype = getattr(torch, cfg.compute_dtype)
         if cfg.use_tps:
@@ -46,18 +47,36 @@ class SceneTextModel(nn.Module):
                 cfg.num_fiducial, cfg.img_h, cfg.img_w, cfg.input_channels, dtype)
         self.feature_extractor = ResNet31(cfg.input_channels, cfg.hidden_dim, dtype=dtype)
         self.semantic = build_semantic_embedder(cfg)
-        self.encoder = TransformerEncoder(cfg.hidden_dim, cfg.num_heads, cfg.ff_dim,
-                                          cfg.enc_layers, cfg.num_cols, int8=cfg.encoder_int8,
-                                          pre_encoder_mlp=cfg.pre_encoder_mlp,
-                                          embed_dim=cfg.embed_dim)
-        self.decoder = TransformerDecoder(
-            cfg.num_classes, cfg.embed_dim, cfg.hidden_dim, cfg.num_heads, cfg.ff_dim,
-            cfg.dec_layers, cfg.max_text_length, dtype,
-            early_stop=cfg.decode_early_stop, beam_fused=cfg.decode_beam_fused,
-            int8=cfg.decode_int8, pre_decoder_mlp=cfg.pre_decoder_mlp,
-            cls_decoder_init=cfg.cls_decoder_init, post_decoder_mlp=cfg.post_decoder_mlp,
-            fused=cfg.decode_fused,
-            sites=[s for s in SITES if getattr(cfg, f"multihead_{s}")])
+        if cfg.encoder == "lstm":
+            self.encoder = BiLSTMEncoder(cfg.hidden_dim, cfg.lstm_hidden, cfg.lstm_hidden)
+            enc_dim = cfg.lstm_hidden
+        elif cfg.encoder == "transformer":
+            self.encoder = TransformerEncoder(cfg.hidden_dim, cfg.num_heads, cfg.ff_dim,
+                                              cfg.enc_layers, cfg.num_cols, int8=cfg.encoder_int8,
+                                              pre_encoder_mlp=cfg.pre_encoder_mlp,
+                                              embed_dim=cfg.embed_dim,
+                                              norm_style=cfg.encoder_norm_style)
+            enc_dim = cfg.hidden_dim
+        elif cfg.encoder == "oscar":
+            raise NotImplementedError("encoder='oscar': the Oscar encoder is not ported yet")
+        else:
+            raise ValueError(f"unknown encoder {cfg.encoder!r}")
+        if cfg.decoder == "lstm":
+            self.decoder = LSTMAttentionDecoder(cfg.num_classes, enc_dim, cfg.lstm_hidden,
+                                                cfg.max_text_length)
+        elif cfg.decoder == "transformer":
+            self.decoder = TransformerDecoder(
+                cfg.num_classes, cfg.embed_dim, enc_dim, cfg.num_heads, cfg.ff_dim,
+                cfg.dec_layers, cfg.max_text_length, dtype,
+                early_stop=cfg.decode_early_stop, beam_fused=cfg.decode_beam_fused,
+                int8=cfg.decode_int8, pre_decoder_mlp=cfg.pre_decoder_mlp,
+                cls_decoder_init=cfg.cls_decoder_init, post_decoder_mlp=cfg.post_decoder_mlp,
+                fused=cfg.decode_fused,
+                sites=[s for s in SITES if getattr(cfg, f"multihead_{s}")])
+        elif cfg.decoder == "linear":
+            self.decoder = LinearDecoder(cfg.num_classes, enc_dim)
+        else:
+            raise ValueError(f"unknown decoder {cfg.decoder!r}")
         self.set_use_kernels(True)
         for mod in self.modules():  # cfg.fused_bn is K3's default
             if isinstance(mod, BatchNorm2d):
@@ -69,17 +88,18 @@ class SceneTextModel(nn.Module):
         warp (K2), the fused decode with its early stop and its int8 mode
         (K1, K1e, K1q), the fused beam search (K4) and every BatchNorm's
         backward reduction (K3).  CPU tensors always take the plain
-        versions."""
+        versions.  The LSTM and linear decoders have no kernel."""
         if self.cfg.use_tps:
             self.transformation.use_kernels = on
-        self.decoder.use_kernels = on
+        if isinstance(self.decoder, TransformerDecoder):
+            self.decoder.use_kernels = on
         for mod in self.modules():
             if isinstance(mod, BatchNorm2d):
                 mod.use_kernels = on
 
     def precision(self):
         """The context the model's forward and backward run in: full float32
-        (TF32 off for matmuls and convs, whatever the caller set) where the
+        (TF32 off for matmuls, convs and RNNs, whatever the caller set) where the
         compute type is float32; the caller's settings otherwise."""
         if self.cfg.compute_dtype == "float32":
             return full_fp32()
@@ -134,12 +154,13 @@ class SceneTextModel(nn.Module):
         (``scene``/``ious``: see the module's docstring).
 
         ``train=False``: greedy logits [B, max_text_length, num_classes]
-        float32 (``text`` is ignored).  ``train=True``: the teacher-forced
-        pass over ``text`` [B, T] input ids, with BatchNorm on batch
-        statistics (updating the running ones), dropout drawn from
+        float32 (``text`` is ignored; the LSTM decoder gives one step more,
+        the linear decoder one row a column, num_cols).  ``train=True``: the
+        teacher-forced pass over ``text`` [B, T] input ids, with BatchNorm
+        on batch statistics (updating the running ones), dropout drawn from
         ``generator`` (on the image's device) and the semantic vectors
         through every fusion hook that is on -> logits [B, T, num_classes]
-        float32."""
+        float32 (the linear decoder's [B, num_cols, num_classes])."""
         if not train:
             with self.precision():
                 return self.decode_from_columns(self.features(self.rectify(image)), overlap,

@@ -23,8 +23,8 @@ from typing import Any, Dict, Iterable, List, Mapping
 import numpy as np
 import torch
 
-from ..charset import AttnCodec
-from ..config import Config, check_recipe
+from ..charset import AttnCodec, CTCCodec
+from ..config import Config
 from ..data.pipeline import (DEVICE_KEYS, PackedSamples, Prefetcher, device_batch,
                              packed_batches, pinned)
 from ..eval.evaluate import validate
@@ -63,13 +63,32 @@ def _fetch(pending: List[Dict[str, torch.Tensor]]) -> List[Dict[str, float]]:
     return [dict(zip(keys, row)) for row in rows.tolist()]
 
 
+def build_codec(cfg: Config):
+    """The label codec of the configured recipe: ``CTCCodec`` for the CTC
+    one (``train.loss="ctc"``, ``model.label_codec="ctc"`` and
+    ``model.decoder="linear"``, all three), else ``AttnCodec``; a ValueError
+    for a CTC recipe that lacks one of them."""
+    if cfg.train.loss == "ctc" or cfg.model.label_codec == "ctc":
+        if cfg.train.loss != "ctc" or cfg.model.label_codec != "ctc":
+            raise ValueError(
+                "CTC training needs BOTH train.loss=ctc and model.label_codec=ctc (got "
+                f"loss={cfg.train.loss!r}, codec={cfg.model.label_codec!r})")
+        if cfg.model.decoder != "linear":
+            raise ValueError("train.loss=ctc requires model.decoder=linear (per-column "
+                             f"logits); got {cfg.model.decoder!r}")
+        return CTCCodec(cfg.model.chars, cfg.model.max_text_length)
+    return AttnCodec(cfg.model.chars, cfg.model.max_text_length)
+
+
 def train(cfg: Config, step: TrainStep, train_samples, val_samples, log_every: int = 50,
           verbose: bool = True) -> TrainStep:
     """Train ``step`` (a :class:`TrainStep`, whose optimizer takes
     ``cfg.train``'s settings and StepLR boundaries of ``len(train_samples)
     // batch_size`` steps) on ``train_samples`` and validate greedily on
-    ``val_samples`` (sample sequences or :class:`PackedSamples`), on the
-    step's device.  Writes ``<results_dir>/<experiment>_training_log.csv``
+    ``val_samples`` (sample sequences or :class:`PackedSamples`, whose label
+    rows must be in the recipe's codec, :func:`build_codec`), on the step's
+    device; validation decodes in that codec (a CTC model's columns by the
+    best-path collapse).  Writes ``<results_dir>/<experiment>_training_log.csv``
     and, on each new best, the full state into
     ``<results_dir>/models/<experiment>``.  Returns ``step``.
 
@@ -87,9 +106,8 @@ def train(cfg: Config, step: TrainStep, train_samples, val_samples, log_every: i
       and pinned in a :class:`Prefetcher`'s thread, each batch copied to
       the device on the loop's stream; the checks follow every step.
     """
-    check_recipe(cfg)
     tc = cfg.train
-    codec = AttnCodec(cfg.model.chars, cfg.model.max_text_length)
+    codec = build_codec(cfg)
     device = step.device
     n_train = len(train_samples)
     steps_per_epoch = max(n_train // tc.batch_size, 1)

@@ -468,17 +468,23 @@ def test_evaluate_verb(tmp_path):
 
 def test_verbs_need_the_card_unless_told_cpu(monkeypatch):
     """The model and the trainer the verbs run on default to the card and
-    raise without one; CTC, not ported, is refused."""
+    raise without one; the linear CTC model is built on the CPU, and a CTC
+    recipe that lacks a part is refused with JAX ``build_codec``'s
+    ValueErrors."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.get_trainer(cfg=PORT_CFG)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.get_model(cfg=PORT_CFG)
-    with pytest.raises(NotImplementedError, match="CTC"):
-        api.get_model(cfg=dataclasses.replace(PORT_CFG, label_codec="ctc"), device="cpu")
+    ctc = dataclasses.replace(PORT_CFG, decoder="linear", label_codec="ctc")
+    assert api.get_model(cfg=ctc, device="cpu").decoder.head.out_features == 1 + len(DEFAULT_CHARS)
     trainer = api.get_trainer(cfg=PORT_CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="CTC"):
+    with pytest.raises(ValueError, match="label_codec"):
         api.train(trainer, cfg=dataclasses.replace(
             API_CFG, train=dataclasses.replace(API_CFG.train, loss="ctc")))
+    with pytest.raises(ValueError, match="linear"):
+        api.get_dataset("synthetic", dataclasses.replace(
+            API_CFG, model=dataclasses.replace(PORT_CFG, label_codec="ctc"),
+            train=dataclasses.replace(API_CFG.train, loss="ctc")))
     with pytest.raises(TypeError):
         api.train(trainer.model)

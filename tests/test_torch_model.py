@@ -139,8 +139,8 @@ def test_get_model_requires_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_paths_are_refused():
-    """The random and BERT semantic embedders are not ported, and each says
-    what is not; early stop, the fused beam, the fusion hooks the fused
+    """The random and BERT semantic embedders and the Oscar encoder are not
+    ported, and each says what is not; early stop, the fused beam, the fusion hooks the fused
     kernels carry (the semantic CLS step-0 input among them) in every
     linear embedder mode, and the zero embedder are built.  The paths
     lifted since (greedy decoding through the stepper, the per-layer fusion
@@ -149,7 +149,8 @@ def test_unported_paths_are_refused():
     fused = dict(SMALL, decode_fused=True)
     refused = [(ModelConfig(**fused, semantic_source="rand"), "rand"),
                (ModelConfig(**fused, semantic_embedding="bert"), "bert"),
-               (ModelConfig(**SMALL, semantic_source="rand", multihead_pre_memory=True), "rand")]
+               (ModelConfig(**SMALL, semantic_source="rand", multihead_pre_memory=True), "rand"),
+               (ModelConfig(**fused, encoder="oscar"), "Oscar")]
     for cfg, what in refused:
         with pytest.raises(NotImplementedError, match=what):
             SceneTextModel(cfg)
