@@ -57,7 +57,17 @@ only at a CPU top-2 gap below CLASSIC_FLIP_GAP, then in bf16 with its K2
 launch, ms, stage split and idle share; three train steps of each with
 the kernels and with their plain versions (36 K3 and 1 K2 launches a
 step); and one epoch of BiLSTM-CTC through ``api.train`` on the committed
-set, whose loss must fall, then its CTC validation of the 512 crops.  The gemm probe phase holds the
+set, whose loss must fall, then its CTC validation of the 512 crops.  The
+phase "model variants" runs the other variants with seeded random
+weights: Oscar-BERT (the Oscar encoder fusing the BERT embedder's tag
+vectors, ``TagTokenizer`` rows of seeded tags in ``overlap``) served at
+B=192 greedily (K1 with cls0) and by beam search (K4 with cls0) in bf16,
+in float32 (TF32 allowed by the caller) against the plain path and the
+CPU, and through the int8 backbone with K1q; BiLSTM-Attn through the int8
+backbone; three train steps each of Oscar-BERT, the flagship with the
+random semantic source and with ``remat``, kernels against plain, and
+remat against the same steps without it (running statistics equal, both
+peak memories).  The gemm probe phase holds the
 int8-vs-bf16 probe's two chain kernels (P1, P2) against their plain
 versions at 1, 4 and 30 steps, on a tie input and a NaN input, checks both
 end all NaN at the probe's 200 steps, prints their launch plan
@@ -2833,10 +2843,12 @@ def make_train_batch(n: int, seed: int, chars: str, codec=None):
 
 
 def train_run(api, bn, gs, batch, use_kernels: bool, steps: int = TRAIN_STEPS,
-              warp_kernel: bool = None, cfg=None, train_cfg=None, seed: int = SEMANTIC_SEED):
+              warp_kernel: bool = None, cfg=None, train_cfg=None, seed: int = SEMANTIC_SEED,
+              trained: bool = False):
     """``steps`` steps of the trained flagship (``TrainConfig()`` defaults,
     dropout 0.1), or of ``cfg`` with the random weights of ``seed`` (and
-    ``train_cfg``, default ``TrainConfig()``), with the kernels or their
+    ``train_cfg``, default ``TrainConfig()``; with ``trained`` the trained
+    bundle's weights over them, ``trained_over``), with the kernels or their
     plain versions (``warp_kernel`` sets K2 apart); the per-step metrics
     (with the step's CUDA-event ``ms``), the K3 and K2 counts after each
     step, and the (shape, dtype) of each BatchNorm input of the first
@@ -2847,6 +2859,8 @@ def train_run(api, bn, gs, batch, use_kernels: bool, steps: int = TRAIN_STEPS,
         trainer = api.get_trainer(BUNDLE)
     else:
         trainer = api.get_trainer(None, cfg, train_cfg, seed=seed)
+        if trained:
+            trained_over(trainer.model)
     trainer.model.set_use_kernels(use_kernels)
     if warp_kernel is not None:
         trainer.model.transformation.use_kernels = warp_kernel
@@ -3478,6 +3492,434 @@ def classic_phase(api, bn, gs, crops):
             "epoch_bilstm_ctc": classic_ctc_epoch(api, bn, gs, ctc, ctc_train, ctc_codec)}
 
 
+# -- the model variants: Oscar-BERT served (greedy, beam, f32, int8),
+# -- BiLSTM-Attn in int8, and training Oscar-BERT, the random semantic
+# -- source and backbone remat, at full width with seeded random weights
+
+VARIANT_SEED = 19  # their random weights (no bundle holds them)
+VARIANT_TAG_SEED = 20  # the served crops' tag lists (a train batch's: VARIANT_TAG_SEED + 1)
+VARIANT_SERVE_REPS = 5
+# Oscar-BERT bf16 beam search against its plain version: the least share of
+# rows whose best beam is the plain one's.  A floor against a broken path,
+# not a precision limit: these seeded weights leave near ties in many rows
+# (the greedy flips sit at plain top-2 gaps of 3e-4-7e-3), after which two
+# searches part for good; an H100 read 71.35% identical.
+VARIANT_BEAM_MIN_SAME = 0.5
+CLASS_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets", "features",
+                          "vinvl_classes.txt")
+
+
+def oscar_bert_config():
+    """The Oscar-BERT recognizer: the Oscar encoder fusing the BERT
+    embedder's tag vectors, the semantic CLS step-0 row, the fused greedy
+    decode and beam search; the JAX defaults otherwise."""
+    from multimodal_scene_text_recognition_tpu_torch.config import ModelConfig
+
+    return ModelConfig(encoder="oscar", oscar_encoder=True, semantic_embedding="bert",
+                       decode_fused=True, decode_beam_fused=True, cls_decoder_init=True)
+
+
+def make_tag_rows(n: int, seed: int, max_len: int = 15):
+    """Seeded detector tags per crop (1-8 labels of ``vinvl_classes.txt``)
+    as ``TagTokenizer`` rows [n, max_len]: the ``overlap`` input the
+    recognizer prepares for the BERT embedder."""
+    from multimodal_scene_text_recognition_tpu_torch.data.bert_tokens import (
+        tokenizer_from_class_file)
+
+    tok = tokenizer_from_class_file(CLASS_FILE)
+    with open(CLASS_FILE) as f:
+        labels = [line.strip() for line in f if line.strip()]
+    rng = np.random.default_rng(seed)
+    return {"overlap": np.stack([tok.encode_tags(list(rng.choice(labels, rng.integers(1, 9))),
+                                                 max_len=max_len) for _ in range(n)])}
+
+
+def zero_counts(fd, fb, gs) -> None:
+    for counter in ("launches", "launches_int8", "launches_int8_wide", "launches_cls0"):
+        setattr(fd.fused_greedy_decode_cuda, counter, 0)
+    fb.fused_beam_decode_cuda.launches = fb.fused_beam_decode_cuda.launches_cls0 = 0
+    gs.grid_sample_cuda.launches = 0
+
+
+def read_counts(fd, fb, gs) -> dict:
+    return {"K1": fd.fused_greedy_decode_cuda.launches,
+            "K1q": fd.fused_greedy_decode_cuda.launches_int8,
+            "K1q wide": fd.fused_greedy_decode_cuda.launches_int8_wide,
+            "K1 or K1q with cls0": fd.fused_greedy_decode_cuda.launches_cls0,
+            "K4": fb.fused_beam_decode_cuda.launches,
+            "K4 with cls0": fb.fused_beam_decode_cuda.launches_cls0,
+            "K2": gs.grid_sample_cuda.launches}
+
+
+def variant_stage_times(model, rec, crops, sem, decode, reps: int = VARIANT_SERVE_REPS,
+                        rectify=None, features=None):
+    """Median CUDA-event ms of each stage of one recognize call of a model
+    with a semantic embedder: host prepare, rectify, features, the semantic
+    embedder, the encoder, the decoder (``decode(enc, semantics)`` -> ids:
+    memory, cls0, cross K/V and the kernel), strings."""
+    rectify = rectify or model.rectify
+    features = features or model.features
+    names = ["prepare", "rectify", "features", "semantic embedder", "encoder", "decoder",
+             "decode_strings"]
+    samples = {n: [] for n in names}
+    for _ in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        with torch.no_grad(), model.precision():
+            ev[0].record()
+            image, overlap, scene, ious = rec.prepare(crops, len(crops), semantics=sem)
+            ev[1].record()
+            rect = rectify(image)
+            ev[2].record()
+            cols = features(rect)
+            ev[3].record()
+            s = model.semantics(overlap, scene, ious)
+            ev[4].record()
+            enc = model.encoder(cols, semantics=s)
+            ev[5].record()
+            ids = decode(enc, s)
+            ev[6].record()
+            rec.codec.decode(ids.cpu().numpy())
+            ev[7].record()
+        torch.cuda.synchronize()
+        for i, n in enumerate(names):
+            samples[n].append(ev[i].elapsed_time(ev[i + 1]))
+    return {n: statistics.median(v[1:]) for n, v in samples.items()}
+
+
+def oscar_f32(api, crops, tags, cfg):
+    """Oscar-BERT in float32 with TF32 turned on by the caller: the greedy
+    strings, kernels against plain, must be identical, and the beam ones
+    may differ only at a tie (every row's best score within
+    CLASSIC_FLIP_GAP of the plain one); then the greedy logits against the
+    same model moved to the CPU (a differing string only at a CPU top-2 gap
+    below CLASSIC_FLIP_GAP).  -> (summary, failures)."""
+    from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
+
+    card = api.get_model(None, dataclasses.replace(cfg, compute_dtype="float32"),
+                         seed=VARIANT_SEED)
+    rec = Recognizer(card, batch_sizes=(B,))
+    agree, texts = {}, {}
+    with tf32_on():  # the float32 model (its Oscar and BERT matmuls too) must not take it
+        for name, beam_size in (("greedy", 0), ("beam", BEAM)):
+            texts[name], kscores = rec.recognize(crops, beam_size, return_scores=True,
+                                                 semantics=tags)
+            card.set_use_kernels(False)
+            plain, pscores = rec.recognize(crops, beam_size, return_scores=True, semantics=tags)
+            card.set_use_kernels(True)
+            agree[name] = sum(a == b for a, b in zip(texts[name], plain)) / B
+        beam_err = max(abs(a - b) for a, b in zip(kscores, pscores))
+        beam_rows = sum(a != b for a, b in zip(texts["beam"], plain))
+        image, overlap, scene, ious = rec.prepare(crops, B, semantics=tags)
+        with torch.no_grad():
+            got = card(image, overlap, scene=scene, ious=ious).cpu()
+    host = card.to("cpu")  # the same weights
+    t = time.perf_counter()
+    with torch.no_grad():
+        want = host(image.cpu(), overlap.cpu(), scene=scene.cpu(), ious=ious.cpu())
+    cpu_s = time.perf_counter() - t
+    host_texts = rec.codec.decode(want.argmax(-1).numpy())
+    del card, host, rec
+    torch.cuda.empty_cache()
+    same = sum(a == b for a, b in zip(texts["greedy"], host_texts)) / B
+    err, flips = err_to_first_flip(got, want)
+    log(f"Oscar-BERT f32 with TF32 allowed by the caller: strings, kernels vs plain {agree} "
+        f"(greedy limit 1.0; beam: {beam_rows} rows differ, best scores max |diff| "
+        f"{beam_err:.3e}, limit {CLASSIC_FLIP_GAP:g}: a differing beam only at a tie); greedy "
+        f"card vs CPU {same:.4f} identical ({len(set(host_texts))} distinct "
+        f"on the CPU, e.g. {host_texts[:3]}), logits max |diff| up to each row's first "
+        f"differing token {err:.3e}, rows that differ (row, step, CPU top-2 gap) {flips} (gap "
+        f"limit {CLASSIC_FLIP_GAP:g}); the CPU forward {cpu_s:.2f} s")
+    failures = []
+    if agree["greedy"] != 1.0 or not beam_err < CLASSIC_FLIP_GAP:
+        failures.append(f"f32 strings, kernels vs plain: {agree}; beam scores {beam_err} off")
+    if got.shape != (B, cfg.max_text_length, cfg.num_classes) or not torch.isfinite(got).all():
+        failures.append(f"f32 logits of shape {tuple(got.shape)} or not finite")
+    if any(gap >= CLASSIC_FLIP_GAP for _, _, gap in flips):
+        failures.append(f"f32 card strings differ from the CPU's at gaps {flips}")
+    return {"f32_kernels_vs_plain_strings": agree, "f32_beam_score_err": beam_err,
+            "f32_beam_rows_differing": beam_rows, "f32_vs_cpu_strings": same,
+            "f32_vs_cpu_err_to_first_flip": err, "f32_vs_cpu_flips": flips,
+            "cpu_distinct_strings": len(set(host_texts)), "cpu_forward_s": cpu_s}, failures
+
+
+def kernels_vs_plain(model, rec, crops, sem, beam_size: int, int8: bool):
+    """The decoder of one served call with the kernels and with their plain
+    versions on one encoder output, computed once, so that what differs is
+    the decoder's kernel alone (K2's float32-ulp differences upstream are
+    held in the K2 phase).  Greedy: the logits [B, T, C] of each; beam:
+    (tokens, best scores) of each."""
+    with torch.no_grad(), model.precision():
+        image, overlap, scene, ious = rec.prepare(crops, B, semantics=sem)
+        if int8:
+            step = rec._int8_steps[None]
+            cols = step.features(step.rectify(image))
+        else:
+            cols = model.features(model.rectify(image))
+        s = model.semantics(overlap, scene, ious)
+        enc = model.encoder(cols, semantics=s)
+        out = {}
+        for on in (True, False):
+            model.set_use_kernels(on)
+            out[on] = (model.decoder.beam_decode(enc, s, beam_size) if beam_size
+                       else model.decoder.greedy_decode(enc, s))
+        model.set_use_kernels(True)
+    return out[True], out[False]
+
+
+def served_variant(api, fd, fb, gs, crops, name: str, cfg, sem, beam_size: int, want: dict,
+                   tol: float, int8: bool = False, model=None):
+    """One served call of ``cfg`` (random weights of VARIANT_SEED, or
+    ``model``) at B=192: its launches (each of ``want``'s counters must read
+    its value, the others 0; K2 at least 1), its strings against the plain
+    path's (printed), the decoder with the kernels against its plain
+    version (``kernels_vs_plain``) within ``tol``, ms a call, the stage
+    split (a model with a semantic embedder) and the idle share.
+
+    The seeded decoders have near ties in many rows (the plain version's
+    own top-2 gaps show them), where a rounding-level difference flips a
+    token and the rest of the row; so the strings' share is printed, and
+    what is held is the numbers: greedy, the logits up to and at each
+    row's first differing token within ``tol``, and each flip at a plain
+    top-2 gap below ``tol`` (a flip at a wider gap is a fault); beam, the
+    best score of every row whose best beam is the plain one's within
+    ``tol``, and at least VARIANT_BEAM_MIN_SAME of the rows so (a floor
+    against a broken path: two searches part for good after a near tie, and
+    then their best scores are those of other beams; the float32 call holds
+    K4's beams on this model at ties).  -> (summary, failures, model)."""
+    from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
+
+    if model is None:
+        model = api.get_model(None, cfg, seed=VARIANT_SEED)
+    rec = Recognizer(model, batch_sizes=(1, 8, 64, B), int8_backbone=int8)
+    zero_counts(fd, fb, gs)
+    texts, scores = rec.recognize(crops, beam_size, return_scores=True, semantics=sem)
+    n = read_counts(fd, fb, gs)
+    failures = []
+    wrong = {k: v for k, v in n.items() if v != want.get(k, 0) and k != "K2"}
+    if wrong or n["K2"] < 1:
+        failures.append(f"{name}: launches {n}, expected {want} (K2 at least 1)")
+    if len(texts) != B or not np.isfinite(scores).all() or max(scores) > 0:
+        failures.append(f"{name}: missing strings or bad scores")
+    model.set_use_kernels(False)
+    plain = rec.recognize(crops, beam_size, semantics=sem)
+    model.set_use_kernels(True)
+    agree = sum(a == b for a, b in zip(texts, plain)) / B
+    got, ref = kernels_vs_plain(model, rec, crops, sem, beam_size, int8)
+    if beam_size:
+        differ = (got[0] != ref[0]).any(-1)
+        gap = (got[1] - ref[1]).abs()
+        flips = int(differ.sum())
+        err = gap[~differ].max().item() if flips < B else float("inf")
+        apart = gap[differ].max().item() if flips else 0.0
+        numbers = (f"beams, kernels vs plain: {B - flips} rows' best beams identical, their "
+                   f"best scores max |diff| {err:.3e} (limit {tol:g}); {flips} differ, their "
+                   f"best scores up to {apart:.3e} apart")
+        if not err <= tol or flips > (1 - VARIANT_BEAM_MIN_SAME) * B:
+            failures.append(f"{name}: {flips} best beams differ from the plain version's, the "
+                            f"identical ones' scores {err} off (limit {tol})")
+    else:
+        err, flips = err_to_first_flip(got, ref)
+        wide = [f for f in flips if f[2] >= tol]
+        numbers = (f"logits up to each row's first differing token max |diff| {err:.3e} (limit "
+                   f"{tol:g}); {len(flips)} rows differ, plain top-2 gaps at their flips "
+                   f"{sorted(round(g, 4) for _, _, g in flips)}")
+        if not err <= tol or wide:
+            failures.append(f"{name}: logits {err} off the plain version's, flips at gaps >= "
+                            f"{tol}: {wide}")
+    ms, samples = call_ms(lambda: rec.recognize(crops, beam_size, semantics=sem),
+                          reps=VARIANT_SERVE_REPS)
+    stages = None
+    if sem is not None:
+        dec = model.decoder
+        if beam_size:
+            decode = lambda e, s: dec.beam_decode(e, s, beam_size)[0]  # noqa: E731
+        else:
+            decode = lambda e, s: dec.greedy_decode(e, s).argmax(-1)  # noqa: E731
+        parts = {}
+        if int8:
+            step = rec._int8_steps[None]
+            parts = dict(rectify=step.rectify, features=step.features)
+        stages = variant_stage_times(model, rec, crops, sem, decode, **parts)
+    prof = kernel_profile(lambda: rec.recognize(crops, beam_size, semantics=sem), calls=3)
+    if prof["device_busy_ms"] <= 0:
+        failures.append(f"{name}: the profiler saw no kernel run on the card")
+    log(f"{name}: launches {n}; strings, kernels vs plain {agree:.4f} identical; {numbers}; "
+        f"{ms:.2f} ms per {B}-crop call (median of {VARIANT_SERVE_REPS} warm calls, CUDA "
+        f"events; samples {[round(x, 2) for x in samples]}), {B / ms * 1e3:.1f} crops/s; "
+        + ("stage ms " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) + "; "
+           if stages else "")
+        + f"profile of 3 calls: wall {prof['wall_ms']:.2f} ms, kernels busy "
+        f"{prof['device_busy_ms']:.2f} ms, idle share {prof['idle_share']:.4f}; by kernel "
+        f"{prof['kernels_ms']}; e.g. {texts[:3]}")
+    return ({"launches": n, "string_agreement_kernels_vs_plain": agree,
+             "max_abs_err": err, "differing_rows": flips, "ms_per_call": ms,
+             "ms_samples": samples, "crops_per_s": B / ms * 1e3, "stage_ms": stages,
+             "profile": prof}, failures, model)
+
+
+def trained_over(model) -> None:
+    """Load the trained bundle's weights into ``model`` (a flagship with
+    more modules, or another semantic source: the rest keep their seeded
+    weights); every bundle key but the semantic table must find its place."""
+    from multimodal_scene_text_recognition_tpu_torch import convert
+
+    own = model.state_dict()
+    sd = {k: v for k, v in convert.bundle_to_state_dict(convert.load_bundle(BUNDLE)).items()
+          if k in own or not k.startswith("semantic.")}
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    if unexpected or len(missing) + len(sd) != len(own):
+        raise AssertionError(f"the bundle does not fit: unexpected {unexpected}")
+
+
+def variant_train(api, bn, gs, name: str, cfg, batch, trained: bool = False):
+    """TRAIN_STEPS bf16 steps at B=192 of ``cfg`` from VARIANT_SEED's
+    weights (with ``trained`` the trained bundle's where it has them), with
+    the kernels and with their plain versions (the same generator seed: the
+    same dropout masks and ``rand`` semantics), held to the train phase's
+    limits; 36 K3 and 1 K2 launches a step; the median step ms and the peak
+    memory.  -> (summary, failures)."""
+    torch.cuda.reset_peak_memory_stats()
+    trainer, kmetrics, kcounts, _ = train_run(api, bn, gs, batch, True, cfg=cfg,
+                                              seed=VARIANT_SEED, trained=trained)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms_step, step_samples = call_ms(lambda: trainer(batch))
+    del trainer
+    torch.cuda.empty_cache()
+    trainer, pmetrics, pcounts, _ = train_run(api, bn, gs, batch, False, cfg=cfg,
+                                              seed=VARIANT_SEED, trained=trained)
+    del trainer
+    torch.cuda.empty_cache()
+    want = [(36 * (i + 1), i + 1) for i in range(TRAIN_STEPS)]
+    diffs = rel_diffs(kmetrics, pmetrics)
+    loss_diffs, norm_diff = [d[0] for d in diffs], diffs[0][1]
+    log(f"train {name}: kernels {kmetrics}, K3/K2 launches after each step {kcounts}; plain "
+        f"{pmetrics}, launches {pcounts}; relative loss {[f'{d:.3e}' for d in loss_diffs]} "
+        f"(limits {TRAIN_LOSS_TOL}), step-1 grad norm {norm_diff:.3e} (limit {TRAIN_NORM_TOL:g}); "
+        f"median step {ms_step:.2f} ms of {[round(x, 2) for x in step_samples]} "
+        f"({B / ms_step * 1e3:.1f} crops/s), peak memory {peak_gb:.3f} GB")
+    failures = []
+    if not all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in kmetrics + pmetrics):
+        failures.append(f"train {name}: non-finite metrics")
+    if kcounts != want or any(c != (0, 0) for c in pcounts):
+        failures.append(f"train {name}: K3/K2 launches {kcounts} (expected {want}), plain "
+                        f"{pcounts}")
+    if not (all(d <= t for d, t in zip(loss_diffs, TRAIN_LOSS_TOL))
+            and norm_diff <= TRAIN_NORM_TOL):
+        failures.append(f"train {name}: kernels vs plain {diffs}")
+    return ({"metrics_kernels": kmetrics, "metrics_plain": pmetrics, "rel_diff_by_step": diffs,
+             "ms_per_step": ms_step, "ms_samples": step_samples, "crops_per_s": B / ms_step * 1e3,
+             "peak_memory_gb": peak_gb, "launches": kcounts[-1]}, failures)
+
+
+def remat_against_none(api, cfg, batch):
+    """TRAIN_STEPS kernel steps of the trained bundle in ``cfg`` with
+    ``remat`` and without it, one trainer at a time: the running statistics after
+    the first step must be equal (the recomputed forward moves none), the
+    losses within TRAIN_LOSS_TOL of each other (the backward's
+    nondeterministic sums part the runs from step 2 on, as two runs without
+    remat part), with each run's peak memory and median step ms.  ->
+    (summary, failures)."""
+    runs = {}
+    for remat in (True, False):
+        torch.cuda.reset_peak_memory_stats()
+        trainer = api.get_trainer(BUNDLE, dataclasses.replace(cfg, remat=remat))
+        losses, stats = [], None
+        for i in range(TRAIN_STEPS):
+            losses.append(trainer(batch)["loss"].item())
+            if i == 0:
+                stats = {k: t.clone() for k, t in trainer.model.state_dict().items()
+                         if "running_" in k}
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ms, samples = call_ms(lambda: trainer(batch), warm_up=False)
+        runs[remat] = {"losses": losses, "stats": stats, "peak_memory_gb": peak_gb,
+                       "ms_per_step": ms, "ms_samples": samples}
+        del trainer
+        torch.cuda.empty_cache()
+    r, n = runs[True], runs[False]
+    unequal = [k for k in n["stats"] if not torch.equal(r["stats"][k], n["stats"][k])]
+    rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"], n["losses"])]
+    log(f"remat vs none: losses {r['losses']} / {n['losses']} (relative {rel}, limits "
+        f"{TRAIN_LOSS_TOL}); running statistics after step 1: {len(n['stats']) - len(unequal)} "
+        f"of {len(n['stats'])} equal; peak memory {r['peak_memory_gb']:.3f} GB with remat, "
+        f"{n['peak_memory_gb']:.3f} GB without; median step {r['ms_per_step']:.2f} / "
+        f"{n['ms_per_step']:.2f} ms")
+    failures = []
+    if unequal:
+        failures.append(f"remat: running statistics differ from those without it: {unequal[:4]}")
+    if not all(d <= t for d, t in zip(rel, TRAIN_LOSS_TOL)):
+        failures.append(f"remat: losses {r['losses']} against {n['losses']}")
+    if not r["peak_memory_gb"] < n["peak_memory_gb"]:
+        failures.append("remat: the peak memory did not fall")
+    return ({"losses_remat": r["losses"], "losses_none": n["losses"], "rel_loss": rel,
+             "stats_equal_after_step_1": not unequal,
+             "peak_memory_gb_remat": r["peak_memory_gb"],
+             "peak_memory_gb_none": n["peak_memory_gb"], "ms_per_step_remat": r["ms_per_step"],
+             "ms_per_step_none": n["ms_per_step"]}, failures)
+
+
+def variants_phase(api, fd, fb, gs, bn, crops):
+    """The model variants at full width: Oscar-BERT (``oscar_bert_config``,
+    seeded random weights) served at B=192 on seeded tag rows greedily (K1
+    with cls0, K2) and by beam search (K4 with cls0) in bf16, then in
+    float32 (``oscar_f32``), then through the int8 backbone with
+    ``decode_int8`` (K1q with cls0), each held by ``served_variant``'s
+    rules; BiLSTM-Attn through the int8 backbone (K2); three train steps
+    each of Oscar-BERT, the flagship with the random semantic source and
+    the pre-encoder fusion (the trained bundle, seeded fusion MLPs), and
+    the trained flagship with ``remat``, kernels against plain
+    (``variant_train``); and remat against none (``remat_against_none``).  Every check runs and prints
+    before the phase raises on the limits broken."""
+    from multimodal_scene_text_recognition_tpu_torch.config import FLAGSHIP, ModelConfig
+
+    cfg = oscar_bert_config()
+    tags = make_tag_rows(B, VARIANT_TAG_SEED)
+    out, failures = {}, []
+    out["greedy"], f, model = served_variant(
+        api, fd, fb, gs, crops, "Oscar-BERT greedy bf16", cfg, tags, 0,
+        {"K1": 1, "K1 or K1q with cls0": 1}, CLS0_BF16_LOGIT_TOL)
+    failures += f
+    out["beam"], f, _ = served_variant(
+        api, fd, fb, gs, crops, f"Oscar-BERT beam (k={BEAM}) bf16", cfg, tags, BEAM,
+        {"K4": 1, "K4 with cls0": 1}, BEAM_BF16_SCORE_TOL, model=model)
+    failures += f
+    del model
+    torch.cuda.empty_cache()
+    out["f32"], f = oscar_f32(api, crops, tags, cfg)
+    failures += f
+    out["int8"], f, model = served_variant(
+        api, fd, fb, gs, crops, "Oscar-BERT int8 greedy", dataclasses.replace(
+            cfg, decode_int8=True, tps_int8=True), tags, 0,
+        {"K1q": 1, "K1 or K1q with cls0": 1}, K1Q_BF16_LOGIT_TOL, int8=True)
+    failures += f
+    del model
+    torch.cuda.empty_cache()
+    out["bilstm_attn_int8"], f, model = served_variant(
+        api, fd, fb, gs, crops, "BiLSTM-Attn int8 greedy",
+        ModelConfig(encoder="lstm", decoder="lstm", tps_int8=True), None, 0, {},
+        BF16_LOGIT_TOL, int8=True)
+    failures += f
+    del model
+    torch.cuda.empty_cache()
+
+    batch = make_train_batch(B, 4321, cfg.chars)
+    oscar_batch = dict(batch, **make_tag_rows(B, VARIANT_TAG_SEED + 1))
+    rand = dataclasses.replace(FLAGSHIP, semantic_source="rand", pre_encoder_mlp=True)
+    remat = dataclasses.replace(FLAGSHIP, remat=True)
+    for key, name, tcfg, b, trained in (
+            ("train_oscar_bert", "Oscar-BERT", cfg, oscar_batch, False),
+            ("train_rand", "rand semantics (the trained bundle, seeded fusion MLPs)", rand, batch,
+             True),
+            ("train_remat", "remat (the trained bundle)", remat, batch, True)):
+        out[key], f = variant_train(api, bn, gs, name, tcfg, b, trained)
+        failures += f
+    out["remat_vs_none"], f = remat_against_none(api, FLAGSHIP, batch)
+    failures += f
+    if failures:
+        raise AssertionError("model variants: " + "; ".join(failures))
+    return out
+
+
 @contextlib.contextmanager
 def tf32_on():
     """TF32 allowed for float32 matmuls and convs, as a caller may set it."""
@@ -3725,6 +4167,17 @@ def main() -> int:
     k3["launches_train_loop_ctc"] = classic["epoch_bilstm_ctc"]["launches"]["K3"]
     k2["launches_validate_ctc"] = classic["epoch_bilstm_ctc"]["val_k2_launches"]
 
+    phase("model variants")
+    variants = variants_phase(api, fd, fb, gs, bn, crops)
+    k1c["launches_oscar_bert"] = variants["greedy"]["launches"]["K1 or K1q with cls0"]
+    k1c["launches_int8_oscar_bert"] = variants["int8"]["launches"]["K1 or K1q with cls0"]
+    k1q["launches_oscar_bert"] = variants["int8"]["launches"]["K1q"]
+    k4c["launches_oscar_bert"] = variants["beam"]["launches"]["K4 with cls0"]
+    for name in ("greedy", "beam", "int8", "bilstm_attn_int8"):
+        k2[f"launches_variants_{name}"] = variants[name]["launches"]["K2"]
+    for name in ("train_oscar_bert", "train_rand", "train_remat"):
+        k3[f"launches_{name}"], k2[f"launches_{name}"] = variants[name]["launches"]
+
     phase("report")
     log(f"done in {time.time() - T0:.1f} s")
     print(json.dumps({"e2e": {"bf16_string_agreement": agree16,
@@ -3741,7 +4194,8 @@ def main() -> int:
                       "e2e_int8": e2e_int8, "e2e_semantic": e2e_semantic,
                       "stepper": stepper, "fusion_sites": sites, "resize": resized,
                       "train": train, "train_with_hooks": train_hooks,
-                      "train_and_validate": data, "classic": classic}), flush=True)
+                      "train_and_validate": data, "classic": classic,
+                      "variants": variants}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [k1, k1e, k1q, k2, k3, k4, k1c, k4c, p1, p2]}),
           flush=True)

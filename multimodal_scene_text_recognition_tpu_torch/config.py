@@ -2,8 +2,9 @@
 ``ModelConfig``, ``TrainConfig``, ``DataConfig`` and ``Config`` that the
 serving paths (greedy, beam, int8 and the semantic fusion hooks), the
 classic recognizers (BiLSTM encoder, LSTM-attention and linear decoders,
-CTC), the train step, the training loop and the synthetic set read, with
-the same names and defaults (JAX counterpart: core/config.py)."""
+CTC), the Oscar encoder, the BERT and random embedders, backbone remat, the
+train step, the training loop and the synthetic set read, with the same
+names and defaults (JAX counterpart: core/config.py)."""
 
 from __future__ import annotations
 
@@ -20,9 +21,11 @@ DEFAULT_CHARS: str = string.printable[:-6]
 @dataclass(frozen=True)
 class ModelConfig:
     # the sequence encoder and the decoder (JAX models/model.py): the
-    # BiLSTM encoder's output is lstm_hidden wide, the transformer's
-    # hidden_dim, and the decoder's memory takes that width.  The Oscar
-    # encoder is not ported yet.
+    # BiLSTM encoder's output is lstm_hidden wide, the transformer's and
+    # the Oscar encoder's hidden_dim, and the decoder's memory takes that
+    # width.  The Oscar encoder has fixed BERT widths (768, 12 layers, 12
+    # heads, FF 3072); oscar_encoder appends the semantic vectors to its
+    # input.
     encoder: str = "transformer"  # lstm | transformer | oscar
     decoder: str = "transformer"  # lstm | transformer | linear
     use_tps: bool = True
@@ -40,9 +43,11 @@ class ModelConfig:
     # "reference": the transformer encoder norms the residual stream before
     # each add (the reference model's order); "standard": textbook post-LN
     encoder_norm_style: str = "reference"
+    oscar_encoder: bool = False
     # semantic vectors: detector class ids embedded per crop (JAX
-    # models/semantic.py).  SceneTextModel refuses what is not ported: the
-    # "rand" source and the "bert" embedding.
+    # models/semantic.py); "rand" draws noise from the train step's
+    # generator (training only), "bert" runs tag token ids (in overlap)
+    # through a DistilBERT-shaped encoder.
     semantic_vector: str = "overlap"      # overlap | scene | combined
     semantic_source: str = "vinvl"        # coco | vg | vinvl | zero | rand
     semantic_embedding: str = "linear"    # linear | bert
@@ -90,6 +95,10 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     # dropout of the encoder and decoder in train mode
     dropout: float = 0.1
+    # recompute the backbone's forward in the backward pass (torch
+    # checkpointing) instead of keeping its activations: less memory a
+    # train step for more work; the running statistics move once a step
+    remat: bool = False
     # the default of the train-mode BatchNorm backward reduction on CUDA
     # tensors: the CUDA kernel (ops/batchnorm.py), or with False its plain
     # version; SceneTextModel.set_use_kernels switches it at run time

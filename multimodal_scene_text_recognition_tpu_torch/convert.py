@@ -35,6 +35,11 @@ itself, under JAX's names; each direction of a BiLSTM block
 torch does.  Both biases map as they are (gates i, f, g, o in both
 packages); the decoder's ``i2h``, ``h2h``, ``score`` and ``generator``, a
 block's ``proj`` and the linear decoder's ``head`` are dense layers.
+
+The Oscar encoder's attentions (``encoder.attn<i>``) are packed
+(``w_qkv``) and its other layers dense; the BERT embedder's ``q_lin<i>``,
+``k_lin<i>``, ``v_lin<i>``, ``out_lin<i>`` and FF layers are dense.  A
+model built with ``remat`` has the same tree.
 """
 
 from __future__ import annotations
@@ -63,7 +68,11 @@ _LSTM_LEAF = {"w_ih": "weight_ih_l0", "w_hh": "weight_hh_l0", "b_ih": "bias_ih_l
               "b_hh": "bias_hh_l0"}
 _LSTM_MODULES = ("fwd", "bwd")
 _TRANSPOSED = {"kernel", "w_qkv", "w_out", "w_ih", "w_hh"}
-_EMBEDDINGS = ("emb", "embed", "overlap_embed", "scene_embed")
+# the embedding tables: the decoder's, the linear embedders', the BERT
+# embedder's token and position tables, the Oscar encoder's position and
+# segment tables
+_EMBEDDINGS = ("emb", "embed", "overlap_embed", "scene_embed", "tok", "pos", "pos_embed",
+               "seg_embed")
 META_KEYS = ("__step__",)
 _FLAT_LAYER = re.compile(r"(fc\d+)_(kernel|bias)")  # an MLPP leaf
 _FLAT_MLP = re.compile(r"decoder\.(\w+_mlp|layer\d+\.mlp_\w+)\.fc\d+")  # a port layer of an MLPP
@@ -118,7 +127,7 @@ def load_bundle(path: str) -> Dict[str, np.ndarray]:
 def _bundle_leaf(path: str, leaf: str, t: torch.Tensor) -> str:
     """The JAX leaf name of the port entry ``<path>.<leaf>``.  ``weight``
     is ambiguous: a norm's scale (one dimension), an embedding table (the
-    modules named ``emb`` and ``embed``, as in the JAX tree) or a kernel."""
+    modules named in ``_EMBEDDINGS``, as in the JAX tree) or a kernel."""
     lstm = {v: k for k, v in _LSTM_LEAF.items()}
     if leaf in lstm:
         return lstm[leaf]

@@ -52,9 +52,11 @@ class Recognizer:
     first traffic seen, and a drift past 2x warns.  A model with random
     weights (``api.get_model(None, ...)``) has no bundle and so no
     persisted scales: it calibrates on its first call's crops.  The
-    int8 backbone serves the transformer encoder and decoder only: with the
-    classic recognizers' BiLSTM encoder or LSTM or linear decoder it is not
-    ported yet.
+    int8 backbone serves any encoder and decoder (transformer, BiLSTM or
+    Oscar; transformer, LSTM or linear), as JAX's int8 step splices it in
+    front of ``decode_from_columns``.  A ``semantic_source="rand"`` model
+    is refused at its first call, as JAX's is (its semantics come from the
+    train step's generator).
 
     Strings are decoded by ``AttnCodec`` whatever ``label_codec`` says, as
     the JAX package's Recognizer decodes them.
@@ -64,12 +66,6 @@ class Recognizer:
                  int8_backbone: bool = False, int8_scales_path: Optional[str] = None):
         self.model = model
         self.cfg = model.cfg
-        if int8_backbone and (self.cfg.encoder, self.cfg.decoder) != ("transformer",
-                                                                       "transformer"):
-            raise NotImplementedError(
-                f"int8_backbone with encoder={self.cfg.encoder!r}, decoder="
-                f"{self.cfg.decoder!r}: int8 serving of the classic recognizers is not "
-                "ported yet")
         self.codec = AttnCodec(self.cfg.chars, self.cfg.max_text_length)
         self.batch_sizes = tuple(sorted(batch_sizes))
         self.device = next(model.parameters()).device

@@ -114,6 +114,7 @@ class TransformerDecoder(nn.Module):
         self.early_stop, self.beam_fused, self.int8 = early_stop, beam_fused, int8
         self.fused = fused
         self.use_kernels = True
+        self.intermediates: Optional[dict] = None
         # (dtype, int8) -> (parameter versions, cast weight tables and, for
         # int8, their scales); (dtype, "cluster", int8) -> (versions, the
         # cluster kernel's units: K1's, or with int8 K1q's)
@@ -229,11 +230,16 @@ class TransformerDecoder(nn.Module):
         """The memory the decoder attends to (JAX ``_memory``):
         ``hid_to_emb`` of enc_out [B, Tm, memory_dim] -> [B, Tm, E] float32,
         with ``pre_decoder_mlp`` plus ``combine_mlp`` of it beside its
-        relevance-weighted semantics [B, O, E]."""
+        relevance-weighted semantics [B, O, E]; its relevance softmax
+        [B, Tm, O] is kept under ``pre_decoder_scores`` in ``intermediates``
+        while that is a dict (``eval/attention.py``)."""
         memory = self.hid_to_emb(enc_out)
         if not self.pre_decoder_mlp:
             return memory
-        rel = relevance_fusion(memory, semantics, self.relevant_mlp)
+        rel, scores = relevance_fusion(memory, semantics, self.relevant_mlp,
+                                       return_scores=True)
+        if self.intermediates is not None:
+            self.intermediates["pre_decoder_scores"] = scores.detach()
         return memory + self.combine_mlp(torch.cat([memory, rel], dim=-1))
 
     def sem_cls(self, memory: torch.Tensor, semantics: torch.Tensor) -> torch.Tensor:

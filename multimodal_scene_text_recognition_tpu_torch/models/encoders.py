@@ -1,11 +1,13 @@
 """Sequence encoders over the visual columns (JAX counterpart:
-models/encoders.py): ``BiLSTMEncoder``, two BiLSTM blocks, and
+models/encoders.py): ``BiLSTMEncoder``, two BiLSTM blocks,
 ``TransformerEncoder``, in the reference model's norm order or textbook
-post-LN (``norm_style``).
+post-LN (``norm_style``), and ``OscarEncoder``, the columns and the
+semantic vectors through one BERT-shaped encoder.
 
-The BiLSTM encoder runs in float32 whatever the compute type, as the JAX
-package's does (its columns are cast to float32 and its parameters stay
-float32); it takes no semantics and has no dropout, as there.
+The BiLSTM and Oscar encoders run in float32 whatever the compute type, as
+the JAX package's do (their columns are cast to float32 and their
+parameters stay float32); the BiLSTM encoder takes no semantics and has no
+dropout, as there.
 
 ``drop`` is the dropout of train mode (``x -> x`` at eval), applied at the
 JAX module's sites: the positional encoding's output, the attention output
@@ -13,13 +15,16 @@ JAX module's sites: the positional encoding's output, the attention output
 (``drop2``).  With ``int8`` the attention projections and the FF matmuls
 run through the int8 matmul (ops/int8.py) in eval mode; training stays
 float.  With ``pre_encoder_mlp`` the semantic vectors are fused into the
-columns before the positional encoding (:meth:`TransformerEncoder.fuse`)."""
+columns before the positional encoding (:meth:`TransformerEncoder.fuse`);
+its relevance softmax [B, T, O] is kept under ``pre_encoder_scores`` in
+``intermediates`` while that is a dict (``eval/attention.py``)."""
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.int8 import int8_linear
@@ -114,6 +119,7 @@ class TransformerEncoder(nn.Module):
         for i in range(num_layers):
             self.add_module(f"layer{i}", EncoderLayer(d_model, num_heads, ff_dim, norm_style))
         self.final_norm = layer_norm(d_model)
+        self.intermediates: Optional[dict] = None
 
     def fuse(self, cols: torch.Tensor, semantics: Optional[torch.Tensor]) -> torch.Tensor:
         """The pre-encoder fusion (JAX encoders.py:131-145): each column plus
@@ -121,7 +127,10 @@ class TransformerEncoder(nn.Module):
         ``cols`` unchanged without ``pre_encoder_mlp``."""
         if not self.pre_encoder_mlp:
             return cols
-        rel = relevance_fusion(cols, semantics, self.sem_relevance_mlp)
+        rel, scores = relevance_fusion(cols, semantics, self.sem_relevance_mlp,
+                                       return_scores=True)
+        if self.intermediates is not None:
+            self.intermediates["pre_encoder_scores"] = scores.detach()
         return cols + self.combine_mlp(torch.cat([cols, rel], dim=-1))
 
     def forward(self, cols: torch.Tensor, drop: Drop = no_dropout, train: bool = False,
@@ -139,3 +148,55 @@ class TransformerEncoder(nn.Module):
         for i in range(self.num_layers):
             x = getattr(self, f"layer{i}")(x, drop, int8=self.int8 and not train)
         return self.final_norm(x)
+
+
+class OscarEncoder(nn.Module):
+    """The columns, and with ``fuse_semantics`` the semantic vectors after
+    them, through a BERT-shaped encoder (JAX ``OscarEncoder``).
+
+    ``hid_to_bert`` maps the columns [B, T, d_model] to ``bert_dim``; with
+    ``fuse_semantics`` ``sem_to_bert`` maps the semantic vectors [B, O,
+    embed_dim] and appends them with segment id 1 (the columns' is 0).
+    Then the ``pos_embed`` rows (``max_positions`` of them) and the
+    ``seg_embed`` rows, ``embed_ln``, the one dropout site, and
+    ``num_layers`` post-LN layers: ``attn{i}`` (packed q/k/v), ``ln1_{i}``,
+    ``ff1_{i}``, exact erf GELU, ``ff2_{i}``, ``ln2_{i}``; every norm eps
+    1e-12.  ``bert_to_hid`` maps the first T positions back to d_model."""
+
+    def __init__(self, d_model: int = 512, embed_dim: int = 256, bert_dim: int = 768,
+                 num_heads: int = 12, ff_dim: int = 3072, num_layers: int = 12,
+                 max_positions: int = 512, fuse_semantics: bool = False):
+        super().__init__()
+        self.num_layers, self.fuse_semantics = num_layers, fuse_semantics
+        self.hid_to_bert = nn.Linear(d_model, bert_dim)
+        if fuse_semantics:
+            self.sem_to_bert = nn.Linear(embed_dim, bert_dim)
+        self.pos_embed = nn.Embedding(max_positions, bert_dim)
+        self.seg_embed = nn.Embedding(2, bert_dim)
+        self.embed_ln = nn.LayerNorm(bert_dim, eps=1e-12)
+        for i in range(num_layers):
+            self.add_module(f"attn{i}", MultiHeadAttention(bert_dim, num_heads))
+            self.add_module(f"ln1_{i}", nn.LayerNorm(bert_dim, eps=1e-12))
+            self.add_module(f"ff1_{i}", nn.Linear(bert_dim, ff_dim))
+            self.add_module(f"ff2_{i}", nn.Linear(ff_dim, bert_dim))
+            self.add_module(f"ln2_{i}", nn.LayerNorm(bert_dim, eps=1e-12))
+        self.bert_to_hid = nn.Linear(bert_dim, d_model)
+
+    def forward(self, cols: torch.Tensor, drop: Drop = no_dropout, train: bool = False,
+                semantics: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """cols [B, T, d_model] (and semantics [B, O, embed_dim] with
+        ``fuse_semantics``) -> [B, T, d_model] float32; ``drop`` is applied
+        once, after ``embed_ln``."""
+        T = cols.shape[1]
+        x = self.hid_to_bert(cols.float())
+        seg = self.seg_embed.weight[0].expand(T, -1)
+        if self.fuse_semantics:
+            sem = self.sem_to_bert(semantics.float())
+            x = torch.cat([x, sem], dim=1)
+            seg = torch.cat([seg, self.seg_embed.weight[1].expand(sem.shape[1], -1)])
+        x = drop(self.embed_ln(x + self.pos_embed.weight[: x.shape[1]] + seg))
+        for i in range(self.num_layers):
+            layer = lambda name: getattr(self, f"{name}{i}")  # noqa: E731
+            x = layer("ln1_")(x + layer("attn")(x, x))
+            x = layer("ln2_")(x + layer("ff2_")(F.gelu(layer("ff1_")(x))))
+        return self.bert_to_hid(x[:, :T])

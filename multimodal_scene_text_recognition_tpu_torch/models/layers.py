@@ -43,8 +43,9 @@ class BatchNorm2d(nn.Module):
     Train: :func:`ops.batchnorm.bn_train` over the batch, then the running
     statistics move to ``0.9 * old + 0.1 * batch`` with the *biased* batch
     variance (the JAX package's rule; ``nn.BatchNorm2d`` would take the
-    unbiased one).  ``use_kernels`` picks the backward reduction on CUDA
-    tensors: the kernel, or its plain version.
+    unbiased one), unless ``update_stats`` is off (a recomputed forward).
+    ``use_kernels`` picks the backward reduction on CUDA tensors: the
+    kernel, or its plain version.
     """
 
     def __init__(self, C: int):
@@ -54,11 +55,14 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_mean", torch.empty(C))
         self.register_buffer("running_var", torch.empty(C))
         self.use_kernels = True
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
             y, mean, var = bn_train(x, self.weight, self.bias, EPS,
                                     plain=not self.use_kernels)
+            if not self.update_stats:
+                return y
             with torch.no_grad():
                 for stat, batch in ((self.running_mean, mean), (self.running_var, var)):
                     stat.copy_(BN_MOMENTUM * stat + (1.0 - BN_MOMENTUM) * batch)
@@ -137,11 +141,13 @@ class FusionMLP(nn.Module):
         return h
 
 
-def relevance_fusion(feats: torch.Tensor, sem: torch.Tensor, mlp: FusionMLP) -> torch.Tensor:
+def relevance_fusion(feats: torch.Tensor, sem: torch.Tensor, mlp: FusionMLP,
+                     return_scores: bool = False):
     """Per-position soft selection of semantic vectors (JAX
     ``layers.relevance_fusion``): feats [B, T, Df], sem [B, O, Ds] ->
     ``sum_o softmax_o(mlp([feats[b, t]; sem[b, o]])) * sem[b, o]``
-    [B, T, Ds], the scores ``mlp`` gives being [B, T, O, 1].
+    [B, T, Ds], the scores ``mlp`` gives being [B, T, O, 1]; with
+    ``return_scores`` also the softmax [B, T, O].
 
     The pair tensor [B, T, O, Df + Ds] is never copied together: the first
     layer's product splits over the concat, feats times its first Df input
@@ -152,7 +158,7 @@ def relevance_fusion(feats: torch.Tensor, sem: torch.Tensor, mlp: FusionMLP) -> 
     h = (F.linear(feats, fc0.weight[:, :Df])[:, :, None]
          + F.linear(sem, fc0.weight[:, Df:], fc0.bias)[:, None])
     scores = torch.softmax(mlp.after_first(h)[..., 0], dim=2)  # [B, T, O]
-    return scores @ sem
+    return (scores @ sem, scores) if return_scores else scores @ sem
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,12 +1,13 @@
 """Model assembly: TPS -> ResNet-31 -> semantics -> encoder -> decoder
-(JAX counterpart: models/model.py), with the encoder (transformer or
-BiLSTM) and the decoder (transformer, LSTM-attention or per-column linear)
-that the configuration names; the decoder's memory is as wide as the
-encoder's output.  Greedy inference, beam search (the transformer decoder
-only, as in the JAX package), the
-teacher-forced training pass, and the int8 serving step that splices the
-int8 loc-net and backbone in front of the encoder and decoder
-(:func:`make_int8_eval_step`, JAX models/resnet_int8.make_int8_eval_step).
+(JAX counterpart: models/model.py), with the encoder (transformer, BiLSTM
+or Oscar) and the decoder (transformer, LSTM-attention or per-column
+linear) that the configuration names; the decoder's memory is as wide as
+the encoder's output.  Greedy inference, beam search (the transformer
+decoder only, as in the JAX package), the teacher-forced training pass
+(with ``remat`` the backbone's forward is recomputed in the backward), and
+the int8 serving step that splices the int8 loc-net and backbone in front
+of any encoder and decoder (:func:`make_int8_eval_step`, JAX
+models/resnet_int8.make_int8_eval_step).
 
 Every inference entry point takes the semantic inputs of the JAX model:
 ``overlap`` [B, max_overlap_objs] ids, and as keywords ``scene``
@@ -24,11 +25,12 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..ops.precision import full_fp32
 from .decoders import SITES, LinearDecoder, LSTMAttentionDecoder, TransformerDecoder
-from .encoders import BiLSTMEncoder, TransformerEncoder
+from .encoders import BiLSTMEncoder, OscarEncoder, TransformerEncoder
 from .layers import BatchNorm2d, dropout, nchw_channels_last
 from .resnet import ResNet31, to_column_sequence
 from .resnet_int8 import QConv, quantize_resnet, quantize_tps, resnet31_int8_forward, \
@@ -58,9 +60,14 @@ class SceneTextModel(nn.Module):
                                               norm_style=cfg.encoder_norm_style)
             enc_dim = cfg.hidden_dim
         elif cfg.encoder == "oscar":
-            raise NotImplementedError("encoder='oscar': the Oscar encoder is not ported yet")
+            self.encoder = OscarEncoder(cfg.hidden_dim, cfg.embed_dim,
+                                        fuse_semantics=cfg.oscar_encoder)
+            enc_dim = cfg.hidden_dim
         else:
             raise ValueError(f"unknown encoder {cfg.encoder!r}")
+        # the encoder's train-mode dropout: JAX builds its Oscar encoder
+        # without cfg.dropout, so that one keeps its own 0.1
+        self.encoder_dropout = 0.1 if cfg.encoder == "oscar" else cfg.dropout
         if cfg.decoder == "lstm":
             self.decoder = LSTMAttentionDecoder(cfg.num_classes, enc_dim, cfg.lstm_hidden,
                                                 cfg.max_text_length)
@@ -111,21 +118,28 @@ class SceneTextModel(nn.Module):
         return self.transformation(image, train) if self.cfg.use_tps else image
 
     def features(self, rectified: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """Backbone: [B, H, W, 1] -> column features [B, W', hidden] f32."""
-        feats = self.feature_extractor(nchw_channels_last(rectified), train)
+        """Backbone: [B, H, W, 1] -> column features [B, W', hidden] f32;
+        in train mode with ``cfg.remat`` through :func:`remat_backbone`."""
+        x = nchw_channels_last(rectified)
+        if train and self.cfg.remat:
+            feats = remat_backbone(self.feature_extractor, x)
+        else:
+            feats = self.feature_extractor(x, train)
         return to_column_sequence(feats)
 
     def semantics(self, overlap: torch.Tensor, scene: Optional[torch.Tensor] = None,
-                  ious: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The semantic vectors [B, O, embed_dim] float32 of the object ids;
-        ``scene`` and ``ious`` default to zeros and -1000 (the JAX serving
-        defaults: no scene objects)."""
+                  ious: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The semantic vectors [B, O, embed_dim] float32 of the object ids
+        (the ``rand`` source draws them from ``generator``, which only
+        training passes); ``scene`` and ``ious`` default to zeros and -1000
+        (the JAX serving defaults: no scene objects)."""
         B, n = overlap.shape[0], self.cfg.max_scene_objs
         if scene is None:
             scene = torch.zeros(B, n, dtype=torch.long, device=overlap.device)
         if ious is None:
             ious = torch.full((B, n), -1000.0, device=overlap.device)
-        return self.semantic(overlap, scene, ious)
+        return self.semantic(overlap, scene, ious, generator)
 
     def decode_from_columns(self, cols: torch.Tensor, overlap: torch.Tensor, *,
                             scene: Optional[torch.Tensor] = None,
@@ -157,10 +171,11 @@ class SceneTextModel(nn.Module):
         float32 (``text`` is ignored; the LSTM decoder gives one step more,
         the linear decoder one row a column, num_cols).  ``train=True``: the
         teacher-forced pass over ``text`` [B, T] input ids, with BatchNorm
-        on batch statistics (updating the running ones), dropout drawn from
-        ``generator`` (on the image's device) and the semantic vectors
-        through every fusion hook that is on -> logits [B, T, num_classes]
-        float32 (the linear decoder's [B, num_cols, num_classes])."""
+        on batch statistics (updating the running ones), dropout (and the
+        ``rand`` source's semantics) drawn from ``generator`` (on the
+        image's device) and the semantic vectors through every fusion hook
+        that is on -> logits [B, T, num_classes] float32 (the linear
+        decoder's [B, num_cols, num_classes])."""
         if not train:
             with self.precision():
                 return self.decode_from_columns(self.features(self.rectify(image)), overlap,
@@ -168,10 +183,11 @@ class SceneTextModel(nn.Module):
         if text is None or generator is None:
             raise ValueError("train=True needs the input ids and a generator")
         drop = functools.partial(dropout, p=self.cfg.dropout, generator=generator)
+        enc_drop = functools.partial(dropout, p=self.encoder_dropout, generator=generator)
         with self.precision():
             cols = self.features(self.rectify(image, train=True), train=True)
-            sem = self.semantics(overlap, scene, ious)
-            enc = self.encoder(cols, drop, train=True, semantics=sem)
+            sem = self.semantics(overlap, scene, ious, generator)
+            enc = self.encoder(cols, enc_drop, train=True, semantics=sem)
             return self.decoder.teacher_forced(enc, text, drop, sem)
 
     def beam_decode(self, image: torch.Tensor, overlap: torch.Tensor, beam_size: int = 5,
@@ -187,13 +203,38 @@ class SceneTextModel(nn.Module):
                                           length_penalty=length_penalty)
 
 
+def remat_backbone(backbone: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The train-mode forward of ``backbone`` on ``x`` without keeping its
+    activations: ``torch.utils.checkpoint`` runs it again in the backward
+    pass (JAX's ``nn.remat`` of the backbone).  The running statistics of
+    its BatchNorms move in the first run only, as Flax keeps the first
+    forward's ``batch_stats``: the second run sees the same inputs and
+    batch statistics, and must not move them again."""
+    norms = [m for m in backbone.modules() if isinstance(m, BatchNorm2d)]
+    runs = []
+
+    def run(inp):
+        again = bool(runs)
+        runs.append(None)
+        for m in norms:
+            m.update_stats = not again
+        try:
+            return backbone(inp, True)
+        finally:
+            for m in norms:
+                m.update_stats = True
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
 def make_int8_eval_step(model: SceneTextModel, x_absmax: Dict[str, float],
                         beam_size: Optional[int] = None
                         ) -> Tuple[Callable, Dict[str, QConv]]:
     """The int8 serving step of ``model`` (in eval mode): TPS (the int8
     loc-net when ``cfg.tps_int8`` and ``cfg.use_tps``, else the model's
-    own) -> int8 ResNet-31 -> columns -> the model's encoder and decoder
-    (themselves int8 where ``encoder_int8`` / ``decode_int8`` say).
+    own) -> int8 ResNet-31 -> columns -> the model's encoder and decoder,
+    whichever they are (the transformer ones themselves int8 where
+    ``encoder_int8`` / ``decode_int8`` say).
 
     Activation scales come from ``x_absmax``, a calibration (the
     Recognizer's, or a persisted one) with the loc-net's sites under a

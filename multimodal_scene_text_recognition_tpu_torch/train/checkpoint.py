@@ -5,7 +5,8 @@ Orbax is not used here and its checkpoints are not read).
 
 The full state of a :class:`~.steps.TrainStep`: the model's ``state_dict``
 (parameters and BatchNorm running statistics), AdamW's ``mu``, ``nu`` and
-``count``, and the dropout generator's state.  A restore copies into the
+``count``, and the state of the generator of the dropout (and of the
+``rand`` source's semantics).  A restore copies into the
 step's own tensors, so their storage stays and their versions move (the
 decoder's cached weight tables are rebuilt on the next decode)."""
 

@@ -93,8 +93,9 @@ def _check_loss(cfg: TrainConfig) -> None:
 
 
 class TrainStep:
-    """Owns the model, its optimizer, the step count and the dropout
-    generator (on the model's device, seeded with ``cfg.seed``).
+    """Owns the model, its optimizer, the step count and the generator of
+    its dropout and of the ``rand`` source's semantics (on the model's
+    device, seeded with ``cfg.seed``: two steps of one seed draw the same).
     ``steps_per_epoch`` scales the StepLR boundaries, which ``cfg`` counts
     in epochs (the JAX loop passes ``n_train // batch_size``).
 

@@ -454,8 +454,9 @@ def test_ctc_validate_matches_jax():
 
 def test_recognizer_beam_on_lstm_decoder_is_greedy():
     """As JAX's Recognizer does, a beam width with the LSTM decoder decodes
-    greedily and scores 0.0; the model's beam search and the int8 backbone
-    are refused."""
+    greedily and scores 0.0; the model's beam search is refused.  Through
+    the int8 backbone too (held against JAX's int8 step in
+    tests/test_torch_variants.py)."""
     model = api.get_model(cfg=ModelConfig(**MICRO, **ATTN), device="cpu", seed=3)
     rng = np.random.default_rng(4)
     crops = [rng.integers(0, 256, (32, 100), dtype=np.uint8) for _ in range(5)]
@@ -465,8 +466,9 @@ def test_recognizer_beam_on_lstm_decoder_is_greedy():
     assert texts == greedy and scores == [0.0] * 5
     with torch.no_grad(), pytest.raises(NotImplementedError, match="TF decoder"):
         model.beam_decode(torch.zeros(1, 32, 100, 1), torch.zeros(1, 15, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="classic"):
-        Recognizer(model, int8_backbone=True)
+    rec8 = Recognizer(model, batch_sizes=(8,), int8_backbone=True)
+    greedy8 = rec8.recognize(crops)
+    assert rec8.recognize(crops, beam_size=5, return_scores=True) == (greedy8, [0.0] * 5)
 
 
 def test_full_fp32_sets_and_restores_the_cudnn_rnn_switch():

@@ -139,21 +139,38 @@ def test_get_model_requires_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_paths_are_refused():
-    """The random and BERT semantic embedders and the Oscar encoder are not
-    ported, and each says what is not; early stop, the fused beam, the fusion hooks the fused
-    kernels carry (the semantic CLS step-0 input among them) in every
-    linear embedder mode, and the zero embedder are built.  The paths
-    lifted since (greedy decoding through the stepper, the per-layer fusion
+    """Every model variant of the JAX package is ported: the random and
+    BERT semantic embedders, the Oscar encoder (with fusion here; without
+    it in tests/test_torch_variants.py) and backbone remat are built and run (greedily, or for ``rand`` one
+    train step), beside early stop, the fused beam, the fusion hooks the
+    fused kernels carry in every linear embedder mode, and the zero
+    embedder.  What is still refused raises: a ``rand`` model has no eval
+    path (JAX's raises for want of its ``semantics`` stream), and unknown
+    names.  The paths lifted earlier (the stepper, the per-layer fusion
     sites, training with every hook) are built and run in
     test_lifted_paths_are_built_and_run."""
     fused = dict(SMALL, decode_fused=True)
-    refused = [(ModelConfig(**fused, semantic_source="rand"), "rand"),
-               (ModelConfig(**fused, semantic_embedding="bert"), "bert"),
-               (ModelConfig(**SMALL, semantic_source="rand", multihead_pre_memory=True), "rand"),
-               (ModelConfig(**fused, encoder="oscar"), "Oscar")]
-    for cfg, what in refused:
-        with pytest.raises(NotImplementedError, match=what):
-            SceneTextModel(cfg)
+    image, overlap = torch.rand(2, 32, 100, 1), torch.randint(0, 50, (2, 15))
+    lifted = [dict(semantic_source="rand"), dict(semantic_embedding="bert"),
+              dict(semantic_source="rand", multihead_pre_memory=True, decode_fused=False),
+              dict(encoder="oscar", oscar_encoder=True), dict(remat=True)]
+    for changes in lifted:
+        cfg = ModelConfig(**dict(fused, **changes))
+        model = api.get_model(None, cfg, device="cpu", seed=1)
+        if cfg.semantic_source == "rand":
+            with torch.no_grad(), pytest.raises(ValueError, match="rand"):
+                model(image, overlap)
+            trainer = api.get_trainer(None, cfg, device="cpu", seed=1)
+            batch = {"image": (image * 255).to(torch.uint8), "overlap": overlap,
+                     "text": torch.randint(3, 50, (2, 27))}
+            assert torch.isfinite(trainer(batch)["loss"])
+        else:
+            with torch.no_grad():
+                assert torch.isfinite(model(image, overlap)).all()
+    for bad, what in ((dict(encoder="nope"), "encoder"), (dict(decoder="nope"), "decoder"),
+                      (dict(semantic_embedding="nope"), "semantic")):
+        with pytest.raises(ValueError, match=what):
+            SceneTextModel(ModelConfig(**dict(fused, **bad)))
     SceneTextModel(ModelConfig(**fused, decode_early_stop=True, decode_beam_fused=True))
     for mode in ("overlap", "scene", "combined"):
         SceneTextModel(ModelConfig(**fused, semantic_vector=mode, pre_encoder_mlp=True,
