@@ -3275,6 +3275,202 @@ def data_phase(api, fd, gs, bn):
             "resume_rel_loss": rel, "best_checkpoint_step": best_step}
 
 
+# -- the command line: a reference .pth of the trained flagship, validated,
+# -- trained from and evaluated through cli.main on the committed set
+
+CLI_TRAIN_STEPS = 3
+
+
+def reference_pth(bundle_path: str, path: str) -> int:
+    """Write the bundle at ``bundle_path`` as the reference codebase's
+    ``.pth`` at ``path``: each entry through the inverse of the transform
+    that ``train/torch_import.torch_key_for`` names (a packed q/k/v split
+    back into three), under nn.DataParallel's ``module.`` prefix, plus
+    keys the import ignores: a ``num_batches_tracked`` beside every
+    BatchNorm's running mean and decoder layer 0's weights again as the
+    reference's clone prototype (``decoder.decoder_layer.*``).  Returns the
+    number of keys written."""
+    from multimodal_scene_text_recognition_tpu_torch import convert
+    from multimodal_scene_text_recognition_tpu_torch.train import torch_import
+
+    inverse = {torch_import._t_linear: lambda a: a.T,
+               torch_import._t_conv: lambda a: a.transpose(3, 2, 0, 1)}
+    sd = {}
+    for key, arr in convert.load_bundle(bundle_path).items():
+        if key in convert.META_KEYS:
+            continue
+        collection, *path_keys = key.split(".")
+        km = torch_import.torch_key_for(collection, tuple(path_keys))
+        if km is None:
+            continue
+        tkey, transform = km
+        arr = arr.astype(np.float32)
+        if isinstance(tkey, tuple):  # the packed q/k/v of an Oscar attention
+            for k, part in zip(tkey, np.split(arr, len(tkey), axis=-1)):
+                sd[k] = part.T if transform is torch_import._t_qkv_w else part
+        else:
+            sd[tkey] = inverse.get(transform, lambda a: a)(arr)
+    for k in [k for k in sd if k.endswith(".running_mean")]:
+        sd[k.replace(".running_mean", ".num_batches_tracked")] = np.asarray(1000, np.int64)
+    for k in [k for k in sd if k.startswith("decoder.decoder.layers.0.")]:
+        sd[k.replace("decoder.decoder.layers.0.", "decoder.decoder_layer.")] = sd[k]
+    torch.save({"module." + k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()},
+               path)
+    return len(sd)
+
+
+def run_cli(main, argv, counted):
+    """``main(argv)`` with its standard output kept: (exit code, output
+    lines, wall seconds with the card synchronized, launches of each
+    kernel of ``counted`` ({name: wrapper}) in the call)."""
+    import io
+
+    for k in counted.values():
+        k.launches = 0
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    return rc, out.getvalue().splitlines(), secs, {n: k.launches for n, k in counted.items()}
+
+
+def _cli_line(lines, start: str) -> str:
+    hit = [x for x in lines if x.startswith(start)]
+    if not hit:
+        raise AssertionError(f"the command line printed no line starting {start!r}: "
+                             f"{lines[-5:]}")
+    return hit[-1]
+
+
+def _cli_accuracy(lines) -> float:
+    return float(_cli_line(lines, "val accuracy: ")[len("val accuracy: "):].rstrip("%"))
+
+
+def cli_phase(api, fd, gs, bn, smi: str):
+    """The command line on the card, in process: write the trained
+    flagship as a reference ``.pth``; ``validate --checkpoint <pth>
+    --records`` on the 512 committed crops in bf16 (``decode_fused``: K1),
+    whose accuracy must equal ``api.validate`` of the bundle; ``train`` for
+    CLI_TRAIN_STEPS steps from the ``.pth`` (a validation before and after,
+    a checkpoint at the last); ``validate --checkpoint <dir>`` of that
+    checkpoint, equal to ``api.validate`` of a trainer restored from it;
+    and ``evaluate --base-errors`` on the anno ids the ``.pth`` read wrong,
+    whose "Corrected" line must count the trained model's right readings
+    of them.  The flagship's fusion hooks are off, so no path reads the
+    semantic embed table: the import skips it, as the reference loader
+    does.  Each verb's wall time includes its first call (model build,
+    import or restore, the datasets, the first K1 call's tables)."""
+    import ast
+    import importlib.util
+
+    from multimodal_scene_text_recognition_tpu_torch import cli
+    from multimodal_scene_text_recognition_tpu_torch.config import Config, apply_overrides
+    from multimodal_scene_text_recognition_tpu_torch.train import checkpoint
+
+    counted = {"K1": fd.fused_greedy_decode_cuda, "K2": gs.grid_sample_cuda, "K3": bn.bn_bwd_cuda}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:  # the .pth (~0.3 GB) and the checkpoint (~0.9 GB) go on every exit
+        pth = os.path.join(tmp, "flagship.pth")
+        t = time.perf_counter()
+        n_keys = reference_pth(BUNDLE, pth)
+        write_s = time.perf_counter() - t
+        # no class labels for evaluate: the committed set's object ids run to
+        # 1999, past every class list in assets/features
+        common = ["--set", "model.decode_fused=true", "--set", f"results_dir={tmp}",
+                  "--set", f"data.class_labels_dir={tmp}", "--experiment", "cli"]
+        pandas = importlib.util.find_spec("pandas") is not None
+        records = os.path.join(tmp, "records.csv")
+        secs, launches = {}, {}
+
+        argv = ["validate", "--checkpoint", pth] + common
+        rc, lines, secs["validate_pth"], launches["validate_pth"] = run_cli(
+            cli.main, argv + (["--records", records] if pandas else []), counted)
+        acc_pth = _cli_accuracy(lines)
+        stats = ast.literal_eval(_cli_line(lines, "  - imported torch checkpoint: ")
+                                 .split(": ", 1)[1])
+        acc_api = api.validate(api.get_model(BUNDLE))
+        log(f"cli validate --checkpoint <reference .pth of {n_keys} keys, written in "
+            f"{write_s:.2f} s>: {acc_pth}% (api.validate of the bundle {acc_api}%) in "
+            f"{secs['validate_pth']:.2f} s; import: {stats['loaded']} loaded, "
+            f"{len(stats['missing'])} missing, skipped {stats['skipped']}, "
+            f"{len(stats['unused_torch_keys'])} unused; launches {launches['validate_pth']}")
+        if rc != 0 or acc_pth != acc_api or stats["missing"] or stats["unused_torch_keys"] != \
+                stats["skipped"]:
+            raise AssertionError(f"cli validate from the .pth: rc {rc}, {acc_pth}% against "
+                                 f"api.validate's {acc_api}%, stats {stats}")
+        if pandas:  # the records CSV that pandas wrote, read back with csv
+            import csv
+
+            with open(records, newline="") as f:
+                wrong = [r["anno_id"] for r in csv.DictReader(f) if r["correct"] != "True"]
+        else:  # no pandas on the card: the same records from evaluate.validate
+            from multimodal_scene_text_recognition_tpu_torch.charset import AttnCodec
+            from multimodal_scene_text_recognition_tpu_torch.config import FLAGSHIP
+
+            val_set = api.get_dataset("synthetic")[1]
+            res = validation_records(api.get_model(BUNDLE), val_set,
+                                     AttnCodec(FLAGSHIP.chars, FLAGSHIP.max_text_length))
+            wrong = [str(r.anno_id) for r in res.records if not r.correct]
+        if len(wrong) != round(512 * (1 - acc_pth / 100)):
+            raise AssertionError(f"{len(wrong)} wrong records at {acc_pth}%")
+
+        train_argv = ["train", "--checkpoint", pth, "--set",
+                      f"train.iteration_limit={CLI_TRAIN_STEPS}", "--set",
+                      f"train.validation_steps={CLI_TRAIN_STEPS}"] + common
+        rc, lines, secs["train"], launches["train"] = run_cli(cli.main, train_argv, counted)
+        ckpt = os.path.join(tmp, "models", "cli")
+        if (rc != 0 or f"--- Iteration limit reached: {CLI_TRAIN_STEPS}" not in lines
+                or not os.path.exists(os.path.join(ckpt, checkpoint.STATE_FILE))):
+            raise AssertionError(f"cli train: rc {rc}, no checkpoint or no stop: {lines[-6:]}")
+        want = {"K1": 6, "K2": CLI_TRAIN_STEPS + 6, "K3": 36 * CLI_TRAIN_STEPS}
+        if launches["train"] != want:
+            raise AssertionError(f"cli train launched {launches['train']}, expected {want}")
+
+        rc, lines, secs["validate_checkpoint"], launches["validate_checkpoint"] = run_cli(
+            cli.main, ["validate", "--checkpoint", ckpt] + common, counted)
+        acc_trained = _cli_accuracy(lines)
+        cfg = apply_overrides(Config(), [a for a in common if a != "--set"][:-2])
+        trainer = api.get_trainer(None, cfg.model, cfg.train)
+        checkpoint.restore_checkpoint(ckpt, trainer)
+        acc_restored = api.validate(trainer, cfg=cfg)
+        del trainer
+
+        base = os.path.join(tmp, "base_errors.txt")
+        with open(base, "w") as f:
+            f.write("\n".join(wrong) + "\n")
+        rc_e, lines, secs["evaluate"], launches["evaluate"] = run_cli(
+            cli.main, ["evaluate", "--checkpoint", ckpt, "--base-errors", base] + common, counted)
+        corrected = _cli_line(lines, "Corrected: ")
+        log(f"cli train from the .pth: {CLI_TRAIN_STEPS} steps in {secs['train']:.2f} s "
+            f"(launches {launches['train']}); validate --checkpoint <its directory>: "
+            f"{acc_trained}% (api.validate of the restored trainer {acc_restored}%) in "
+            f"{secs['validate_checkpoint']:.2f} s; evaluate --base-errors <{len(wrong)} ids the "
+            f".pth read wrong>: {corrected!r} in {secs['evaluate']:.2f} s (launches "
+            f"{launches['evaluate']})")
+        n = int(corrected.split()[1])
+        if (rc != 0 or rc_e != 0 or acc_trained != acc_restored
+                or corrected != f"Corrected: {n} / {len(wrong)}"):
+            raise AssertionError(f"cli validate of the checkpoint {acc_trained}% against "
+                                 f"{acc_restored}%, or evaluate printed {corrected!r}")
+        for verb in ("validate_pth", "validate_checkpoint", "evaluate"):
+            if launches[verb]["K1"] < 3 or launches[verb]["K2"] < 3:
+                raise AssertionError(f"cli {verb} launched {launches[verb]}")
+        log("cli verbs' wall s (first call included): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in secs.items()) + f"; card {smi}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"pth_keys": n_keys, "pth_write_s": write_s, "import_stats": {
+        "loaded": stats["loaded"], "missing": len(stats["missing"]),
+        "skipped": stats["skipped"], "unused": len(stats["unused_torch_keys"])},
+        "val_acc_pth": acc_pth, "val_acc_api": acc_api, "val_acc_trained": acc_trained,
+        "val_acc_restored": acc_restored, "corrected": corrected, "wall_s": secs,
+        "launches": launches, "card": smi}
+
+
 # -- the classic recognizers: BiLSTM-Attn served and trained, BiLSTM-CTC
 # -- trained and validated, at full width with seeded random weights
 
@@ -4158,6 +4354,12 @@ def main() -> int:
     k2["launches_train_loop"] = data["loop_launches"]["K2"]
     k3["launches_train_loop"] = data["loop_launches"]["K3"]
 
+    phase("command line")
+    cli_run = cli_phase(api, fd, gs, bn, smi)
+    k1["launches_cli"] = sum(v["K1"] for v in cli_run["launches"].values())
+    k2["launches_cli"] = sum(v["K2"] for v in cli_run["launches"].values())
+    k3["launches_cli"] = sum(v["K3"] for v in cli_run["launches"].values())
+
     phase("classic recognizers")
     classic = classic_phase(api, bn, gs, crops)
     k2["launches_classic_serve"] = classic["serve_bilstm_attn"]["k2_launches_per_call"]
@@ -4194,7 +4396,8 @@ def main() -> int:
                       "e2e_int8": e2e_int8, "e2e_semantic": e2e_semantic,
                       "stepper": stepper, "fusion_sites": sites, "resize": resized,
                       "train": train, "train_with_hooks": train_hooks,
-                      "train_and_validate": data, "classic": classic,
+                      "train_and_validate": data, "command_line": cli_run,
+                      "classic": classic,
                       "variants": variants}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [k1, k1e, k1q, k2, k3, k4, k1c, k4c, p1, p2]}),

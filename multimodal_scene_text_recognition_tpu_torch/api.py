@@ -81,7 +81,8 @@ def _dataset(name: str, cfg: Config, split: str, codec):
 
         size, seed = ((cfg.data.synthetic_train_size, cfg.train.seed) if split == "train"
                       else (cfg.data.synthetic_val_size, cfg.train.seed + 1))
-        return make_dataset(size, seed, codec, cfg.data.synthetic_dir)
+        return make_dataset(size, seed, codec, cfg.data.synthetic_cache_dir or None,
+                            vocab_size=cfg.data.synthetic_vocab_size)
     if name in ("cocotext", "textocr", "synth", "cocotext_single_image_val"):
         raise NotImplementedError(f"dataset {name!r}: its loader is not ported yet; the port "
                                   "trains and validates on the committed synthetic set")

@@ -3,15 +3,17 @@
 serving paths (greedy, beam, int8 and the semantic fusion hooks), the
 classic recognizers (BiLSTM encoder, LSTM-attention and linear decoders,
 CTC), the Oscar encoder, the BERT and random embedders, backbone remat, the
-train step, the training loop and the synthetic set read, with the same
-names and defaults (JAX counterpart: core/config.py)."""
+train step, the training loop, the synthetic set and the command line
+read, with the same names and defaults, and the command line's dotted
+overrides (JAX counterpart: core/config.py)."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import string
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Dict, List, Optional, Union
 
 # 94 printable characters: string.printable minus the 6 trailing whitespace
 # controls.
@@ -164,7 +166,12 @@ class DataConfig:
     dataset: str = "synthetic"  # only the synthetic set is ported
     synthetic_train_size: int = 4096
     synthetic_val_size: int = 512
-    synthetic_dir: str = SYNTHETIC_DIR
+    # JAX renders a closed vocabulary of this many seeded words where > 0;
+    # every committed set is open vocabulary, so the port serves only 0
+    synthetic_vocab_size: int = 0
+    # a directory of sets under the renderer's cache names (in JAX, its
+    # cache of rendered sets); empty: the committed sets, SYNTHETIC_DIR
+    synthetic_cache_dir: str = ""
     # the detectors' class-id -> label lists (eval.evaluate.load_class_labels)
     class_labels_dir: str = os.path.join(_ASSETS, "features")
 
@@ -176,6 +183,58 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
     results_dir: str = "./results"
+    # the checkpoint the command line starts from: a reference ``.pth``/``.pt``
+    # or a directory of train/checkpoint.save_checkpoint
+    saved_model: Optional[str] = None
+
+
+def _coerce(current: Any, raw: str) -> Any:
+    """``raw`` as the type of the field's current value; a field that is
+    None takes None, an int, a float or the string, in that order."""
+    if isinstance(current, bool):
+        return raw.lower() in ("1", "true", "yes", "on")
+    if current is None:
+        if raw.lower() in ("none", "null"):
+            return None
+        try:
+            return int(raw)
+        except ValueError:
+            try:
+                return float(raw)
+            except ValueError:
+                return raw
+    if isinstance(current, int):
+        return int(raw)
+    if isinstance(current, float):
+        return float(raw)
+    return raw
+
+
+def apply_overrides(cfg: Config, overrides: Union[Dict[str, Any], List[str]]) -> Config:
+    """``cfg`` with dotted-path overrides applied, e.g. ``model.encoder=lstm``
+    (a list of ``key=value`` items, or a dict whose string values are
+    coerced and others taken as they are).  An item without ``=`` raises
+    ValueError, an unknown field AttributeError."""
+    if isinstance(overrides, list):
+        pairs = {}
+        for item in overrides:
+            if "=" not in item:
+                raise ValueError(f"override must be key=value, got {item!r}")
+            k, v = item.split("=", 1)
+            pairs[k.strip()] = v.strip()
+        overrides = pairs
+    for path, raw in overrides.items():
+        parts = path.split(".")
+        objs = [cfg]
+        for p in parts[:-1]:
+            objs.append(getattr(objs[-1], p))
+        current = getattr(objs[-1], parts[-1])
+        updated = dataclasses.replace(
+            objs[-1], **{parts[-1]: _coerce(current, raw) if isinstance(raw, str) else raw})
+        for obj, name in zip(reversed(objs[:-1]), reversed(parts[:-1])):
+            updated = dataclasses.replace(obj, **{name: updated})
+        cfg = updated
+    return cfg
 
 
 # The flagship that serving runs: bf16 compute, whole-loop fused decode.

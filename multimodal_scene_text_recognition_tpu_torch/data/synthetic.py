@@ -42,17 +42,19 @@ def committed_sets(directory: str = SYNTHETIC_DIR) -> Dict[int, Tuple[int, str]]
 
 
 def make_dataset(size: int, seed: int = 0, codec: Optional[Codec] = None,
-                 directory: Optional[str] = None) -> PackedSamples:
+                 directory: Optional[str] = None, vocab_size: int = 0) -> PackedSamples:
     """The JAX renderer's ``make_dataset(size, seed)`` at its defaults, as
     :class:`PackedSamples` (uint8 images), label rows encoded by ``codec``
     (default: the model's 94 characters, 25 long).  Raises ``ValueError``
-    where no committed set at ``seed`` holds ``size`` crops."""
+    where no committed set at ``seed`` holds ``size`` crops, or for a closed
+    vocabulary (``vocab_size > 0``), which no committed set holds."""
     directory = directory or SYNTHETIC_DIR
     sets = committed_sets(directory)
-    if seed not in sets or size > sets[seed][0] or size < 1:
+    if vocab_size or seed not in sets or size > sets[seed][0] or size < 1:
         have = ", ".join(f"{n} crops at seed {s}" for s, (n, _) in sorted(sets.items()))
+        what = f"a closed vocabulary of {vocab_size} words" if vocab_size else f"{size} crops"
         raise ValueError(
-            f"no committed synthetic set holds {size} crops at seed {seed} (committed in "
+            f"no committed synthetic set holds {what} at seed {seed} (committed in "
             f"{directory}: {have or 'none'}); any smaller size at a committed seed is served. "
             f"Render others with {RENDER_SCRIPT}, where PIL is installed")
     codec = codec or AttnCodec(DEFAULT_CHARS, 25)

@@ -1,7 +1,8 @@
-"""Checkpoints: the full train state with ``torch.save`` for resume, and
-the compact params bundle in the JAX package's format for serving (JAX
-counterpart: train/checkpoint.py, whose full state goes through Orbax;
-Orbax is not used here and its checkpoints are not read).
+"""Checkpoints: the full train state with ``torch.save`` for resume, the
+compact params bundle in the JAX package's format for serving, and the
+import of a reference ``.pth`` (JAX counterpart: train/checkpoint.py, whose
+full state goes through Orbax; Orbax is not used here and its checkpoints
+are not read).
 
 The full state of a :class:`~.steps.TrainStep`: the model's ``state_dict``
 (parameters and BatchNorm running statistics), AdamW's ``mu``, ``nu`` and
@@ -13,7 +14,7 @@ decoder's cached weight tables are rebuilt on the next decode)."""
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -84,3 +85,21 @@ def restore_params_bundle(path: str, model: torch.nn.Module) -> int:
     flat = convert.load_bundle(path)
     model.load_state_dict(convert.bundle_to_state_dict(flat), strict=True)
     return int(flat.get("__step__", 0))
+
+
+def import_torch_checkpoint(pth_path: str, model: torch.nn.Module,
+                            skip_semantic_embed: bool = True,
+                            strict: bool = False) -> Dict[str, Any]:
+    """Load a reference ``.pth`` state dict into ``model``, in place on its
+    own device, as the reference loader does: the semantic embed table is
+    skipped and keys the model lacks, or lacks a counterpart for, are
+    tolerated (``train.torch_import.convert_state_dict``, whose stats this
+    returns).  A shape mismatch raises ValueError, and with ``strict`` a
+    missing key KeyError, before the model is touched."""
+    from .torch_import import convert_state_dict
+
+    sd = torch.load(pth_path, map_location="cpu", weights_only=True)
+    state_dict, stats = convert_state_dict(sd, model, skip_semantic_embed=skip_semantic_embed,
+                                           strict=strict)
+    model.load_state_dict(state_dict, strict=True)
+    return stats

@@ -21,6 +21,9 @@ from multimodal_scene_text_recognition_tpu_torch.models.layers import BatchNorm2
 from multimodal_scene_text_recognition_tpu_torch.models.resnet import BasicBlock
 from multimodal_scene_text_recognition_tpu_torch.ops import batchnorm as bn
 from test_torch_modules import flatten, randomize
+import torch_threads
+
+torch_threads.limit()
 
 
 def _nhwc(t):
@@ -162,7 +165,7 @@ def test_basic_block_train_gradients_match_jax(cin, planes):
     X = np.maximum(rng.normal(size=(4, 8, 20, cin)), 0).astype(np.float32)
     R = rng.normal(size=(4, 8, 20, planes)).astype(np.float32)
     jm = JBasicBlock(planes, dtype=jnp.float32, fused_bn=True)
-    v = randomize(jm.init(jax.random.PRNGKey(0), jnp.asarray(X)), 3)
+    v = randomize(jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.asarray(X)), 3)
 
     def f(params, x):
         out, _ = jm.apply({"params": params, "batch_stats": v["batch_stats"]}, x, True,

@@ -24,6 +24,9 @@ from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
 from multimodal_scene_text_recognition_tpu_torch.models.decoders import TransformerDecoder
 from multimodal_scene_text_recognition_tpu_torch.ops import attention
 from test_torch_modules import load_port, randomize
+import torch_threads
+
+torch_threads.limit()
 
 B, HID, E, T, C, BEAM = 3, 64, 32, 8, 13, 5
 RNG = np.random.default_rng(3)

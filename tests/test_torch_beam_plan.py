@@ -17,6 +17,9 @@ import torch
 
 from multimodal_scene_text_recognition_tpu_torch.ops import fused_beam as fb
 from multimodal_scene_text_recognition_tpu_torch.ops import fused_decode as fd
+import torch_threads
+
+torch_threads.limit()
 
 FLAGSHIP = dict(L=6, E=256, H=8, F=2048, C=97, T=25, Tm=26)
 CARD = dict(L=2, E=64, H=4, F=128, C=97, T=8, Tm=8)  # tests/test_torch_cuda.py's widths

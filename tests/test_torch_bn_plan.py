@@ -18,6 +18,9 @@ from multimodal_scene_text_recognition_tpu_torch.config import FLAGSHIP
 from multimodal_scene_text_recognition_tpu_torch.models.layers import BatchNorm2d
 from multimodal_scene_text_recognition_tpu_torch.models.model import SceneTextModel
 from multimodal_scene_text_recognition_tpu_torch.ops import batchnorm as bn
+import torch_threads
+
+torch_threads.limit()
 
 SMS = 132  # the H100's
 SMEM_PER_SM = 232448  # the shared memory one CTA may take (227 KB)

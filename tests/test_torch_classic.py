@@ -56,6 +56,9 @@ from multimodal_scene_text_recognition_tpu_torch.train.steps import (TrainStep, 
                                                                      ctc_loss, make_eval_step)
 from test_torch_modules import assert_close_to_scale, flatten, load_port, randomize
 from test_torch_train import GROUPS, TOLS, _flat, _rel_l2, make_batch
+import torch_threads
+
+torch_threads.limit()
 
 MICRO = dict(enc_layers=1, dec_layers=1, ff_dim=32, hidden_dim=32, embed_dim=32, lstm_hidden=48,
              num_heads=2, compute_dtype="float32", dropout=0.0, use_tps=False)

@@ -23,6 +23,9 @@ import torch
 
 from multimodal_scene_text_recognition_tpu_torch.models.decoders import TransformerDecoder
 from multimodal_scene_text_recognition_tpu_torch.ops import fused_decode as fd
+import torch_threads
+
+torch_threads.limit()
 
 WARPS, UNIT = 8, 512
 

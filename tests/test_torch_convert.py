@@ -7,6 +7,9 @@ import torch
 from multimodal_scene_text_recognition_tpu_torch import convert
 from multimodal_scene_text_recognition_tpu_torch.config import FLAGSHIP
 from multimodal_scene_text_recognition_tpu_torch.models.model import SceneTextModel
+import torch_threads
+
+torch_threads.limit()
 
 BUNDLE = "assets/trained/synth_openvocab_xxl.params.npz"
 

@@ -17,6 +17,9 @@ from multimodal_scene_text_recognition_tpu_torch import metrics
 from multimodal_scene_text_recognition_tpu_torch.charset import AttnCodec
 from multimodal_scene_text_recognition_tpu_torch.config import DEFAULT_CHARS, SYNTHETIC_DIR
 from multimodal_scene_text_recognition_tpu_torch.data import pipeline, synthetic
+import torch_threads
+
+torch_threads.limit()
 
 SETS = ((4096, 999), (512, 1000))  # the committed sets: (size, seed)
 KEYS = ("image", "text", "overlap", "scene", "ious", "anno_id")

@@ -28,6 +28,9 @@ from multimodal_scene_text_recognition_tpu.ops import fused_decode as jfd
 from multimodal_scene_text_recognition_tpu_torch.charset import EOS_ID
 from multimodal_scene_text_recognition_tpu_torch.ops import fused_beam as fb
 from multimodal_scene_text_recognition_tpu_torch.ops import fused_decode as fd
+import torch_threads
+
+torch_threads.limit()
 
 L, E, H, FF, C, T, TM, B = 2, 32, 4, 64, 17, 8, 6, 5
 ROW_BIASES = {"b_qkv", "b_out", "cb_q", "cb_o", "ff1_b", "ff2_b",

@@ -20,6 +20,9 @@ from multimodal_scene_text_recognition_tpu.ops import fused_decode as jfd
 from multimodal_scene_text_recognition_tpu_torch.models.decoders import TransformerDecoder
 from multimodal_scene_text_recognition_tpu_torch.models.layers import positional_rows
 from multimodal_scene_text_recognition_tpu_torch.ops import fused_decode as fd
+import torch_threads
+
+torch_threads.limit()
 
 L, E, H, FF, C, T, TM, B = 2, 64, 4, 128, 97, 6, 8, 8
 

@@ -24,6 +24,9 @@ from jax.experimental import pallas as pl
 
 from multimodal_scene_text_recognition_tpu_torch.ops import gemm_probe as gp
 from multimodal_scene_text_recognition_tpu_torch.scripts import probe_int8
+import torch_threads
+
+torch_threads.limit()
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

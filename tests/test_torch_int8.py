@@ -28,6 +28,9 @@ from multimodal_scene_text_recognition_tpu_torch.models.resnet import ResNet31
 from multimodal_scene_text_recognition_tpu_torch.models.transformation import TPSTransform
 from multimodal_scene_text_recognition_tpu_torch.ops import int8
 from test_torch_modules import load_port, randomize
+import torch_threads
+
+torch_threads.limit()
 
 SCALES = "assets/trained/synth_openvocab_xxl.scales.npz"
 RNG = np.random.default_rng(21)

@@ -28,6 +28,9 @@ import torch
 from multimodal_scene_text_recognition_tpu_torch.models.decoders import TransformerDecoder
 from multimodal_scene_text_recognition_tpu_torch.ops import fused_decode as fd
 from multimodal_scene_text_recognition_tpu_torch.ops.int8 import dequantize, div
+import torch_threads
+
+torch_threads.limit()
 
 WARPS, R = 8, 16
 

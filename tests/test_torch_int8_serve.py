@@ -29,6 +29,9 @@ from multimodal_scene_text_recognition_tpu_torch.models.model import (SceneTextM
                                                                       make_int8_eval_step)
 from test_torch_model import BUNDLE, SMALL, _crops, _jax_batch, trained_jax_variables  # noqa: F401
 from test_torch_modules import flatten, randomize
+import torch_threads
+
+torch_threads.limit()
 
 SCALES = BUNDLE.replace(".params.npz", ".scales.npz")
 INT8 = dict(decode_fused=True, decode_int8=True, encoder_int8=True, tps_int8=True)

@@ -46,6 +46,9 @@ from multimodal_scene_text_recognition_tpu_torch.eval import evaluate
 from multimodal_scene_text_recognition_tpu_torch.train import checkpoint, loop
 from multimodal_scene_text_recognition_tpu_torch.train.steps import make_eval_step
 from test_torch_train import _flat, random_bundle, unflatten
+import torch_threads
+
+torch_threads.limit()
 
 MICRO = dict(enc_layers=1, dec_layers=1, ff_dim=32, hidden_dim=32, embed_dim=32, num_heads=2,
              compute_dtype="float32", dropout=0.0, use_tps=False)

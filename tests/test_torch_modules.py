@@ -39,6 +39,9 @@ from multimodal_scene_text_recognition_tpu_torch.models.transformation import (
     TPSTransform,
 )
 from multimodal_scene_text_recognition_tpu_torch.ops import tps
+import torch_threads
+
+torch_threads.limit()
 
 
 def randomize(variables, seed):
@@ -92,7 +95,7 @@ IMG = RNG.random((2, 32, 100, 1), dtype=np.float32)
 def test_localization_network():
     """Fiducials [2, 20, 2]: scale 0.62, measured difference 2e-7."""
     jm = JLocalizationNetwork(20, dtype=jnp.float32, fused_bn=True)
-    v = randomize(jm.init(jax.random.PRNGKey(0), jnp.asarray(IMG)), 1)
+    v = randomize(jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.asarray(IMG)), 1)
     want = np.asarray(jm.apply(v, jnp.asarray(IMG)))
     port = load_port(LocalizationNetwork(20, 1, torch.float32), v)
     got = port(torch.from_numpy(IMG).permute(0, 3, 1, 2)).numpy()
@@ -133,7 +136,7 @@ def test_resnet31_columns():
     """Column features [2, 26, 64] after to_column_sequence (full depth,
     narrow widths 16/32/64/64): scale 1.5, measured difference 1.4e-6."""
     jm = JResNet31(output_channels=64, dtype=jnp.float32, fused_bn=True)
-    v = randomize(jm.init(jax.random.PRNGKey(0), jnp.asarray(IMG)), 3)
+    v = randomize(jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.asarray(IMG)), 3)
     want = np.asarray(j_to_column_sequence(jm.apply(v, jnp.asarray(IMG))))
     port = load_port(ResNet31(1, 64, dtype=torch.float32), v)
     got = to_column_sequence(port(torch.from_numpy(IMG).permute(0, 3, 1, 2))).numpy()
@@ -146,7 +149,7 @@ def test_transformer_encoder():
     measured difference 1.4e-6."""
     cols = RNG.standard_normal((2, 26, 64)).astype(np.float32)
     jm = JTransformerEncoder(d_model=64, num_heads=4, ff_dim=128, num_layers=2, max_len=26)
-    v = randomize(jm.init(jax.random.PRNGKey(0), jnp.asarray(cols)), 4)
+    v = randomize(jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.asarray(cols)), 4)
     want = np.asarray(jm.apply(v, jnp.asarray(cols)))
     port = load_port(TransformerEncoder(64, 4, 128, 2, 26), v)
     got = port(torch.from_numpy(cols)).numpy()

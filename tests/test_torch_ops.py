@@ -25,6 +25,9 @@ from multimodal_scene_text_recognition_tpu_torch.models.layers import (
 )
 from multimodal_scene_text_recognition_tpu_torch.ops import grid_sample as gs
 from multimodal_scene_text_recognition_tpu_torch.ops import tps
+import torch_threads
+
+torch_threads.limit()
 
 RNG = np.random.default_rng(7)
 

@@ -18,6 +18,9 @@ import torch
 from multimodal_scene_text_recognition_tpu_torch.ops import gemm_probe as gp
 from multimodal_scene_text_recognition_tpu_torch.ops.int8 import div
 from multimodal_scene_text_recognition_tpu_torch.ops.precision import full_fp32
+import torch_threads
+
+torch_threads.limit()
 
 E = gp.E
 NARROW_F = 512  # the wide part's columns cost the CPU's int32 product most

@@ -4,6 +4,10 @@
 library, and its numpy mirror) and PIL's mode-F bicubic resize for float
 crops, then the whole prepared batch against JAX ``Recognizer._prepare``."""
 
+import shutil
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +21,9 @@ from multimodal_scene_text_recognition_tpu_torch.config import ModelConfig
 from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
 from multimodal_scene_text_recognition_tpu_torch.ops import resize
 from test_torch_model import SMALL
+import torch_threads
+
+torch_threads.limit()
 
 RNG = np.random.default_rng(51)
 # (image shape, xywh box): whole crops of the sizes served, a 1-pixel-wide
@@ -28,6 +35,30 @@ CASES = {
     "fractional sub-box": ((100, 300), (17.5, 9.25, 120.3, 40.7)),
 }
 IMAGES = {k: RNG.integers(0, 256, shape, dtype=np.uint8) for k, (shape, _) in CASES.items()}
+
+
+NATIVE = Path(__file__).resolve().parent.parent / "native"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_library(tmp_path_factory):
+    """A private build of the JAX package's native library for this module.
+    JAX's loader runs ``make -C native`` on first use where the library is
+    absent, and remembers a failed load for the life of the process; test
+    processes started together race on that one build, and a loser falls
+    back to numpy.  This builds a copy of the same sources with the same
+    Makefile (so the same -O3 -march=native flags) in a directory of its
+    own, and points the loader at it."""
+    build = tmp_path_factory.mktemp("imgproc")
+    for name in ("Makefile", "imgproc.cpp"):
+        shutil.copy(NATIVE / name, build / name)
+    subprocess.run(["make", "-C", str(build)], check=True, capture_output=True, timeout=300)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_SO_PATH", str(build / "libimgproc.so"))
+        mp.setattr(jnative, "_lib", None)
+        mp.setattr(jnative, "_tried", False)
+        assert jnative.have_native()
+        yield
 
 
 def _box(name):

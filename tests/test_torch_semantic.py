@@ -48,6 +48,9 @@ from multimodal_scene_text_recognition_tpu_torch.models.model import (SceneTextM
 from multimodal_scene_text_recognition_tpu_torch.models.semantic import build_semantic_embedder
 from test_torch_model import SMALL, _crops
 from test_torch_modules import assert_close_to_scale, flatten, load_port, randomize
+import torch_threads
+
+torch_threads.limit()
 
 E, HID, C, NOBJ = 32, 64, 97, 2000
 # the served semantic configuration at the small size: every hook the fused

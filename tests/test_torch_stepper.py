@@ -41,6 +41,9 @@ from multimodal_scene_text_recognition_tpu_torch.models.encoders import no_dropo
 from test_torch_modules import assert_close_to_scale, load_port
 from test_torch_semantic import semantic_inputs, variables
 from test_torch_train import _flat, _rel_l2, make_batch, random_bundle, unflatten
+import torch_threads
+
+torch_threads.limit()
 
 B, HID, E, T, C, O = 4, 64, 32, 8, 13, 6
 RNG = np.random.default_rng(41)

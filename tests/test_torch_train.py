@@ -39,6 +39,9 @@ from multimodal_scene_text_recognition_tpu_torch.train.loop import run_steps
 from multimodal_scene_text_recognition_tpu_torch.train.state import AdamW, make_lr_schedule
 from multimodal_scene_text_recognition_tpu_torch.train.steps import cross_entropy
 from test_torch_modules import flatten, randomize
+import torch_threads
+
+torch_threads.limit()
 
 TINY = dict(enc_layers=1, dec_layers=1, ff_dim=64, hidden_dim=64, embed_dim=32, num_heads=4,
             compute_dtype="float32", dropout=0.0)
@@ -434,7 +437,7 @@ def test_tps_stage_train_gradients_match_jax(monkeypatch):
     img = make_batch(4, 3)["image"].astype(np.float32) / 255
     cot = np.random.default_rng(5).standard_normal(img.shape).astype(np.float32)
     jm = JTPSTransform(20, 32, 100, dtype=jnp.float32, fused_bn=True)
-    variables = randomize(jm.init(jax.random.PRNGKey(0), jnp.asarray(img)), 2)
+    variables = randomize(jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.asarray(img)), 2)
 
     def loss_fn(params):
         out, upd = jm.apply({"params": params, "batch_stats": variables["batch_stats"]},

@@ -53,6 +53,9 @@ from multimodal_scene_text_recognition_tpu_torch.ops import fused_decode
 from test_torch_model import SMALL, _crops
 from test_torch_modules import assert_close_to_scale, flatten, load_port, randomize
 from test_torch_train import GROUPS, TOLS, _flat, _rel_l2, make_batch
+import torch_threads
+
+torch_threads.limit()
 
 CLASSES = os.path.join(os.path.dirname(__file__), "..", "assets", "features",
                        "vinvl_classes.txt")
@@ -214,18 +217,24 @@ OSCAR_VISUAL = dict(encoder="oscar")  # visual only, the linear embedder
 B = 3
 
 
-def fast_variables(jm, seed):
-    """:func:`variables` of a whole JAX model (its eval-mode ``init``, which
-    makes the train-mode tree and traces quicker),
-    drawn uniform in float32 for speed (the Oscar encoder and the BERT
-    embedder hold ~150M weights), with ``randomize``'s means and variances:
-    kernels and tables of variance 1/fan_in, norm scales 1 + 0.1 u, other
-    vectors 0.1 u (u of variance 1), running variances ~ U(0.5, 1.5)."""
+def init_shapes(jm):
+    """The shapes of a whole JAX model's variables (its eval-mode ``init``,
+    which makes the train-mode tree and traces quicker)."""
     k = jax.random.PRNGKey(0)
     args = (np.zeros((1, 32, 100, 1), np.float32), np.zeros((1, 26), np.int32),
             np.zeros((1, 15), np.int32), np.zeros((1, 52), np.int32),
             np.full((1, 52), -1000.0, np.float32))
-    shapes = jax.eval_shape(jm.init, {"params": k, "dropout": k, "semantics": k}, *args)
+    return jax.eval_shape(jm.init, {"params": k, "dropout": k, "semantics": k}, *args)
+
+
+def fast_variables(jm, seed, shapes=None):
+    """:func:`variables` of a whole JAX model (of ``shapes``, by default
+    :func:`init_shapes`), drawn uniform in float32 for speed (the Oscar
+    encoder and the BERT embedder hold ~150M weights), with ``randomize``'s
+    means and variances: kernels and tables of variance 1/fan_in, norm
+    scales 1 + 0.1 u, other vectors 0.1 u (u of variance 1), running
+    variances ~ U(0.5, 1.5)."""
+    shapes = shapes if shapes is not None else init_shapes(jm)
     rng = np.random.default_rng(seed)
 
     def draw(path, t):
