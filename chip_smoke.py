@@ -67,7 +67,19 @@ CPU, and through the int8 backbone with K1q; BiLSTM-Attn through the int8
 backbone; three train steps each of Oscar-BERT, the flagship with the
 random semantic source and with ``remat``, kernels against plain, and
 remat against the same steps without it (running statistics equal, both
-peak memories).  The gemm probe phase holds the
+peak memories).  The phase "real-data loaders" decodes the loader
+fixtures (``assets/loader_fixtures/``: JPEG pages at four samplings, a PNG
+page, word-crop JPEGs) on the card's host bit-equal to PIL's decode in
+their ``expected.npz``; runs ``cli.main`` ``validate --dataset cocotext``
+from the trained flagship's reference ``.pth`` in bf16 and float32 (whose
+strings must be the JAX package's) and ``--dataset textocr``, and holds
+the semantic configuration on the TextOCR words with objects against the
+CPU in float32; ``train --dataset synth`` for three steps on the LMDB
+mixture with ``keep_ratio`` over a dict-backed ``lmdb`` stand-in (the
+broken record a dummy at every draw); and ``recognize`` of 192 committed
+crops written as PNG, greedily and by beam search, against
+``Recognizer.recognize`` and ``api.validate``; with each verb's launches,
+wall time and the loaders' crops/s.  The gemm probe phase holds the
 int8-vs-bf16 probe's two chain kernels (P1, P2) against their plain
 versions at 1, 4 and 30 steps, on a tie input and a NaN input, checks both
 end all NaN at the probe's 200 steps, prints their launch plan
@@ -3471,6 +3483,407 @@ def cli_phase(api, fd, gs, bn, smi: str):
         "launches": launches, "card": smi}
 
 
+# -- the real-data loaders: the fixtures' pages and crops decoded on the
+# -- card's host, validate on COCO-Text and TextOCR, train on the LMDB mixture
+# -- and recognize a folder, each through cli.main
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets", "loader_fixtures")
+DECODE_REPS = 5
+LOADER_SEM_TOL = SITES_CPU_TOL  # f32 semantic rows, card vs CPU, of max(1, max |logit|)
+RECOGNIZE_ACC_TOL = 1.0  # points between recognize's accuracy and api.validate's
+LOADER_READS = 256  # LmdbReader reads timed
+
+
+def fixture_sets():
+    """``--set`` items that point the COCO-Text and TextOCR loaders at the
+    fixtures."""
+    paths = {"cocotext_api_path": "cocotext.json", "cocotext_image_path": "",
+             "cocotext_object_tags_path": "object_tags.json", "textocr_anno_path": "",
+             "textocr_image_path": "", "textocr_object_tags_path": "textocr_tags.json"}
+    out = []
+    for k, v in paths.items():
+        out += ["--set", f"data.{k}={os.path.join(FIXTURES, v)}"]
+    return out
+
+
+class DictLmdb:
+    """A dict-backed stand-in for the ``lmdb`` package (which neither test
+    machine has), installed as ``sys.modules["lmdb"]``: ``open(path)`` ->
+    an environment, ``begin()`` -> a transaction with ``get``, over
+    ``stores`` {normalized path: {key: value}}."""
+
+    def __init__(self, stores):
+        import types
+
+        self.stores = stores
+        self.module = types.ModuleType("lmdb")
+        self.module.open = lambda path, **kw: _DictTxn(stores[os.path.normpath(path)])
+
+
+class _DictTxn:
+    def __init__(self, store):
+        self.store = store
+
+    def begin(self, write: bool = False):
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def get(self, key: bytes):
+        return self.store.get(key)
+
+
+@contextlib.contextmanager
+def lmdb_installed(stores):
+    """:class:`DictLmdb` over ``stores`` as ``sys.modules["lmdb"]`` inside
+    the block."""
+    real = sys.modules.get("lmdb")
+    sys.modules["lmdb"] = DictLmdb(stores).module
+    try:
+        yield
+    finally:
+        if real is None:
+            sys.modules.pop("lmdb", None)
+        else:
+            sys.modules["lmdb"] = real
+
+
+def lmdb_store(records):
+    """A clovaai-layout store of ``records`` [(label, image bytes)]."""
+    store = {b"num-samples": str(len(records)).encode()}
+    for i, (label, buf) in enumerate(records, start=1):
+        store[b"image-%09d" % i] = buf
+        store[b"label-%09d" % i] = label.encode()
+    return store
+
+
+def decode_check():
+    """Every fixture page and crop decoded by ``data/images.decode_gray``
+    against PIL's decode in ``expected.npz``: bit-equal, the truncated crop
+    an OSError; ms per page (median of DECODE_REPS, each page's bytes in
+    memory)."""
+    from multimodal_scene_text_recognition_tpu_torch.data import images
+
+    exp = np.load(os.path.join(FIXTURES, "expected.npz"))
+    t = time.perf_counter()
+    images._library()
+    build_s = time.perf_counter() - t
+    worst, page_ms, n = 0, {}, 0
+    for key in exp.files:
+        kind, _, name = key.partition("/")
+        if kind not in ("page", "crop"):
+            continue
+        with open(os.path.join(FIXTURES, "" if kind == "page" else "crops", name), "rb") as f:
+            data = f.read()
+        got = images.decode_gray(data)
+        want = exp[key]
+        if got.shape != want.shape:
+            raise AssertionError(f"decode of {name}: shape {got.shape}, PIL's {want.shape}")
+        worst = max(worst, int(np.abs(got.astype(np.int32) - want).max()))
+        n += 1
+        if kind == "page":
+            times = []
+            for _ in range(DECODE_REPS):
+                t = time.perf_counter()
+                images.decode_gray(data)
+                times.append((time.perf_counter() - t) * 1e3)
+            page_ms[name] = statistics.median(times)
+    with open(os.path.join(FIXTURES, "crops", "truncated.jpg"), "rb") as f:
+        truncated = f.read()
+    try:
+        images.decode_gray(truncated)
+        raise AssertionError("the truncated JPEG decoded")
+    except OSError:
+        pass
+    log(f"decode on the card's host: {n} files (6 pages, 16 crops) against PIL's, max |diff| "
+        f"{worst} (limit 0); the truncated crop raised OSError; ms a 640x480 page (median of "
+        f"{DECODE_REPS}): " + ", ".join(f"{k} {v:.2f}" for k, v in page_ms.items())
+        + f"; the decoder's g++ build {build_s:.2f} s")
+    if worst:
+        raise AssertionError(f"decode_gray differs from PIL by {worst}")
+    return {"files": n, "max_abs_diff": worst, "page_ms": page_ms, "build_s": build_s}
+
+
+def loader_rates(api, cfg) -> dict:
+    """Crops/s of ``CocoTextSamples`` reading the fixture's val words on the
+    card's host: with the page cache cold (every page decoded) and warm
+    (crop + resize only)."""
+    from multimodal_scene_text_recognition_tpu_torch.data import cocotext
+
+    _, val = api.get_dataset("cocotext", cfg)
+    rates = {}
+    for name in ("cold", "warm"):
+        if name == "cold":
+            cocotext._load_page.cache_clear()
+        t = time.perf_counter()
+        for i in range(len(val)):
+            val[i]
+        rates[name] = len(val) / (time.perf_counter() - t)
+    log(f"CocoTextSamples on the card's host, {len(val)} words on 4 pages: "
+        f"{rates['cold']:.0f} crops/s with the page cache cold, {rates['warm']:.0f} warm")
+    return rates
+
+
+def strings_vs_reference(got, want, gaps):
+    """Rows of ``got`` that differ from ``want``, and the largest top-2 gap
+    of the reference's logits at a row's first differing step (a flip is a
+    rounding-level tie only below CLASSIC_FLIP_GAP)."""
+    worst_gap, differ = 0.0, 0
+    for g, w, gap in zip(got, want, gaps):
+        if g == w:
+            continue
+        differ += 1
+        step = next((i for i, (a, b) in enumerate(zip(g + "\0" * 26, w + "\0" * 26))
+                     if a != b), 0)
+        worst_gap = max(worst_gap, float(gap[min(step, len(gap) - 1)]))
+    return differ, worst_gap
+
+
+def loaders_phase(api, fd, fb, gs, bn, smi: str):
+    """The real-data loaders on the card: the fixtures decoded bit-equal to
+    PIL's; ``validate --dataset cocotext`` from the trained flagship's
+    reference ``.pth`` in bf16 (K1, K2) and float32, whose strings must be
+    JAX's in ``expected.npz`` (a differing row only at a JAX top-2 gap below
+    CLASSIC_FLIP_GAP); ``validate --dataset textocr``; the semantic
+    configuration (random weights, ``semantic_source="vinvl"``) on the
+    TextOCR rows with non-zero overlap and scene vectors, card against CPU
+    in float32; ``train --dataset synth`` on the LMDB mixture with
+    ``keep_ratio`` for CLI_TRAIN_STEPS steps at B=192 over a dict-backed
+    ``lmdb`` (K3 36 a step, the broken record's dummy at every draw, finite
+    losses); ``recognize`` of 192 committed crops written as PNG, greedily
+    (K1 1, K2 1) and by beam search (K4 1, K2 1), its strings those of
+    ``Recognizer.recognize`` on the same arrays and its accuracy within
+    RECOGNIZE_ACC_TOL points of ``api.validate``'s on those crops."""
+    from multimodal_scene_text_recognition_tpu_torch import cli
+    from multimodal_scene_text_recognition_tpu_torch.config import (FLAGSHIP, Config, DataConfig,
+                                                                      apply_overrides)
+    from multimodal_scene_text_recognition_tpu_torch.data import lmdb_data, raw
+    from multimodal_scene_text_recognition_tpu_torch.eval import evaluate
+    from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
+    from multimodal_scene_text_recognition_tpu_torch.train.steps import TrainStep
+    from multimodal_scene_text_recognition_tpu_torch.utils.images import save_image
+
+    out = {"decode": decode_check()}
+    counted = {"K1": fd.fused_greedy_decode_cuda, "K2": gs.grid_sample_cuda,
+               "K3": bn.bn_bwd_cuda, "K4": fb.fused_beam_decode_cuda}
+    exp = np.load(os.path.join(FIXTURES, "expected.npz"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_loaders_")
+    secs, launches = {}, {}
+    try:
+        pth = os.path.join(tmp, "flagship.pth")
+        reference_pth(BUNDLE, pth)
+        fused = ["--set", "model.decode_fused=true"]
+        fixtures = fixture_sets()
+
+        # COCO-Text: bf16, then float32 with each row's string kept
+        accs = {}
+        for name, extra in (("cocotext_bf16", []),
+                            ("cocotext_f32", ["--set", "model.compute_dtype=float32"])):
+            records = []
+
+            def keep(real):
+                def call(*a, **k):
+                    res = real(*a, **dict(k, return_records=True))
+                    records.append(res)
+                    return res
+                return call
+
+            with patched(evaluate, "validate", keep):
+                rc, lines, secs[name], launches[name] = run_cli(
+                    cli.main, ["validate", "--dataset", "cocotext", "--checkpoint", pth]
+                    + fused + fixtures + extra, counted)
+            accs[name] = _cli_accuracy(lines)
+            if rc != 0 or launches[name]["K1"] < 1 or launches[name]["K2"] < 1:
+                raise AssertionError(f"cli validate cocotext ({name}): rc {rc}, launches "
+                                     f"{launches[name]}")
+        texts32 = [r.prediction for r in records[-1].records]
+        if [r.anno_id for r in records[-1].records] != exp["cocotext_val/anno_id"].tolist():
+            raise AssertionError("cli validate cocotext read the val words in another order")
+        want = [str(t) for t in exp["cocotext_val/jax_f32_text"]]
+        differ, gap = strings_vs_reference(texts32, want, exp["cocotext_val/jax_f32_top2_gap"])
+        labels = [str(t) for t in exp["cocotext_val/label"]]
+        jax_acc = 100.0 * sum(a == b for a, b in zip(want, labels)) / len(labels)
+        log(f"cli validate --dataset cocotext ({len(want)} val words on 4 pages): bf16 "
+            f"{accs['cocotext_bf16']}% in {secs['cocotext_bf16']:.2f} s (launches "
+            f"{launches['cocotext_bf16']}), f32 {accs['cocotext_f32']}% in "
+            f"{secs['cocotext_f32']:.2f} s; JAX f32 {jax_acc:.5f}%; f32 strings vs JAX's: "
+            f"{differ} rows differ (largest JAX top-2 gap at a flip {gap:.3e}, limit "
+            f"{CLASSIC_FLIP_GAP:g})")
+        if len(texts32) != len(want) or gap >= CLASSIC_FLIP_GAP:
+            raise AssertionError(f"cocotext f32 strings: {differ} rows differ from JAX's, "
+                                 f"gap {gap}")
+        out["cocotext"] = {"val_words": len(want), "acc_bf16": accs["cocotext_bf16"],
+                           "acc_f32": accs["cocotext_f32"], "jax_f32_acc": jax_acc,
+                           "f32_rows_differing": differ, "flip_gap": gap}
+
+        # TextOCR, then the semantic configuration on its rows with objects
+        rc, lines, secs["textocr"], launches["textocr"] = run_cli(
+            cli.main, ["validate", "--dataset", "textocr", "--checkpoint", pth] + fused
+            + fixtures, counted)
+        acc_textocr = _cli_accuracy(lines)
+        if rc != 0 or launches["textocr"]["K1"] < 1 or launches["textocr"]["K2"] < 1:
+            raise AssertionError(f"cli validate textocr: rc {rc}, {launches['textocr']}")
+        cfg = apply_overrides(Config(), [a for a in fixtures if a != "--set"])
+        _, val = api.get_dataset("textocr", cfg)
+        rows = [val[i] for i in range(len(val))]
+        rows = [r for r in rows if r.overlap.any() and r.scene.any()]
+        cfg32 = dataclasses.replace(semantic_config(FLAGSHIP), semantic_source="vinvl",
+                                    compute_dtype="float32")
+        card = api.get_model(None, cfg32, seed=SEMANTIC_SEED)
+        host = api.get_model(None, cfg32, device="cpu", seed=SEMANTIC_SEED)
+        n = len(rows)
+        sem = {k: np.stack([getattr(r, k) for r in rows]) for k in ("overlap", "scene", "ious")}
+        batch = Recognizer(card, batch_sizes=(n,)).prepare([r.image for r in rows], n,
+                                                           semantics=sem)
+        with torch.no_grad():
+            got = card(batch[0], batch[1], scene=batch[2], ious=batch[3]).cpu()
+            want_l = host(*(t.cpu() for t in batch[:2]), scene=batch[2].cpu(),
+                          ious=batch[3].cpu())
+        scale = max(1.0, want_l.abs().max().item())
+        err = (got - want_l).abs().max().item()
+        tokens_same = torch.equal(got.argmax(-1), want_l.argmax(-1))
+        log(f"cli validate --dataset textocr ({len(val)} val words): {acc_textocr}% in "
+            f"{secs['textocr']:.2f} s (launches {launches['textocr']}); the semantic "
+            f"configuration (vinvl) on its {n} rows with objects, f32 card vs CPU: max |logit "
+            f"diff| {err:.3e} (limit {LOADER_SEM_TOL:g} x {scale:.3f}), tokens identical "
+            f"{tokens_same}")
+        if n < 5 or not tokens_same or err > LOADER_SEM_TOL * scale:
+            raise AssertionError(f"textocr semantic rows: {n} rows, err {err}, tokens "
+                                 f"{tokens_same}")
+        out["textocr"] = {"val_words": len(val), "acc_bf16": acc_textocr, "semantic_rows": n,
+                          "semantic_f32_err": err, "semantic_tokens_same": tokens_same}
+        del card, host, batch
+        torch.cuda.empty_cache()
+        out["cocotext"]["crops_per_s"] = loader_rates(api, cfg)
+
+        # synth: MJ and ST from the fixture crops, the truncated one in MJ
+        crop_dir = os.path.join(FIXTURES, "crops")
+        with open(os.path.join(crop_dir, "labels.json")) as f:
+            labels_of = json.load(f)
+        recs = {}
+        for name in sorted(labels_of):
+            with open(os.path.join(crop_dir, name), "rb") as f:
+                recs[name] = (labels_of[name], f.read())
+        good = [recs[k] for k in sorted(recs) if k != "truncated.jpg"]
+        root = os.path.join(tmp, "lmdb")
+        parts = {"training/MJ/MJ_train/": good[0:6], "training/MJ/MJ_test/": good[6:10],
+                 "training/MJ/MJ_valid/": good[10:13] + [recs["truncated.jpg"]],
+                 "training/ST/": good[13:] + good[:4] + [("x" * 40, good[0][1])],
+                 "validation/": good[4:12]}
+        stores = {os.path.normpath(os.path.join(root, k)): lmdb_store(v) for k, v in parts.items()}
+        broken = (os.path.normpath(os.path.join(root, "training/MJ/MJ_valid/")), 4)
+        draws, losses = [], []
+
+        def count(real):
+            def call(reader, i):
+                sample = real(reader, i)
+                draws.append(((os.path.normpath(reader.root), reader.index[i]), sample.label))
+                return sample
+            return call
+
+        def keep_loss(real):
+            def call(trainer, batch):
+                m = real(trainer, batch)
+                losses.append(m["loss"])
+                return m
+            return call
+
+        argv = ["train", "--dataset", "synth", "--checkpoint", pth, "--set",
+                f"data.deep_text_dataset_path={root}/", "--set", "data.mixture_ratios=0.5,0.5",
+                "--set", "data.keep_ratio=true", "--set", f"train.iteration_limit={CLI_TRAIN_STEPS}",
+                "--set", f"train.validation_steps={CLI_TRAIN_STEPS}", "--set",
+                "train.model_save_threshold=100", "--set", f"results_dir={tmp}",
+                "--experiment", "synth"] + fused
+        with lmdb_installed(stores), patched(lmdb_data.LmdbReader, "__getitem__", count), \
+                patched(TrainStep, "__call__", keep_loss):
+            rc, lines, secs["train_synth"], launches["train_synth"] = run_cli(cli.main, argv,
+                                                                              counted)
+        loss = torch.stack(losses).float().cpu()
+        broken_draws = [lab for key, lab in draws if key == broken]
+        dummies = sum(lab == "[dummy_label]" for _, lab in draws)
+        synth_line = _cli_line(lines, "  - synth: ")
+        log(f"cli train --dataset synth (balanced mixture 0.5,0.5, keep_ratio; {synth_line.strip()}"
+            f"): {len(losses)} steps in {secs['train_synth']:.2f} s (launches "
+            f"{launches['train_synth']}), losses {[round(x, 4) for x in loss.tolist()]}; "
+            f"{len(draws)} records drawn, the truncated one {len(broken_draws)} times, "
+            f"{dummies} dummies")
+        if (rc != 0 or len(losses) != CLI_TRAIN_STEPS or not torch.isfinite(loss).all()
+                or launches["train_synth"]["K3"] != 36 * CLI_TRAIN_STEPS
+                or launches["train_synth"]["K2"] < CLI_TRAIN_STEPS
+                or not broken_draws or dummies != len(broken_draws)
+                or any(lab != "[dummy_label]" for lab in broken_draws)):
+            raise AssertionError(f"cli train synth: rc {rc}, losses {loss.tolist()}, launches "
+                                 f"{launches['train_synth']}, broken draws {len(broken_draws)}, "
+                                 f"dummies {dummies}")
+        with lmdb_installed(stores):
+            reader = lmdb_data.LmdbReader(os.path.join(root, "training/MJ/MJ_train/"),
+                                          FLAGSHIP.chars, keep_ratio=True)
+            t = time.perf_counter()
+            for i in range(LOADER_READS):
+                reader[i % len(reader)]
+            lmdb_rate = LOADER_READS / (time.perf_counter() - t)
+        log(f"LmdbReader (keep_ratio: JPEG decode + bicubic resize + pad) on the card's host: "
+            f"{lmdb_rate:.0f} crops/s over {LOADER_READS} reads")
+        out["train_synth"] = {"steps": len(losses), "losses": loss.tolist(),
+                              "records_drawn": len(draws), "broken_draws": len(broken_draws),
+                              "dummies": dummies, "lmdb_reader_crops_per_s": lmdb_rate}
+
+        # recognize: 192 committed crops as PNG files
+        folder = os.path.join(tmp, "crops")
+        os.makedirs(folder)
+        val_set = api.get_dataset("synthetic")[1]
+        for i in range(B):
+            save_image(val_set.image[i].astype(np.float64) / 255.0,
+                       os.path.join(folder, f"w{i}.png"))
+        arrays = [s.image for s in (raw.RawImageFolder(folder)[i] for i in range(B))]
+        labels = val_set.labels[:B]
+        beam_sets = ["--set", "model.decode_beam_fused=true", "--set",
+                     "model.decode_early_stop=true"]
+        texts = {}
+        for name, extra, beam in (("recognize_greedy", [], 0),
+                                  ("recognize_beam", ["--beam", str(BEAM)] + beam_sets, BEAM)):
+            rc, lines, secs[name], launches[name] = run_cli(
+                cli.main, ["recognize", folder, "--checkpoint", pth] + fused + extra, counted)
+            got_rows = [x.split("\t") for x in lines if "\t" in x]
+            texts[name] = [t for _, t in got_rows]
+            cfg_m = dataclasses.replace(FLAGSHIP, decode_beam_fused=bool(beam),
+                                        decode_early_stop=bool(beam))
+            ref = Recognizer(api.get_model(BUNDLE, cfg_m), batch_sizes=(1, 8, 64, B)).recognize(
+                arrays, beam_size=beam)
+            want_k = {"K1": 0 if beam else 1, "K2": 1, "K3": 0, "K4": 1 if beam else 0}
+            if (rc != 0 or len(got_rows) != B or texts[name] != ref
+                    or [os.path.basename(p) for p, _ in got_rows] != [f"w{i}.png" for i in range(B)]
+                    or launches[name] != want_k):
+                raise AssertionError(f"cli {name}: rc {rc}, {len(got_rows)} rows, "
+                                     f"{sum(a != b for a, b in zip(texts[name], ref))} differ "
+                                     f"from Recognizer.recognize, launches {launches[name]} "
+                                     f"(expected {want_k})")
+        acc = {k: 100.0 * sum(a == b for a, b in zip(v, labels)) / B for k, v in texts.items()}
+        acc_api = api.validate(api.get_model(BUNDLE), cfg=Config(
+            model=FLAGSHIP, data=DataConfig(synthetic_val_size=B)))
+        log(f"cli recognize <{B} PNG crops>: greedy {acc['recognize_greedy']:.5f}% in "
+            f"{secs['recognize_greedy']:.2f} s (launches {launches['recognize_greedy']}), beam "
+            f"k={BEAM} {acc['recognize_beam']:.5f}% in {secs['recognize_beam']:.2f} s (launches "
+            f"{launches['recognize_beam']}); strings equal Recognizer.recognize's; api.validate "
+            f"of the {B} crops {acc_api}% (limit {RECOGNIZE_ACC_TOL} point)")
+        if abs(acc["recognize_greedy"] - acc_api) > RECOGNIZE_ACC_TOL:
+            raise AssertionError(f"recognize {acc['recognize_greedy']}% against api.validate "
+                                 f"{acc_api}%")
+        out["recognize"] = {"crops": B, "acc_greedy": acc["recognize_greedy"],
+                            "acc_beam": acc["recognize_beam"], "acc_api_validate": acc_api}
+        log("loader verbs' wall s (first call included): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in secs.items()) + f"; card {smi}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out.update({"wall_s": secs, "launches": launches, "card": smi})
+    return out
+
+
 # -- the classic recognizers: BiLSTM-Attn served and trained, BiLSTM-CTC
 # -- trained and validated, at full width with seeded random weights
 
@@ -4360,6 +4773,11 @@ def main() -> int:
     k2["launches_cli"] = sum(v["K2"] for v in cli_run["launches"].values())
     k3["launches_cli"] = sum(v["K3"] for v in cli_run["launches"].values())
 
+    phase("real-data loaders")
+    loaders = loaders_phase(api, fd, fb, gs, bn, smi)
+    for k, row in (("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4)):
+        row["launches_loaders"] = sum(v[k] for v in loaders["launches"].values())
+
     phase("classic recognizers")
     classic = classic_phase(api, bn, gs, crops)
     k2["launches_classic_serve"] = classic["serve_bilstm_attn"]["k2_launches_per_call"]
@@ -4397,6 +4815,7 @@ def main() -> int:
                       "stepper": stepper, "fusion_sites": sites, "resize": resized,
                       "train": train, "train_with_hooks": train_hooks,
                       "train_and_validate": data, "command_line": cli_run,
+                      "loaders": loaders,
                       "classic": classic,
                       "variants": variants}), flush=True)
     print(smi, flush=True)

@@ -1,6 +1,6 @@
 """Entry points: the served model and the trainer of the flagship, with the
-trained weights or random ones, and the verbs that train and validate them
-on a dataset (JAX counterpart: api.py: ``get_model``, ``get_dataset``,
+trained weights or random ones, the datasets, and the verbs that train and
+validate them on a dataset (JAX counterpart: api.py: ``get_model``, ``get_dataset``,
 ``train``, ``validate``, ``evaluate``).  The model and the trainer live on
 the card unless the caller passes ``device="cpu"``; the verbs run on their
 device."""
@@ -63,19 +63,49 @@ def get_trainer(bundle_path: Optional[str] = None, cfg: Optional[ModelConfig] = 
 
 
 def get_dataset(name: str = "synthetic", cfg: Optional[Config] = None):
-    """``(train, val)`` :class:`~.data.pipeline.PackedSamples` of dataset
-    ``name``, host arrays (the verbs move batches to their model's device).
-    "synthetic": the committed sets, ``cfg.data.synthetic_train_size`` crops
-    at ``cfg.train.seed`` and ``synthetic_val_size`` at ``seed + 1``, label
-    rows in the codec of ``cfg``'s recipe (``train.loop.build_codec``)."""
-    from .train.loop import build_codec
+    """The samples of dataset ``name``, host arrays (the verbs move batches
+    to their model's device), as the JAX package's ``get_dataset`` gives
+    them:
 
+    * "synthetic": ``(train, val)`` :class:`~.data.pipeline.PackedSamples`
+      of the committed sets, ``cfg.data.synthetic_train_size`` crops at
+      ``cfg.train.seed`` and ``synthetic_val_size`` at ``seed + 1``, label
+      rows in the codec of ``cfg``'s recipe (``train.loop.build_codec``);
+    * "cocotext", "textocr": ``(train, val)``
+      :class:`~.data.cocotext.CocoTextSamples` of the files that
+      ``cfg.data`` names;
+    * "synth": ``(train, val)`` of the MJSynth/SynthText LMDBs under
+      ``cfg.data.deep_text_dataset_path``, the training side a
+      :class:`~.data.lmdb_data.BalancedMixture` where
+      ``data.mixture_ratios`` is set;
+    * "cocotext_single_image_val": the COCO-Text validation crops alone.
+    """
     cfg = cfg or Config()
-    codec = build_codec(cfg)
-    return _dataset(name, cfg, "train", codec), _dataset(name, cfg, "val", codec)
+    if name == "synthetic":
+        from .train.loop import build_codec
+
+        codec = build_codec(cfg)
+        return _dataset(name, cfg, "train", codec), _dataset(name, cfg, "val", codec)
+    if name == "cocotext":
+        from .data.cocotext import get_cocotext_datasets
+
+        return get_cocotext_datasets(cfg)
+    if name == "textocr":
+        from .data.textocr import get_textocr_datasets
+
+        return get_textocr_datasets(cfg)
+    if name == "synth":
+        from .data.lmdb_data import get_synth_datasets
+
+        return get_synth_datasets(cfg)
+    if name == "cocotext_single_image_val":
+        return _dataset(name, cfg, "val", None)
+    raise ValueError(f"unknown dataset {name!r}")
 
 
 def _dataset(name: str, cfg: Config, split: str, codec):
+    """One split of dataset ``name`` (the validation verbs load no training
+    set)."""
     if name == "synthetic":
         from .data.synthetic import make_dataset
 
@@ -83,9 +113,19 @@ def _dataset(name: str, cfg: Config, split: str, codec):
                       else (cfg.data.synthetic_val_size, cfg.train.seed + 1))
         return make_dataset(size, seed, codec, cfg.data.synthetic_cache_dir or None,
                             vocab_size=cfg.data.synthetic_vocab_size)
-    if name in ("cocotext", "textocr", "synth", "cocotext_single_image_val"):
-        raise NotImplementedError(f"dataset {name!r}: its loader is not ported yet; the port "
-                                  "trains and validates on the committed synthetic set")
+    if name in ("cocotext", "cocotext_single_image_val"):
+        from .data.cocotext import CocoTextSamples, build_cocotext_annotations
+
+        return CocoTextSamples(build_cocotext_annotations(cfg, split), cfg)
+    if name == "textocr":
+        from .data.cocotext import CocoTextSamples
+        from .data.textocr import build_textocr_annotations
+
+        return CocoTextSamples(build_textocr_annotations(cfg, split), cfg)
+    if name == "synth":
+        from .data.lmdb_data import get_synth_datasets, synth_reader
+
+        return synth_reader(cfg, "validation/") if split == "val" else get_synth_datasets(cfg)[0]
     raise ValueError(f"unknown dataset {name!r}")
 
 

@@ -1,4 +1,5 @@
-"""Label codecs (JAX counterpart: core/charset.py).
+"""Label codecs and the training-label filter (JAX counterpart:
+core/charset.py).
 
 ``AttnCodec``, the attention decoders': 0 = [GO], 1 = [s], 2 = [PAD], 3.. =
 charset.  ``CTCCodec``, the CTC recipe's: 0 = [CTCblank], 1.. = charset.
@@ -107,3 +108,11 @@ class CTCCodec:
 
 
 Codec = Union[AttnCodec, CTCCodec]
+
+
+def check_text(text: str, chars: str, max_len: int = 25) -> bool:
+    """The charset/length filter of training annotations: at most
+    ``max_len`` characters, every one in ``chars``."""
+    if len(text) > max_len:
+        return False
+    return all(c in chars for c in text)

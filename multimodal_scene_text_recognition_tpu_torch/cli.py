@@ -1,4 +1,5 @@
-"""Command line: train / validate / evaluate (JAX counterpart: cli.py).
+"""Command line: train / validate / evaluate / recognize (JAX counterpart:
+cli.py).
 
 Every configuration field is addressable as a dotted override, and every
 verb runs on the card (``main(argv, device="cpu")`` runs on the CPU, as the
@@ -13,11 +14,24 @@ tests do):
     python -m multimodal_scene_text_recognition_tpu_torch.cli evaluate \\
         --checkpoint results/models/exp --base-errors base_error_ids.txt
 
+    python -m multimodal_scene_text_recognition_tpu_torch.cli validate \\
+        --dataset cocotext --checkpoint ref.pth \\
+        --set data.cocotext_api_path=/path/COCO_Text_2014.json \\
+        --set data.cocotext_object_tags_path=/path/coco_object_tags.json \\
+        --set data.cocotext_image_path=/path/train2014/
+
+    python -m multimodal_scene_text_recognition_tpu_torch.cli recognize \\
+        crops/ --checkpoint ref.pth --beam 5
+
 ``--checkpoint`` takes a reference ``.pth``/``.pt`` (imported as the
 reference loader does, ``train.checkpoint.import_torch_checkpoint``) or a
-directory of ``train.checkpoint.save_checkpoint``.  The dataset is the
-committed synthetic set; the COCO-Text, TextOCR and LMDB loaders are not
-ported yet.
+directory of ``train.checkpoint.save_checkpoint``.  ``--dataset`` is
+``synthetic`` (the committed sets, the default), ``cocotext`` or
+``textocr`` (the files ``data.*_path`` name) or ``synth`` (the LMDBs under
+``data.deep_text_dataset_path``; ``data.mixture_ratios`` and
+``data.keep_ratio`` as in the JAX package).  ``recognize`` reads every
+image file under a directory (``data/raw.RawImageFolder``) and prints one
+``path<TAB>text`` line for each.
 """
 
 from __future__ import annotations
@@ -32,15 +46,39 @@ from .config import Config, apply_overrides
 
 
 def _load_dataset(cfg: Config):
-    """``(train, val)`` of ``cfg.data.dataset``; a dataset whose loader is
-    not ported exits with its message, as the JAX command line exits where
-    a dataset's files are missing."""
+    """``(train, val)`` of ``cfg.data.dataset``; where the COCO-Text or
+    TextOCR files are missing, exits with the JAX command line's message,
+    which names the ``--set`` keys that point at them."""
     from .api import get_dataset
 
+    name = cfg.data.dataset
+    if name not in ("synthetic", "cocotext", "textocr", "synth"):
+        raise ValueError(f"unknown dataset {name!r}")
     try:
-        return get_dataset(cfg.data.dataset, cfg)
-    except NotImplementedError as e:
-        raise SystemExit(f"{cfg.data.dataset} dataset unavailable: {e}") from e
+        return get_dataset(name, cfg)
+    except FileNotFoundError as e:
+        if name == "cocotext":
+            raise SystemExit(
+                f"cocotext dataset unavailable: {e}\n"
+                "The COCO-Text annotation JSONs and MS-COCO images are "
+                "stripped from this mirror (reference "
+                ".MISSING_LARGE_BLOBS:1-4).  To run the real-data parity "
+                "eval, mount them and point the config at the files:\n"
+                "  --set data.cocotext_api_path=/path/COCO_Text_2014.json \\\n"
+                "  --set data.cocotext_object_tags_path=/path/"
+                "coco_object_tags.json \\\n"
+                "  --set data.cocotext_image_path=/path/train2014/\n"
+                "then: cli validate --dataset cocotext --checkpoint ref.pth"
+            ) from e
+        if name == "textocr":
+            raise SystemExit(
+                f"textocr dataset unavailable: {e}\n"
+                "TextOCR annotations/images are stripped from this mirror; "
+                "mount them and set data.textocr_anno_path / "
+                "data.textocr_image_path / data.textocr_object_tags_path "
+                "(see core/config.py DataConfig)."
+            ) from e
+        raise
 
 
 def _restore(cfg: Config, step) -> None:
@@ -84,7 +122,40 @@ def _parser() -> argparse.ArgumentParser:
     p_eval.add_argument("--base-errors", required=False,
                         help="file of anno ids a baseline got wrong")
     p_eval.add_argument("--print-sem", action="store_true")
+    p_rec = sub.add_parser("recognize", help="recognize a folder of word-crop images")
+    common(p_rec)
+    p_rec.add_argument("images", help="directory of crop images")
+    p_rec.add_argument("--beam", type=int, default=0, help="beam size (0 = greedy)")
     return parser
+
+
+def _recognize(args, device: str) -> int:
+    """Read every image under ``args.images`` with the model of the
+    ``--set`` configuration and ``--checkpoint``'s weights (``--dataset``
+    and ``--experiment`` are not read), in batches of up to
+    ``train.batch_size`` crops, and print ``path<TAB>text`` lines."""
+    cfg = Config()
+    if args.checkpoint:
+        cfg = apply_overrides(cfg, {"saved_model": args.checkpoint})
+    cfg = apply_overrides(cfg, args.set)
+
+    from . import api
+    from .data.raw import RawImageFolder
+    from .eval.serve import Recognizer
+
+    folder = RawImageFolder(args.images, cfg.model.img_h, cfg.model.img_w)
+    if not len(folder):
+        print("no images found")
+        return 1
+    step = api.get_trainer(None, cfg.model, cfg.train, device=device, seed=cfg.train.seed)
+    _restore(cfg, step)
+    model = step.model.eval().requires_grad_(False)
+    crops = [folder[i].image for i in range(len(folder))]
+    rec = Recognizer(model, batch_sizes=sorted({1, 8, 64, cfg.train.batch_size}))
+    texts = rec.recognize(crops, beam_size=args.beam)
+    for path, text in zip(folder.paths, texts):
+        print(f"{path}\t{text}")
+    return 0
 
 
 def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
@@ -94,6 +165,9 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("cli: no CUDA device is available "
                            "(main(argv, device='cpu') runs on the CPU)")
+
+    if args.cmd == "recognize":
+        return _recognize(args, device)
 
     cfg = Config()
     if args.experiment:

@@ -3,8 +3,8 @@
 serving paths (greedy, beam, int8 and the semantic fusion hooks), the
 classic recognizers (BiLSTM encoder, LSTM-attention and linear decoders,
 CTC), the Oscar encoder, the BERT and random embedders, backbone remat, the
-train step, the training loop, the synthetic set and the command line
-read, with the same names and defaults, and the command line's dotted
+train step, the training loop, the synthetic set, the real-data loaders
+and the command line read, with the same names and defaults, and the command line's dotted
 overrides (JAX counterpart: core/config.py)."""
 
 from __future__ import annotations
@@ -52,6 +52,10 @@ class ModelConfig:
     # through a DistilBERT-shaped encoder.
     semantic_vector: str = "overlap"      # overlap | scene | combined
     semantic_source: str = "vinvl"        # coco | vg | vinvl | zero | rand
+    # which detected objects a word's overlap vector takes (data/geometry.py):
+    # "resize", those whose box strictly contains the word box rescaled by
+    # its mask area; a number, those whose IoU + 1 reaches it
+    semantic_assignment: str = "resize"   # resize | 0.25 | 0.50 | 0.75
     semantic_embedding: str = "linear"    # linear | bert
     num_obj_classes: int = 2000
     max_overlap_objs: int = 15
@@ -161,9 +165,25 @@ SYNTHETIC_DIR: str = os.path.join(_ASSETS, "synthetic")
 
 @dataclass(frozen=True)
 class DataConfig:
-    """Dataset selection: the synthetic sets' sizes and their directory."""
+    """Dataset selection and locations: the real corpora's files (COCO-Text,
+    TextOCR, the MJSynth/SynthText LMDBs; none is in the repository) and
+    the synthetic sets' sizes and directory."""
 
-    dataset: str = "synthetic"  # only the synthetic set is ported
+    dataset: str = "synthetic"  # cocotext | textocr | synth | synthetic
+    cocotext_api_path: str = "./annotations/COCO_Text_2014.json"
+    cocotext_image_path: str = "./data/coco/train2014/"
+    cocotext_object_tags_path: str = "./annotations/features/coco_object_tags.json"
+    textocr_anno_path: str = "./data/textocr/"
+    textocr_image_path: str = "./data/textocr/"
+    textocr_object_tags_path: str = "./annotations/features/open_images_vinvl_features.json"
+    deep_text_dataset_path: str = "./data/deep_text_datasets/"
+    # batch-balanced sampling of data.dataset=synth: "MJ,ST" ratios as two
+    # comma floats, e.g. "0.5,0.5" (data/lmdb_data.BalancedMixture); empty:
+    # the two corpora concatenated
+    mixture_ratios: str = ""
+    # keep-ratio resize with the border column padded right, instead of a
+    # squash resize (data/lmdb_data.keep_ratio_resize)
+    keep_ratio: bool = False
     synthetic_train_size: int = 4096
     synthetic_val_size: int = 512
     # JAX renders a closed vocabulary of this many seeded words where > 0;

@@ -1,0 +1,239 @@
+"""Decoding, resizing and cropping grayscale images on the host, as the data
+loaders read image files (JAX counterpart: the PIL calls of
+data/cocotext.py, data/lmdb_data.py, data/raw.py).
+
+The port does not use PIL.  These functions give what PIL gives, bit for
+bit, through ``native/imgdecode.cpp`` beside this package, built at first
+use with ``g++`` (``utils.native``; a failed build raises, there is no
+fallback):
+
+* :func:`decode_gray`: ``Image.open(io.BytesIO(data)).convert("L")`` of a
+  baseline sequential Huffman JPEG (8-bit, grey or three components, any
+  integer sampling factors, restart intervals), a non-interlaced PNG of 1 to
+  8 bits in every colour type (inflated by ``zlib`` here, unfiltered in the
+  C++), an uncompressed 8- or 24-bit BMP, or a binary PGM/PPM of maxval
+  255.  Broken or truncated data raises an ``OSError``, as PIL's does; a
+  valid file of a kind not covered (progressive, arithmetic-coded,
+  lossless, 12-bit or CMYK JPEG, 16-bit or interlaced PNG, WebP, GIF,
+  TIFF, other BMPs and PNMs) raises ``NotImplementedError`` naming it.
+  EXIF orientation is not applied, as ``convert`` does not apply it.
+* :func:`resize_gray`: ``Image.resize`` of a mode-L image with ``BILINEAR``
+  or ``BICUBIC``.
+* :func:`crop_gray`: ``Image.crop`` (coordinates rounded half to even,
+  zeros off the page).
+
+``data/images_plain.py`` mirrors each of the three in numpy.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import struct
+import zlib
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..utils import native
+
+SOURCE = native.NATIVE_DIR / "imgdecode.cpp"
+BUILD_DIR = native.BUILD_DIR
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+FILTERS = {"bilinear": 2, "bicubic": 3}  # PIL's numbers
+PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+
+_lib: Optional[ctypes.CDLL] = None
+_MSG = 256
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = native.load_library(SOURCE, CXX_FLAGS, "the image decoder", BUILD_DIR)
+    u8p, i32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int)
+    lib.decode_gray.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(u8p), i32p, i32p,
+                                ctypes.c_char_p, ctypes.c_int]
+    lib.decode_gray.restype = ctypes.c_int
+    lib.image_free.argtypes = [u8p]
+    lib.image_free.restype = None
+    lib.png_to_gray.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+                                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
+    lib.png_to_gray.restype = ctypes.c_int
+    lib.resize_gray.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.resize_gray.restype = None
+    lib.crop_gray.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.crop_gray.restype = None
+    _lib = lib
+    return lib
+
+
+def _raise(code: int, msg: bytes) -> None:
+    text = msg.decode(errors="replace")
+    if code == 2:
+        raise NotImplementedError(f"image decoding: {text}")
+    raise OSError(text)
+
+
+def sniff(data: bytes) -> str:
+    """The format of an image file from its first bytes: "jpeg", "png",
+    "bmp", "pnm", or the name of a format that is recognised but not
+    decoded ("webp", "gif", "tiff"); "" for anything else."""
+    if data[:3] == b"\xff\xd8\xff":
+        return "jpeg"
+    if data[:8] == PNG_MAGIC:
+        return "png"
+    if data[:2] == b"BM":
+        return "bmp"
+    if data[:1] == b"P" and b"1" <= data[1:2] <= b"7":
+        return "pnm"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "webp"
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return "gif"
+    if data[:4] in (b"II*\x00", b"MM\x00*"):
+        return "tiff"
+    return ""
+
+
+class PngImage(NamedTuple):
+    """A PNG's header fields, palette and inflated image data."""
+
+    width: int
+    height: int
+    depth: int
+    color_type: int
+    palette: bytes
+    raw: bytes
+
+
+def read_png(data: bytes) -> PngImage:
+    """The chunks of a PNG, its IDAT stream inflated by ``zlib``; raises
+    OSError for broken or truncated data and NotImplementedError for a
+    16-bit or interlaced image."""
+    pos, header, palette, idat = 8, None, b"", []
+    while True:
+        if pos + 8 > len(data):
+            if idat:  # no IEND: the image data decides, as PIL reads it
+                break
+            raise OSError("image file is truncated")
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if len(body) < length:
+            if kind == b"IDAT":  # a short stream is caught where it is unfiltered
+                idat.append(body)
+                break
+            raise OSError("image file is truncated")
+        if kind == b"IHDR":
+            if length < 13:
+                raise OSError("broken PNG file")
+            header = struct.unpack(">IIBBBBB", body[:13])
+        elif kind == b"PLTE":
+            palette = body
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise OSError("broken PNG file: no IHDR")
+    width, height, depth, color_type, _, _, interlace = header
+    if depth == 16:
+        raise NotImplementedError("image decoding: 16-bit PNG")
+    if interlace:
+        raise NotImplementedError("image decoding: interlaced PNG")
+    if (color_type, depth) not in {(0, 1), (0, 2), (0, 4), (0, 8), (2, 8), (3, 1), (3, 2),
+                                   (3, 4), (3, 8), (4, 8), (6, 8)}:
+        raise OSError(f"broken PNG file: colour type {color_type} at {depth} bits")
+    if width == 0 or height == 0:
+        raise OSError("broken PNG file: empty size")
+    if color_type == 3 and not palette:
+        raise OSError("broken PNG file: no palette")
+    try:
+        raw = zlib.decompressobj().decompress(b"".join(idat))
+    except zlib.error as e:
+        raise OSError(f"broken PNG file: {e}") from e
+    return PngImage(width, height, depth, color_type, palette, raw)
+
+
+def decode_gray(data: bytes) -> np.ndarray:
+    """``Image.open(io.BytesIO(data)).convert("L")`` as uint8 [H, W]."""
+    data = bytes(data)
+    kind = sniff(data)
+    if kind in ("webp", "gif", "tiff"):
+        raise NotImplementedError(f"image decoding: {kind.upper()} files are not decoded")
+    if not kind:
+        raise OSError("cannot identify image file")
+    lib = _library()
+    msg = ctypes.create_string_buffer(_MSG)
+    if kind == "png":
+        png = read_png(data)
+        out = np.empty((png.height, png.width), np.uint8)
+        code = lib.png_to_gray(png.raw, len(png.raw), png.width, png.height, png.color_type,
+                               png.depth, png.palette, len(png.palette) // 3,
+                               out.ctypes.data, msg, _MSG)
+        if code:
+            _raise(code, msg.value)
+        return out
+    buf = ctypes.POINTER(ctypes.c_uint8)()
+    w, h = ctypes.c_int(), ctypes.c_int()
+    code = lib.decode_gray(data, len(data), ctypes.byref(buf), ctypes.byref(w), ctypes.byref(h),
+                           msg, _MSG)
+    if code:
+        _raise(code, msg.value)
+    try:
+        return np.ctypeslib.as_array(buf, shape=(h.value, w.value)).copy()
+    finally:
+        lib.image_free(buf)
+
+
+def read_gray(path: str) -> np.ndarray:
+    """:func:`decode_gray` of the file at ``path``."""
+    with open(path, "rb") as f:
+        return decode_gray(f.read())
+
+
+def _gray(img: np.ndarray) -> np.ndarray:
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim != 2:
+        raise ValueError(f"a grayscale page is uint8 [H, W], got {img.dtype} {img.shape}")
+    return img
+
+
+def resize_gray(img: np.ndarray, out_w: int, out_h: int, filter: str = "bilinear") -> np.ndarray:
+    """``Image.resize((out_w, out_h), BILINEAR or BICUBIC)`` of the mode-L
+    image ``img`` (uint8 [H, W]); a call that keeps the size returns a
+    copy, as ``Image.resize`` does."""
+    img = _gray(img)
+    if filter not in FILTERS:
+        raise ValueError(f"filter {filter!r}: one of {sorted(FILTERS)}")
+    if out_w < 1 or out_h < 1 or img.size == 0:
+        raise ValueError(f"resize of a {img.shape} image to {out_h}x{out_w}: "
+                         "height and width must be > 0")
+    if img.shape == (out_h, out_w):
+        return img.copy()
+    out = np.empty((out_h, out_w), np.uint8)
+    _library().resize_gray(img.ctypes.data, img.shape[0], img.shape[1], out.ctypes.data, out_h,
+                           out_w, FILTERS[filter])
+    return out
+
+
+def crop_box(box: Sequence[float]) -> Tuple[int, int, int, int]:
+    """PIL's ``Image._crop`` rounding of an (x0, y0, x1, y1) box: Python's
+    ``round`` (half to even) of each coordinate."""
+    x0, y0, x1, y1 = (int(round(v)) for v in box)
+    return x0, y0, x1, y1
+
+
+def crop_gray(img: np.ndarray, box: Sequence[float]) -> np.ndarray:
+    """``Image.crop(box)`` of the mode-L image ``img``, ``box`` (x0, y0, x1,
+    y1): the rounded box's pixels, zeros where it leaves the page."""
+    img = _gray(img)
+    x0, y0, x1, y1 = crop_box(box)
+    out = np.zeros((max(y1 - y0, 0), max(x1 - x0, 0)), np.uint8)
+    if out.size:
+        _library().crop_gray(img.ctypes.data, img.shape[0], img.shape[1], x0, y0, x1, y1,
+                             out.ctypes.data)
+    return out

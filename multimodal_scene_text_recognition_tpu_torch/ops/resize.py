@@ -15,10 +15,7 @@ of ``eval/serve.Recognizer._prepare``).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
+import shutil  # noqa: F401  (tests patch shutil.which through this module)
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -26,42 +23,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-NATIVE_DIR = Path(__file__).resolve().parents[1] / "native"
-SOURCE = NATIVE_DIR / "imgproc.cpp"
-BUILD_DIR = NATIVE_DIR / "_build"
+from ..utils import native
+
+SOURCE = native.NATIVE_DIR / "imgproc.cpp"
+BUILD_DIR = native.BUILD_DIR
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-ffp-contract=off")
 
 _lib: Optional[ctypes.CDLL] = None
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"imgproc-{digest[:16]}.so"
+    return native.library_path(SOURCE, CXX_FLAGS, BUILD_DIR)
 
 
 def _library() -> ctypes.CDLL:
-    """The built library, compiled on first use (a temporary file renamed
-    into place, so concurrent builds never leave a torn library); raises
+    """The built library, compiled on first use (``utils.native``); raises
     RuntimeError if it cannot be built."""
     global _lib
     if _lib is not None:
         return _lib
-    out = library_path()
-    if not out.exists():
-        cxx = shutil.which("g++")
-        if cxx is None:
-            raise RuntimeError("g++ not found: the crop resize of uint8 crops is built from "
-                               f"{SOURCE} on first use")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True, timeout=300)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"building {SOURCE} failed ({cxx} exited {proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    lib = native.load_library(SOURCE, CXX_FLAGS, "the crop resize of uint8 crops", BUILD_DIR)
     lib.crop_resize_gray_batch.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float), ctypes.c_int,

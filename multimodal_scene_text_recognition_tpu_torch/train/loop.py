@@ -25,7 +25,8 @@ import torch
 
 from ..charset import AttnCodec, CTCCodec
 from ..config import Config
-from ..data.pipeline import (DEVICE_KEYS, PackedSamples, Prefetcher, device_batch,
+from ..data.lmdb_data import BalancedMixture
+from ..data.pipeline import (DEVICE_KEYS, Batcher, PackedSamples, Prefetcher, device_batch,
                              packed_batches, pinned)
 from ..eval.evaluate import validate
 from ..metrics import Averager
@@ -104,18 +105,25 @@ def train(cfg: Config, step: TrainStep, train_samples, val_samples, log_every: i
       log, validation and limit checks fall at the block's end, as in JAX;
     * host data: ``packed_batches(shuffle=True, seed=seed + e)``, collated
       and pinned in a :class:`Prefetcher`'s thread, each batch copied to
-      the device on the loop's stream; the checks follow every step.
+      the device on the loop's stream; the checks follow every step;
+    * a :class:`~..data.lmdb_data.BalancedMixture` (``train_samples``) is a
+      stream of batches, not a set: it is never packed, and each epoch of
+      ``sum(len(source)) // batch_size`` steps collates its next batches in
+      the prefetcher's thread, as host data.
     """
     tc = cfg.train
     codec = build_codec(cfg)
     device = step.device
-    n_train = len(train_samples)
+    mixture = isinstance(train_samples, BalancedMixture)
+    n_train = (sum(len(s) for s in train_samples.sources) if mixture
+               else len(train_samples))
     steps_per_epoch = max(n_train // tc.batch_size, 1)
     step.configure(tc, steps_per_epoch)
-    packed_train = PackedSamples.from_samples(train_samples, codec)
+    packed_train = None if mixture else PackedSamples.from_samples(train_samples, codec)
     packed_val = PackedSamples.from_samples(val_samples, codec)
 
-    use_device_data = tc.device_data and packed_train.nbytes() <= tc.device_data_max_mb * 2 ** 20
+    use_device_data = (not mixture and tc.device_data
+                       and packed_train.nbytes() <= tc.device_data_max_mb * 2 ** 20)
     if use_device_data:
         data_dev = {k: torch.from_numpy(np.ascontiguousarray(getattr(packed_train, k))).to(device)
                     for k in DEVICE_KEYS}
@@ -156,10 +164,15 @@ def train(cfg: Config, step: TrainStep, train_samples, val_samples, log_every: i
             flat = torch.from_numpy(order[: n_avail * B].reshape(-1, B)).to(device)
             epoch_iter = (flat[i: i + K] for i in range(0, len(flat), K))
         else:
-            epoch_iter = Prefetcher(
-                (pinned(b) if device.type == "cuda" else b
-                 for b in packed_batches(packed_train, tc.batch_size, shuffle=True,
-                                         seed=tc.seed + epoch)), depth=4)
+            if mixture:
+                batcher = Batcher(codec, tc.batch_size)
+                host = (batcher.collate(train_samples.next_batch())
+                        for _ in range(steps_per_epoch))
+            else:
+                host = packed_batches(packed_train, tc.batch_size, shuffle=True,
+                                      seed=tc.seed + epoch)
+            epoch_iter = Prefetcher((pinned(b) if device.type == "cuda" else b for b in host),
+                                    depth=4)
         t_last, iter_last = time.perf_counter(), iteration
         pending: List[Dict[str, torch.Tensor]] = []
         next_log = (iteration // log_every + 1) * log_every

@@ -2,12 +2,16 @@
 (``config.apply_overrides``) against the JAX package's on the CPU: both
 command lines validate and evaluate one reference ``.pth`` on the first 64
 crops of the committed validation set (JAX renders them with PIL at their
-seed, and they equal the committed ones: tests/test_torch_data.py), and
-the port's ``train`` writes a checkpoint its ``validate`` reads back."""
+seed, and they equal the committed ones: tests/test_torch_data.py) and on
+the COCO-Text fixtures, and recognize a folder of crop files with it; the
+port's ``train`` writes a checkpoint its ``validate`` reads back."""
 
 import dataclasses
 import os
+import shutil
+import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,7 +22,10 @@ from multimodal_scene_text_recognition_tpu.models.model import build_model
 from multimodal_scene_text_recognition_tpu.train import state as jstate
 from multimodal_scene_text_recognition_tpu_torch import api, cli, config
 from multimodal_scene_text_recognition_tpu_torch.train.checkpoint import restore_checkpoint
+from multimodal_scene_text_recognition_tpu_torch.utils.images import save_image
+import loader_fixtures as lf
 from test_torch_reference_import import reference_state_dict
+from test_torch_resize import jax_native_library  # noqa: F401  (autouse: JAX's private build)
 from test_torch_variants import fast_variables
 import torch_threads
 
@@ -172,21 +179,91 @@ def test_validate_dumps_the_fusion_scores(capsys):
     assert i < lines.index(_line(lines, "val accuracy"))
 
 
+FIXTURE_SETS = [x for k, v in lf.fixture_config(jax=False).data.__dict__.items()
+                if k.startswith(("cocotext", "textocr")) for x in ("--set", f"data.{k}={v}")]
+
+
+def test_validate_on_cocotext_matches_jax(pth, tmp_path, capsys, jax_state_from_a_draw):
+    """``validate --dataset cocotext`` on the fixtures (pages decoded,
+    words cropped, vectors from the object tags) in both command lines: the
+    same dataset line, accuracy line and records."""
+    out = {}
+    for name, main, kw in (("jax", jcli.main, {}), ("port", cli.main, {"device": "cpu"})):
+        records = str(tmp_path / f"{name}.csv")
+        out[name] = _run(main, ["validate", "--dataset", "cocotext", "--checkpoint", pth,
+                                "--records", records] + SETS + FIXTURE_SETS, capsys, **kw)
+    for start in ("  - cocotext:", "val accuracy", "  - imported torch checkpoint"):
+        assert _line(out["port"], start) == _line(out["jax"], start)
+    import pandas as pd
+
+    want = pd.read_csv(tmp_path / "jax.csv", keep_default_na=False)
+    got = pd.read_csv(tmp_path / "port.csv", keep_default_na=False)
+    assert len(got) == 36
+    pd.testing.assert_frame_equal(got, want)
+
+
+@pytest.mark.parametrize("beam", [0, 3], ids=["greedy", "beam 3"])
+def test_recognize_matches_jax(pth, tmp_path, capsys, jax_state_from_a_draw, beam):
+    """``recognize <folder>`` greedily and by beam search in both command
+    lines: a folder of 20 committed crops written as PNG by the port's
+    ``save_image`` and fixture JPEGs of other sizes, in subfolders; the
+    same lines, one ``path<TAB>text`` a file in natural order."""
+    val = api.get_dataset("synthetic", config.apply_overrides(
+        config.Config(), ["data.synthetic_val_size=20"]))[1]
+    (tmp_path / "sub").mkdir()
+    for i in range(20):
+        save_image(val.image[i].astype(np.float32) / 255.0,
+                   str(tmp_path / ("sub" if i % 3 else "") / f"w{i}.png"))
+    for name in lf.crop_files()[:4]:
+        shutil.copy(lf.OUT / "crops" / name, tmp_path / name)
+    argv = ["recognize", str(tmp_path), "--checkpoint", pth, "--beam", str(beam)] + SETS
+    lines = {}
+    for name, main, kw in (("jax", jcli.main, {}), ("port", cli.main, {"device": "cpu"})):
+        lines[name] = _run(main, argv, capsys, **kw)
+    assert lines["port"] == lines["jax"]
+    rows = [x.split("\t") for x in lines["port"] if "\t" in x]
+    assert len(rows) == 24 and rows[0][0].endswith("crop_00.jpg")
+
+
+def test_recognize_an_empty_folder(tmp_path, capsys):
+    """No image under the folder: the message and exit code 1, as JAX's."""
+    assert cli.main(["recognize", str(tmp_path)], device="cpu") == 1
+    assert capsys.readouterr().out == "no images found\n"
+
+
 @pytest.mark.parametrize("name", ["cocotext", "textocr", "synth"])
-def test_unported_dataset_exits_with_its_message(name):
-    with pytest.raises(SystemExit, match=f"{name} dataset unavailable: .* its loader is not "
-                                         "ported yet"):
-        cli.main(["validate", "--dataset", name], device="cpu")
+def test_unported_dataset_exits_with_its_message(name, monkeypatch):
+    """Where a corpus's files are missing, both command lines stop alike:
+    COCO-Text and TextOCR exit with the JAX command line's message, which
+    names the ``--set`` keys that point at them; "synth" raises where the
+    ``lmdb`` package is missing (as on both test machines), as JAX's
+    does."""
+    monkeypatch.setitem(sys.modules, "lmdb", None)
+    stops = []
+    for main, kw in ((jcli.main, {}), (cli.main, {"device": "cpu"})):
+        with pytest.raises((SystemExit, ImportError)) as e:
+            main(["validate", "--dataset", name], **kw)
+        stops.append((type(e.value), str(e.value)))
+    assert stops[1] == stops[0]
+    if name == "synth":
+        assert issubclass(stops[1][0], ImportError)
+    else:
+        assert stops[1][0] is SystemExit and f"{name} dataset unavailable" in stops[1][1]
+        assert f"data.{name}_" in stops[1][1]
 
 
 def test_refusals():
-    """An unknown dataset raises ValueError, a closed vocabulary (no
-    committed set holds one) the set's ValueError, and with no GPU ``main``
-    without ``device="cpu"`` raises rather than run on the CPU."""
-    with pytest.raises(ValueError, match="unknown dataset"):
-        cli.main(["validate", "--dataset", "nope"], device="cpu")
+    """An unknown dataset raises ValueError (the API's
+    "cocotext_single_image_val" too, as in JAX's command line), a closed
+    vocabulary (no committed set holds one) the set's ValueError, and with
+    no GPU ``main`` without ``device="cpu"`` raises rather than run on the
+    CPU."""
+    for name in ("nope", "cocotext_single_image_val"):
+        with pytest.raises(ValueError, match="unknown dataset"):
+            cli.main(["validate", "--dataset", name], device="cpu")
     with pytest.raises(ValueError, match="closed vocabulary of 100 words"):
         cli.main(["validate", "--set", "data.synthetic_vocab_size=100"], device="cpu")
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            cli.main(["validate"])
+        for argv in (["validate"], ["recognize", "."]):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                cli.main(argv)

@@ -15,6 +15,7 @@ eval step."""
 import csv
 import dataclasses
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -437,22 +438,28 @@ def _has_pandas():
     return True
 
 
-def test_get_dataset_dispatch():
+def test_get_dataset_dispatch(monkeypatch):
     train, val = api.get_dataset("synthetic", API_CFG)
     assert len(train) == 32 and len(val) == 16
     full_train, full_val = api.get_dataset("synthetic")
     assert (len(full_train), len(full_val)) == (4096, 512)
     np.testing.assert_array_equal(full_val.image[:16], val.image)
-    for name in ("cocotext", "textocr", "synth"):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    # the real corpora are absent at the default paths: their loaders raise
+    # as JAX's do (tests/test_torch_loaders.py holds them on the fixtures)
+    for name in ("cocotext", "textocr", "cocotext_single_image_val"):
+        with pytest.raises(FileNotFoundError):
             api.get_dataset(name)
+    monkeypatch.setitem(sys.modules, "lmdb", None)
+    with pytest.raises(ImportError):  # no lmdb package
+        api.get_dataset("synth")
     with pytest.raises(ValueError):
         api.get_dataset("nope")
 
 
 def test_evaluate_verb(tmp_path):
     """``api.evaluate`` on the synthetic set with a class list of its 2000
-    object classes; without the list, no tags; cocotext is not ported."""
+    object classes; without the list, no tags; the default dataset,
+    cocotext, raises where its files are absent."""
     model = api.get_model(cfg=PORT_CFG, device="cpu")
     path = tmp_path / "base_errors.txt"
     path.write_text("1\n3\n5\n100000\n")
@@ -465,7 +472,7 @@ def test_evaluate_verb(tmp_path):
                                                             class_labels_dir=str(tmp_path / "x")))
     out = api.evaluate(model, str(path), dataset="synthetic", cfg=cfg)
     assert out["total"] == 3 and all(d["tags"] is None for d in out["detail"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
         api.evaluate(model, str(path), cfg=cfg)
 
 
