@@ -3561,11 +3561,28 @@ def lmdb_store(records):
     return store
 
 
+def image_writers():
+    """``tests/image_writers.py`` (numpy, zlib and struct only): hand
+    writers of the kinds PIL reads and does not write."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import image_writers as iw
+
+    return iw
+
+
+FORMAT_REFUSED = ("twelve_bit.jpg", "hierarchical.jpg")  # in formats/: PIL raises OSError
+ADAM7_PAGE = "page_5.png (Adam7)"  # written here from page_5's array: PNG is lossless
+
+
 def decode_check():
     """Every fixture page and crop decoded by ``data/images.decode_gray``
     against PIL's decode in ``expected.npz``: bit-equal, the truncated crop
-    an OSError; ms per page (median of DECODE_REPS, each page's bytes in
-    memory)."""
+    an OSError; the same for ``formats/`` (a progressive and a CMYK page,
+    the lossy crops) and for page 5 written here as an Adam7 PNG, the
+    12-bit and hierarchical JPEGs an OSError; ms per page (median of
+    DECODE_REPS, each page's bytes in memory)."""
     from multimodal_scene_text_recognition_tpu_torch.data import images
 
     exp = np.load(os.path.join(FIXTURES, "expected.npz"))
@@ -3573,39 +3590,179 @@ def decode_check():
     images._library()
     build_s = time.perf_counter() - t
     worst, page_ms, n = 0, {}, 0
-    for key in exp.files:
+    t_formats = time.perf_counter()
+    adam7 = image_writers().png(exp["page/page_5.png"], interlace=True)
+    sources = [(k, None) for k in exp.files] + [(f"format/{ADAM7_PAGE}", adam7)]
+    for key, data in sources:
         kind, _, name = key.partition("/")
-        if kind not in ("page", "crop"):
+        if kind not in ("page", "crop", "format"):
             continue
-        with open(os.path.join(FIXTURES, "" if kind == "page" else "crops", name), "rb") as f:
-            data = f.read()
+        if data is None:
+            sub = {"page": "", "crop": "crops", "format": "formats"}[kind]
+            with open(os.path.join(FIXTURES, sub, name), "rb") as f:
+                data = f.read()
         got = images.decode_gray(data)
-        want = exp[key]
+        want = exp["page/page_5.png"] if name == ADAM7_PAGE else exp[key]
         if got.shape != want.shape:
             raise AssertionError(f"decode of {name}: shape {got.shape}, PIL's {want.shape}")
         worst = max(worst, int(np.abs(got.astype(np.int32) - want).max()))
         n += 1
-        if kind == "page":
+        if name.startswith("page_"):
             times = []
             for _ in range(DECODE_REPS):
                 t = time.perf_counter()
                 images.decode_gray(data)
                 times.append((time.perf_counter() - t) * 1e3)
             page_ms[name] = statistics.median(times)
-    with open(os.path.join(FIXTURES, "crops", "truncated.jpg"), "rb") as f:
-        truncated = f.read()
-    try:
-        images.decode_gray(truncated)
-        raise AssertionError("the truncated JPEG decoded")
-    except OSError:
-        pass
-    log(f"decode on the card's host: {n} files (6 pages, 16 crops) against PIL's, max |diff| "
-        f"{worst} (limit 0); the truncated crop raised OSError; ms a 640x480 page (median of "
+    refused = [os.path.join("crops", "truncated.jpg")] + [os.path.join("formats", r)
+                                                          for r in FORMAT_REFUSED]
+    for name in refused:
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            data = f.read()
+        try:
+            images.decode_gray(data)
+            raise AssertionError(f"{name} decoded (PIL raises OSError)")
+        except NotImplementedError as e:
+            raise AssertionError(f"{name}: NotImplementedError, PIL raises OSError") from e
+        except OSError:
+            pass
+    formats_s = time.perf_counter() - t_formats
+    log(f"decode on the card's host: {n} files (6 pages, 16 crops; formats/: a progressive and "
+        f"a CMYK page, {len(exp['format_crops/name'])} progressive/CMYK/YCCK crops; page 5 as "
+        f"an Adam7 PNG) against PIL's, max |diff| {worst} (limit 0); the truncated crop, the "
+        f"12-bit and the hierarchical JPEG raised OSError; ms a 640x480 page (median of "
         f"{DECODE_REPS}): " + ", ".join(f"{k} {v:.2f}" for k, v in page_ms.items())
-        + f"; the decoder's g++ build {build_s:.2f} s")
+        + f"; the decoder's g++ build {build_s:.2f} s; the decode loop {formats_s:.2f} s")
     if worst:
         raise AssertionError(f"decode_gray differs from PIL by {worst}")
-    return {"files": n, "max_abs_diff": worst, "page_ms": page_ms, "build_s": build_s}
+    return {"files": n, "max_abs_diff": worst, "page_ms": page_ms, "build_s": build_s,
+            "decode_loop_s": formats_s}
+
+
+# the lossless kinds the 192 committed crops are written in for recognize,
+# with their file extensions
+FORMAT_KINDS = {"Adam7 PNG": ".png", "16-bit grey PNG": ".png", "RLE8 BMP": ".bmp",
+                "plain PGM": ".ppm"}
+
+
+def format_encode(iw, img: np.ndarray, kind: str) -> bytes:
+    """The uint8 crop ``img`` [H, W] as a file of ``kind``, which reads back
+    as ``img`` (the 16-bit PNG holds v, not v * 257, which PIL clips to
+    255; the BMP's palette is the grey ramp)."""
+    h, w = img.shape
+    if kind == "Adam7 PNG":
+        return iw.png(img, interlace=True)
+    if kind == "16-bit grey PNG":
+        return iw.png(img.astype(np.uint16), 16)
+    if kind == "RLE8 BMP":
+        return iw.bmp(w, h, 8, palette=[(i, i, i) for i in range(256)], compression=1,
+                      data=iw.rle8(img))
+    return iw.pnm(img, 2)
+
+
+def formats_phase(api, cli, counted, tmp: str, pth: str, fused, exp, smi: str):
+    """The kinds the decoder gained, through the loaders: ``recognize`` of
+    the 192 committed crops written in FORMAT_KINDS greedily (K1 1, K2 1),
+    each read back as its crop and its strings those of
+    ``Recognizer.recognize`` on the same arrays; ``recognize`` of the
+    committed progressive and CMYK/YCCK crops in float32, their strings
+    JAX's in ``expected.npz`` (a differing row only at a JAX top-2 gap below
+    CLASSIC_FLIP_GAP); an LMDB of those crops and the refused JPEGs, whose
+    dummies are exactly the 12-bit and hierarchical records."""
+    from multimodal_scene_text_recognition_tpu_torch.config import FLAGSHIP
+    from multimodal_scene_text_recognition_tpu_torch.data import lmdb_data, raw
+    from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
+
+    iw = image_writers()
+    t0 = time.perf_counter()
+    out, secs, launches = {}, {}, {}
+    val_set = api.get_dataset("synthetic")[1]
+    folder = os.path.join(tmp, "formats")
+    os.makedirs(folder)
+    kinds = list(FORMAT_KINDS)
+    want_names = [f"w{i}{FORMAT_KINDS[kinds[i % len(kinds)]]}" for i in range(B)]
+    for i, name in enumerate(want_names):
+        with open(os.path.join(folder, name), "wb") as f:
+            f.write(format_encode(iw, val_set.image[i][..., 0], kinds[i % len(kinds)]))
+    samples = raw.RawImageFolder(folder)
+    arrays = [samples[i].image for i in range(len(samples))]
+    names = [os.path.basename(p) for p in samples.paths]
+    misread = sum(not np.array_equal(a, val_set.image[i].astype(np.float32) / 255.0)
+                  for i, a in enumerate(arrays))
+    rc, lines, secs["recognize_formats"], launches["recognize_formats"] = run_cli(
+        cli.main, ["recognize", folder, "--checkpoint", pth] + fused, counted)
+    rows = [x.split("\t") for x in lines if "\t" in x]
+    texts = [t for _, t in rows]
+    cfg_m = dataclasses.replace(FLAGSHIP, decode_beam_fused=False, decode_early_stop=False)
+    ref = Recognizer(api.get_model(BUNDLE, cfg_m), batch_sizes=(1, 8, 64, B)).recognize(arrays)
+    want_k = {"K1": 1, "K2": 1, "K3": 0, "K4": 0}
+    log(f"cli recognize <{B} committed crops as {', '.join(FORMAT_KINDS)}>: {len(rows)} rows in "
+        f"{secs['recognize_formats']:.2f} s (launches {launches['recognize_formats']}); crops "
+        f"read back differing from their source: {misread}; strings differing from "
+        f"Recognizer.recognize's: {sum(a != b for a, b in zip(texts, ref))}")
+    if (rc != 0 or names != want_names or misread or texts != ref
+            or [os.path.basename(p) for p, _ in rows] != want_names
+            or launches["recognize_formats"] != want_k):
+        raise AssertionError(f"cli recognize of the new formats: rc {rc}, {len(rows)} rows, "
+                             f"{misread} misread, launches {launches['recognize_formats']} "
+                             f"(expected {want_k})")
+    out["recognize_lossless"] = {"crops": B, "kinds": list(FORMAT_KINDS),
+                                 "strings_equal_recognizer": True}
+
+    # the committed lossy crops, float32 against JAX's strings
+    lossy = os.path.join(tmp, "lossy")
+    os.makedirs(lossy)
+    crop_names = [str(x) for x in exp["format_crops/name"]]
+    for name in crop_names:
+        shutil.copy(os.path.join(FIXTURES, "formats", name), lossy)
+    rc, lines, secs["recognize_lossy_f32"], launches["recognize_lossy_f32"] = run_cli(
+        cli.main, ["recognize", lossy, "--checkpoint", pth, "--set",
+                   "model.compute_dtype=float32"] + fused, counted)
+    read = {os.path.basename(p): t for p, t in (x.split("\t") for x in lines if "\t" in x)}
+    got = [read.get(name, "") for name in crop_names]
+    want = [str(x) for x in exp["format_crops/jax_f32_text"]]
+    differ, gap = strings_vs_reference(got, want, exp["format_crops/jax_f32_top2_gap"])
+    log(f"cli recognize <{len(crop_names)} committed progressive/CMYK/YCCK crops> in float32: "
+        f"{secs['recognize_lossy_f32']:.2f} s (launches {launches['recognize_lossy_f32']}); "
+        f"strings vs JAX's: {differ} rows differ (largest JAX top-2 gap at a flip {gap:.3e}, "
+        f"limit {CLASSIC_FLIP_GAP:g}); e.g. {got[:4]}")
+    if (rc != 0 or len(read) != len(crop_names) or gap >= CLASSIC_FLIP_GAP
+            or launches["recognize_lossy_f32"]["K1"] < 1
+            or launches["recognize_lossy_f32"]["K2"] < 1):
+        raise AssertionError(f"cli recognize of the lossy format crops: rc {rc}, {len(read)} "
+                             f"rows, {differ} differ at gap {gap}, launches "
+                             f"{launches['recognize_lossy_f32']}")
+    out["recognize_lossy_f32"] = {"crops": len(crop_names), "rows_differing": differ,
+                                  "flip_gap": gap}
+
+    # an LMDB of the new kinds: dummies exactly at the records PIL refuses
+    with open(os.path.join(FIXTURES, "formats", "labels.json")) as f:
+        labels_of = json.load(f)
+    records = []
+    for name in crop_names:
+        with open(os.path.join(FIXTURES, "formats", name), "rb") as f:
+            records.append((labels_of[name], f.read()))
+    for i, kind in enumerate(kinds):
+        records.append((str(val_set.labels[i]), format_encode(iw, val_set.image[i][..., 0], kind)))
+    refused_at = []
+    for name in FORMAT_REFUSED:
+        refused_at.append(len(records))
+        with open(os.path.join(FIXTURES, "formats", name), "rb") as f:
+            records.append(("refused", f.read()))
+    root = os.path.normpath(os.path.join(tmp, "lmdb_formats"))
+    with lmdb_installed({root: lmdb_store(records)}):
+        reader = lmdb_data.LmdbReader(root, FLAGSHIP.chars)
+        dummies = [i for i in range(len(reader)) if reader[i].label == "[dummy_label]"]
+    log(f"LmdbReader over {len(records)} records ({len(crop_names)} progressive/CMYK/YCCK "
+        f"crops, one of each of {', '.join(FORMAT_KINDS)}, the 12-bit and the hierarchical "
+        f"JPEG): dummies at {dummies} (expected {refused_at})")
+    if len(reader) != len(records) or dummies != refused_at:
+        raise AssertionError(f"LmdbReader dummies at {dummies}, expected {refused_at}")
+    out["lmdb_dummies"] = dummies
+    total = time.perf_counter() - t0
+    log(f"the new-format checks took {total:.2f} s in all; card {smi}")
+    out.update({"wall_s": secs, "launches": launches, "total_s": total})
+    return out
 
 
 def loader_rates(api, cfg) -> dict:
@@ -3877,6 +4034,9 @@ def loaders_phase(api, fd, fb, gs, bn, smi: str):
                             "acc_beam": acc["recognize_beam"], "acc_api_validate": acc_api}
         log("loader verbs' wall s (first call included): " + ", ".join(
             f"{k} {v:.2f}" for k, v in secs.items()) + f"; card {smi}")
+        out["formats"] = formats_phase(api, cli, counted, tmp, pth, fused, exp, smi)
+        for k, v in out["formats"]["launches"].items():
+            launches[k] = v
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()

@@ -13,7 +13,10 @@ data/cocotext.py).
   (an LRU of 64 pages), then a bilinear crop resize to 32x100
   (``ops/resize``), or with ``use_native=False`` PIL's crop-then-resize.
 
-Pages are decoded by ``data/images`` (no PIL).
+Pages are decoded by ``data/images`` (no PIL): a page PIL refuses raises
+its ``OSError``, as in JAX; a page of a kind left to a later slice (WebP,
+GIF, TIFF, arithmetic-coded or lossless JPEG) raises
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations

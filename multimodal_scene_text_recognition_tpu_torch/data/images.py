@@ -7,27 +7,39 @@ bit, through ``native/imgdecode.cpp`` beside this package, built at first
 use with ``g++`` (``utils.native``; a failed build raises, there is no
 fallback):
 
-* :func:`decode_gray`: ``Image.open(io.BytesIO(data)).convert("L")`` of a
-  baseline sequential Huffman JPEG (8-bit, grey or three components, any
-  integer sampling factors, restart intervals), a non-interlaced PNG of 1 to
-  8 bits in every colour type (inflated by ``zlib`` here, unfiltered in the
-  C++), an uncompressed 8- or 24-bit BMP, or a binary PGM/PPM of maxval
-  255.  Broken or truncated data raises an ``OSError``, as PIL's does; a
-  valid file of a kind not covered (progressive, arithmetic-coded,
-  lossless, 12-bit or CMYK JPEG, 16-bit or interlaced PNG, WebP, GIF,
-  TIFF, other BMPs and PNMs) raises ``NotImplementedError`` naming it.
+* :func:`decode_gray`: ``Image.open(io.BytesIO(data)).convert("L")``:
+
+  - JPEG: baseline and progressive Huffman (8-bit; 1, 3 or 4 components:
+    grey, YCbCr or RGB, CMYK or YCCK as PIL reads them; any integer
+    sampling factors; restart intervals; libjpeg-turbo's block smoothing
+    where a progressive file's scans leave low bits unsent; what libjpeg
+    does with a scan cut before its EOI);
+  - PNG of every colour type and depth, 1 to 16 bits, plain or Adam7
+    (inflated by ``zlib`` here, unfiltered in the C++);
+  - BMP of 1, 4, 8, 16, 24 and 32 bits, BI_BITFIELDS, RLE8 and RLE4;
+  - PNM P1 to P6 at any maxval.
+
+  Where PIL raises an ``OSError`` (broken or truncated data, and its own
+  refusals: 12-bit or hierarchical JPEG, the BMP layouts and PNM headers
+  it does not read) the decoder raises an ``OSError``; where PIL's Python
+  raises ``ValueError`` (a short RLE or plain PNM), ``ValueError``; over
+  twice PIL's ``MAX_IMAGE_PIXELS``, :class:`DecompressionBombError`.  A file
+  PIL decodes and this decoder does not raises ``NotImplementedError``
+  naming its kind: WebP, GIF, TIFF, arithmetic-coded or lossless JPEG.
   EXIF orientation is not applied, as ``convert`` does not apply it.
 * :func:`resize_gray`: ``Image.resize`` of a mode-L image with ``BILINEAR``
   or ``BICUBIC``.
 * :func:`crop_gray`: ``Image.crop`` (coordinates rounded half to even,
   zeros off the page).
 
-``data/images_plain.py`` mirrors each of the three in numpy.
+``data/images_plain.py`` mirrors each of the three in numpy, the decoding
+of the baseline kinds only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 import struct
 import zlib
 from typing import NamedTuple, Optional, Sequence, Tuple
@@ -41,9 +53,25 @@ BUILD_DIR = native.BUILD_DIR
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 FILTERS = {"bilinear": 2, "bicubic": 3}  # PIL's numbers
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+_CHUNK_TYPE = re.compile(rb"\w\w\w\w").match  # PngImagePlugin's is_cid
+
+MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3  # PIL's Image.MAX_IMAGE_PIXELS
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))  # (x0, y0, dx, dy) of each pass
 
 _lib: Optional[ctypes.CDLL] = None
 _MSG = 256
+
+
+class DecompressionBombError(Exception):
+    """PIL's: an image of more than twice ``MAX_IMAGE_PIXELS`` pixels is
+    refused before it is decoded (not an OSError, as PIL's is not)."""
+
+
+def _check_size(width: int, height: int) -> None:
+    if max(1, width) * max(1, height) > 2 * MAX_IMAGE_PIXELS:
+        raise DecompressionBombError(f"image of {width}x{height} pixels exceeds twice "
+                                     f"PIL's limit of {MAX_IMAGE_PIXELS}")
 
 
 def _library() -> ctypes.CDLL:
@@ -58,8 +86,8 @@ def _library() -> ctypes.CDLL:
     lib.image_free.argtypes = [u8p]
     lib.image_free.restype = None
     lib.png_to_gray.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
-                                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
+                                ctypes.c_int, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
     lib.png_to_gray.restype = ctypes.c_int
     lib.resize_gray.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                                 ctypes.c_int, ctypes.c_int, ctypes.c_int]
@@ -74,13 +102,18 @@ def _raise(code: int, msg: bytes) -> None:
     text = msg.decode(errors="replace")
     if code == 2:
         raise NotImplementedError(f"image decoding: {text}")
+    if code == 3:  # where PIL's own Python raises ValueError
+        raise ValueError(text)
+    if code == 4:
+        raise DecompressionBombError(text)
     raise OSError(text)
 
 
 def sniff(data: bytes) -> str:
     """The format of an image file from its first bytes: "jpeg", "png",
     "bmp", "pnm", or the name of a format that is recognised but not
-    decoded ("webp", "gif", "tiff"); "" for anything else."""
+    decoded ("webp", "gif", "tiff"); "" for anything else (PIL's own PNM
+    extensions, Pf, P0CMYK and Py*, among these)."""
     if data[:3] == b"\xff\xd8\xff":
         return "jpeg"
     if data[:8] == PNG_MAGIC:
@@ -107,12 +140,15 @@ class PngImage(NamedTuple):
     color_type: int
     palette: bytes
     raw: bytes
+    interlace: int
 
 
 def read_png(data: bytes) -> PngImage:
-    """The chunks of a PNG, its IDAT stream inflated by ``zlib``; raises
-    OSError for broken or truncated data and NotImplementedError for a
-    16-bit or interlaced image."""
+    """The chunks of a PNG, its IDAT stream inflated by ``zlib``, read as
+    PIL reads them: each chunk before the image data must have a word-like
+    type and a matching CRC, and the image data ends at the first chunk
+    that is not IDAT.  Raises OSError for broken or truncated data (a short
+    IHDR: ValueError, as PIL's)."""
     pos, header, palette, idat = 8, None, b"", []
     while True:
         if pos + 8 > len(data):
@@ -120,42 +156,56 @@ def read_png(data: bytes) -> PngImage:
                 break
             raise OSError("image file is truncated")
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if idat and kind != b"IDAT":
+            break
+        if not _CHUNK_TYPE(kind):
+            raise OSError(f"broken PNG file (chunk {kind!r})")
         body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
         pos += 12 + length
         if len(body) < length:
             if kind == b"IDAT":  # a short stream is caught where it is unfiltered
                 idat.append(body)
                 break
             raise OSError("image file is truncated")
+        if kind == b"IDAT":
+            idat.append(body)
+            continue
+        if kind == b"IEND":
+            break
+        if kind == b"IHDR" and length < 13:
+            raise ValueError("Truncated IHDR chunk")
+        if len(crc) < 4 or zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
+            raise OSError(f"broken PNG file (bad header checksum in {kind!r})")
         if kind == b"IHDR":
-            if length < 13:
-                raise OSError("broken PNG file")
             header = struct.unpack(">IIBBBBB", body[:13])
         elif kind == b"PLTE":
             palette = body
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
     if header is None:
         raise OSError("broken PNG file: no IHDR")
-    width, height, depth, color_type, _, _, interlace = header
-    if depth == 16:
-        raise NotImplementedError("image decoding: 16-bit PNG")
-    if interlace:
-        raise NotImplementedError("image decoding: interlaced PNG")
-    if (color_type, depth) not in {(0, 1), (0, 2), (0, 4), (0, 8), (2, 8), (3, 1), (3, 2),
-                                   (3, 4), (3, 8), (4, 8), (6, 8)}:
+    width, height, depth, color_type, _, filter_method, interlace = header
+    if filter_method:
+        raise OSError("broken PNG file: unknown filter category")
+    _check_size(width, height)
+    if (color_type, depth) not in {(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16),
+                                   (3, 1), (3, 2), (3, 4), (3, 8), (4, 8), (4, 16), (6, 8),
+                                   (6, 16)}:
         raise OSError(f"broken PNG file: colour type {color_type} at {depth} bits")
     if width == 0 or height == 0:
         raise OSError("broken PNG file: empty size")
     if color_type == 3 and not palette:
         raise OSError("broken PNG file: no palette")
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color_type]
+    need = 0  # the inflated bytes the image takes: PIL inflates no more
+    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
+        pw, ph = max(0, -(-(width - x0) // dx)), max(0, -(-(height - y0) // dy))
+        if pw and ph:
+            need += ph * (1 + (pw * channels * depth + 7) // 8)
     try:
-        raw = zlib.decompressobj().decompress(b"".join(idat))
+        raw = zlib.decompressobj().decompress(b"".join(idat), need)
     except zlib.error as e:
         raise OSError(f"broken PNG file: {e}") from e
-    return PngImage(width, height, depth, color_type, palette, raw)
+    return PngImage(width, height, depth, color_type, palette, raw, interlace)
 
 
 def decode_gray(data: bytes) -> np.ndarray:
@@ -172,7 +222,7 @@ def decode_gray(data: bytes) -> np.ndarray:
         png = read_png(data)
         out = np.empty((png.height, png.width), np.uint8)
         code = lib.png_to_gray(png.raw, len(png.raw), png.width, png.height, png.color_type,
-                               png.depth, png.palette, len(png.palette) // 3,
+                               png.depth, png.interlace, png.palette, len(png.palette) // 3,
                                out.ctypes.data, msg, _MSG)
         if code:
             _raise(code, msg.value)

@@ -1,7 +1,13 @@
 """The numpy mirror of ``data/images`` (``native/imgdecode.cpp``): the same
 decoding, resizing and cropping step for step in Python and numpy, for the
 tests to hold the C++ to.  Slow (the JPEG entropy decoding runs a Python
-loop a bit); the loaders call the C++."""
+loop a bit); the loaders call the C++.
+
+It mirrors the baseline JPEG, the non-interlaced PNG of 1 to 8 bits, the
+uncompressed 8- and 24-bit BMP and the P5/P6 of maxval 255.  It raises
+NotImplementedError for what the C++ decodes beyond those (progressive and
+CMYK/YCCK JPEG, interlaced or 16-bit PNG, the other BMPs and PNMs), whose
+tests hold the C++ straight to PIL, and for what neither decodes."""
 
 from __future__ import annotations
 
@@ -123,9 +129,7 @@ def _descale(x: np.ndarray, n: int) -> np.ndarray:
 
 
 def _limit(x: np.ndarray) -> np.ndarray:
-    v = x & 1023
-    v = np.where(v >= 512, v - 1024, v) + 128
-    return np.clip(v, 0, 255).astype(np.uint8)
+    return np.clip(x + 128, 0, 255).astype(np.uint8)
 
 
 def _idct_1d(v: List[np.ndarray]):
@@ -228,20 +232,25 @@ def decode_jpeg_plain(d: bytes) -> np.ndarray:
         if pos + length > n:
             raise OSError("image file is truncated")
         s = d[pos + 2:pos + length]
-        if m in (0xC0, 0xC1):
+        if 0xC0 <= m <= 0xCF and m not in (0xC4, 0xCC):
+            # PIL's own checks, then libjpeg's refusals, as in the C++
+            if m == 0xC8 or len(s) < 6 or s[0] != 8 or s[5] not in (1, 3, 4):
+                raise OSError("cannot identify image file")
+            if m in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF):
+                raise OSError("broken data stream (hierarchical JPEG)")
+            if m == 0xC3:
+                raise NotImplementedError("image decoding: lossless JPEG")
+            if m in (0xC9, 0xCA, 0xCB):
+                raise NotImplementedError("image decoding: arithmetic-coded JPEG")
+            if m == 0xC2:
+                raise NotImplementedError("image decoding: progressive JPEG (not mirrored)")
             if frame:
                 raise OSError("duplicate JPEG frame header")
-            if len(s) < 6:
-                raise OSError("corrupt JPEG frame header")
-            if s[0] != 8:
-                raise NotImplementedError(f"image decoding: JPEG of {s[0]}-bit samples")
             H, W, nc = _u16(s, 1), _u16(s, 3), s[5]
             if W == 0 or H == 0:
                 raise OSError("JPEG of empty size")
             if nc == 4:
-                raise NotImplementedError("image decoding: CMYK/YCCK JPEG (4 components)")
-            if nc not in (1, 3):
-                raise OSError(f"JPEG of {nc} components")
+                raise NotImplementedError("image decoding: CMYK/YCCK JPEG (not mirrored)")
             if len(s) < 6 + 3 * nc:
                 raise OSError("corrupt JPEG frame header")
             for i in range(nc):
@@ -255,20 +264,11 @@ def decode_jpeg_plain(d: bytes) -> np.ndarray:
             mcux, mcuy = -(-W // (8 * hmax)), -(-H // (8 * vmax))
             for c in comps:
                 if hmax % c["h"] or vmax % c["v"]:
-                    raise NotImplementedError(
-                        "image decoding: JPEG with fractional sampling ratios")
+                    raise OSError("broken data stream (fractional sampling ratios)")
                 c["bw"], c["bh"] = mcux * c["h"], mcuy * c["v"]
                 c["dw"], c["dh"] = -(-W * c["h"] // hmax), -(-H * c["v"] // vmax)
                 c["coef"] = np.zeros((c["bh"], c["bw"], 64), np.int64)
             frame = True
-        elif m in (0xC2, 0xC6, 0xCA, 0xCE):
-            raise NotImplementedError("image decoding: progressive JPEG")
-        elif m in (0xC3, 0xC7, 0xCB, 0xCF):
-            raise NotImplementedError("image decoding: lossless JPEG")
-        elif m == 0xC5:
-            raise NotImplementedError("image decoding: hierarchical JPEG")
-        elif m in (0xC9, 0xCC):
-            raise NotImplementedError("image decoding: arithmetic-coded JPEG")
         elif m == 0xC4:
             p = 0
             while p < len(s):
@@ -366,8 +366,6 @@ def decode_jpeg_plain(d: bytes) -> np.ndarray:
             pos = bits.end()
             scanned = True
             continue
-        elif 0xC0 <= m <= 0xCF:
-            raise NotImplementedError(f"image decoding: JPEG process {m - 0xC0}")
         pos += length
     if not frame or not scanned:
         raise OSError("JPEG without image data")
@@ -537,6 +535,8 @@ def decode_gray_plain(data: bytes) -> np.ndarray:
         return decode_jpeg_plain(data)
     if kind == "png":
         png = read_png(data)
+        if png.interlace or png.depth == 16:
+            raise NotImplementedError("image decoding: interlaced or 16-bit PNG (not mirrored)")
         return png_to_gray_plain(png.raw, png.width, png.height, png.color_type, png.depth,
                                  png.palette)
     if kind == "bmp":

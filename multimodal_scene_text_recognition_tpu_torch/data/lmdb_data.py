@@ -4,8 +4,12 @@
   ``label-%09d`` from 1, and ``num-samples``), labels filtered by length
   and charset when it opens; each image decoded to grey (``data/images``)
   and squash-resized bilinearly, or with ``keep_ratio`` by
-  :func:`keep_ratio_resize`; a record whose image does not decode
-  (``OSError``) is a black crop labelled "[dummy_label]".
+  :func:`keep_ratio_resize`; a record PIL would refuse with an
+  ``OSError`` (broken or truncated data, a 12-bit or hierarchical JPEG)
+  is a black crop labelled "[dummy_label]", as in JAX.  A record of a kind
+  ``data/images`` leaves to a later slice (WebP, GIF, TIFF,
+  arithmetic-coded or lossless JPEG) raises ``NotImplementedError``: it is
+  no dummy, since JAX reads it.
 * :class:`ConcatSamples`: sample sequences end to end.
 * :class:`BalancedMixture`: batches that take a fixed quota from each
   source, each source reshuffled by one generator when it runs out.

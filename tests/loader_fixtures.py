@@ -4,6 +4,7 @@ synthetic validation set, and the values the loaders must read from them.
 
     python tests/loader_fixtures.py          # writes the files and expected.npz
     python tests/loader_fixtures.py --expected-only
+    python tests/loader_fixtures.py --formats-only   # formats/ and expected.npz
 
 Not a test module.  It imports PIL and the JAX package (the port does
 neither).  :func:`make_files` writes, from one seed:
@@ -22,12 +23,25 @@ neither).  :func:`make_files` writes, from one seed:
 * ``crops/``: sixteen word-crop JPEGs at other sizes than 32x100,
   ``labels.json`` and ``truncated.jpg``, half of a JPEG.
 
+:func:`make_format_files` writes ``formats/`` from the committed pages and
+crops: two 640x480 pages (page 1 re-saved as a progressive JPEG, page 4 as
+a CMYK JPEG), twelve word crops in the lossy kinds the port's decoder
+gained (progressive at each sampling, one with its last three scans cut so
+that libjpeg smooths its blocks; CMYK with and without the Adobe marker,
+YCCK), ``labels.json``, and two JPEGs PIL refuses with an OSError
+(``twelve_bit.jpg``, ``hierarchical.jpg``).  The lossless kinds (Adam7 and
+16-bit PNG, BMP, PNM) are written where they are used, by
+``tests/image_writers.py``.
+
 :func:`expected` reads the committed files back with PIL and the JAX
 package: PIL's ``convert("L")`` of every page and crop, JAX's
 ``CocoTextSamples`` of the COCO-Text val split (images, ids, labels,
 vectors) and the strings the trained flagship reads from them in float32
-with each step's top-2 logit gap.  A tier-1 test recomputes it and checks
-it equals the committed ``expected.npz``.
+with each step's top-2 logit gap; for ``formats/``, PIL's decode of each
+file (``format/<name>``) and the flagship's float32 strings and gaps of the
+lossy crops read as JAX's ``RawImageFolder`` reads them
+(``format_crops/...``).  A tier-1 test recomputes it and checks it equals
+the committed ``expected.npz``.
 """
 
 from __future__ import annotations
@@ -221,6 +235,85 @@ def make_files(out: Path = OUT) -> None:
         json.dump(crop_labels, f, indent=0, sort_keys=True)
 
 
+FORMATS = OUT / "formats"
+# (file name, the committed crop it is made from, how)
+FORMAT_CROPS = (
+    ("prog_grey.jpg", "crop_00.jpg", dict(grey=True, quality=85)),
+    ("prog_444.jpg", "crop_01.jpg", dict(quality=90, subsampling=0)),
+    ("prog_422.jpg", "crop_02.jpg", dict(quality=75, subsampling=1, optimize=True)),
+    ("prog_420.jpg", "crop_04.jpg", dict(quality=80, subsampling=2, restart_marker_blocks=2)),
+    ("prog_420_cut.jpg", "crop_05.jpg", dict(quality=88, subsampling=2, cut=3)),
+    ("prog_grey_cut.jpg", "crop_06.jpg", dict(grey=True, quality=80, cut=3)),
+    ("cmyk_444.jpg", "crop_07.jpg", dict(cmyk=True, quality=90, subsampling=0)),
+    ("cmyk_420.jpg", "crop_08.jpg", dict(cmyk=True, quality=85, subsampling=2)),
+    ("cmyk_no_adobe.jpg", "crop_09.jpg", dict(cmyk=True, quality=85, adobe=None)),
+    ("ycck_420.jpg", "crop_10.jpg", dict(cmyk=True, quality=85, subsampling=2, adobe=2)),
+    ("ycck_444.jpg", "crop_11.jpg", dict(cmyk=True, quality=92, subsampling=0, adobe=2)),
+    ("cmyk_prog.jpg", "crop_12.jpg", dict(cmyk=True, quality=85, progressive=True)),
+)
+FORMAT_PAGES = (("page_progressive.jpg", "page_1.jpg", dict(quality=75, subsampling=1)),
+                ("page_cmyk.jpg", "page_4.jpg", dict(cmyk=True, quality=60, subsampling=2)))
+FORMAT_REFUSED = ("twelve_bit.jpg", "hierarchical.jpg")
+
+
+def _format_jpeg(rgb: np.ndarray, how: dict) -> bytes:
+    """``rgb`` saved by PIL as a progressive (or CMYK) JPEG as ``how``
+    says, then edited: scans cut, the Adobe marker's transform set or the
+    marker taken out."""
+    import io
+
+    import image_writers as iw
+    from PIL import Image
+
+    how = dict(how)
+    im = Image.fromarray(rgb)
+    if how.pop("grey", False):
+        im = im.convert("L")
+    cmyk = how.pop("cmyk", False)
+    if cmyk:
+        im = im.convert("CMYK")
+    cut, adobe = how.pop("cut", 0), how.pop("adobe", 0)
+    buf = io.BytesIO()
+    im.save(buf, format="JPEG", progressive=how.pop("progressive", not cmyk), **how)
+    data = buf.getvalue()
+    if cut:
+        data = iw.cut_scans(data, iw.n_scans(data) - cut)
+    if adobe != 0:
+        data = iw.adobe_transform(data, adobe)
+    return data
+
+
+def make_format_files(out: Path = OUT) -> None:
+    """Write ``formats/`` from the committed pages and crops."""
+    import image_writers as iw
+    from PIL import Image
+
+    fmt = out / "formats"
+    fmt.mkdir(parents=True, exist_ok=True)
+    for name, src, how in FORMAT_PAGES:
+        rgb = np.asarray(Image.open(out / src).convert("RGB"))
+        (fmt / name).write_bytes(_format_jpeg(rgb, how))
+    labels_of = json.loads((out / "crops" / "labels.json").read_text())
+    labels = {}
+    for name, src, how in FORMAT_CROPS:
+        rgb = np.asarray(Image.open(out / "crops" / src).convert("RGB"))
+        (fmt / name).write_bytes(_format_jpeg(rgb, how))
+        labels[name] = labels_of[src]
+    with open(fmt / "labels.json", "w") as f:
+        json.dump(labels, f, indent=0, sort_keys=True)
+    base = (out / "crops" / "crop_03.jpg").read_bytes()
+    (fmt / "twelve_bit.jpg").write_bytes(iw.retag_frame(base, precision=12))
+    (fmt / "hierarchical.jpg").write_bytes(iw.retag_frame(base, marker=0xC5))
+
+
+def format_files(out: Path = OUT):
+    return [name for name, _, _ in FORMAT_PAGES + FORMAT_CROPS]
+
+
+def format_crop_files(out: Path = OUT):
+    return [name for name, _, _ in FORMAT_CROPS]
+
+
 def apply(cfg, sets: dict, jax: bool = True):
     """``cfg`` with the dotted overrides ``sets``, by JAX's (or with
     ``jax=False`` the port's) ``apply_overrides``."""
@@ -307,6 +400,19 @@ def expected(out: Path = OUT, strings: bool = True) -> dict:
         texts, gaps = jax_flagship_read(exp["cocotext_val/image"])
         exp["cocotext_val/jax_f32_text"] = np.asarray(texts)
         exp["cocotext_val/jax_f32_top2_gap"] = gaps.astype(np.float32)
+    fmt = out / "formats"
+    for name in format_files(out):
+        exp[f"format/{name}"] = np.asarray(Image.open(fmt / name).convert("L"))
+    names = format_crop_files(out)
+    exp["format_crops/name"] = np.asarray(names)
+    if strings:
+        from multimodal_scene_text_recognition_tpu.data.raw import RawImageFolder
+
+        folder = RawImageFolder(str(fmt))
+        folder.paths = [str(fmt / n) for n in names]  # not the files PIL refuses
+        texts, gaps = jax_flagship_read(np.stack([folder[i].image for i in range(len(names))]))
+        exp["format_crops/jax_f32_text"] = np.asarray(texts)
+        exp["format_crops/jax_f32_top2_gap"] = gaps.astype(np.float32)
     return exp
 
 
@@ -316,8 +422,11 @@ def main(argv) -> int:
 
     if not native.have_native():
         raise SystemExit("the JAX package's native crop resize did not build (make -C native)")
-    if "--expected-only" not in argv:
+    if "--formats-only" in argv:
+        make_format_files()
+    elif "--expected-only" not in argv:
         make_files()
+        make_format_files()
     np.savez_compressed(OUT / "expected.npz", **expected())
     total = sum(p.stat().st_size for p in OUT.rglob("*") if p.is_file())
     print(f"wrote {OUT}: {total} bytes")

@@ -1,7 +1,10 @@
 """The port's image decoding, resizing and cropping (``data/images``, the C++
 of ``native/imgdecode.cpp``) against PIL, which the JAX loaders call, and
 its numpy mirror (``data/images_plain``) against the C++: bit for bit on
-every case.  Images are made here by PIL from seeded arrays."""
+every case.  Images are made here from seeded arrays, by PIL or, in the
+kinds PIL does not write, by ``tests/image_writers.py``; the kinds the
+mirror does not cover (progressive and CMYK/YCCK JPEG, interlaced and
+16-bit PNG, the other BMPs and PNMs) are held to PIL alone."""
 
 import io
 import struct
@@ -11,6 +14,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+import image_writers as iw
 from multimodal_scene_text_recognition_tpu_torch.data import images
 from multimodal_scene_text_recognition_tpu_torch.data import images_plain as plain
 from multimodal_scene_text_recognition_tpu_torch.utils import images as uimages
@@ -93,7 +97,7 @@ def test_jpeg_tables_and_restarts_match_pil(sampling, extra):
     held(encoded(img, format="JPEG", quality=80, **kw, **extra))
 
 
-def png(w, h, depth, color_type, rows, palette=b"", interlace=0):
+def png(w, h, depth, color_type, rows, palette=b""):
     """A PNG written by hand from filter-tagged rows (PIL writes no grey
     image of 2 or 4 bits)."""
     def chunk(kind, body):
@@ -101,7 +105,7 @@ def png(w, h, depth, color_type, rows, palette=b"", interlace=0):
                                                                          zlib.crc32(kind + body))
     raw = b"".join(bytes([f]) + r for f, r in rows)
     return (images.PNG_MAGIC
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, interlace))
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, 0))
             + (chunk(b"PLTE", palette) if palette else b"")
             + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
 
@@ -211,6 +215,8 @@ def _jpeg():
 
 
 BROKEN = {
+    "12-bit": lambda: iw.retag_frame(_jpeg(), precision=12),
+    "hierarchical JPEG": lambda: iw.retag_frame(_jpeg(), marker=0xC5),
     "truncated JPEG": lambda: _jpeg()[:len(_jpeg()) // 2],
     "JPEG without EOI": lambda: _jpeg()[:-2],
     "JPEG header cut": lambda: _jpeg()[:120],
@@ -236,25 +242,20 @@ def test_broken_data_raises_oserror(name):
 
 
 UNSUPPORTED = {
-    "progressive JPEG": lambda: encoded(Image.fromarray(smooth(40, 60, 3, 2)), format="JPEG",
-                                        progressive=True),
-    "CMYK/YCCK JPEG": lambda: encoded(Image.fromarray(smooth(40, 60, 3, 2)).convert("CMYK"),
-                                      format="JPEG"),
     "arithmetic-coded JPEG": lambda: _jpeg().replace(b"\xff\xc0", b"\xff\xc9", 1),
-    "12-bit": lambda: _jpeg().replace(b"\xff\xc0\x00\x11\x08", b"\xff\xc0\x00\x11\x0c", 1),
-    "16-bit PNG": lambda: encoded(Image.fromarray(
-        np.arange(12, dtype=np.uint16).reshape(3, 4) * 5000), format="PNG"),
-    "interlaced PNG": lambda: png(4, 3, 8, 0, [(0, b"\0" * 4)] * 3, interlace=1),
+    "lossless JPEG": lambda: iw.retag_frame(_jpeg(), marker=0xC3),
     "WEBP": lambda: encoded(Image.fromarray(smooth(20, 30, 3, 2)), format="WEBP"),
     "GIF": lambda: encoded(Image.fromarray(smooth(20, 30, 1, 2)), format="GIF"),
+    "TIFF": lambda: encoded(Image.fromarray(smooth(20, 30, 1, 2)), format="TIFF"),
 }
 
 
 @pytest.mark.parametrize("name", list(UNSUPPORTED))
 def test_formats_not_covered_raise_not_implemented(name):
-    """A valid file of a kind the decoder does not cover raises
+    """A file of a kind the decoder does not cover raises
     NotImplementedError naming it (not OSError: no loader takes it for a
-    broken record)."""
+    broken record).  The lossless JPEG is a baseline file retagged SOF3:
+    its frame marker is what is refused."""
     data = UNSUPPORTED[name]()
     for decode in (images.decode_gray, plain.decode_gray_plain):
         with pytest.raises(NotImplementedError, match=name):
@@ -275,3 +276,432 @@ def test_decoder_raises_when_it_cannot_be_built(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         images.decode_gray(_jpeg())
     assert not list((tmp_path / "_build").glob("*.so"))
+
+
+# --- the kinds the mirror does not cover, held to PIL alone -------------------------
+
+
+def pil_equal(data: bytes):
+    """The C++ equals PIL's ``open().convert("L")`` bit for bit; the mirror
+    raises NotImplementedError for a kind it does not cover, and equals the
+    C++ where it does (a BMP palette or header it knows)."""
+    want = np.asarray(Image.open(io.BytesIO(data)).convert("L"))
+    got = images.decode_gray(data)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    try:
+        mirrored = plain.decode_gray_plain(data)
+    except NotImplementedError:
+        return
+    np.testing.assert_array_equal(mirrored, got)
+
+
+def _progressive(size, sampling, seed, **kw):
+    h, w = SIZES[size] if isinstance(size, str) else size
+    if sampling == "grey":
+        return encoded(Image.fromarray(smooth(h, w, 1, seed)), format="JPEG", progressive=True, **kw)
+    return encoded(Image.fromarray(smooth(h, w, 3, seed)), format="JPEG", progressive=True,
+                   subsampling=SAMPLING[sampling], **kw)
+
+
+@pytest.mark.parametrize("sampling", ["grey", "4:4:4", "4:2:2", "4:2:0"])
+@pytest.mark.parametrize("size", list(SIZES))
+def test_progressive_jpeg_matches_pil(size, sampling):
+    """Progressive JPEGs (PIL's scan script: DC and AC first scans, then
+    successive-approximation refinements) at every sampling, at sizes that
+    are not whole MCUs, at two qualities."""
+    for quality in (40, 90):
+        pil_equal(_progressive(size, sampling, quality, quality=quality))
+
+
+@pytest.mark.parametrize("extra", [{"optimize": True}, {"restart_marker_blocks": 3},
+                                   {"restart_marker_rows": 1}], ids=["optimize", "rst-blocks",
+                                                                     "rst-rows"])
+@pytest.mark.parametrize("sampling", ["grey", "4:4:4", "4:2:0"])
+def test_progressive_tables_and_restarts_match_pil(sampling, extra):
+    """Optimized Huffman tables (long EOB runs) and restart intervals, which
+    reset the EOB run as well as the DC predictions."""
+    pil_equal(_progressive((77, 333), sampling, 7, quality=80, **extra))
+
+
+@pytest.mark.parametrize("keep", range(1, 10))
+def test_progressive_scans_cut_match_pil(keep):
+    """A progressive JPEG with only its first ``keep`` scans, EOI kept: the
+    low bits its scans leave unsent make libjpeg-turbo smooth the blocks
+    (the 5x5 estimate of the first AC coefficients, and of the DC too where
+    a component has no AC data yet); a 4:2:0 colour file (10 scans) and a
+    grey one (6 scans), the colour one also cut in the middle of a scan."""
+    data = _progressive((77, 333), "4:2:0", 3, quality=85)
+    assert iw.n_scans(data) == 10
+    pil_equal(iw.cut_scans(data, keep))
+    grey = _progressive((40, 61), "grey", 4, quality=70)
+    pil_equal(iw.cut_scans(grey, min(keep, 5)))
+    cut = iw.cut_scans(data, keep + 1)
+    pil_equal(cut[:len(cut) - 2 - 150] + b"\xff\xd9")
+
+
+def _cmyk(sampling, seed, progressive=False):
+    h, w = 37, 61
+    a = np.asarray(Image.fromarray(smooth(h, w, 3, seed)).convert("CMYK")).copy()
+    a[..., 3] = smooth(h, w, 1, seed + 1) // 3
+    return encoded(Image.fromarray(a, "CMYK"), format="JPEG", quality=85,
+                   subsampling=SAMPLING[sampling], progressive=progressive)
+
+
+@pytest.mark.parametrize("progressive", [False, True], ids=["baseline", "progressive"])
+@pytest.mark.parametrize("sampling", ["4:4:4", "4:2:0"])
+@pytest.mark.parametrize("adobe", ["CMYK", "no Adobe", "YCCK", "YCCK transform 1"])
+def test_cmyk_and_ycck_jpeg_match_pil(adobe, sampling, progressive):
+    """Four-component JPEGs: PIL reads the CMYK inverted ("CMYK;I") with or
+    without an Adobe marker, libjpeg converts YCCK (Adobe transform 2, and
+    any other non-zero transform) to CMYK first, and convert("L") goes
+    through Pillow's multiplicative CMYK -> RGB."""
+    data = _cmyk(sampling, 5, progressive)
+    data = {"CMYK": data, "no Adobe": iw.adobe_transform(data, None),
+            "YCCK": iw.adobe_transform(data, 2),
+            "YCCK transform 1": iw.adobe_transform(data, 1)}[adobe]
+    pil_equal(data)
+
+
+def test_cmyk_conversion_is_pillows():
+    """The probe behind the CMYK path: (10, 200, 30, 40) reads L 111 in PIL,
+    not the 91 of a subtractive conversion, and the decoder gives it."""
+    im = Image.new("CMYK", (8, 8), (10, 200, 30, 40))
+    assert im.convert("L").getpixel((0, 0)) == 111
+    data = encoded(im, format="JPEG", quality=100, subsampling=0)
+    pil_equal(data)
+
+
+PNG_KINDS = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 2), (3, 4),
+             (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)]
+
+
+def _samples(rng, h, w, color_type, depth):
+    if color_type == 0 and depth == 16:  # values on both sides of 255, which L clips
+        return rng.choice([0, 1, 100, 255, 256, 300, 4000, 65535], (h, w))
+    return rng.integers(0, 1 << depth, (h, w, iw.PNG_CHANNELS[color_type]))
+
+
+@pytest.mark.parametrize("size", [(1, 1), (5, 3), (3, 5), (9, 17)], ids=lambda s: f"{s[1]}x{s[0]}")
+@pytest.mark.parametrize("kind", PNG_KINDS, ids=lambda k: f"type{k[0]}-{k[1]}bit")
+def test_interlaced_png_matches_pil(kind, size):
+    """Adam7 PNGs of every colour type and depth, every filter type, at
+    sizes whose small passes are empty (1x1, 3x5) and others; the same
+    image non-interlaced too."""
+    color_type, depth = kind
+    rng = np.random.default_rng(depth * 10 + color_type)
+    img = _samples(rng, *size, color_type, depth)
+    pal = rng.integers(0, 256, 3 << depth, dtype=np.uint8).tobytes() if color_type == 3 else b""
+    pil_equal(iw.png(img, depth, color_type, pal, interlace=True, first_filter=sum(size)))
+    if depth == 16 or size == (9, 17):
+        data = iw.png(img, depth, color_type, pal)
+        if depth == 16:
+            pil_equal(data)
+        else:
+            held(data)
+
+
+@pytest.mark.parametrize("name", ["grey", "grey+tRNS", "RGB", "LA", "RGBA"])
+def test_16bit_png_matches_pil(name):
+    """16-bit PNGs: grey is PIL's "I;16", which convert("L") clips at 255
+    (not scales); RGB, LA and RGBA take the high bytes (";16B" raw modes);
+    a tRNS chunk changes no grey value."""
+    rng = np.random.default_rng(len(name))
+    color_type = {"grey": 0, "grey+tRNS": 0, "RGB": 2, "LA": 4, "RGBA": 6}[name]
+    img = _samples(rng, 13, 21, color_type, 16)
+    extra = iw.png_chunk(b"tRNS", struct.pack(">H", 300)) if name == "grey+tRNS" else b""
+    for interlace in (False, True):
+        pil_equal(iw.png(img, 16, color_type, interlace=interlace, extra=extra))
+
+
+def test_16bit_grey_png_clips():
+    """The probe: 0, 100, 255, 256, 65535 read 0, 100, 255, 255, 255."""
+    data = iw.png(np.array([[0, 100, 255, 256, 65535]]), 16, 0)
+    np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(data)).convert("L")),
+                                  [[0, 100, 255, 255, 255]])
+    pil_equal(data)
+
+
+def _bmp_case(name):
+    rng = np.random.default_rng(len(name))
+    h, w = 13, 21
+
+    def palette(n):
+        return [tuple(int(v) for v in rng.integers(0, 256, 3)) for _ in range(n)]
+
+    def indexed(bits, **kw):
+        idx = rng.integers(0, 1 << bits, (h, w))
+        return iw.bmp(w, h, bits, [iw.pack_bits(r, bits) for r in idx], palette(1 << bits), **kw)
+
+    def direct(bits, **kw):
+        return iw.bmp(w, h, bits, [rng.integers(0, 256, w * bits // 8, dtype=np.uint8).tobytes()
+                                   for _ in range(h)], **kw)
+
+    runs = rng.integers(0, 5, (h, w))
+    runs[:, :w // 2] = runs[:, :1]  # long encoded runs, then absolute ones
+    return {
+        "1-bit": lambda: indexed(1),
+        "1-bit black-white": lambda: iw.bmp(w, h, 1, [iw.pack_bits(r, 1) for r in
+                                                        rng.integers(0, 2, (h, w))],
+                                              [(0, 0, 0), (255, 255, 255)]),
+        "4-bit": lambda: indexed(4),
+        "4-bit top-down": lambda: indexed(4, top_down=True),
+        "8-bit 12-byte header": lambda: indexed(8, header=12),
+        "8-bit 124-byte header": lambda: indexed(8, header=124),
+        "8-bit grey palette": lambda: iw.bmp(w, h, 8, [bytes(r) for r in rng.integers(
+            0, 256, (h, w), dtype=np.uint8)], [(i, i, i) for i in range(256)]),
+        "16-bit": lambda: direct(16),
+        "16-bit 565 bitfields": lambda: direct(16, compression=3, masks=(0xF800, 0x7E0, 0x1F)),
+        "16-bit 555 bitfields": lambda: direct(16, compression=3, masks=(0x7C00, 0x3E0, 0x1F),
+                                               header=56),
+        "24-bit bitfields": lambda: direct(24, compression=3, masks=(0xFF0000, 0xFF00, 0xFF)),
+        "32-bit": lambda: direct(32),
+        "32-bit BGRX bitfields": lambda: direct(32, compression=3,
+                                                masks=(0xFF0000, 0xFF00, 0xFF, 0)),
+        "32-bit XBGR bitfields": lambda: direct(32, compression=3,
+                                                masks=(0xFF000000, 0xFF0000, 0xFF00, 0)),
+        "32-bit RGBA bitfields": lambda: direct(32, compression=3, header=108,
+                                                masks=(0xFF, 0xFF00, 0xFF0000, 0xFF000000)),
+        "32-bit BGAR bitfields": lambda: direct(32, compression=3, header=124,
+                                                masks=(0xFF000000, 0xFF00, 0xFF, 0xFF0000)),
+        "RLE8": lambda: iw.bmp(w, h, 8, palette=palette(256), compression=1,
+                               data=iw.rle8(runs)),
+        "RLE8 grey": lambda: iw.bmp(w, h, 8, palette=[(i, i, i) for i in range(256)],
+                                    compression=1, data=iw.rle8(runs)),
+        # a delta (PIL reads two bytes past the escape's and moves by the
+        # second pair), end-of-line codes on part-filled rows
+        "RLE8 delta": lambda: iw.bmp(w, h, 8, palette=palette(256), compression=1, data=bytes(
+            [3, 7, 0, 0, 0, 2, 9, 9, 2, 1, 4, 5, 0, 0]) + bytes([w, 2, 0, 0]) * h + b"\x00\x01"),
+        # encoded runs cut at the row's end, an odd absolute run (PIL drops
+        # its last pixel), word alignment
+        "RLE4": lambda: iw.bmp(w, h, 4, palette=palette(16), compression=2, data=bytes(
+            [5, 0x3A, 0, 5, 0x12, 0x34, 0x50, 0, w, 0xC1, 0, 0] * h) + b"\x00\x01"),
+    }[name]()
+
+
+BMP_KINDS = ["1-bit", "1-bit black-white", "4-bit", "4-bit top-down", "8-bit 12-byte header",
+             "8-bit 124-byte header", "8-bit grey palette", "16-bit", "16-bit 565 bitfields",
+             "16-bit 555 bitfields", "24-bit bitfields", "32-bit", "32-bit BGRX bitfields",
+             "32-bit XBGR bitfields", "32-bit RGBA bitfields", "32-bit BGAR bitfields", "RLE8",
+             "RLE8 grey", "RLE8 delta", "RLE4"]
+
+
+@pytest.mark.parametrize("name", BMP_KINDS)
+def test_bmp_variants_match_pil(name):
+    """The BMPs PIL decodes beyond 8- and 24-bit: 1/4-bit palettes (a
+    black-white or grey-ramp palette makes PIL's mode "1" or "L"),
+    top-down rows, the 12-byte and v5 headers, 16-bit 5-5-5 and 5-6-5,
+    32-bit, each BI_BITFIELDS layout PIL knows, RLE8 and RLE4."""
+    pil_equal(_bmp_case(name))
+
+
+def _pnm_case(name):
+    rng = np.random.default_rng(len(name))
+    h, w = 11, 19
+    kind, maxval = {"P1": (1, 1), "P4": (4, 1), "P2": (2, 255), "P3": (3, 255),
+                    "P2 maxval 1000": (2, 1000), "P5 maxval 15": (5, 15),
+                    "P5 maxval 1000": (5, 1000), "P5 maxval 65535": (5, 65535),
+                    "P6 maxval 100": (6, 100), "P6 maxval 4095": (6, 4095)}[name]
+    shape = (h, w, 3) if kind in (3, 6) else (h, w)
+    return iw.pnm(rng.integers(0, maxval + 1, shape), kind, maxval)
+
+
+PNM_KINDS = ["P1", "P4", "P2", "P3", "P2 maxval 1000", "P5 maxval 15", "P5 maxval 1000",
+             "P5 maxval 65535", "P6 maxval 100", "P6 maxval 4095"]
+
+
+@pytest.mark.parametrize("name", PNM_KINDS)
+def test_pnm_variants_match_pil(name):
+    """The PNMs PIL decodes beyond P5/P6 at maxval 255: plain P1/P2/P3 with
+    comments, bitmap P4, and other maxvals, where grey above 255 is PIL's
+    mode "I" (round(v / maxval * 65535), which convert("L") clips) and the
+    rest round(v / maxval * 255)."""
+    pil_equal(_pnm_case(name))
+
+
+def test_pnm_maxval_1000_clips():
+    """The probe: P5 of maxval 1000 opens as mode "I" and 255 reads 255."""
+    data = b"P5 2 1 1000\n" + np.array([1, 255], ">u2").tobytes()
+    assert Image.open(io.BytesIO(data)).mode == "I"
+    np.testing.assert_array_equal(images.decode_gray(data), [[66, 255]])
+    pil_equal(data)
+
+
+def _segment_edit(marker: int, edit) -> bytes:
+    """``_jpeg()`` with the body of its first ``marker`` segment edited, its
+    length field set to match."""
+    data = _jpeg()
+    m, start, end = next(x for x in iw.jpeg_segments(data) if x[0] == marker)
+    body = edit(data[start + 4:end])
+    return data[:start + 2] + struct.pack(">H", len(body) + 2) + body + data[end:]
+
+
+def _png_crc_flipped(kind: bytes) -> bytes:
+    """A grey PNG with a tEXt chunk before its IDAT, one bit of ``kind``'s
+    CRC flipped."""
+    data = iw.png(np.arange(60, dtype=np.uint8).reshape(6, 10))
+    i = data.index(b"IDAT") - 4
+    data = data[:i] + iw.png_chunk(b"tEXt", b"key\x00value") + data[i:]
+    i = data.index(kind)
+    end = i + 4 + struct.unpack(">I", data[i - 4:i])[0]
+    return data[:end] + bytes([data[end] ^ 1]) + data[end + 1:]
+
+
+PIL_REFUSES = {
+    "SOF5 in a progressive file": lambda: iw.retag_frame(_progressive((40, 60), "4:2:0", 1),
+                                                         marker=0xC5),
+    "SOF13 hierarchical arithmetic": lambda: iw.retag_frame(_jpeg(), marker=0xCD),
+    "12-bit progressive": lambda: iw.retag_frame(_progressive((40, 60), "4:2:0", 1),
+                                                 precision=12),
+    "baseline scan in a progressive frame": lambda: iw.retag_frame(_jpeg(), marker=0xC2),
+    "fractional sampling": lambda: _jpeg()[:_jpeg().index(b"\xff\xc0") + 14] + b"\x31"
+    + _jpeg()[_jpeg().index(b"\xff\xc0") + 15:],
+    "truncated progressive": lambda: _progressive((40, 60), "4:2:0", 1)[:900],
+    "progressive without EOI": lambda: _progressive((40, 60), "4:2:0", 1)[:-2],
+    "truncated CMYK": lambda: _cmyk("4:2:0", 2)[:700],
+    "truncated interlaced PNG": lambda: iw.png(np.zeros((20, 33, 3), np.uint8), interlace=True)[:60],
+    "BMP header of 20 bytes": lambda: b"BM" + bytes(12) + struct.pack("<I", 20) + bytes(40),
+    "BMP of 2 bits": lambda: iw.bmp(4, 2, 2, [b"\x1b", b"\xe4"], [(1, 2, 3)] * 4),
+    "BMP compression 4": lambda: iw.bmp(4, 2, 24, [bytes(12)] * 2, compression=4),
+    "BMP bitfields PIL does not know": lambda: iw.bmp(4, 2, 32, [bytes(16)] * 2, compression=3,
+                                                      masks=(0xF00, 0xF0, 0xF, 0), header=56),
+    "BMP 4-bit grey ramp": lambda: iw.bmp(6, 2, 4, [b"\x01\x23\x45"] * 2,
+                                          [(i, i, i) for i in range(16)]),
+    "frame header longer than its components": lambda: _segment_edit(0xC0, lambda b: b + b"\0"),
+    "DC table symbol above 15": lambda: _segment_edit(0xC4, lambda b: b[:17 + 5] + b"\x10"
+                                                      + b[17 + 6:]),
+    "MCU of more than 10 blocks": lambda: _segment_edit(0xC0, lambda b: b[:7] + b"\x44" + b[8:]),
+    "PNG header checksum": lambda: _png_crc_flipped(b"IHDR"),
+    "PNG ancillary chunk checksum": lambda: _png_crc_flipped(b"tEXt"),
+    "PAM (P7)": lambda: b"P7\nWIDTH 2\nHEIGHT 1\nDEPTH 1\nMAXVAL 255\nENDHDR\n\x00\x01",
+    "truncated P4": lambda: iw.pnm(np.ones((9, 20)), 4)[:-3],
+}
+
+
+@pytest.mark.parametrize("name", list(PIL_REFUSES))
+def test_pil_refusals_raise_oserror(name):
+    """Files PIL refuses with an OSError (including UnidentifiedImageError:
+    its own header checks) raise an OSError from the C++ too, so the LMDB
+    reader's dummy substitution matches JAX's."""
+    data = PIL_REFUSES[name]()
+    with pytest.raises(OSError):
+        Image.open(io.BytesIO(data)).convert("L")
+    with pytest.raises(OSError) as err:
+        images.decode_gray(data)
+    assert not isinstance(err.value, NotImplementedError)
+
+
+PIL_VALUE_ERRORS = {
+    "RLE8 ending early": lambda: iw.bmp(5, 3, 8, palette=[(1, 2, 3)] * 256, compression=1,
+                                        data=b"\x05\x01\x00\x01"),
+    "P5 of maxval 1000 cut short": lambda: b"P5 3 1 1000\n" + bytes(4),
+    "P2 sample above maxval": lambda: b"P2 3 1 15 1 2 30",
+    "P1 token not 0 or 1": lambda: b"P1 3 1 0 2 1",
+    "PNM maxval 0": lambda: b"P5 3 1 0\n" + bytes(3),
+}
+
+
+@pytest.mark.parametrize("name", list(PIL_VALUE_ERRORS))
+def test_pil_value_errors_raise_value_error(name):
+    """Where PIL's own Python decoders raise ValueError (which the JAX
+    loaders do not catch), the C++ raises ValueError too."""
+    data = PIL_VALUE_ERRORS[name]()
+    with pytest.raises(ValueError):
+        Image.open(io.BytesIO(data)).convert("L")
+    with pytest.raises(ValueError):
+        images.decode_gray(data)
+
+
+@pytest.mark.parametrize("name", ["scan parameters", "DAC marker", "truncated after the scan",
+                                  "cut mid-scan, EOI kept", "wrong restart marker",
+                                  "no Huffman tables", "no Huffman tables, grey"])
+def test_baseline_oddities_match_pil(name):
+    """Baseline files libjpeg reads with a warning: scan parameters other
+    than 0, 63, 0, 0; an arithmetic-conditioning (DAC) marker; tables cut
+    after the one scan (PIL has its lines); a scan cut before an EOI (the
+    MCUs after the cut left grey); a restart marker out of sequence
+    (resynchronised); no DHT at all (motion-JPEG frames: libjpeg installs
+    the standard tables, which PIL wrote)."""
+    base = encoded(Image.fromarray(smooth(40, 61, 3, 11)), format="JPEG", quality=75,
+                   restart_marker_blocks=2)
+    sos = base.index(b"\xff\xda")
+    if name.startswith("no Huffman tables"):
+        if name.endswith("grey"):
+            base = encoded(Image.fromarray(smooth(40, 61, 1, 11)), format="JPEG", quality=75)
+        data = base
+        for m, a, b in reversed(iw.jpeg_segments(base)):
+            if m == 0xC4:
+                data = data[:a] + data[b:]
+        assert b"\xff\xc4" not in data[:data.index(b"\xff\xda")]
+    elif name == "scan parameters":
+        d = bytearray(base)
+        d[sos + 5 + 2 * base[sos + 4]:sos + 8 + 2 * base[sos + 4]] = b"\x05\x02\x11"
+        data = bytes(d)
+    elif name == "DAC marker":
+        data = base[:sos] + b"\xff\xcc\x00\x04\x00\x10" + base[sos:]
+    elif name == "truncated after the scan":
+        dht = base[base.index(b"\xff\xc4"):]
+        data = base[:-2] + dht[:12]
+    elif name == "cut mid-scan, EOI kept":
+        data = base[:len(base) * 2 // 3] + b"\xff\xd9"
+    else:
+        i = base.index(b"\xff\xd3")
+        data = base[:i + 1] + b"\xd5" + base[i + 2:]
+    want = np.asarray(Image.open(io.BytesIO(data)).convert("L"))
+    np.testing.assert_array_equal(images.decode_gray(data), want)
+
+
+@pytest.mark.parametrize("name", ["IDAT checksum", "IEND checksum", "IDAT split, one empty",
+                                  "IDAT after another chunk"])
+def test_png_oddities_match_pil(name):
+    """PNG data PIL reads without a complaint: the CRCs of IDAT and IEND
+    are not checked, the image data may span chunks (an empty one too),
+    and it ends at the first chunk that is not IDAT (a later IDAT is not
+    read: here the rows it held read as truncated)."""
+    img = np.arange(60, dtype=np.uint8).reshape(6, 10)
+    data = iw.png(img)
+    i = data.index(b"IDAT")
+    n = struct.unpack(">I", data[i - 4:i])[0]
+    if name == "IDAT checksum":
+        data = data[:i + 4 + n] + bytes([data[i + 4 + n] ^ 1]) + data[i + 5 + n:]
+    elif name == "IEND checksum":
+        data = data[:-1] + bytes([data[-1] ^ 1])
+    else:
+        stream = data[i + 4:i + 4 + n]
+        head, tail = stream[:n // 2], stream[n // 2:]
+        mid = iw.png_chunk(b"IDAT", b"") if name == "IDAT split, one empty" else (
+            iw.png_chunk(b"tEXt", b"k\x00v"))
+        data = (data[:i - 4] + iw.png_chunk(b"IDAT", head) + mid + iw.png_chunk(b"IDAT", tail)
+                + iw.png_chunk(b"IEND", b""))
+        if name == "IDAT after another chunk":
+            with pytest.raises(OSError):
+                Image.open(io.BytesIO(data)).convert("L")
+            with pytest.raises(OSError):
+                images.decode_gray(data)
+            return
+    held(data)
+
+
+@pytest.mark.parametrize("kind", ["JPEG", "PNG", "BMP", "PNM"])
+def test_decompression_bombs_raise_as_pil(kind):
+    """A header claiming more than twice PIL's MAX_IMAGE_PIXELS: PIL's
+    DecompressionBombError (not an OSError) before any pixel is decoded,
+    and the decoder's own, without allocating the image."""
+    side = 20000  # 4e8 pixels against a limit of 2 * 89478485
+    if kind == "JPEG":
+        data = iw.retag_frame(_jpeg())
+        i = data.index(b"\xff\xc0")
+        data = data[:i + 5] + struct.pack(">HH", side, side) + data[i + 9:]
+    elif kind == "PNG":
+        data = iw.png(np.zeros((1, 1), np.uint8))
+        ihdr = struct.pack(">IIBBBBB", side, side, 8, 0, 0, 0, 0)
+        data = data[:8] + iw.png_chunk(b"IHDR", ihdr) + data[33:]
+    elif kind == "BMP":
+        data = iw.bmp(side, side, 24, data=bytes(64))
+    else:
+        data = f"P5 {side} {side} 255\n".encode() + bytes(64)
+    with pytest.raises(Image.DecompressionBombError):
+        Image.open(io.BytesIO(data)).convert("L")
+    with pytest.raises(images.DecompressionBombError) as err:
+        images.decode_gray(data)
+    assert not isinstance(err.value, OSError)

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import fake_lmdb
+import image_writers as iw
 import loader_fixtures as lf
 from multimodal_scene_text_recognition_tpu import api as japi
 from multimodal_scene_text_recognition_tpu.data import cocotext as jcoco
@@ -311,6 +312,72 @@ def test_synth_datasets_match_jax(tmp_path, lmdb_env, mixture, capsys):
         lmdb_data.get_synth_datasets(lf.apply(cfg, {"data.mixture_ratios": "1,2,3"}, jax=False))
 
 
+def _word(name="crop_04.jpg"):
+    """A fixture crop as PIL reads it: RGB uint8 [H, W, 3]."""
+    from PIL import Image
+
+    return np.asarray(Image.open(lf.OUT / "crops" / name).convert("RGB"))
+
+
+def format_records():
+    """LMDB records in the kinds the decoder gained, the kinds PIL refuses
+    with an OSError, and one kind left to a later slice: (label, bytes),
+    and the index (from 0) of that last one."""
+    import io
+
+    from PIL import Image
+
+    def jpeg(img, **kw):
+        buf = io.BytesIO()
+        img.save(buf, format="JPEG", **kw)
+        return buf.getvalue()
+
+    rgb, grey = _word(), np.asarray(Image.fromarray(_word("crop_07.jpg")).convert("L"))
+    base = jpeg(Image.fromarray(_word("crop_02.jpg")), quality=90)
+    records = [
+        ("progressive", jpeg(Image.fromarray(rgb), quality=85, progressive=True)),
+        ("cmyk", jpeg(Image.fromarray(_word("crop_05.jpg")).convert("CMYK"), quality=90)),
+        ("interlaced", iw.png(rgb, interlace=True)),
+        ("sixteen", iw.png(grey.astype(np.uint16) * 3, 16)),  # above 255: clipped, as PIL
+        ("bitmap", iw.bmp(rgb.shape[1], rgb.shape[0], 32, [np.concatenate(
+            [r[:, ::-1], np.zeros((len(r), 1), np.uint8)], 1).tobytes() for r in rgb])),
+        ("twelve", iw.retag_frame(base, precision=12)),
+        ("hierarchical", iw.retag_frame(base, marker=0xC5)),
+        ("truncated", base[:len(base) // 2]),
+        ("webp", None),
+    ]
+    buf = io.BytesIO()
+    Image.fromarray(rgb).save(buf, format="WEBP")
+    records[-1] = ("webp", buf.getvalue())
+    return records, len(records) - 1
+
+
+@pytest.mark.parametrize("keep_ratio", [False, True], ids=["squash", "keep ratio"])
+def test_lmdb_reader_on_new_formats_matches_jax(tmp_path, lmdb_env, keep_ratio):
+    """The fault this slice repairs: a corpus of a progressive JPEG, a CMYK
+    JPEG, an interlaced PNG, a 16-bit PNG and a 32-bit BMP (all of which
+    PIL decodes), a 12-bit JPEG, a SOF5 (hierarchical) JPEG and a truncated
+    JPEG (which PIL refuses with an OSError): the port's samples are JAX's,
+    the dummies at the same records.  The WebP record, a kind left to a
+    later slice, raises NotImplementedError naming it."""
+    records, refused = format_records()
+    write_lmdb(tmp_path / "formats", records)
+    chars = ModelConfig().chars
+    got = lmdb_data.LmdbReader(str(tmp_path / "formats"), chars, keep_ratio=keep_ratio)
+    want = jlmdb.LmdbReader(str(tmp_path / "formats"), chars, keep_ratio=keep_ratio)
+    assert got.index == want.index and len(got) == len(records)
+    dummies = []
+    for i in range(len(records)):
+        if i == refused:
+            with pytest.raises(NotImplementedError, match="WEBP"):
+                got[i]
+            continue
+        same_samples([got[i]], [want[i]])
+        if want[i].label == "[dummy_label]":
+            dummies.append(records[i][0])
+    assert dummies == ["twelve", "hierarchical", "truncated"]
+
+
 # --- the image folder -------------------------------------------------------------
 
 
@@ -333,6 +400,20 @@ def test_raw_image_folder_matches_jax(tmp_path):
     same_samples(got, want)
     names = ["a10.jpg", "a2.jpg", "A1.png", "b1.jpg"]
     assert sorted(names, key=raw.natural_key) == sorted(names, key=jraw.natural_key)
+
+
+def test_raw_image_folder_reads_progressive_and_interlaced_as_jax(tmp_path):
+    """A progressive ``.jpg`` (4:2:0 and grey) and an Adam7 ``.png`` crop:
+    the same samples as JAX's folder."""
+    from PIL import Image
+
+    rgb = _word("crop_08.jpg")
+    Image.fromarray(rgb).save(tmp_path / "a1.jpg", quality=80, progressive=True)
+    Image.fromarray(rgb).convert("L").save(tmp_path / "a2.jpeg", quality=60, progressive=True)
+    (tmp_path / "a3.png").write_bytes(iw.png(rgb, interlace=True))
+    got, want = raw.RawImageFolder(str(tmp_path)), jraw.RawImageFolder(str(tmp_path))
+    assert got.paths == want.paths and len(got) == 3
+    same_samples(got, want)
 
 
 def test_raw_image_folder_raises_for_webp(tmp_path):
@@ -415,3 +496,49 @@ def test_fixtures_are_what_pil_and_jax_read():
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     total = sum(p.stat().st_size for p in lf.OUT.rglob("*") if p.is_file())
     assert total < 2 * 2 ** 20
+
+
+# sha256 over (key, dtype, shape, bytes), in key order, of the 29 arrays
+# expected.npz held before formats/ was added
+EXPECTED_BEFORE_FORMATS = "10c4a6401e9bce4dfbbbcb88e6bb844f3b99eafcff1cf06d8f17ca5e18cc03b7"
+
+
+def test_fixture_keys_before_formats_are_unchanged():
+    """Adding formats/ changed no array of ``expected.npz`` that was there
+    before it: pages, crops, the COCO-Text val samples and JAX's strings."""
+    import hashlib
+
+    exp = np.load(lf.OUT / "expected.npz")
+    keys = sorted(k for k in exp.files if not k.startswith("format"))
+    assert len(keys) == 29
+    digest = hashlib.sha256()
+    for k in keys:
+        a = exp[k]
+        digest.update(k.encode() + str(a.dtype).encode() + str(a.shape).encode())
+        digest.update(np.ascontiguousarray(a).tobytes())
+    assert digest.hexdigest() == EXPECTED_BEFORE_FORMATS
+
+
+@pytest.mark.parametrize("name", lf.format_files())
+def test_format_fixtures_decode_as_pil(name):
+    """Each file of formats/ (a progressive and a CMYK page, the lossy
+    crops) decodes to PIL's array in ``expected.npz``, bit for bit."""
+    from multimodal_scene_text_recognition_tpu_torch.data import images
+
+    want = np.load(lf.OUT / "expected.npz")[f"format/{name}"]
+    np.testing.assert_array_equal(images.read_gray(str(lf.FORMATS / name)), want)
+
+
+@pytest.mark.parametrize("name", lf.FORMAT_REFUSED)
+def test_format_fixtures_pil_refuses_raise_oserror(name):
+    """The 12-bit and the hierarchical (SOF5) JPEG of formats/: OSError in
+    PIL and in the port."""
+    from PIL import Image
+
+    from multimodal_scene_text_recognition_tpu_torch.data import images
+
+    with pytest.raises(OSError):
+        Image.open(lf.FORMATS / name).convert("L")
+    with pytest.raises(OSError) as err:
+        images.read_gray(str(lf.FORMATS / name))
+    assert not isinstance(err.value, NotImplementedError)
