@@ -85,8 +85,19 @@ versions at 1, 4 and 30 steps, on a tie input and a NaN input, checks both
 end all NaN at the probe's 200 steps, prints their launch plan
 (``probe_plan``), times each against its bound, its plain version and the
 same chain through library products, and runs the probe's own entry point.
-Every phase prints one flushed line with the elapsed seconds; any failure raises and the script exits
-non-zero.  ``--mutants`` also builds copies of the beam kernel with one
+The phase "multi-process" runs the mesh of ``parallel/mesh.py`` on the
+trained flagship at B=192: K3's two-pass mode (pass 1 the sums, pass 2 dx
+from sums over every process's rows) against its plain version at the
+train step's BatchNorm shapes, beside SyncBatchNorm's two library calls;
+a world of one process over NCCL, three sharded train steps against the
+single-process steps (72 two-pass K3 and 1 K2 launches a step), one of
+them profiled, and the sharded greedy (K1) and beam (K4, k=2) steps' ids
+against the single process's; and a world of two processes on
+the one card over gloo (data axis 2), one step against the single
+process's on the whole batch and the sharded greedy ids.
+Every phase prints one flushed line with the elapsed seconds and, when it
+ends, its own seconds (also under ``phase_seconds`` in the report); any
+failure raises and the script exits non-zero.  ``--mutants`` also builds copies of the beam kernel with one
 bf16 rounding dropped each (the ReLU outputs': rounded toward zero), of
 K1q's cluster kernel with one of four faults each (three roundings, and
 the abs-max of a K-split input taken over a CTA's own slice) and of its
@@ -282,7 +293,8 @@ LOOP_VALIDATION_STEPS = 10
 RESUME_LOSS_TOL = 1e-5
 
 T0 = time.time()
-PHASE = ["start"]
+PHASE = ["start", 0.0]  # the phase running and its start (s after T0)
+PHASE_SECONDS = {}  # each ended phase's seconds
 
 
 def log(msg: str) -> None:
@@ -290,7 +302,11 @@ def log(msg: str) -> None:
 
 
 def phase(name: str) -> None:
-    PHASE[0] = name
+    now = time.time() - T0
+    if PHASE[0] != "start":
+        PHASE_SECONDS[PHASE[0]] = now - PHASE[1]
+        log(f"phase {PHASE[0]} took {now - PHASE[1]:.1f} s")
+    PHASE[0], PHASE[1] = name, now
     log(f"phase {name}")
 
 
@@ -298,6 +314,10 @@ def _watchdog() -> None:
     print(f"chip_smoke: watchdog fired in phase {PHASE[0]} after "
           f"{time.time() - T0:.1f} s", flush=True)
     try:
+        import multiprocessing
+
+        for child in multiprocessing.active_children():  # the multi-process phase's ranks
+            child.kill()
         from multimodal_scene_text_recognition_tpu_torch.kernels import build
         build.kill_running()
     finally:
@@ -482,6 +502,20 @@ def library_bn_backward(x, dy, mean, rstd, weight):
     on the port's path)."""
     return torch.ops.aten.native_batch_norm_backward(
         dy, x, weight, None, None, mean, rstd, True, 1e-5, [True, True, True])
+
+
+def library_bwd_reduce(x, dy, mean, rstd, weight):
+    """(sum dy, sum dy*(x - mean), dgamma, dbeta) of this process's rows by
+    one PyTorch call, SyncBatchNorm's first backward call (the yardstick of
+    the two-pass K3's pass 1; never on the port's path)."""
+    return torch.batch_norm_backward_reduce(dy, x, mean, rstd, weight, True, True, True)
+
+
+def library_bwd_elemt(x, dy, mean, rstd, weight, sum_dy, sum_dy_xmu, count):
+    """dx from the all-reduced sums and every rank's row count (``count``,
+    int32) by one PyTorch call, SyncBatchNorm's second backward call (the
+    yardstick of pass 2)."""
+    return torch.batch_norm_backward_elemt(dy, x, mean, rstd, weight, sum_dy, sum_dy_xmu, count)
 
 
 def bn_errors(x, dy, mean, rstd, got, ref) -> dict:
@@ -2044,11 +2078,12 @@ def stage_times(model, rec, crops, decode, reps: int = 10, rectify=None, feature
     return {n: statistics.median(v[1:]) for n, v in samples.items()}
 
 
-def kernel_profile(fn, calls: int):
+def kernel_profile(fn, calls: int, host: bool = False):
     """``torch.profiler`` over ``calls`` warm calls of ``fn()``: device time
     per kernel name (its first 80 characters; the largest 12), the wall
     time of the calls, the share of it with no kernel running (the card's
-    idle share), and K3's device time."""
+    idle share), K3's device time and, with ``host``, the host's self time
+    per operator (the largest 12)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2078,9 +2113,14 @@ def kernel_profile(fn, calls: int):
         short[k[:80]] = short.get(k[:80], 0.0) + v
     top = sorted(short.items(), key=lambda kv: -kv[1])[:12]
     bn_ms = sum(v for k, v in per_name.items() if "bn_backward_kernel" in k)
-    return {"calls": calls, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-            "idle_share": 1.0 - busy_us / 1e3 / wall_ms, "bn_backward_ms": bn_ms,
-            "kernels_ms": dict(top)}
+    out = {"calls": calls, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+           "idle_share": 1.0 - busy_us / 1e3 / wall_ms, "bn_backward_ms": bn_ms,
+           "kernels_ms": dict(top)}
+    if host:
+        out["host_self_ms"] = dict(sorted(
+            ((e.key, e.self_cpu_time_total / 1e3) for e in prof.key_averages()),
+            key=lambda kv: -kv[1])[:12])
+    return out
 
 
 # -- the semantic phase: the cls0 rows of K1/K1e/K1q and K4, and the served
@@ -2573,17 +2613,20 @@ def stepper_phase(api, fd, gs, crops):
     crops in bf16 and in f32 (TF32 off), its strings held against the K1
     path's (100% identical in f32, at least 98% in bf16), its decoder's
     and whole call's ms (CUDA events, median of 3 warm calls) beside K1's,
-    and the decoder stage's share of the call."""
+    and the decoder stage's share of the call.  One model a type serves
+    both ways (its decoder's ``fused`` switch, which ``decode_fused``
+    sets), and its first calls are the timings' warm-up."""
     from multimodal_scene_text_recognition_tpu_torch.config import FLAGSHIP
     from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
 
     summary, failures = {}, []
     for dt in ("bfloat16", "float32"):
         runs = {}
+        model = api.get_model(BUNDLE, dataclasses.replace(FLAGSHIP, compute_dtype=dt))
+        rec = Recognizer(model, batch_sizes=(B,))
+        memory, _, _ = encoded(model, rec, crops)
         for name, fused in (("K1", True), ("stepper", False)):
-            cfg = dataclasses.replace(FLAGSHIP, compute_dtype=dt, decode_fused=fused)
-            model = api.get_model(BUNDLE, cfg)
-            rec = Recognizer(model, batch_sizes=(B,))
+            model.decoder.fused = fused
             fd.fused_greedy_decode_cuda.launches = 0
             gs.grid_sample_cuda.launches = 0
             texts = rec.recognize(crops)
@@ -2591,7 +2634,6 @@ def stepper_phase(api, fd, gs, crops):
                  "grid_sample": gs.grid_sample_cuda.launches}
             if n["grid_sample"] < 1 or (n["fused_decode"] > 0) != fused:
                 raise AssertionError(f"{dt} {name} greedy call launched {n}")
-            memory, _, _ = encoded(model, rec, crops)
 
             def decode():
                 with torch.no_grad(), model.precision():
@@ -2601,16 +2643,17 @@ def stepper_phase(api, fd, gs, crops):
             if logits.shape != (B, 25, 97) or not torch.isfinite(logits).all():
                 raise AssertionError(f"{dt} {name} logits: shape {tuple(logits.shape)} or "
                                      f"non-finite")
-            dec_ms, dec_samples = call_ms(decode)
-            call, _ = call_ms(lambda: rec.recognize(crops))
+            dec_ms, dec_samples = call_ms(decode, warm_up=False)
+            call, _ = call_ms(lambda: rec.recognize(crops), warm_up=False)
             stages = stage_times(model, rec, crops,
                                  lambda enc: model.decoder.greedy_decode(enc).argmax(-1), reps=3)
             runs[name] = dict(texts=texts, launches=n, decoder_ms=dec_ms,
                               decoder_ms_samples=dec_samples, ms_per_call=call,
                               stage_ms=stages,
                               decoder_share=stages["decoder"] / sum(stages.values()))
-            del model, rec, memory, logits
-            torch.cuda.empty_cache()
+            del logits
+        del model, rec, memory
+        torch.cuda.empty_cache()
         agree = sum(a == b for a, b in zip(runs["K1"]["texts"], runs["stepper"]["texts"])) / B
         limit = 1.0 if dt == "float32" else 0.98
         st, k1 = runs["stepper"], runs["K1"]
@@ -2630,6 +2673,9 @@ def stepper_phase(api, fd, gs, crops):
     return summary
 
 
+SITES_DEC_LAYERS = 2  # the fusion-sites phase's decoder depth (random weights)
+
+
 def sites_config(flagship):
     """The semantic configuration with the three per-layer fusion sites on:
     every fusion hook of the JAX package; greedy decoding and beam search
@@ -2639,8 +2685,9 @@ def sites_config(flagship):
 
 
 def fusion_sites_phase(api, fd, fb, gs, crops):
-    """``sites_config`` with random weights from SEMANTIC_SEED and the
-    objects of ``make_semantics``, served on the 192 crops greedily (the
+    """``sites_config`` at SITES_DEC_LAYERS decoder layers, with random
+    weights from SEMANTIC_SEED and the objects of ``make_semantics``, served
+    on the 192 crops greedily (the
     stepper, early stop) and by beam search (k=5: the fused beam gives way
     to the stepper's ancestry form), with no K1 or K4 launch; the two
     calls' ms and the two beam forms' (ancestry, reorder) agreement in
@@ -2658,7 +2705,9 @@ def fusion_sites_phase(api, fd, fb, gs, crops):
     from multimodal_scene_text_recognition_tpu_torch.config import FLAGSHIP
     from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
 
-    cfg = sites_config(FLAGSHIP)
+    # the stepper's time grows with the decoder's depth, its checks do not
+    # need six layers: SITES_DEC_LAYERS of them
+    cfg = dataclasses.replace(sites_config(FLAGSHIP), dec_layers=SITES_DEC_LAYERS)
     sem = make_semantics(B, SEMANTIC_SEED)
     model = api.get_model(None, cfg, seed=SEMANTIC_SEED)
     rec = Recognizer(model, batch_sizes=(1, 8, 64, B))
@@ -2675,8 +2724,10 @@ def fusion_sites_phase(api, fd, fb, gs, crops):
         raise AssertionError(f"the fusion-site calls launched {n}: expected the stepper and 2 K2")
     if len(btexts) != B or not np.isfinite(bscores).all() or max(bscores) > 0:
         raise AssertionError("fusion sites beam: missing strings or bad scores")
-    greedy_ms, greedy_samples = call_ms(lambda: rec.recognize(crops, semantics=sem))
-    beam_ms, beam_samples = call_ms(lambda: rec.recognize(crops, BEAM, semantics=sem))
+    greedy_ms, greedy_samples = call_ms(lambda: rec.recognize(crops, semantics=sem),
+                                        warm_up=False)
+    beam_ms, beam_samples = call_ms(lambda: rec.recognize(crops, BEAM, semantics=sem),
+                                    warm_up=False)
     dec = model.decoder
     stages = semantic_stage_times(
         model, rec, crops, sem, lambda m, c, s: dec.greedy_from_memory(m, c, s).argmax(-1),
@@ -2686,8 +2737,9 @@ def fusion_sites_phase(api, fd, fb, gs, crops):
         forms = {r: dec.beam_from_memory(memory, cls0, BEAM, reorder_caches=r, semantics=s)
                  for r in (False, True)}
         step_ms = {"ancestry": call_ms(lambda: dec.beam_from_memory(
-            memory, cls0, BEAM, semantics=s))[0], "reorder": call_ms(lambda: dec.beam_from_memory(
-                memory, cls0, BEAM, reorder_caches=True, semantics=s))[0]}
+            memory, cls0, BEAM, semantics=s), warm_up=False)[0],
+            "reorder": call_ms(lambda: dec.beam_from_memory(
+                memory, cls0, BEAM, reorder_caches=True, semantics=s), warm_up=False)[0]}
     forms_bf16 = (forms[False][0] == forms[True][0]).all(-1).float().mean().item()
     score_diff = (forms[False][1] - forms[True][1]).abs().max().item()
     log(f"fusion sites: greedy {greedy_ms:.2f} ms per {B}-crop call (samples {greedy_samples}), "
@@ -2927,7 +2979,7 @@ def train_phase(api, bn, gs):
         torch.cuda.synchronize()
         step_ms.append(start.elapsed_time(end))
     ms_step = statistics.median(step_ms)
-    prof = kernel_profile(lambda: trainer(batch), calls=1)
+    prof = kernel_profile(lambda: trainer(batch), calls=1, host=True)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # the profiler's own host cost stretches the profiled step's wall time;
     # the busy time over the unprofiled step's time is the other estimate
@@ -2939,6 +2991,7 @@ def train_phase(api, bn, gs):
         f"backward (K3) {prof['bn_backward_ms']:.4f} ms of it; peak memory {peak_gb:.1f} GB")
     log("train step, device ms by kernel (largest 12): " + ", ".join(
         f"{k} {v:.3f}" for k, v in prof["kernels_ms"].items()))
+    log(f"train step, host self ms by op (largest 12): {prof['host_self_ms']}")
     if prof["device_busy_ms"] <= 0:
         raise AssertionError("the profiler saw no kernel run on the card during a train step")
     del trainer
@@ -4689,6 +4742,425 @@ def variants_phase(api, fd, fb, gs, bn, crops):
     return out
 
 
+# The phase "multi-process": the (data, model) mesh of parallel/mesh.py on
+# the trained flagship at B=192 in bf16.  A world of one process over NCCL
+# runs the sharded steps on the main path's kernels, the BatchNorm backward
+# in K3's two-pass mode (pass 1 and pass 2 a BatchNorm: 72 launches a
+# step); a world of two processes on the one card, data axis 2, over gloo
+# (NCCL refuses two ranks on one card) is the run whose BatchNorm sums
+# cross processes.
+MP_STEPS = 3
+MP_WORLD = 2
+MP_BEAM = 2  # JAX's sharded beam step's width
+MP_SEED = 4321  # train_phase's batch
+MP_TIMEOUT_S = 240
+# The world-2 step's gradient norm at step 1 against the single process's,
+# relative.  Its ranks each run half the batch: cuDNN picks its conv
+# algorithms for B=96, and the BatchNorm sums cross processes in another
+# order.  In bf16 those roundings moved the norm by 3.95e-2 on an H100
+# (the loss by 3.9e-5), six times what K2's and K3's float32-level
+# differences move it (6.6e-3, TRAIN_NORM_TOL's case), so the bf16 limit
+# is MP_BF16_NORM_TOL; the same step in float32, where no bf16 rounding
+# spreads them, is held to MP_F32_NORM_TOL, and its loss to MP_F32_LOSS_TOL.
+# The float32 step read 1.6e-7 (loss) and 5.0e-5 (norm) apart.  The same
+# roundings flip near-tied bf16 tokens in the sharded greedy decode, so its
+# bf16 ids are held to JAX's dry-run rule (parallel.dryrun.DECODE_MISMATCH
+# of the positions may differ) and its float32 ids must be equal.
+MP_BF16_NORM_TOL = 0.08
+MP_F32_NORM_TOL = 1e-3
+MP_F32_LOSS_TOL = 1e-5
+
+
+def two_pass_check(bn, shape, dtype, seed: int) -> dict:
+    """The two-pass K3 against its plain versions at one shape, as one rank
+    of two runs it: pass 1 (``bn_bwd_sums_cuda``) on this rank's x and dy,
+    the sums of a second rank's half (other inputs) added as the all-reduce
+    would, then pass 2 (``bn_bwd_dx_cuda``) over both halves' rows.  The
+    sums bit-equal to the one-launch K3's and from run to run, within
+    BN_TOL of the plain sums, dx within K3's limits (``bn_errors``); raises
+    otherwise.  Then each pass's device ms (``queued_ms``), the plain
+    versions', the one-launch K3's, the library's two calls that compute
+    the same function (``library_two_pass``: SyncBatchNorm's backward,
+    whose errors are reported and not held), and the bound (pass 1 reads
+    x and dy, pass 2 reads them again and writes dx)."""
+    x, dy, mean, rstd, w = bn_inputs(shape, dtype, seed)
+    x2, dy2 = bn_inputs(shape, dtype, seed + 1000)[:2]
+    n = 2 * (x.numel() // shape[1])
+    other_k = torch.stack(bn.bn_bwd_sums_cuda(x2, dy2, mean, rstd))
+    other_p = torch.stack(bn.bn_bwd_sums_plain(x2, dy2, mean, rstd))
+    other_l = torch.stack(library_bwd_reduce(x2, dy2, mean, rstd, w)[:2])
+    count = torch.full((2,), n // 2, dtype=torch.int32, device="cuda")  # each rank's rows
+
+    def library():
+        sum_dy, sum_dy_xmu, g, b = library_bwd_reduce(x, dy, mean, rstd, w)
+        total = torch.stack([sum_dy, sum_dy_xmu]) + other_l
+        return library_bwd_elemt(x, dy, mean, rstd, w, total[0], total[1], count), g, b
+
+    def kernel():
+        g, b = bn.bn_bwd_sums_cuda(x, dy, mean, rstd)
+        total = torch.stack([g, b]) + other_k
+        return bn.bn_bwd_dx_cuda(x, dy, mean, rstd, w, total[0], total[1], n), g, b
+
+    def plain():
+        g, b = bn.bn_bwd_sums_plain(x, dy, mean, rstd)
+        total = torch.stack([g, b]) + other_p
+        return bn.bn_bwd_dx_plain(x, dy, mean, rstd, w, total[0], total[1], n), g, b
+
+    got, again, ref, lib = kernel(), kernel(), plain(), library()
+    one = bn.bn_bwd_cuda(x, dy, mean, rstd, w)
+    torch.cuda.synchronize()
+    out = bn_errors(x, dy, mean, rstd, got, ref)
+    out["lib"] = bn_errors(x, dy, mean, rstd, lib, ref)
+    out["repeat"] = all(torch.equal(a, b) for a, b in zip(got, again))
+    out["sums_equal_one_launch"] = torch.equal(got[1], one[1]) and torch.equal(got[2], one[2])
+    if not (out["ok"] and out["repeat"] and out["sums_equal_one_launch"]):
+        raise AssertionError(f"two-pass bn_backward disagrees with its plain version at {shape} "
+                             f"{dtype}: {out}")
+    g, b = got[1:]
+    total = torch.stack([g, b]) + other_k
+    sum_dy, sum_dy_xmu = library_bwd_reduce(x, dy, mean, rstd, w)[:2]
+    total_l = torch.stack([sum_dy, sum_dy_xmu]) + other_l
+    del got, again, ref, one, lib
+    out["pass1_ms"] = queued_ms(lambda: bn.bn_bwd_sums_cuda(x, dy, mean, rstd), 10)
+    out["pass2_ms"] = queued_ms(lambda: bn.bn_bwd_dx_cuda(x, dy, mean, rstd, w, total[0],
+                                                          total[1], n), 10)
+    out["ms"] = out["pass1_ms"] + out["pass2_ms"]
+    out["plain_ms"] = queued_ms(plain, 10)
+    out["one_launch_ms"] = queued_ms(lambda: bn.bn_bwd_cuda(x, dy, mean, rstd, w), 10)
+    out["library_reduce_ms"] = queued_ms(lambda: library_bwd_reduce(x, dy, mean, rstd, w), 10)
+    out["library_elemt_ms"] = queued_ms(lambda: library_bwd_elemt(
+        x, dy, mean, rstd, w, total_l[0], total_l[1], count), 10)
+    out["library_ms"] = out["library_reduce_ms"] + out["library_elemt_ms"]
+    nb = x.numel() * x.element_size()
+    out["bound_ms"], out["bound_by"] = bound(5 * nb + 7 * shape[1] * 4, 11 * x.numel(),
+                                             PEAK_F32_FLOPS)
+    return out
+
+
+def two_pass_k3(bn) -> dict:
+    """``two_pass_check`` at every BatchNorm shape of the flagship's train
+    step (TRAIN_BN_SHAPES, bf16), summed over the step's 36 BatchNorms."""
+    keys = ("ms", "pass1_ms", "pass2_ms", "plain_ms", "one_launch_ms", "library_ms",
+            "library_reduce_ms", "library_elemt_ms", "bound_ms")
+    totals = dict.fromkeys(keys, 0.0)
+    worst = worst_abs = lib_worst = lib_dx = 0.0
+    bound_by = set()
+    for i, (shape, n) in enumerate(TRAIN_BN_SHAPES.items()):
+        r = two_pass_check(bn, shape, torch.bfloat16, 500 + i)
+        log(f"  two-pass K3 x{n} at {list(shape)} bf16: sums {r['err']:.3e} of sum |terms| "
+            f"(bit-equal to the one-launch mode's), dx {r['dx_err']:.3e} of its scale, "
+            f"{r['dx_steps']:.2f} bf16 steps past {BN_DX_TOL:g} of it (library calls: sums "
+            f"{r['lib']['err']:.3e}, dx {r['lib']['dx_err']:.3e}, {r['lib']['dx_steps']:.2f} "
+            f"steps); pass 1 {r['pass1_ms']:.4f} ms, pass 2 {r['pass2_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, one-launch K3 {r['one_launch_ms']:.4f} ms, "
+            f"batch_norm_backward_reduce {r['library_reduce_ms']:.4f} ms + _elemt "
+            f"{r['library_elemt_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+        for k in keys:
+            totals[k] += n * r[k]
+        worst, worst_abs = max(worst, r["err"]), max(worst_abs, r["err_abs"])
+        lib_worst, lib_dx = max(lib_worst, r["lib"]["err"]), max(lib_dx, r["lib"]["dx_err"])
+        bound_by.add(r["bound_by"])
+    log(f"two-pass K3 per train step (36 BatchNorms, 72 launches), queued_ms: {totals['ms']:.4f} "
+        f"ms (pass 1 {totals['pass1_ms']:.4f}, pass 2 {totals['pass2_ms']:.4f}) against the "
+        f"one-launch mode's {totals['one_launch_ms']:.4f} ms; plain {totals['plain_ms']:.4f} ms; "
+        f"library (batch_norm_backward_reduce + _elemt) {totals['library_ms']:.4f} ms "
+        f"({totals['library_reduce_ms']:.4f} + {totals['library_elemt_ms']:.4f}); bound "
+        f"{totals['bound_ms']:.4f} ms")
+    return {**totals, "bound_by": "/".join(sorted(bound_by)), "max_err_of_sum_terms": worst,
+            "max_abs_err": worst_abs, "library_max_err_of_sum_terms": lib_worst,
+            "library_max_dx_err": lib_dx}
+
+
+def mp_counts(bn, gs, fd, fb) -> dict:
+    return {"K3 two-pass": bn.bn_bwd_sums_cuda.launches + bn.bn_bwd_dx_cuda.launches,
+            "K3 one-launch": bn.bn_bwd_cuda.launches, "K2": gs.grid_sample_cuda.launches,
+            "K1": fd.fused_greedy_decode_cuda.launches, "K4": fb.fused_beam_decode_cuda.launches}
+
+
+def mp_zero(bn, gs, fd, fb) -> None:
+    bn.bn_bwd_sums_cuda.launches = bn.bn_bwd_dx_cuda.launches = bn.bn_bwd_cuda.launches = 0
+    gs.grid_sample_cuda.launches = fd.fused_greedy_decode_cuda.launches = 0
+    fb.fused_beam_decode_cuda.launches = 0
+
+
+def mp_steps(trainer, batch, steps: int, counts) -> list:
+    """``steps`` calls of ``trainer`` on ``batch``: each one's metrics,
+    CUDA-event ms and launch counts (``counts()``) after it."""
+    out = []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = trainer(batch)
+        end.record()
+        torch.cuda.synchronize()
+        out.append({**{k: v.item() for k, v in m.items()}, "ms": start.elapsed_time(end),
+                    "launches": counts()})
+    return out
+
+
+def mp_rank(rank: int, world: int, device: str, seed: int, started: float) -> dict:
+    """One rank of the world-2 run (``parallel.dryrun.start_ranks``): the
+    trained flagship in bf16 and in float32, each placed on the mesh, its
+    sharded greedy decode of the whole batch (``make_train_batch`` of
+    ``seed``, made here: a spawned rank's arguments pass through a pipe
+    that its parent blocks on until the child has imported this script),
+    then its sharded train step once on it; metrics, ms, launches, the
+    gathered ids, the seconds from ``started`` (the wall time at which the
+    ranks were started) to this call, and each part's seconds."""
+    from multimodal_scene_text_recognition_tpu_torch import api
+    from multimodal_scene_text_recognition_tpu_torch.config import FLAGSHIP
+    from multimodal_scene_text_recognition_tpu_torch.ops import batchnorm as bn
+    from multimodal_scene_text_recognition_tpu_torch.ops import fused_beam as fb
+    from multimodal_scene_text_recognition_tpu_torch.ops import fused_decode as fd
+    from multimodal_scene_text_recognition_tpu_torch.ops import grid_sample as gs
+    from multimodal_scene_text_recognition_tpu_torch.parallel.mesh import make_mesh
+    from multimodal_scene_text_recognition_tpu_torch.train.steps import (shard_eval_step,
+                                                                          shard_train_step)
+
+    marks, out = [time.time()], {}  # marks: the parts' ends, for the phase's budget
+    entered = marks[0] - started
+    batch = make_train_batch(B, seed, FLAGSHIP.chars)
+    mesh = make_mesh(world, 1)
+    marks.append(time.time())
+    for dt in ("bfloat16", "float32"):
+        trainer = shard_train_step(api.get_trainer(
+            BUNDLE, dataclasses.replace(FLAGSHIP, compute_dtype=dt), device=device), mesh)
+        marks.append(time.time())
+        # the decode places the trainer's model again: a data axis alone splits nothing
+        eval_step, _ = shard_eval_step(trainer.model, mesh)
+        mp_zero(bn, gs, fd, fb)
+        out[dt] = {"ids": eval_step(batch).cpu().numpy(),
+                   "eval_launches": mp_counts(bn, gs, fd, fb)}
+        mp_zero(bn, gs, fd, fb)
+        out[dt]["step"] = mp_steps(trainer, batch, 1, lambda: mp_counts(bn, gs, fd, fb))[0]
+        del trainer, eval_step
+        marks.append(time.time())
+    parts = ("batch and mesh", "bf16 load", "bf16 greedy and step", "float32 load",
+             "float32 greedy and step")
+    return {**out, "s": {"entered": entered, **dict(zip(parts, np.diff(marks).tolist()))}}
+
+
+def mp_world_1(api, bn, gs, fd, fb, batch, image, overlap, store: str, held,
+               timed_steps_done) -> tuple:
+    """The phase's part (b): the world of one process over NCCL (see
+    ``multi_process_phase``).  ``timed_steps_done()`` is called once the
+    sharded steps are timed and one more is profiled (``kernel_profile``),
+    before the decodes."""
+    import torch.distributed as dist
+
+    from multimodal_scene_text_recognition_tpu_torch.parallel.mesh import make_mesh
+    from multimodal_scene_text_recognition_tpu_torch.train.steps import (shard_beam_step,
+                                                                          shard_eval_step,
+                                                                          shard_train_step)
+
+    counts = lambda: mp_counts(bn, gs, fd, fb)  # noqa: E731
+    dist.init_process_group("nccl", init_method=f"file://{store}/world1", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        trainer = shard_train_step(api.get_trainer(BUNDLE), mesh)
+        mp_zero(bn, gs, fd, fb)
+        steps1 = mp_steps(trainer, batch, MP_STEPS, counts)
+        per_step = [s["launches"] for s in steps1]
+        want = [{"K3 two-pass": 72 * (i + 1), "K3 one-launch": 0, "K2": i + 1, "K1": 0, "K4": 0}
+                for i in range(MP_STEPS)]
+        log(f"world 1 (NCCL): {MP_STEPS} sharded steps (loss, grad norm, ms) "
+            f"{[(s['loss'], s['grad_norm'], s['ms']) for s in steps1]}; launches after each "
+            f"{per_step}")
+        if per_step != want:
+            raise AssertionError(f"the sharded train step launched {per_step}, expected {want}")
+        diffs1 = held(steps1, "world 1 sharded steps")
+        prof = kernel_profile(lambda: trainer(batch), calls=1, host=True)
+        log(f"world 1: profile of one more sharded step: wall {prof['wall_ms']:.2f} ms, kernels "
+            f"busy {prof['device_busy_ms']:.2f} ms, idle share {prof['idle_share']:.4f}; device "
+            f"ms by kernel (largest 12) {prof['kernels_ms']}; host self ms by op (largest 12) "
+            f"{prof['host_self_ms']}")
+        del trainer
+        torch.cuda.empty_cache()
+        timed_steps_done()
+
+        model = api.get_model(BUNDLE)
+        with torch.no_grad():
+            ref_ids = model(image, overlap).argmax(-1)
+        eval_step, _ = shard_eval_step(model, mesh)
+        mp_zero(bn, gs, fd, fb)
+        ids = eval_step(batch)
+        eval_n = counts()
+        # the same model searches beams as the beam configuration does (the
+        # switches decode_early_stop and decode_beam_fused set)
+        model.decoder.early_stop = model.decoder.beam_fused = True
+        with torch.no_grad():
+            ref_beam = model.beam_decode(image, overlap, MP_BEAM)[0]
+        beam_step, _ = shard_beam_step(model, mesh, beam_size=MP_BEAM)
+        mp_zero(bn, gs, fd, fb)
+        beam = beam_step(batch)
+        beam_n = counts()
+        del model
+        torch.cuda.empty_cache()
+        log(f"world 1: sharded greedy ids equal K1's {torch.equal(ids, ref_ids)} (launches "
+            f"{eval_n}); sharded beam (k={MP_BEAM}) ids equal K4's {torch.equal(beam, ref_beam)} "
+            f"(launches {beam_n})")
+        if not (torch.equal(ids, ref_ids) and eval_n["K1"] == 1 and eval_n["K2"] == 1
+                and torch.equal(beam, ref_beam) and beam_n["K4"] == 1 and beam_n["K2"] == 1):
+            raise AssertionError(f"world 1 sharded decodes: greedy launches {eval_n}, beam "
+                                 f"{beam_n}, ids equal {torch.equal(ids, ref_ids)}, "
+                                 f"{torch.equal(beam, ref_beam)}")
+    finally:
+        dist.destroy_process_group()
+    return steps1, diffs1, prof, ref_ids, eval_n, beam_n
+
+
+def multi_process_phase(api, bn, gs, fd, fb, train: dict) -> tuple:
+    """(a) the two-pass K3 against its plain version at TRAIN_BN_SHAPES
+    (``two_pass_k3``); (b) a world of one process over NCCL,
+    ``make_mesh(1, 1)``: MP_STEPS sharded train steps of the trained
+    flagship from the same state, batch and dropout seed as ``train_phase``'s
+    kernel run (its summary ``train``), within TRAIN_LOSS_TOL and, at step 1,
+    TRAIN_NORM_TOL of it, with 72 two-pass K3 launches (no one-launch K3)
+    and 1 K2 a step, then one more step profiled (after which (c)'s other
+    ranks start and (a) runs); ``shard_eval_step``'s ids equal to the
+    single process's K1 ids (1 K1 launch) and ``shard_beam_step``'s
+    (k=MP_BEAM) to its K4 ids (1 K4 launch); (c) a world of MP_WORLD processes on the one card, data
+    axis MP_WORLD, over gloo: one step of each rank against the single
+    process's step 1 on the whole batch in bf16 (its norm to
+    MP_BF16_NORM_TOL) and in float32 (MP_F32_LOSS_TOL, MP_F32_NORM_TOL;
+    every rank's metrics equal), 72 two-pass K3 and 1 K2 launches a rank,
+    and the sharded greedy ids (1 K1 launch a rank, on its half) against
+    the single process's: in float32 equal, in bf16 within JAX's dry-run
+    rule.  Returns (summary, the two-pass K3's kernels row)."""
+    import torch.distributed as dist
+
+    from multimodal_scene_text_recognition_tpu_torch.config import FLAGSHIP
+    from multimodal_scene_text_recognition_tpu_torch.parallel.dryrun import (DECODE_MISMATCH,
+                                                                              start_ranks)
+    from multimodal_scene_text_recognition_tpu_torch.train.steps import prep_image
+
+    batch = make_train_batch(B, MP_SEED, FLAGSHIP.chars)
+    train_metrics = [{"loss": x, "grad_norm": g}
+                     for x, g in zip(train["loss_kernels"], train["grad_norm_kernels"])]
+
+    def held(metrics, name, want=train_metrics, loss_tol=TRAIN_LOSS_TOL,
+             norm_tol=TRAIN_NORM_TOL):
+        """Each step's loss and step 1's gradient norm against ``want``
+        (train_phase's kernel run), relative."""
+        diffs = rel_diffs(metrics, want[:len(metrics)])
+        ok = (all(d[0] <= t for d, t in zip(diffs, loss_tol)) and diffs[0][1] <= norm_tol)
+        log(f"{name}: (loss, grad norm) relative to the single process by step {diffs} (limits "
+            f"{loss_tol}, step 1's norm {norm_tol:g})")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with the single-process step: {diffs}")
+        return diffs
+
+    image = prep_image(torch.as_tensor(batch["image"], device="cuda"))
+    overlap = torch.as_tensor(batch["overlap"], device="cuda").long()
+    store = tempfile.mkdtemp(prefix="mp_store_")
+    others, k3, started = [], {}, []
+
+    def after_timed_steps():
+        """(c)'s other ranks start once (b)'s steps are timed, so that their
+        processes and CUDA contexts (~10-15 s) share the host with (a),
+        whose times are the device's alone (``queued_ms``), (b)'s decodes
+        and (c)'s references, and not with a timed step; this process is
+        (c)'s rank 0."""
+        started.append(time.time())
+        others.append(start_ranks(mp_rank, (MP_SEED, started[0]),
+                                  {r: "cuda:0" for r in range(1, MP_WORLD)}, MP_WORLD, "gloo",
+                                  f"file://{store}/world{MP_WORLD}"))
+        k3.update(two_pass_k3(bn))
+
+    try:
+        steps1, diffs1, prof1, ref_ids, eval_n, beam_n = mp_world_1(
+            api, bn, gs, fd, fb, batch, image, overlap, store, held, after_timed_steps)
+        single32 = api.get_trainer(BUNDLE, dataclasses.replace(FLAGSHIP,
+                                                               compute_dtype="float32"))
+        with torch.no_grad():
+            single32.model.eval()
+            ref_ids32 = single32.model(image, overlap).argmax(-1).cpu().numpy()
+        want32 = mp_steps(single32, batch, 1, lambda: None)
+        del single32
+        torch.cuda.empty_cache()
+        t = time.time()
+        dist.init_process_group("gloo", init_method=f"file://{store}/world{MP_WORLD}",
+                                world_size=MP_WORLD, rank=0)
+        try:
+            mine = mp_rank(0, MP_WORLD, "cuda:0", MP_SEED, started[0])
+        finally:
+            dist.destroy_process_group()
+        ranks = [mine] + others[0].collect(MP_TIMEOUT_S)
+        wall = time.time() - t
+    finally:
+        for o in others:
+            o.close()
+        shutil.rmtree(store, ignore_errors=True)
+
+    def metrics_of(r, dt):
+        return {k: v for k, v in r[dt]["step"].items() if k not in ("ms", "launches")}
+
+    firsts = [r["bfloat16"]["step"] for r in ranks]
+    firsts32 = [r["float32"]["step"] for r in ranks]
+    same = all(metrics_of(r, dt) == metrics_of(ranks[0], dt)
+               for r in ranks for dt in ("bfloat16", "float32"))
+    launches = [(r["bfloat16"]["step"]["launches"], r["bfloat16"]["eval_launches"],
+                 r["float32"]["eval_launches"]) for r in ranks]
+    log(f"world {MP_WORLD}: seconds of each part by rank {[r['s'] for r in ranks]}")
+    log(f"world {MP_WORLD} (gloo, one card; {wall:.1f} s from this process's join): step 1 "
+        f"(loss, grad norm, ms) {[(f['loss'], f['grad_norm'], f['ms']) for f in firsts]}, equal "
+        f"on every rank {same}; launches (bf16 step, bf16 greedy, f32 greedy) by rank "
+        f"{launches}")
+    diffs2 = held(firsts[:1], f"world {MP_WORLD} sharded step", norm_tol=MP_BF16_NORM_TOL)
+    diffs32 = held(firsts32[:1], f"world {MP_WORLD} sharded step in float32",
+                   want=want32, loss_tol=(MP_F32_LOSS_TOL,), norm_tol=MP_F32_NORM_TOL)
+    want_step = {"K3 two-pass": 72, "K3 one-launch": 0, "K2": 1, "K1": 0, "K4": 0}
+    want_eval = {"K3 two-pass": 0, "K3 one-launch": 0, "K2": 1, "K1": 1, "K4": 0}
+    ids_same = all(np.array_equal(r[dt]["ids"], ranks[0][dt]["ids"])
+                   for r in ranks for dt in ("bfloat16", "float32"))
+    mismatch = float((ranks[0]["bfloat16"]["ids"] != ref_ids.cpu().numpy()).mean())
+    ids32_equal = np.array_equal(ranks[0]["float32"]["ids"], ref_ids32)
+    log(f"world {MP_WORLD}: sharded greedy ids against the single process's K1 ids: bf16 "
+        f"{mismatch:.4%} of positions differ (limit {DECODE_MISMATCH:.0%}), float32 equal "
+        f"{ids32_equal}; equal on every rank {ids_same}")
+    if not (same and ids_same and mismatch <= DECODE_MISMATCH and ids32_equal
+            and all(st == want_step and e == e32 == want_eval for st, e, e32 in launches)):
+        raise AssertionError(f"world {MP_WORLD}: ranks equal {same}, {ids_same}; ids: bf16 "
+                             f"{mismatch} differ, f32 equal {ids32_equal}; launches {launches}")
+    single_ms = train["ms_per_step"]
+    summary = {"world_1": {"steps": steps1, "rel_diff_by_step": diffs1,
+                           "ms_per_step": statistics.median(s["ms"] for s in steps1[1:]),
+                           "profile": prof1,
+                           "greedy_launches": eval_n, "beam_launches": beam_n},
+               f"world_{MP_WORLD}": {"step": firsts[0], "rel_diff": diffs2[0],
+                                     "f32_step": firsts32[0],
+                                     "f32_single_process_step": want32[0],
+                                     "f32_rel_diff": diffs32[0],
+                                     "ms_per_step_by_rank": [f["ms"] for f in firsts],
+                                     "f32_ms_per_step_by_rank": [f["ms"] for f in firsts32],
+                                     "bf16_greedy_positions_differing": mismatch,
+                                     "launches_by_rank": launches,
+                                     "seconds_by_rank": [r["s"] for r in ranks],
+                                     "wall_s": wall},
+               "single_process_ms_per_step": single_ms, "two_pass_k3": k3}
+    single_prof = train["profile"]
+    log(f"step ms: single process {single_ms:.2f} (train_phase's median; profiled: kernels busy "
+        f"{single_prof['device_busy_ms']:.2f} ms, idle share {single_prof['idle_share']:.4f}), "
+        f"world 1 {summary['world_1']['ms_per_step']:.2f} (median of steps 2-3; profiled: "
+        f"kernels busy {prof1['device_busy_ms']:.2f} ms, idle share {prof1['idle_share']:.4f}), "
+        f"world {MP_WORLD} "
+        f"{summary[f'world_{MP_WORLD}']['ms_per_step_by_rank']} (step 1 of each rank, "
+        f"two processes sharing the card)")
+    row = dict(name="bn_backward_two_pass", route="cuda",
+               source="multimodal_scene_text_recognition_tpu_torch/kernels/bn_backward.cu",
+               replaces="multimodal_scene_text_recognition_tpu/ops/batchnorm.py:41",
+               jax="ops/batchnorm.py::_bn_bwd_reduce_kernel (pass 1) and _bn_bwd's dx (pass 2)",
+               launches=steps1[-1]["launches"]["K3 two-pass"], launches_per_step=72,
+               launches_world_2=[st["K3 two-pass"] for st, _, _ in launches],
+               ms=k3["ms"], pass1_ms=k3["pass1_ms"], pass2_ms=k3["pass2_ms"],
+               plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],
+               library_ms=k3["library_ms"], library_reduce_ms=k3["library_reduce_ms"],
+               library_elemt_ms=k3["library_elemt_ms"], one_launch_ms=k3["one_launch_ms"],
+               per="train step (all 36 BatchNorms, 72 launches)",
+               max_abs_err=k3["max_abs_err"], max_err_of_sum_terms=k3["max_err_of_sum_terms"])
+    return summary, row
+
+
 @contextlib.contextmanager
 def tf32_on():
     """TF32 allowed for float32 matmuls and convs, as a caller may set it."""
@@ -4915,6 +5387,13 @@ def main() -> int:
     if k3_variants is not None:
         k3["step_ms_stopped_early"] = k3_variants
     k2["launches_train"] = k2_train
+
+    phase("multi-process")
+    multi, k3_two_pass = multi_process_phase(api, bn, gs, fd, fb, train)
+    print(json.dumps({"multi_process": multi}), flush=True)
+    k2["launches_multi_process"] = multi["world_1"]["steps"][-1]["launches"]["K2"]
+    k1["launches_multi_process"] = multi["world_1"]["greedy_launches"]["K1"]
+    k4["launches_multi_process"] = multi["world_1"]["beam_launches"]["K4"]
     k3["launches_train_with_hooks"] = train_hooks["launches"][0]
     k2["launches_train_with_hooks"] = train_hooks["launches"][1]
     k2["launches_fusion_sites"] = sites["launches"]["grid_sample"]
@@ -4977,9 +5456,9 @@ def main() -> int:
                       "train_and_validate": data, "command_line": cli_run,
                       "loaders": loaders,
                       "classic": classic,
-                      "variants": variants}), flush=True)
+                      "variants": variants, "phase_seconds": PHASE_SECONDS}), flush=True)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [k1, k1e, k1q, k2, k3, k4, k1c, k4c, p1, p2]}),
+    print(json.dumps({"kernels": [k1, k1e, k1q, k2, k3, k3_two_pass, k4, k1c, k4c, p1, p2]}),
           flush=True)
     timer.cancel()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -14,7 +14,7 @@ import torch
 
 from . import convert
 from .charset import AttnCodec
-from .config import FLAGSHIP, Config, ModelConfig, TrainConfig
+from .config import FLAGSHIP, Config, ModelConfig, TrainConfig, check_single_process
 from .models.model import SceneTextModel, init_random
 from .train.steps import TrainStep, make_eval_step
 
@@ -135,6 +135,7 @@ def _config(model: SceneTextModel, train_cfg: Optional[TrainConfig],
         return Config(model=model.cfg, train=train_cfg or TrainConfig())
     if cfg.model != model.cfg:
         raise ValueError("cfg.model is not the model's configuration")
+    check_single_process(cfg)
     return cfg
 
 

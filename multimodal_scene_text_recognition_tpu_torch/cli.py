@@ -42,7 +42,7 @@ from typing import List, Optional
 
 import torch
 
-from .config import Config, apply_overrides
+from .config import Config, apply_overrides, check_single_process
 
 
 def _load_dataset(cfg: Config):
@@ -138,6 +138,7 @@ def _recognize(args, device: str) -> int:
     if args.checkpoint:
         cfg = apply_overrides(cfg, {"saved_model": args.checkpoint})
     cfg = apply_overrides(cfg, args.set)
+    check_single_process(cfg)
 
     from . import api
     from .data.raw import RawImageFolder
@@ -165,6 +166,13 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("cli: no CUDA device is available "
                            "(main(argv, device='cpu') runs on the CPU)")
+    # a no-op in one process; joins the run that parallel/mesh.init_distributed's
+    # environment describes (one process a card)
+    from .parallel.mesh import init_distributed
+
+    n_proc = init_distributed(device=torch.device(device).type)
+    if n_proc > 1:
+        print(f"  - distributed: {n_proc} processes, {n_proc} global devices")
 
     if args.cmd == "recognize":
         return _recognize(args, device)
@@ -177,6 +185,7 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
     if args.checkpoint:
         cfg = apply_overrides(cfg, {"saved_model": args.checkpoint})
     cfg = apply_overrides(cfg, args.set)
+    check_single_process(cfg)
 
     from . import api
     from .data.pipeline import Batcher, batches

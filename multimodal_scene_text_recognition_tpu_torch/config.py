@@ -197,11 +197,31 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """The (data, model) mesh layout: the batch split over ``data_axis``
+    ranks, the large matrices (Megatron columns and rows) over
+    ``model_axis`` ranks, the JAX package's ``ParallelConfig``, parsed as
+    its are.  Nothing that takes a whole ``Config`` builds a mesh: the
+    command line, ``train/loop.train`` and ``api`` run one process's step,
+    as the JAX package's do, and refuse any other layout
+    (:func:`check_single_process`) rather than ignore it.  A mesh is built
+    with ``parallel.mesh.make_mesh`` for ``shard_train_step`` and the
+    sharded decodes."""
+
+    data_axis: int = -1   # -1: every rank the model axis leaves
+    model_axis: int = 1   # 1: no tensor parallelism
+    # JAX's field, read by neither package (ModelConfig.remat is the switch):
+    # refused as set
+    remat: bool = False
+
+
+@dataclass(frozen=True)
 class Config:
     experiment: str = "tpu_rebuild"
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     results_dir: str = "./results"
     # the checkpoint the command line starts from: a reference ``.pth``/``.pt``
     # or a directory of train/checkpoint.save_checkpoint
@@ -228,6 +248,17 @@ def _coerce(current: Any, raw: str) -> Any:
     if isinstance(current, float):
         return float(raw)
     return raw
+
+
+def check_single_process(cfg: Config) -> None:
+    """Raise ValueError where ``cfg.parallel`` is not the default layout:
+    what takes a whole ``Config`` runs one process's step (see
+    :class:`ParallelConfig`), so a mesh asked for there would be ignored."""
+    if cfg.parallel != ParallelConfig():
+        raise ValueError(f"{cfg.parallel}: the command line, train/loop.train and api run "
+                         "one process's step; build the mesh with parallel.mesh.make_mesh for "
+                         "train.steps.shard_train_step and the sharded decodes (remat: "
+                         "model.remat)")
 
 
 def apply_overrides(cfg: Config, overrides: Union[Dict[str, Any], List[str]]) -> Config:

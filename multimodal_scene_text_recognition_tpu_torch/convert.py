@@ -45,7 +45,7 @@ model built with ``remat`` has the same tree.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -138,25 +138,33 @@ def _bundle_leaf(path: str, leaf: str, t: torch.Tensor) -> str:
     return "embedding" if path.rsplit(".", 1)[-1] in _EMBEDDINGS else "kernel"
 
 
+def bundle_key(name: str, t: torch.Tensor) -> Tuple[str, bool]:
+    """The bundle key of the port ``state_dict`` entry ``name`` (holding
+    ``t``, read for its rank alone), and whether the JAX leaf is the port
+    tensor transposed.  An entry with no counterpart raises."""
+    port_leaves = sorted(set(_LEAF.values()) | set(_LSTM_LEAF.values()), key=len, reverse=True)
+    leaf = next((k for k in port_leaves if name.endswith("." + k)), None)
+    if leaf is None:
+        raise KeyError(f"state_dict entry {name!r} has no counterpart in a bundle")
+    path = name[: -len(leaf) - 1]
+    jleaf = _bundle_leaf(path, leaf, t)
+    collection = "batch_stats" if jleaf in ("mean", "var") else "params"
+    key = f"{collection}.{path}.{jleaf}"
+    if _FLAT_MLP.fullmatch(path):  # decoder.x_mlp.fc0.kernel -> decoder.x_mlp.fc0_kernel
+        key = f"{collection}.{path}_{jleaf}"
+    return key, jleaf in _TRANSPOSED
+
+
 def state_dict_to_bundle(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The inverse of :func:`bundle_to_state_dict`: a port ``state_dict``
     as float32 ``{dotted key: array}`` in the JAX package's layout, which
     ``np.savez`` writes as a bundle the JAX package loads.  An entry with no
     counterpart raises."""
-    port_leaves = sorted(set(_LEAF.values()) | set(_LSTM_LEAF.values()), key=len, reverse=True)
     out: Dict[str, np.ndarray] = {}
     for name, t in state_dict.items():
-        leaf = next((k for k in port_leaves if name.endswith("." + k)), None)
-        if leaf is None:
-            raise KeyError(f"state_dict entry {name!r} has no counterpart in a bundle")
-        path = name[: -len(leaf) - 1]
-        jleaf = _bundle_leaf(path, leaf, t)
-        collection = "batch_stats" if jleaf in ("mean", "var") else "params"
+        key, transposed = bundle_key(name, t)
         arr = t.detach().cpu().float().numpy()
-        if jleaf in _TRANSPOSED:  # OIHW -> HWIO, [out, in] -> [in, out]
+        if transposed:  # OIHW -> HWIO, [out, in] -> [in, out]
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
-        key = f"{collection}.{path}.{jleaf}"
-        if _FLAT_MLP.fullmatch(path):  # decoder.x_mlp.fc0.kernel -> decoder.x_mlp.fc0_kernel
-            key = f"{collection}.{path}_{jleaf}"
         out[key] = np.ascontiguousarray(arr)
     return out

@@ -55,6 +55,19 @@
 // The scalar path (C not a multiple of 16 / sizeof(T), or x, dy, mean, rstd
 // or w not 16-byte aligned) keeps nothing on chip: it loads its elements
 // directly in both passes.
+//
+// The two-pass mode, for BatchNorm over a batch split across processes
+// (parallel/mesh.py): dx needs the sums over the whole batch, and a
+// collective cannot run between the grid barriers of one launch.  So:
+//
+//   * pass 1, bn_backward_sums: this kernel up to its final sums, which it
+//     writes and stops (the same CTAs, ring and fixed-order sums, so its
+//     dgamma and dbeta are bit-equal to the one-launch mode's);
+//   * the caller all-reduces dgamma and dbeta over the processes;
+//   * pass 2, bn_backward_dx: dx from the global sums and the global row
+//     count, xhat recomputed, each thread one 16-byte column of every
+//     lanes-th row of its CTA's rows.  Nothing is kept between the passes:
+//     x and dy are read twice, 5 * N*C * sizeof(T) bytes in all.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -182,7 +195,8 @@ struct Params {
   int slots;  // ring rows a thread (0 on the scalar path)
 };
 
-template <typename T, bool kVec>
+// kSumsOnly: pass 1 of the two-pass mode (writes dgamma and dbeta, then ends)
+template <typename T, bool kVec, bool kSumsOnly>
 __global__ void __launch_bounds__(kThreads, 1) bn_backward_kernel(const Params p) {
   using A = Access<T, kVec>;
   using Raw = typename A::Raw;
@@ -226,10 +240,10 @@ __global__ void __launch_bounds__(kThreads, 1) bn_backward_kernel(const Params p
   float m[V], r[V], a[V], acc_g[V], acc_b[V];  // a: w, then w * rstd
   load_channels<V>(p.mean + c0, m);
   load_channels<V>(p.rstd + c0, r);
-  load_channels<V>(p.weight + c0, a);
+  if constexpr (!kSumsOnly) load_channels<V>(p.weight + c0, a);
 #pragma unroll
   for (int k = 0; k < V; ++k) {
-    a[k] = __fmul_rn(a[k], r[k]);
+    if constexpr (!kSumsOnly) a[k] = __fmul_rn(a[k], r[k]);
     acc_g[k] = 0.0f;
     acc_b[k] = 0.0f;
   }
@@ -335,10 +349,13 @@ __global__ void __launch_bounds__(kThreads, 1) bn_backward_kernel(const Params p
     if (lane == 0) {
       p.dgamma[c] = g;
       p.dbeta[c] = b;
-      coef[c] = __fdiv_rn(b, fN);
-      coef[p.C + c] = __fdiv_rn(g, fN);
+      if constexpr (!kSumsOnly) {
+        coef[c] = __fdiv_rn(b, fN);
+        coef[p.C + c] = __fdiv_rn(g, fN);
+      }
     }
   }
+  if constexpr (kSumsOnly) return;
   grid.sync();  // the sums are final
 
   // pass 2: dx, newest row first
@@ -389,9 +406,71 @@ __global__ void __launch_bounds__(kThreads, 1) bn_backward_kernel(const Params p
   }
 }
 
+// pass 2 of the two-pass mode: dx for rows [0, N) from the global sums
+// dgamma, dbeta and the global row count n_total
+struct DxParams {
+  const void* x;
+  const void* dy;
+  const float* mean;
+  const float* rstd;
+  const float* weight;
+  const float* dgamma;
+  const float* dbeta;
+  void* dx;
+  long long N;
+  int C;
+  float n_total;
+};
+
 template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads) bn_dx_kernel(const DxParams p) {
+  using A = Access<T, kVec>;
+  using Raw = typename A::Raw;
+  constexpr int V = A::kN;
+  // this CTA: 16-byte columns [col0, col0 + ncols) of channel group
+  // blockIdx.y, rows blockIdx.x * lanes + sub, then every gridDim.x * lanes-th
+  const int row_cols = p.C / V;
+  const int col0 = blockIdx.y * kThreads;
+  const int ncols = min(kThreads, row_cols - col0);
+  const int lanes = kThreads / ncols;
+  const int sub = threadIdx.x / ncols;
+  if (sub >= lanes) return;
+  const int col = col0 + threadIdx.x % ncols;
+  const int c0 = col * V;
+  float mu[V], rs[V], wr[V], cb[V], cg[V];  // wr: w * rstd; cb, cg: dbeta / n, dgamma / n
+  load_channels<V>(p.mean + c0, mu);
+  load_channels<V>(p.rstd + c0, rs);
+  load_channels<V>(p.weight + c0, wr);
+  load_channels<V>(p.dbeta + c0, cb);
+  load_channels<V>(p.dgamma + c0, cg);
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    wr[k] = __fmul_rn(wr[k], rs[k]);
+    cb[k] = __fdiv_rn(cb[k], p.n_total);
+    cg[k] = __fdiv_rn(cg[k], p.n_total);
+  }
+  const Raw* xg = reinterpret_cast<const Raw*>(p.x);
+  const Raw* dg = reinterpret_cast<const Raw*>(p.dy);
+  Raw* dxg = reinterpret_cast<Raw*>(p.dx);
+  const long long stride = (long long)gridDim.x * lanes;
+  for (long long row = (long long)blockIdx.x * lanes + sub; row < p.N; row += stride) {
+    const long long off = row * row_cols + col;
+    float xf[V], d[V], o[V];
+    A::unpack(xg[off], xf);
+    A::unpack(dg[off], d);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float xh = __fmul_rn(__fsub_rn(xf[k], mu[k]), rs[k]);
+      const float centred = __fsub_rn(d[k], cb[k]);
+      o[k] = __fmul_rn(wr[k], __fsub_rn(centred, __fmul_rn(xh, cg[k])));
+    }
+    dxg[off] = A::pack(o);
+  }
+}
+
+template <typename T, bool kVec, bool kSumsOnly>
 int launch(const Params& p, int smem, cudaStream_t stream) {
-  const void* kernel = (const void*)bn_backward_kernel<T, kVec>;
+  const void* kernel = (const void*)bn_backward_kernel<T, kVec, kSumsOnly>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -435,8 +514,50 @@ extern "C" int bn_backward(const void* x, const void* dy, const void* mean, cons
            groups,
            vec ? slots : 0};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && vec) return launch<float, true>(p, smem, s);
-  if (dtype == 0) return launch<float, false>(p, smem, s);
-  if (vec) return launch<__nv_bfloat16, true>(p, smem, s);
-  return launch<__nv_bfloat16, false>(p, smem, s);
+  if (dtype == 0 && vec) return launch<float, true, false>(p, smem, s);
+  if (dtype == 0) return launch<float, false, false>(p, smem, s);
+  if (vec) return launch<__nv_bfloat16, true, false>(p, smem, s);
+  return launch<__nv_bfloat16, false, false>(p, smem, s);
+}
+
+// Pass 1 of the two-pass mode: bn_backward's launch (the same plan and
+// arguments, weight and dx unread) up to dgamma and dbeta, which are
+// bit-equal to bn_backward's.
+extern "C" int bn_backward_sums(const void* x, const void* dy, const void* mean,
+                                const void* rstd, void* dgamma, void* dbeta, void* partial,
+                                long long N, int C, int spans, int groups, int slots, int smem,
+                                int dtype, int vec, void* stream) {
+  Params p{x,       dy,      (const float*)mean, (const float*)rstd, nullptr, nullptr,
+           (float*)dgamma, (float*)dbeta, (float*)partial, N, C, spans, groups,
+           vec ? slots : 0};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0 && vec) return launch<float, true, true>(p, smem, s);
+  if (dtype == 0) return launch<float, false, true>(p, smem, s);
+  if (vec) return launch<__nv_bfloat16, true, true>(p, smem, s);
+  return launch<__nv_bfloat16, false, true>(p, smem, s);
+}
+
+template <typename T, bool kVec>
+int launch_dx(const DxParams& p, int ctas, cudaStream_t stream) {
+  const int groups = (p.C / Access<T, kVec>::kN + kThreads - 1) / kThreads;
+  bn_dx_kernel<T, kVec><<<dim3(ctas, groups), dim3(kThreads), 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// Pass 2 of the two-pass mode: dx [N, C] (x's layout and type) from x, dy,
+// mean, rstd, weight and the global dgamma, dbeta (float32 [C], summed over
+// every process's rows) and the global row count n_total; `ctas` CTAs of
+// 256 threads for each group of 256 16-byte columns (vec, as bn_backward's)
+// or channels.  Returns the CUDA error of the launch (0 = none).
+extern "C" int bn_backward_dx(const void* x, const void* dy, const void* mean, const void* rstd,
+                              const void* weight, const void* dgamma, const void* dbeta,
+                              void* dx, long long N, int C, float n_total, int ctas, int dtype,
+                              int vec, void* stream) {
+  DxParams p{x,  dy, (const float*)mean, (const float*)rstd, (const float*)weight,
+             (const float*)dgamma, (const float*)dbeta, dx, N, C, n_total};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0 && vec) return launch_dx<float, true>(p, ctas, s);
+  if (dtype == 0) return launch_dx<float, false>(p, ctas, s);
+  if (vec) return launch_dx<__nv_bfloat16, true>(p, ctas, s);
+  return launch_dx<__nv_bfloat16, false>(p, ctas, s);
 }

@@ -43,8 +43,8 @@ from ..ops.fused_decode import (cast_weights, fused_greedy_decode, pack_cluster_
                                 pack_cluster_tables_int8,
                                 quantize_fused_weights, stack_decoder_weights)
 from .encoders import Drop
-from .layers import EPS, FusionMLP, MultiHeadAttention, layer_norm, positional_rows, \
-    relevance_fusion
+from .layers import EPS, FusionMLP, MultiHeadAttention, feed_forward, layer_norm, \
+    positional_rows, relevance_fusion
 
 
 SITES = ("pre_target", "pre_memory", "post_memory")  # the per-layer fusion sites, in order
@@ -95,7 +95,7 @@ class DecoderLayer(nn.Module):
         x = self.norm2(x + drop(self.cross_attn(x, memory)))
         if "post_memory" in self.sites:
             x = self.fusion("post_memory", x, sem, mask, drop)
-        f = self.linear2(drop(torch.relu(self.linear1(x))))
+        f = feed_forward(self.linear1, self.linear2, torch.relu, x, drop)
         return self.norm3(x + drop(f))
 
 

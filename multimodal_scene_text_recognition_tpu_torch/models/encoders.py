@@ -29,12 +29,13 @@ from torch import nn
 
 from ..ops.int8 import int8_linear
 from ..ops.lstm import bilstm
-from .layers import FusionMLP, MultiHeadAttention, layer_norm, positional_rows, relevance_fusion
+from .layers import (FusionMLP, MultiHeadAttention, feed_forward, layer_norm, positional_rows,
+                     relevance_fusion)
 
 Drop = Callable[[torch.Tensor], torch.Tensor]
 
 
-def no_dropout(x: torch.Tensor) -> torch.Tensor:
+def no_dropout(x: torch.Tensor, columns=None) -> torch.Tensor:
     return x
 
 
@@ -94,7 +95,9 @@ class EncoderLayer(nn.Module):
             return mod(h)
 
         def ff(h):
-            return dense(self.linear2, drop(torch.relu(dense(self.linear1, h))))
+            if int8:
+                return dense(self.linear2, drop(torch.relu(dense(self.linear1, h))))
+            return feed_forward(self.linear1, self.linear2, torch.relu, h, drop)
 
         a = self.self_attn(x, x, int8=int8)
         if self.norm_style == "standard":
@@ -198,5 +201,5 @@ class OscarEncoder(nn.Module):
         for i in range(self.num_layers):
             layer = lambda name: getattr(self, f"{name}{i}")  # noqa: E731
             x = layer("ln1_")(x + layer("attn")(x, x))
-            x = layer("ln2_")(x + layer("ff2_")(F.gelu(layer("ff1_")(x))))
+            x = layer("ln2_")(x + feed_forward(layer("ff1_"), layer("ff2_"), F.gelu, x))
         return self.bert_to_hid(x[:, :T])

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import functools
 import math
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,7 +47,9 @@ class BatchNorm2d(nn.Module):
     variance (the JAX package's rule; ``nn.BatchNorm2d`` would take the
     unbiased one), unless ``update_stats`` is off (a recomputed forward).
     ``use_kernels`` picks the backward reduction on CUDA tensors: the
-    kernel, or its plain version.
+    kernel, or its plain version.  ``reducer`` (set by
+    ``parallel.tensor.parallelize``: the sum over a mesh's data group) makes
+    the statistics those of the batch split across its processes.
     """
 
     def __init__(self, C: int):
@@ -56,11 +60,12 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.empty(C))
         self.use_kernels = True
         self.update_stats = True
+        self.reducer = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
             y, mean, var = bn_train(x, self.weight, self.bias, EPS,
-                                    plain=not self.use_kernels)
+                                    plain=not self.use_kernels, reducer=self.reducer)
             if not self.update_stats:
                 return y
             with torch.no_grad():
@@ -72,15 +77,60 @@ class BatchNorm2d(nn.Module):
         return (y + self.bias[:, None, None]).to(x.dtype)
 
 
-def dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
+@dataclass(frozen=True)
+class BatchRows:
+    """A generator that draws for a whole batch of ``total`` rows and keeps
+    the ``start``-th row on: what a rank of a mesh passes where one process
+    passes its ``torch.Generator``, so that its random values are its rows
+    of the single process's (as a jitted JAX step's are, however sharded)."""
+
+    generator: torch.Generator
+    start: int
+    total: int
+
+
+def uniform(shape, generator, device,
+            columns: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """U[0, 1) values of ``shape`` drawn from ``generator`` (a
+    ``torch.Generator`` on ``device``, or :class:`BatchRows` of one).
+    ``columns=(start, total)``: the draw is ``total`` wide in the last
+    dimension, of which ``shape[-1]`` from ``start`` are kept (an activation
+    split by columns over a mesh's model axis)."""
+    full = list(shape)
+    if columns is not None:
+        full[-1] = columns[1]
+    start = None
+    if isinstance(generator, BatchRows):
+        start, full[0] = generator.start, generator.total
+        generator = generator.generator
+    u = torch.rand(full, generator=generator, device=device)
+    if start is not None:
+        u = u.narrow(0, start, shape[0])
+    return u if columns is None else u.narrow(-1, columns[0], shape[-1])
+
+
+def dropout(x: torch.Tensor, p: float, generator, columns=None) -> torch.Tensor:
     """Keep each element with probability ``1 - p`` and scale it by
     ``1 / (1 - p)`` (flax's ``nn.Dropout``), drawing the mask from
-    ``generator``, which lies on ``x``'s device."""
+    ``generator``, which lies on ``x``'s device (``columns``: see
+    :func:`uniform`)."""
     if p == 0.0:
         return x
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = uniform(x.shape, generator, x.device, columns) < keep
     return torch.where(mask, x / keep, 0.0)
+
+
+def feed_forward(lin1: nn.Module, lin2: nn.Module, act: Callable, x: torch.Tensor,
+                 drop: Callable = None) -> torch.Tensor:
+    """``lin2(drop(act(lin1(x))))``, the FF block.  Where a mesh split the
+    pair (``parallel.tensor``: ``lin1`` by columns, ``lin2`` by rows), the
+    hidden activation stays split between the two, as Megatron's."""
+    pair = getattr(lin1, "parallel_pair", None)
+    if pair is not None:
+        return pair(lin2, act, x, drop)
+    h = act(lin1(x))
+    return lin2(h if drop is None else drop(h))
 
 
 class Conv2d(nn.Conv2d):

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import feed_forward, uniform
+
 MODES = ("overlap", "scene", "combined")
 
 
@@ -85,8 +87,7 @@ class RandomEmbedding(nn.Module):
             raise ValueError("semantic_source='rand' draws its semantics from the train "
                              "step's generator: a rand model is trained, not served or "
                              "validated (the JAX package's eval paths raise too)")
-        return torch.rand(*overlap.shape, self.embed_dim, generator=generator,
-                          device=overlap.device)
+        return uniform((*overlap.shape, self.embed_dim), generator, overlap.device)
 
 
 class BertEmbedding(nn.Module):
@@ -133,7 +134,7 @@ class BertEmbedding(nn.Module):
             a = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(hd), dim=-1)
             o = layer("out_lin")((a @ v).transpose(1, 2).reshape(B, T, D))
             x = layer("sa_ln")(x + o)
-            h = layer("ff2_")(F.gelu(layer("ff1_")(x)))
+            h = feed_forward(layer("ff1_"), layer("ff2_"), F.gelu, x)
             x = layer("out_ln")(x + h)
         return self.proj(x)
 

@@ -24,6 +24,18 @@ float32, in that order, cast once to x's type.  Two versions of it:
   [B*H*W, C] rows, the JAX kernel's own layout, and writes dx in that
   layout.  It refuses any other layout rather than copying.
 
+Under a mesh the batch is split across processes and the statistics are
+those of the whole batch, as in the JAX package's sharded step, where a
+mean over the data-sharded axis is an all-reduce: :func:`bn_train` with a
+``reducer`` (an object whose ``size`` is the count of processes, each
+holding an equal share of the batch, and whose call sums a tensor over
+them in place; ``parallel.mesh.GroupSum``) sums the forward's per-channel
+sums and, in the backward, dgamma and dbeta between two passes, the two-pass mode
+of the kernel: :func:`bn_bwd_sums_cuda` (pass 1, the TPU kernel's function)
+and :func:`bn_bwd_dx_cuda` (pass 2, dx from the global sums and row count),
+whose plain versions are :func:`bn_bwd_sums_plain` and
+:func:`bn_bwd_dx_plain`.
+
 The JAX package runs its kernel only for C >= 128, a rule about the TPU's
 128-lane vector width; on the card the kernel takes every C, the 32- and
 64-channel stems included.
@@ -149,16 +161,25 @@ def bn_bwd_sums_plain(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
     return (dyf * xhat).sum(dim=(0, 2, 3)), dyf.sum(dim=(0, 2, 3))
 
 
+def bn_bwd_dx_plain(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                    weight: torch.Tensor, dgamma: torch.Tensor, dbeta: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """dx in x's type from x, dy [B, C, H, W] (any memory format), float32
+    mean, rstd, weight [C] and the sums dgamma, dbeta over ``n`` rows (this
+    process's, or the whole batch's under a mesh)."""
+    xhat = (x.float() - _per_channel(mean)) * _per_channel(rstd)
+    dx = _per_channel(weight * rstd) * (
+        dy.float() - _per_channel(div(dbeta, n)) - xhat * _per_channel(div(dgamma, n)))
+    return dx.to(x.dtype)
+
+
 def bn_bwd_plain(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
                  weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx in x's type, dgamma, dbeta float32 [C]) from x, dy [B, C, H, W]
     (any memory format) and float32 mean, rstd, weight [C]."""
-    n = x.numel() // x.shape[1]
     dgamma, dbeta = bn_bwd_sums_plain(x, dy, mean, rstd)
-    xhat = (x.float() - _per_channel(mean)) * _per_channel(rstd)
-    dx = _per_channel(weight * rstd) * (
-        dy.float() - _per_channel(div(dbeta, n)) - xhat * _per_channel(div(dgamma, n)))
-    return dx.to(x.dtype), dgamma, dbeta
+    dx = bn_bwd_dx_plain(x, dy, mean, rstd, weight, dgamma, dbeta, x.numel() // x.shape[1])
+    return dx, dgamma, dbeta
 
 
 def _lib():
@@ -169,6 +190,33 @@ def _lib():
     return fn
 
 
+def _check_cuda(name: str, x: torch.Tensor, dy: torch.Tensor, *channels: torch.Tensor) -> bool:
+    """Raise where the kernels cannot take x, dy [B, C, H, W] and the
+    float32 [C] ``channels``; returns whether the 16-byte path applies."""
+    if x.device.type != "cuda" or any(t.device != x.device for t in (dy, *channels)):
+        raise ValueError(f"{name} takes CUDA tensors on one device")
+    if x.dtype not in _DTYPES or dy.dtype != x.dtype:
+        raise TypeError(f"{name} takes float32 or bfloat16 x and dy of one type, "
+                        f"got {x.dtype}/{dy.dtype}")
+    if x.dim() != 4 or dy.shape != x.shape or x.numel() == 0:
+        raise ValueError(f"{name}: bad shapes {tuple(x.shape)}, {tuple(dy.shape)}")
+    C = x.shape[1]
+    if any(t.dtype != torch.float32 or t.shape != (C,) or not t.is_contiguous()
+           for t in channels):
+        raise ValueError(f"{name}: the per-channel tensors must be contiguous float32 [C]")
+    cl = torch.channels_last
+    if not (x.is_contiguous(memory_format=cl) and dy.is_contiguous(memory_format=cl)):
+        raise ValueError(f"{name}: x and dy must be channels-last contiguous")
+    return C % (16 // x.element_size()) == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (x, dy, *channels))
+
+
+def _plan(x: torch.Tensor, vec: bool) -> BnBwdPlan:
+    B, C, H, W = x.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return bn_bwd_plan(B * H * W, C, x.element_size(), sms, vec)
+
+
 def bn_bwd_cuda(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
                 weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The CUDA kernel: x, dy [B, C, H, W] CUDA tensors of one type (float32
@@ -176,25 +224,10 @@ def bn_bwd_cuda(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, rstd: tor
     float32 [C] on the same device -> (dx channels-last in x's type,
     dgamma, dbeta float32 [C]).  Any other layout raises: the wrapper
     copies nothing."""
-    if x.device.type != "cuda" or any(t.device != x.device for t in (dy, mean, rstd, weight)):
-        raise ValueError("bn_bwd_cuda takes CUDA tensors on one device")
-    if x.dtype not in _DTYPES or dy.dtype != x.dtype:
-        raise TypeError(f"bn_bwd_cuda takes float32 or bfloat16 x and dy of one type, "
-                        f"got {x.dtype}/{dy.dtype}")
-    if x.dim() != 4 or dy.shape != x.shape or x.numel() == 0:
-        raise ValueError(f"bn_bwd_cuda: bad shapes {tuple(x.shape)}, {tuple(dy.shape)}")
-    B, C, H, W = x.shape
-    if any(t.dtype != torch.float32 or t.shape != (C,) or not t.is_contiguous()
-           for t in (mean, rstd, weight)):
-        raise ValueError("bn_bwd_cuda: mean, rstd and weight must be contiguous float32 [C]")
-    cl = torch.channels_last
-    if not (x.is_contiguous(memory_format=cl) and dy.is_contiguous(memory_format=cl)):
-        raise ValueError("bn_bwd_cuda: x and dy must be channels-last contiguous")
-    vec = C % (16 // x.element_size()) == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (x, dy, mean, rstd, weight))
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = bn_bwd_plan(B * H * W, C, x.element_size(), sms, vec)
-    dx = torch.empty_like(x, memory_format=cl)
+    vec = _check_cuda("bn_bwd_cuda", x, dy, mean, rstd, weight)
+    C = x.shape[1]
+    plan = _plan(x, vec)
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
     dgamma = torch.empty(C, dtype=torch.float32, device=x.device)
     dbeta = torch.empty(C, dtype=torch.float32, device=x.device)
     # the CTAs' partial sums, then dbeta / N and dgamma / N
@@ -215,6 +248,82 @@ def bn_bwd_cuda(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, rstd: tor
 bn_bwd_cuda.launches = 0
 
 
+def _lib_sums():
+    fn = build.load("bn_backward").bn_backward_sums
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _lib_dx():
+    fn = build.load("bn_backward").bn_backward_dx
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float] + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bn_bwd_sums_cuda(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
+                     rstd: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 1 of the two-pass mode: (dgamma, dbeta) float32 [C] of this
+    process's rows, bit-equal to :func:`bn_bwd_cuda`'s (the same launch,
+    stopped after the sums).  Takes what :func:`bn_bwd_cuda` takes, less
+    the weight."""
+    vec = _check_cuda("bn_bwd_sums_cuda", x, dy, mean, rstd)
+    C = x.shape[1]
+    plan = _plan(x, vec)
+    dgamma = torch.empty(C, dtype=torch.float32, device=x.device)
+    dbeta = torch.empty(C, dtype=torch.float32, device=x.device)
+    partial = torch.empty(plan.spans + 1, 2, C, dtype=torch.float32, device=x.device)
+    fn = _lib_sums()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                dgamma.data_ptr(), dbeta.data_ptr(), partial.data_ptr(), plan.N, C, plan.spans,
+                plan.groups, plan.slots, plan.smem_bytes, _DTYPES[x.dtype], int(vec), stream)
+    if rc != 0:
+        raise RuntimeError(f"bn_backward_sums kernel launch failed: CUDA error {rc}")
+    bn_bwd_sums_cuda.launches += 1
+    return dgamma, dbeta
+
+
+bn_bwd_sums_cuda.launches = 0
+
+_DX_CTAS_PER_SM = 8  # 2048 threads an SM: each thread streams its column's rows
+
+
+def bn_bwd_dx_cuda(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                   weight: torch.Tensor, dgamma: torch.Tensor, dbeta: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """Pass 2 of the two-pass mode: dx channels-last in x's type from what
+    :func:`bn_bwd_cuda` takes and the sums dgamma, dbeta float32 [C] over
+    ``n`` rows (the whole batch's, all-reduced after pass 1)."""
+    vec = _check_cuda("bn_bwd_dx_cuda", x, dy, mean, rstd, weight, dgamma, dbeta)
+    B, C, H, W = x.shape
+    N = B * H * W
+    V = 16 // x.element_size() if vec else 1
+    ncols = C // V
+    groups = -(-ncols // _THREADS)
+    lanes = _THREADS // min(ncols, _THREADS)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    ctas = max(1, min(-(-N // lanes), _DX_CTAS_PER_SM * sms // groups))
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    fn = _lib_dx()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(), weight.data_ptr(),
+                dgamma.data_ptr(), dbeta.data_ptr(), dx.data_ptr(), N, C, float(n), ctas,
+                _DTYPES[x.dtype], int(vec), stream)
+    if rc != 0:
+        raise RuntimeError(f"bn_backward_dx kernel launch failed: CUDA error {rc}")
+    bn_bwd_dx_cuda.launches += 1
+    return dx
+
+
+bn_bwd_dx_cuda.launches = 0
+
+
 def bn_bwd(x, dy, mean, rstd, weight, plain: bool = False):
     """The plain version for CPU tensors (or ``plain=True``), the CUDA
     kernel for CUDA tensors."""
@@ -223,33 +332,62 @@ def bn_bwd(x, dy, mean, rstd, weight, plain: bool = False):
     return bn_bwd_cuda(x, dy, mean, rstd, weight)
 
 
+def bn_bwd_two_pass(x, dy, mean, rstd, weight, reducer, plain: bool = False):
+    """The backward over a batch split across the processes of ``reducer``
+    (see the module's docstring): this process's sums (pass 1), their sum
+    over the processes, then dx from the global sums and row count (pass
+    2); the kernels on CUDA tensors unless ``plain``.  Returns (dx, dgamma,
+    dbeta) with this process's sums, whose all-reduce the train step's
+    gradient all-reduce makes."""
+    kernel = not plain and x.device.type != "cpu"
+    dgamma, dbeta = (bn_bwd_sums_cuda if kernel else bn_bwd_sums_plain)(x, dy, mean, rstd)
+    sums = reducer(torch.stack([dgamma, dbeta]))
+    n = x.numel() // x.shape[1] * reducer.size
+    dx = (bn_bwd_dx_cuda if kernel else bn_bwd_dx_plain)(x, dy, mean, rstd, weight, sums[0],
+                                                         sums[1], n)
+    return dx, dgamma, dbeta
+
+
 class _BatchNormTrain(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, plain):
+    def forward(ctx, x, weight, bias, eps, plain, reducer):
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if reducer is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        else:  # the statistics of the whole batch, split across the processes
+            n = x.numel() // x.shape[1] * reducer.size
+            sums = reducer(torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]))
+            mean = sums[0] / n
+            var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
         rstd = torch.rsqrt(var + eps)
         y = (xf - _per_channel(mean)) * _per_channel(rstd * weight) + _per_channel(bias)
         ctx.save_for_backward(x, weight, mean, rstd)
-        ctx.plain = plain
+        ctx.plain, ctx.reducer = plain, reducer
         ctx.mark_non_differentiable(mean, var)
         return y.to(x.dtype), mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, weight, mean, rstd = ctx.saved_tensors
-        dx, dgamma, dbeta = bn_bwd(x, dy, mean, rstd, weight, plain=ctx.plain)
-        return dx, dgamma, dbeta, None, None
+        if ctx.reducer is None:
+            dx, dgamma, dbeta = bn_bwd(x, dy, mean, rstd, weight, plain=ctx.plain)
+        else:
+            dx, dgamma, dbeta = bn_bwd_two_pass(x, dy, mean, rstd, weight, ctx.reducer,
+                                                plain=ctx.plain)
+        return dx, dgamma, dbeta, None, None, None
 
 
 def bn_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-             eps: float = 1e-5, plain: bool = False):
+             eps: float = 1e-5, plain: bool = False, reducer=None):
     """Train-mode BatchNorm of x [B, C, H, W] with float32 weight, bias [C].
 
     Returns (y, mean, var): y in x's type; the batch mean and biased
     variance float32 [C], for the caller's running-average update (no
     gradient flows through them).  The backward (dx, dgamma, dbeta) is the
-    CUDA kernel on CUDA tensors unless ``plain``."""
-    return _BatchNormTrain.apply(x, weight, bias, eps, plain)
+    CUDA kernel on CUDA tensors unless ``plain``.  With a ``reducer`` (see
+    the module's docstring) the statistics and dx are those of the whole
+    batch split across its processes, and the backward takes the two-pass
+    mode (:func:`bn_bwd_two_pass`)."""
+    return _BatchNormTrain.apply(x, weight, bias, eps, plain, reducer)

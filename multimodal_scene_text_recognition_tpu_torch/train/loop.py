@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..charset import AttnCodec, CTCCodec
-from ..config import Config
+from ..config import Config, check_single_process
 from ..data.lmdb_data import BalancedMixture
 from ..data.pipeline import (DEVICE_KEYS, Batcher, PackedSamples, Prefetcher, device_batch,
                              packed_batches, pinned)
@@ -111,6 +111,7 @@ def train(cfg: Config, step: TrainStep, train_samples, val_samples, log_every: i
       ``sum(len(source)) // batch_size`` steps collates its next batches in
       the prefetcher's thread, as host data.
     """
+    check_single_process(cfg)
     tc = cfg.train
     codec = build_codec(cfg)
     device = step.device

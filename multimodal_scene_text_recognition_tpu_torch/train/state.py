@@ -4,7 +4,7 @@ train/state.py, ``optax.chain(clip_by_global_norm, adamw)``)."""
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List
+from typing import Callable, Iterable, List, Optional
 
 import torch
 
@@ -69,11 +69,14 @@ class AdamW:
             p.grad = None
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
+    def step(self, norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Apply one update; returns the global gradient norm before the
-        clip (a 0-dim tensor on the parameters' device, not synchronised)."""
+        clip (a 0-dim tensor on the parameters' device, not synchronised),
+        or clips by ``norm`` where the caller gives it (a sharded step's,
+        over every rank's pieces)."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if norm is None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         scale = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                             self.clip_norm / norm)
         grads = torch._foreach_mul(grads, scale)

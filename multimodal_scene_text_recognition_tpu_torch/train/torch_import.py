@@ -440,3 +440,26 @@ def convert_state_dict(sd: Mapping[str, Any], model: torch.nn.Module,
     stats = {"loaded": len(loaded), "missing": missing, "skipped": skipped,
              "unused_torch_keys": unused}
     return convert.bundle_to_state_dict(flat), stats
+
+
+def import_distilbert(sd: Mapping[str, Any], model: torch.nn.Module
+                      ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """A bare DistilBertModel state dict (``embeddings.word_embeddings.
+    weight``, ``transformer.layer.<i>...``) onto a model whose semantic
+    embedder is ``models.semantic.BertEmbedding``, or onto that embedder
+    alone (JAX counterpart: ``import_distilbert``): returns
+    :func:`convert_state_dict`'s (state dict, stats) for ``model``, the
+    ``missing`` paths of a bare embedder without the ``semantic`` level, as
+    JAX's.  The embedder's ``proj`` (768 -> embed_dim) has no DistilBERT
+    weight and stays as it is.  The model is not changed."""
+    prefixed = {"module.get_semantic_vectors.bert_model." + k: v for k, v in sd.items()}
+    bare = not hasattr(model, "semantic")
+    if bare:
+        holder = torch.nn.Module()
+        holder.semantic = model
+        model = holder
+    state, stats = convert_state_dict(prefixed, model)
+    if bare:
+        state = {k[len("semantic."):]: v for k, v in state.items()}
+        stats["missing"] = [m.replace("/semantic/", "/", 1) for m in stats["missing"]]
+    return state, stats

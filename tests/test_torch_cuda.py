@@ -521,6 +521,29 @@ def test_bn_bwd_reduce_kernel_matches_plain(dev, shape, dtype):
     assert all(torch.equal(a, b) for a, b in zip((dx, dg, db), again))
 
 
+@pytest.mark.parametrize("shape", [(3, 32, 7, 11), (16, 512, 4, 26), (4, 3, 5, 9),
+                                   (48, 64, 32, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_bwd_two_pass_kernels_match_plain(dev, shape, dtype):
+    """The two-pass mode against its plain versions: pass 1's sums
+    bit-equal to the one-launch kernel's, then pass 2 from sums and a row
+    count that another process's half adds to (other inputs), dx as
+    ``bn_dx_ok`` against ``bn_bwd_dx_plain`` on the same sums, in x's type
+    and channels-last; the 16-byte path and (C = 3) the scalar one."""
+    x, dy, mean, rstd, w = _bn_inputs(dev, shape, dtype, seed=shape[1] + 7)
+    x2, dy2 = _bn_inputs(dev, shape, dtype, seed=shape[1] + 8)[:2]
+    g, b = bn.bn_bwd_sums_cuda(x, dy, mean, rstd)
+    _, og, ob = bn.bn_bwd_cuda(x, dy, mean, rstd, w)
+    assert torch.equal(g, og) and torch.equal(b, ob)
+    g2, b2 = bn.bn_bwd_sums_plain(x2, dy2, mean, rstd)
+    n = 2 * x.numel() // shape[1]
+    dx = bn.bn_bwd_dx_cuda(x, dy, mean, rstd, w, g + g2, b + b2, n)
+    torch.cuda.synchronize()
+    ref = bn.bn_bwd_dx_plain(x, dy, mean, rstd, w, g + g2, b + b2, n)
+    assert dx.dtype == dtype and dx.is_contiguous(memory_format=torch.channels_last)
+    assert bn_dx_ok(dx, ref)
+
+
 def test_bn_bwd_reduce_wrapper_refuses_bad_inputs(dev):
     x, dy, mean, rstd, w = _bn_inputs(dev, (2, 8, 4, 4), torch.float32, seed=0)
     with pytest.raises(TypeError):  # x and dy of two types

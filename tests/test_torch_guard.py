@@ -38,6 +38,12 @@ def test_port_files_exist():
     assert len(FILES) > 10
 
 
+@pytest.mark.parametrize("name", ["parallel/mesh.py", "parallel/tensor.py", "parallel/dryrun.py",
+                                  "utils/profiling.py", "utils/timing.py"])
+def test_multi_device_and_timing_modules_are_guarded(name):
+    assert PORT / name in FILES
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_flax_pil_or_jax_package_imports(path):
     bad = [(line, mod) for line, mod in _imports(path) if _forbidden(mod)]
