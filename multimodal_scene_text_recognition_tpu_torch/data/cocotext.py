@@ -14,9 +14,9 @@ data/cocotext.py).
   (``ops/resize``), or with ``use_native=False`` PIL's crop-then-resize.
 
 Pages are decoded by ``data/images`` (no PIL): a page PIL refuses raises
-its ``OSError``, as in JAX; a page of a kind left to a later slice (WebP,
-GIF, TIFF, arithmetic-coded or lossless JPEG) raises
-``NotImplementedError`` naming it.
+its ``OSError``, as in JAX; a page of a kind left to a later slice (GIF,
+TIFF, arithmetic-coded or lossless JPEG) raises ``NotImplementedError``
+naming it.
 """
 
 from __future__ import annotations

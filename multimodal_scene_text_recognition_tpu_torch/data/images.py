@@ -3,9 +3,9 @@ loaders read image files (JAX counterpart: the PIL calls of
 data/cocotext.py, data/lmdb_data.py, data/raw.py).
 
 The port does not use PIL.  These functions give what PIL gives, bit for
-bit, through ``native/imgdecode.cpp`` beside this package, built at first
-use with ``g++`` (``utils.native``; a failed build raises, there is no
-fallback):
+bit, through ``native/imgdecode.cpp`` and ``native/webpdecode.cpp`` beside
+this package, built at first use with ``g++`` (``utils.native``; a failed
+build raises, there is no fallback):
 
 * :func:`decode_gray`: ``Image.open(io.BytesIO(data)).convert("L")``:
 
@@ -17,16 +17,20 @@ fallback):
   - PNG of every colour type and depth, 1 to 16 bits, plain or Adam7
     (inflated by ``zlib`` here, unfiltered in the C++);
   - BMP of 1, 4, 8, 16, 24 and 32 bits, BI_BITFIELDS, RLE8 and RLE4;
-  - PNM P1 to P6 at any maxval.
+  - PNM P1 to P6 at any maxval;
+  - WebP, lossless (VP8L) and lossy (VP8), with or without alpha, in the
+    simple, extended (VP8X) and animated containers: frame 0 on the
+    canvas, as libwebp's WebPAnimDecoder gives it to PIL.
 
   Where PIL raises an ``OSError`` (broken or truncated data, and its own
   refusals: 12-bit or hierarchical JPEG, the BMP layouts and PNM headers
-  it does not read) the decoder raises an ``OSError``; where PIL's Python
-  raises ``ValueError`` (a short RLE or plain PNM), ``ValueError``; over
-  twice PIL's ``MAX_IMAGE_PIXELS``, :class:`DecompressionBombError`.  A file
-  PIL decodes and this decoder does not raises ``NotImplementedError``
-  naming its kind: WebP, GIF, TIFF, arithmetic-coded or lossless JPEG.
-  EXIF orientation is not applied, as ``convert`` does not apply it.
+  it does not read, a WebP that libwebp fails) the decoder raises an
+  ``OSError``; where PIL's Python raises ``ValueError`` (a short RLE or
+  plain PNM), ``ValueError``; over twice PIL's ``MAX_IMAGE_PIXELS``,
+  :class:`DecompressionBombError`.  A file PIL decodes and this decoder
+  does not raises ``NotImplementedError`` naming its kind: GIF, TIFF,
+  arithmetic-coded or lossless JPEG.  EXIF orientation is not applied, as
+  ``convert`` does not apply it.
 * :func:`resize_gray`: ``Image.resize`` of a mode-L image with ``BILINEAR``
   or ``BICUBIC``.
 * :func:`crop_gray`: ``Image.crop`` (coordinates rounded half to even,
@@ -49,10 +53,12 @@ import numpy as np
 from ..utils import native
 
 SOURCE = native.NATIVE_DIR / "imgdecode.cpp"
+WEBP_SOURCE = native.NATIVE_DIR / "webpdecode.cpp"
 BUILD_DIR = native.BUILD_DIR
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 FILTERS = {"bilinear": 2, "bicubic": 3}  # PIL's numbers
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+WEBP_CHUNKS = (b"VP8 ", b"VP8L", b"VP8X")  # the first chunks PIL's WebP plugin accepts
 _CHUNK_TYPE = re.compile(rb"\w\w\w\w").match  # PngImagePlugin's is_cid
 
 MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3  # PIL's Image.MAX_IMAGE_PIXELS
@@ -60,6 +66,7 @@ ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (
          (0, 1, 1, 2))  # (x0, y0, dx, dy) of each pass
 
 _lib: Optional[ctypes.CDLL] = None
+_webp_lib: Optional[ctypes.CDLL] = None
 _MSG = 256
 
 
@@ -98,6 +105,21 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _webp_library() -> ctypes.CDLL:
+    global _webp_lib
+    if _webp_lib is not None:
+        return _webp_lib
+    lib = native.load_library(WEBP_SOURCE, CXX_FLAGS, "the WebP decoder", BUILD_DIR)
+    u8p, i32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int)
+    lib.webp_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                                ctypes.POINTER(u8p), i32p, i32p, ctypes.c_char_p, ctypes.c_int]
+    lib.webp_decode.restype = ctypes.c_int
+    lib.webp_free.argtypes = [u8p]
+    lib.webp_free.restype = None
+    _webp_lib = lib
+    return lib
+
+
 def _raise(code: int, msg: bytes) -> None:
     text = msg.decode(errors="replace")
     if code == 2:
@@ -111,9 +133,10 @@ def _raise(code: int, msg: bytes) -> None:
 
 def sniff(data: bytes) -> str:
     """The format of an image file from its first bytes: "jpeg", "png",
-    "bmp", "pnm", or the name of a format that is recognised but not
-    decoded ("webp", "gif", "tiff"); "" for anything else (PIL's own PNM
-    extensions, Pf, P0CMYK and Py*, among these)."""
+    "bmp", "pnm", "webp" (a RIFF/WEBP file whose first chunk is VP8, VP8L or
+    VP8X, as PIL's WebP plugin accepts it), or the name of a format that is
+    recognised but not decoded ("gif", "tiff"); "" for anything else (PIL's
+    own PNM extensions, Pf, P0CMYK and Py*, among these)."""
     if data[:3] == b"\xff\xd8\xff":
         return "jpeg"
     if data[:8] == PNG_MAGIC:
@@ -122,7 +145,7 @@ def sniff(data: bytes) -> str:
         return "bmp"
     if data[:1] == b"P" and b"1" <= data[1:2] <= b"7":
         return "pnm"
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in WEBP_CHUNKS:
         return "webp"
     if data[:6] in (b"GIF87a", b"GIF89a"):
         return "gif"
@@ -212,10 +235,12 @@ def decode_gray(data: bytes) -> np.ndarray:
     """``Image.open(io.BytesIO(data)).convert("L")`` as uint8 [H, W]."""
     data = bytes(data)
     kind = sniff(data)
-    if kind in ("webp", "gif", "tiff"):
+    if kind in ("gif", "tiff"):
         raise NotImplementedError(f"image decoding: {kind.upper()} files are not decoded")
     if not kind:
         raise OSError("cannot identify image file")
+    if kind == "webp":
+        return _decode_webp(data)
     lib = _library()
     msg = ctypes.create_string_buffer(_MSG)
     if kind == "png":
@@ -237,6 +262,24 @@ def decode_gray(data: bytes) -> np.ndarray:
         return np.ctypeslib.as_array(buf, shape=(h.value, w.value)).copy()
     finally:
         lib.image_free(buf)
+
+
+def _decode_webp(data: bytes, channels: int = 1) -> np.ndarray:
+    """A WebP file as PIL's ``convert("L")`` (``channels`` 1, uint8 [H, W])
+    or, for the tests, its ``convert("RGB")`` (3, uint8 [H, W, 3])."""
+    lib = _webp_library()
+    msg = ctypes.create_string_buffer(_MSG)
+    buf = ctypes.POINTER(ctypes.c_uint8)()
+    w, h = ctypes.c_int(), ctypes.c_int()
+    code = lib.webp_decode(bytes(data), len(data), channels, ctypes.byref(buf), ctypes.byref(w),
+                           ctypes.byref(h), msg, _MSG)
+    if code:
+        _raise(code, msg.value)
+    shape = (h.value, w.value) if channels == 1 else (h.value, w.value, 3)
+    try:
+        return np.ctypeslib.as_array(buf, shape=shape).copy()
+    finally:
+        lib.webp_free(buf)
 
 
 def read_gray(path: str) -> np.ndarray:

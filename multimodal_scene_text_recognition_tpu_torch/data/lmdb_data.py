@@ -7,9 +7,9 @@
   :func:`keep_ratio_resize`; a record PIL would refuse with an
   ``OSError`` (broken or truncated data, a 12-bit or hierarchical JPEG)
   is a black crop labelled "[dummy_label]", as in JAX.  A record of a kind
-  ``data/images`` leaves to a later slice (WebP, GIF, TIFF,
-  arithmetic-coded or lossless JPEG) raises ``NotImplementedError``: it is
-  no dummy, since JAX reads it.
+  ``data/images`` leaves to a later slice (GIF, TIFF, arithmetic-coded or
+  lossless JPEG) raises ``NotImplementedError``: it is no dummy, since JAX
+  reads it.
 * :class:`ConcatSamples`: sample sequences end to end.
 * :class:`BalancedMixture`: batches that take a fixed quota from each
   source, each source reshuffled by one generator when it runs out.

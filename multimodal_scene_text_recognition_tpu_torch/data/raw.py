@@ -34,9 +34,9 @@ def list_images(root: str) -> List[str]:
 class RawImageFolder:
     """The images under ``root`` as :class:`Sample`s, decoded when read.
     What PIL refuses raises its ``OSError``, as in JAX; a file of a kind
-    ``data/images`` leaves to a later slice (WebP among these extensions;
-    GIF, TIFF, arithmetic-coded or lossless JPEG under another name)
-    raises ``NotImplementedError`` naming it."""
+    ``data/images`` leaves to a later slice (GIF, TIFF, arithmetic-coded or
+    lossless JPEG under one of these extensions) raises
+    ``NotImplementedError`` naming it."""
 
     def __init__(self, root: str, img_h: int = 32, img_w: int = 100):
         self.paths = list_images(root)

@@ -1,7 +1,9 @@
 """Image files written by hand, in the kinds PIL reads and does not write:
 Adam7-interlaced and 16-bit PNG with every filter type, BMP of 1 to 32 bits
-with BI_BITFIELDS and RLE8/RLE4, the PNM variants, and byte edits of JPEG
-files (scans cut, the Adobe transform, the frame's marker and precision).
+with BI_BITFIELDS and RLE8/RLE4, the PNM variants, byte edits of JPEG
+files (scans cut, the Adobe transform, the frame's marker and precision),
+lossless WebP (:func:`webp_lossless`), WebP containers (RIFF, VP8X, ANMF
+chunks) and VP8 key frames of random syntax (:func:`vp8_random_frame`).
 
 numpy, zlib and struct only: the decode tests, ``tests/loader_fixtures.py``
 and ``chip_smoke.py`` (whose card machine has no PIL) write with these.
@@ -244,3 +246,501 @@ def retag_frame(data: bytes, marker: Optional[int] = None, precision: Optional[i
                 d[start + 4] = precision
             return bytes(d)
     raise ValueError("no frame header")
+
+
+# --- WebP -------------------------------------------------------------------------
+
+
+def webp_chunk(tag: bytes, payload: bytes) -> bytes:
+    """A RIFF chunk: its fourcc, its size and the payload, padded to even."""
+    return tag + struct.pack("<I", len(payload)) + payload + b"\0" * (len(payload) & 1)
+
+
+def webp_file(chunks: Sequence[bytes]) -> bytes:
+    """``RIFF <size> WEBP`` and the chunks."""
+    body = b"WEBP" + b"".join(chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def vp8x_chunk(width: int, height: int, flags: int) -> bytes:
+    """The extended header: ``flags`` (0x02 animation, 0x04 XMP, 0x08 EXIF,
+    0x10 alpha, 0x20 ICC) and the canvas size."""
+    return webp_chunk(b"VP8X", struct.pack("<I", flags) + (width - 1).to_bytes(3, "little")
+                      + (height - 1).to_bytes(3, "little"))
+
+
+def anmf_chunk(x: int, y: int, width: int, height: int, frame: bytes, duration: int = 100,
+               bits: int = 0) -> bytes:
+    """An animation frame at (x, y) (even) of width x height whose
+    ``frame`` holds its ALPH/VP8/VP8L chunks."""
+    head = b"".join(v.to_bytes(3, "little") for v in (x // 2, y // 2, width - 1, height - 1,
+                                                       duration))
+    return webp_chunk(b"ANMF", head + bytes([bits]) + frame)
+
+
+class _Bits:
+    """An LSB-first bit stream, the order VP8L reads."""
+
+    def __init__(self):
+        self.values: List[np.ndarray] = []
+        self.lengths: List[np.ndarray] = []
+
+    def put(self, value, n) -> None:
+        self.values.append(np.atleast_1d(np.asarray(value, np.int64)))
+        self.lengths.append(np.broadcast_to(np.asarray(n, np.int64),
+                                            self.values[-1].shape).copy())
+
+    def tobytes(self) -> bytes:
+        v, n = np.concatenate(self.values), np.concatenate(self.lengths)
+        pos = np.concatenate([[0], np.cumsum(n)[:-1]])
+        total = int(n.sum())
+        bits = np.zeros(total + 7, np.uint8)
+        for k in range(int(n.max(initial=0))):
+            on = n > k
+            bits[pos[on] + k] = (v[on] >> k) & 1
+        return np.packbits(bits[:total + (-total) % 8], bitorder="little").tobytes()
+
+
+def _code_lengths(counts: np.ndarray, limit: int) -> np.ndarray:
+    """Huffman code lengths of at most ``limit`` bits for the symbol
+    ``counts`` (at least two symbols used), flattening the counts until
+    the longest code fits."""
+    import heapq
+
+    counts = np.asarray(counts, np.int64)
+    while True:
+        heap = [(int(c), int(s), [int(s)]) for s, c in enumerate(counts) if c > 0]
+        heapq.heapify(heap)
+        lengths = np.zeros(len(counts), np.int64)
+        while len(heap) > 1:
+            c1, t1, s1 = heapq.heappop(heap)
+            c2, t2, s2 = heapq.heappop(heap)
+            lengths[s1 + s2] += 1
+            heapq.heappush(heap, (c1 + c2, min(t1, t2), s1 + s2))
+        if lengths.max() <= limit:
+            return lengths
+        counts = np.where(counts > 0, np.maximum(counts >> 1, 1), 0)
+
+
+def _canonical_codes(lengths: np.ndarray) -> np.ndarray:
+    """The canonical codes of ``lengths``, bit-reversed for an LSB-first
+    stream."""
+    codes = np.zeros(len(lengths), np.int64)
+    code = 0
+    for n in range(1, 16):
+        for s in np.flatnonzero(lengths == n):
+            codes[s] = int(format(code, f"0{n}b")[::-1], 2)
+            code += 1
+        code <<= 1
+    return codes
+
+
+def _prefix_code(bits: _Bits, counts: np.ndarray):
+    """Write the prefix code for the symbol ``counts``; returns (codes,
+    lengths) to write the symbols with.  One used symbol (or none): the
+    simple code; else a normal code whose code lengths are coded with a
+    code-length code (no repeat codes)."""
+    used = np.flatnonzero(counts)
+    if len(used) <= 1:
+        s = int(used[0]) if len(used) else 0
+        bits.put([1, 0, int(s > 1)], [1, 1, 1])
+        bits.put(s, 8 if s > 1 else 1)
+        return np.zeros(len(counts), np.int64), np.zeros(len(counts), np.int64)
+    lengths = _code_lengths(counts, 15)
+    cl_counts = np.bincount(lengths, minlength=19)
+    if np.count_nonzero(cl_counts) == 1:
+        cl_lengths = (cl_counts > 0).astype(np.int64)  # one symbol: no bits
+    else:
+        cl_lengths = _code_lengths(cl_counts, 7)
+    order = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+    n = max(4, max(i + 1 for i, s in enumerate(order) if cl_lengths[s]))
+    bits.put([0, n - 4], [1, 4])
+    bits.put([cl_lengths[s] for s in order[:n]], 3)
+    bits.put(0, 1)  # every symbol's length is coded
+    if np.count_nonzero(cl_counts) > 1:  # else the one code length takes no bits
+        bits.put(_canonical_codes(cl_lengths)[lengths], cl_lengths[lengths])
+    return _canonical_codes(lengths), lengths
+
+
+def _entropy_image(bits: _Bits, argb: np.ndarray, main: bool = False) -> None:
+    """The pixels ``argb`` (uint32, flat) as literals: no colour cache (and
+    for the ``main`` image one group of prefix codes), the five prefix
+    codes, then green, red, blue and alpha of each pixel."""
+    bits.put(0, 1)  # no colour cache
+    if main:
+        bits.put(0, 1)  # no entropy image: one group of codes
+    chans = [(argb >> 8) & 0xff, (argb >> 16) & 0xff, argb & 0xff, argb >> 24]
+    sizes = (280, 256, 256, 256, 40)
+    table = []
+    for ch, size in zip(chans + [None], sizes):
+        counts = np.zeros(size, np.int64) if ch is None else np.bincount(ch, minlength=size)
+        table.append(_prefix_code(bits, counts))
+    vals = np.stack([table[j][0][c] for j, c in enumerate(chans)], 1)
+    lens = np.stack([table[j][1][c] for j, c in enumerate(chans)], 1)
+    bits.put(vals.ravel(), lens.ravel())
+
+
+def _avg(a, b):
+    return (a + b) >> 1
+
+
+def _predictions(p: np.ndarray) -> List[np.ndarray]:
+    """The 14 VP8L predictors of every pixel of ``p`` (int64 [H, W, 4], one
+    channel a byte) from its left, top, top-left and top-right neighbours
+    (the top-right of the last column is the row's first pixel)."""
+    L = np.roll(p, 1, axis=1)
+    T = np.roll(p, 1, axis=0)
+    TL = np.roll(T, 1, axis=1)
+    TR = np.roll(T, -1, axis=1)
+    TR[:, -1] = p[:, 0]
+    black = np.zeros_like(p)
+    black[..., 3] = 255
+    sel = np.abs(L - TL).sum(-1, keepdims=True) - np.abs(T - TL).sum(-1, keepdims=True)
+    a = _avg(L, T)
+    return [black, L, T, TR, TL, _avg(_avg(L, TR), T), _avg(L, TL), _avg(L, T), _avg(TL, T),
+            _avg(T, TR), _avg(_avg(L, TL), _avg(T, TR)), np.where(sel <= 0, T, L),
+            np.clip(L + T - TL, 0, 255),
+            np.clip(a + np.trunc((a - TL) / 2).astype(np.int64), 0, 255)]
+
+
+def webp_lossless(img: np.ndarray, size_bits: int = 4) -> bytes:
+    """``img`` (uint8 [H, W] grey, [H, W, 3] RGB or [H, W, 4] RGBA) as a
+    lossless WebP (VP8L): the subtract-green transform, then the predictor
+    transform with each ``2**size_bits`` tile's mode the one of the 14 with
+    the smallest residuals, then Huffman-coded literals.  Reads back as
+    ``img`` exactly (PIL and ``data/images``)."""
+    img = np.asarray(img, np.uint8)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, 2)
+    h, w = img.shape[:2]
+    alpha = img[..., 3] if img.shape[2] == 4 else np.full((h, w), 255, np.uint8)
+    # ARGB planes as (B, G, R, A) bytes, green subtracted from red and blue
+    p = np.stack([img[..., 2], img[..., 1], img[..., 0], alpha], -1).astype(np.int64)
+    p[..., 0] = (p[..., 0] - p[..., 1]) & 0xff
+    p[..., 2] = (p[..., 2] - p[..., 1]) & 0xff
+    preds = _predictions(p)
+    res = [(p - q) & 0xff for q in preds]
+    cost = [np.minimum(r, 256 - r).sum(-1) for r in res]
+    tile = 1 << size_bits
+    th, tw = -(-h // tile), -(-w // tile)
+    pad = lambda c: np.pad(c, ((0, th * tile - h), (0, tw * tile - w)))
+    tiles = np.stack([pad(c).reshape(th, tile, tw, tile).sum((1, 3)) for c in cost])
+    modes = tiles.argmin(0)
+    mode_px = np.repeat(np.repeat(modes, tile, 0), tile, 1)[:h, :w]
+    mode_px[0, :] = 1  # the top row predicts from the left
+    mode_px[:, 0] = 2  # the left column from the top
+    mode_px[0, 0] = 0  # the first pixel from black
+    r = np.take_along_axis(np.stack(res), mode_px[None, :, :, None], 0)[0]
+    argb = (r[..., 3] << 24) | (r[..., 2] << 16) | (r[..., 1] << 8) | r[..., 0]
+    bits = _Bits()
+    bits.put([0x2f, w - 1, h - 1, int((alpha != 255).any()), 0], [8, 14, 14, 1, 3])
+    bits.put([1, 2], [1, 2])  # subtract green
+    bits.put([1, 0, size_bits - 2], [1, 2, 3])  # predictor, its tile size
+    _entropy_image(bits, (modes.ravel().astype(np.int64) << 8))
+    bits.put(0, 1)  # no more transforms
+    _entropy_image(bits, argb.ravel(), main=True)
+    return webp_file([webp_chunk(b"VP8L", bits.tobytes())])
+
+
+class BoolWriter:
+    """The VP8 boolean entropy encoder (RFC 6386, 7.3)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.range, self.bottom, self.bit_count = 255, 0, 24
+
+    def _carry(self):
+        i = len(self.out) - 1
+        while self.out[i] == 255:
+            self.out[i] = 0
+            i -= 1
+        self.out[i] += 1
+
+    def put(self, bit: int, prob: int) -> None:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.bit_count -= 1
+            if not self.bit_count:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= (1 << 24) - 1
+                self.bit_count = 8
+
+    def value(self, v: int, n: int) -> None:
+        for k in range(n - 1, -1, -1):
+            self.put((v >> k) & 1, 128)
+
+    def signed(self, v: int, n: int) -> None:
+        self.value(abs(v), n)
+        self.put(int(v < 0), 128)
+
+    def flag_signed(self, v: int, n: int) -> None:
+        """A field present only when non-zero: its flag, then the value."""
+        self.put(int(v != 0), 128)
+        if v:
+            self.signed(v, n)
+
+    def finish(self) -> bytes:
+        c, v = self.bit_count, self.bottom
+        if v & (1 << (32 - c)):
+            self._carry()
+        v = (v << (c & 7)) & 0xFFFFFFFF
+        for _ in range(c >> 3):
+            v = (v << 8) & 0xFFFFFFFF
+        for _ in range(4):
+            self.out.append(v >> 24)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out)
+
+
+# libwebp's order of the 4x4 modes (DC, TM, VE, HE, RD, VR, LD, VL, HD, HU)
+# and the bits of each on the key-frame tree, node by node: (probability
+# index, bit)
+_BMODE_BITS = ([(0, 0)], [(0, 1), (1, 0)], [(0, 1), (1, 1), (2, 0)],
+               [(0, 1), (1, 1), (2, 1), (3, 0), (4, 0)],
+               [(0, 1), (1, 1), (2, 1), (3, 0), (4, 1), (5, 0)],
+               [(0, 1), (1, 1), (2, 1), (3, 0), (4, 1), (5, 1)],
+               [(0, 1), (1, 1), (2, 1), (3, 1), (6, 0)],
+               [(0, 1), (1, 1), (2, 1), (3, 1), (6, 1), (7, 0)],
+               [(0, 1), (1, 1), (2, 1), (3, 1), (6, 1), (7, 1), (8, 0)],
+               [(0, 1), (1, 1), (2, 1), (3, 1), (6, 1), (7, 1), (8, 1)])
+_BANDS = (0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7, 0)
+_CATS = ((173, 148, 140), (176, 155, 140, 135), (180, 157, 141, 134, 130),
+         (254, 254, 243, 230, 196, 177, 153, 140, 133, 130, 129))
+
+
+def _large_value(bw: BoolWriter, v: int, p) -> None:
+    """GetLargeValue's bits for v >= 2."""
+    if v <= 4:
+        bw.put(0, p[3])
+        bw.put(int(v > 2), p[4])
+        if v > 2:
+            bw.put(v - 3, p[5])
+    elif v <= 10:
+        bw.put(1, p[3])
+        bw.put(0, p[6])
+        bw.put(int(v > 6), p[7])
+        if v <= 6:
+            bw.put(v - 5, 159)
+        else:
+            bw.put((v - 7) >> 1, 165)
+            bw.put((v - 7) & 1, 145)
+    else:
+        cat = 0 if v < 19 else 1 if v < 35 else 2 if v < 67 else 3
+        bw.put(1, p[3])
+        bw.put(1, p[6])
+        bw.put(cat >> 1, p[8])
+        bw.put(cat & 1, p[9 + (cat >> 1)])
+        extra, probs = v - 3 - (8 << cat), _CATS[cat]
+        for k, prob in enumerate(probs):
+            bw.put((extra >> (len(probs) - 1 - k)) & 1, prob)
+
+
+def _tokens(bw: BoolWriter, probas, ctx: int, first: int, levels, to_end: bool) -> int:
+    """One block's tokens (``levels`` in zigzag order) from position
+    ``first``; ``to_end`` ends a block with a run of zeros to position 16
+    where an EOB would do (libwebp reads both).  Returns what libwebp's
+    GetCoeffs returns: the position after the last token."""
+    nz = [i for i in range(first, 16) if levels[i]]
+    last = nz[-1] if nz else -1
+    n, p = first, probas[_BANDS[first]][ctx]
+    while n < 16:
+        if n > last and not (to_end and n < 16):
+            bw.put(0, p[0])  # end of block
+            return n
+        bw.put(1, p[0])
+        while not levels[n]:
+            bw.put(0, p[1])
+            n += 1
+            if n == 16:
+                return 16
+            p = probas[_BANDS[n]][0]
+        bw.put(1, p[1])
+        v = abs(int(levels[n]))
+        if v == 1:
+            bw.put(0, p[2])
+        else:
+            bw.put(1, p[2])
+            _large_value(bw, v, p)
+        bw.put(int(levels[n] < 0), 128)
+        n += 1
+        p = probas[_BANDS[n]][1 if v == 1 else 2]
+    return 16
+
+
+def vp8_random_frame(width: int, height: int, seed: int, tables, **opts) -> bytes:
+    """A VP8 key frame of random but valid syntax (RFC 6386), its header
+    switches drawn from ``seed`` unless ``opts`` sets them: segments with a
+    map and absolute or relative quantizers and filter levels, the simple
+    or the normal loop filter with sharpness and mode deltas, 1, 2, 4 or 8
+    token partitions, quantizer deltas, coefficient probability updates,
+    the skip flag on or off, every 16x16, 4x4 and chroma mode, levels up to
+    DCT_CAT6's 2114.  ``tables`` gives RFC 6386's (coeff_update, coeff,
+    bmode) probabilities as nested lists [4][8][3][11], [4][8][3][11] and
+    [10][10][9] (the 4x4 modes in libwebp's order).  Returns the frame
+    (the payload of a ``VP8 `` chunk)."""
+    update_probs, default_probs, bmode_probs = tables
+    rng = np.random.default_rng(seed)
+    o = dict(
+        segments=bool(rng.random() < 0.6), update_map=bool(rng.random() < 0.7),
+        absolute=bool(rng.random() < 0.5), simple=bool(rng.random() < 0.4),
+        level=int(rng.integers(0, 64)), sharpness=int(rng.integers(0, 8)),
+        lf_delta=bool(rng.random() < 0.5), partitions=int(rng.integers(0, 4)),
+        skip=bool(rng.random() < 0.5), base_q=int(rng.integers(0, 128)),
+        big=float(rng.choice([0.0, 0.02, 0.2])), profile=int(rng.integers(0, 4)))
+    o.update(opts)
+    mb_w, mb_h = (width + 15) >> 4, (height + 15) >> 4
+    bw = BoolWriter()
+    bw.put(int(rng.integers(0, 2)), 128)  # colour space
+    bw.put(int(rng.integers(0, 2)), 128)  # clamping type
+    bw.put(int(o["segments"]), 128)
+    seg_probs = [255, 255, 255]
+    if o["segments"]:
+        bw.put(int(o["update_map"]), 128)
+        update_data = bool(rng.random() < 0.8)
+        bw.put(int(update_data), 128)
+        if update_data:
+            bw.put(int(o["absolute"]), 128)
+            for _ in range(4):
+                bw.flag_signed(int(rng.integers(-127, 128)) * int(rng.random() < 0.8), 7)
+            for _ in range(4):
+                bw.flag_signed(int(rng.integers(-63, 64)) * int(rng.random() < 0.8), 6)
+        if o["update_map"]:
+            for s in range(3):
+                seg_probs[s] = int(rng.integers(0, 256)) if rng.random() < 0.8 else 255
+                bw.put(int(seg_probs[s] != 255), 128)
+                if seg_probs[s] != 255:
+                    bw.value(seg_probs[s], 8)
+    bw.put(int(o["simple"]), 128)
+    bw.value(o["level"], 6)
+    bw.value(o["sharpness"], 3)
+    bw.put(int(o["lf_delta"]), 128)
+    if o["lf_delta"]:
+        update = bool(rng.random() < 0.8)
+        bw.put(int(update), 128)
+        if update:
+            for _ in range(8):
+                bw.flag_signed(int(rng.integers(-63, 64)) * int(rng.random() < 0.6), 6)
+    bw.value(o["partitions"], 2)
+    bw.value(o["base_q"], 7)
+    for _ in range(5):  # y1 dc, y2 dc, y2 ac, uv dc, uv ac deltas
+        bw.flag_signed(int(rng.integers(-15, 16)) * int(rng.random() < 0.5), 4)
+    bw.put(int(rng.integers(0, 2)), 128)  # refresh entropy probabilities
+    probas = [[[list(c) for c in b] for b in t] for t in default_probs]
+    for t in range(4):
+        for b in range(8):
+            for c in range(3):
+                for p in range(11):
+                    upd = bool(rng.random() < 0.15)
+                    bw.put(int(upd), update_probs[t][b][c][p])
+                    if upd:
+                        probas[t][b][c][p] = int(rng.integers(0, 256))
+                        bw.value(probas[t][b][c][p], 8)
+    bw.put(int(o["skip"]), 128)
+    skip_prob = int(rng.integers(0, 256))
+    if o["skip"]:
+        bw.value(skip_prob, 8)
+
+    parts = [BoolWriter() for _ in range(1 << o["partitions"])]
+    intra_t = [0] * (4 * mb_w)
+    nz_top = [[0, 0] for _ in range(mb_w)]  # (nz, nz_dc) a column
+    for mb_y in range(mb_h):
+        intra_l = [0] * 4
+        blocks = []
+        for mb_x in range(mb_w):  # the modes, in the first partition
+            if o["segments"] and o["update_map"]:
+                seg = int(rng.integers(0, 4))
+                bw.put(seg >> 1, seg_probs[0])
+                bw.put(seg & 1, seg_probs[1 + (seg >> 1)])
+            skipped = bool(o["skip"] and rng.random() < 0.3)
+            if o["skip"]:
+                bw.put(int(skipped), skip_prob)
+            i4x4 = bool(rng.random() < 0.5)
+            bw.put(int(not i4x4), 145)
+            top = intra_t[4 * mb_x:4 * mb_x + 4]
+            if not i4x4:
+                ymode = int(rng.integers(0, 4))  # DC, TM, VE, HE
+                bits = {0: [(156, 0), (163, 0)], 2: [(156, 0), (163, 1)],
+                        3: [(156, 1), (128, 0)], 1: [(156, 1), (128, 1)]}[ymode]
+                for prob, bit in bits:
+                    bw.put(bit, prob)
+                top, intra_l = [ymode] * 4, [ymode] * 4
+            else:
+                for y in range(4):
+                    left = intra_l[y]
+                    for x in range(4):
+                        mode = int(rng.integers(0, 10))
+                        for k, bit in _BMODE_BITS[mode]:
+                            bw.put(bit, bmode_probs[top[x]][left][k])
+                        top[x] = left = mode
+                    intra_l[y] = left
+            intra_t[4 * mb_x:4 * mb_x + 4] = top
+            uv = int(rng.integers(0, 4))
+            for prob, bit in {0: [(142, 0)], 2: [(142, 1), (114, 0)],
+                              1: [(142, 1), (114, 1), (183, 1)],
+                              3: [(142, 1), (114, 1), (183, 0)]}[uv]:
+                bw.put(bit, prob)
+            blocks.append((i4x4, skipped))
+        part = parts[mb_y & (len(parts) - 1)]
+        left = [0, 0]
+        for mb_x, (i4x4, skipped) in enumerate(blocks):  # the tokens
+            top = nz_top[mb_x]
+            if skipped:
+                top[0] = left[0] = 0
+                if not i4x4:
+                    top[1] = left[1] = 0
+                continue
+
+            def levels(n_first):
+                lv = np.zeros(16, np.int64)
+                count = int(rng.integers(0, 17 - n_first)) if rng.random() < 0.8 else 0
+                for i in rng.choice(np.arange(n_first, 16), count, replace=False):
+                    lv[i] = int(rng.integers(1, 12)) if rng.random() > o["big"] else int(
+                        rng.integers(12, 2115))
+                    lv[i] *= 1 if rng.random() < 0.5 else -1
+                return lv
+
+            to_end = lambda: bool(rng.random() < 0.1)  # noqa: E731
+            first = 0
+            if not i4x4:
+                nz = _tokens(part, probas[1], top[1] + left[1], 0, levels(0), to_end())
+                top[1] = left[1] = int(nz > 0)
+                first = 1
+            tnz, lnz = top[0] & 0x0f, left[0] & 0x0f
+            for y in range(4):
+                lbit = lnz & 1
+                for x in range(4):
+                    nz = _tokens(part, probas[0 if not i4x4 else 3], lbit + (tnz & 1), first,
+                                 levels(first), to_end())
+                    lbit = int(nz > first)
+                    tnz = (tnz >> 1) | (lbit << 7)
+                tnz >>= 4
+                lnz = (lnz >> 1) | (lbit << 7)
+            out_t, out_l = tnz, lnz >> 4
+            for ch in (0, 2):
+                tnz, lnz = top[0] >> (4 + ch), left[0] >> (4 + ch)
+                for y in range(2):
+                    lbit = lnz & 1
+                    for x in range(2):
+                        nz = _tokens(part, probas[2], lbit + (tnz & 1), 0, levels(0), to_end())
+                        lbit = int(nz > 0)
+                        tnz = (tnz >> 1) | (lbit << 3)
+                    tnz >>= 2
+                    lnz = (lnz >> 1) | (lbit << 5)
+                out_t |= (tnz << 4) << ch
+                out_l |= (lnz & 0xf0) << ch
+            top[0], left[0] = out_t & 0xff, out_l & 0xff
+    first_part = bw.finish()
+    token_parts = [p.finish() for p in parts]
+    tag = (o["profile"] << 1) | (1 << 4) | (len(first_part) << 5)  # key frame, shown
+    head = struct.pack("<I", tag)[:3] + b"\x9d\x01\x2a" + struct.pack("<HH", width, height)
+    sizes = b"".join(struct.pack("<I", len(p))[:3] for p in token_parts[:-1])
+    return head + first_part + sizes + b"".join(token_parts)

@@ -29,9 +29,13 @@ a CMYK JPEG), twelve word crops in the lossy kinds the port's decoder
 gained (progressive at each sampling, one with its last three scans cut so
 that libjpeg smooths its blocks; CMYK with and without the Adobe marker,
 YCCK), ``labels.json``, and two JPEGs PIL refuses with an OSError
-(``twelve_bit.jpg``, ``hierarchical.jpg``).  The lossless kinds (Adam7 and
-16-bit PNG, BMP, PNM) are written where they are used, by
-``tests/image_writers.py``.
+(``twelve_bit.jpg``, ``hierarchical.jpg``); and, by :func:`make_webp_files`,
+the WebP files of ``WEBP_FILES`` and ``WEBP_PAGES`` (PIL's save, or
+libwebp's advanced API through :func:`libwebp_encode` for what PIL's save
+does not pass on, or built by hand), a truncated and a corrupt WebP, and
+the 192 committed crops as lossy WebP in one ``webp_crops_q30.npz``.  The
+lossless kinds (Adam7 and 16-bit PNG, BMP, PNM, lossless WebP) are
+written where they are used, by ``tests/image_writers.py``.
 
 :func:`expected` reads the committed files back with PIL and the JAX
 package: PIL's ``convert("L")`` of every page and crop, JAX's
@@ -40,8 +44,10 @@ vectors) and the strings the trained flagship reads from them in float32
 with each step's top-2 logit gap; for ``formats/``, PIL's decode of each
 file (``format/<name>``) and the flagship's float32 strings and gaps of the
 lossy crops read as JAX's ``RawImageFolder`` reads them
-(``format_crops/...``).  A tier-1 test recomputes it and checks it equals
-the committed ``expected.npz``.
+(``format_crops/...``); for the WebP files and crops, the sha256 of PIL's
+decode (``format_webp/<name>``, ``format_webp_crops/sha256``: their arrays
+would take the directory past the 2 MB its test allows).  A tier-1 test
+recomputes it and checks it equals the committed ``expected.npz``.
 """
 
 from __future__ import annotations
@@ -304,10 +310,235 @@ def make_format_files(out: Path = OUT) -> None:
     base = (out / "crops" / "crop_03.jpg").read_bytes()
     (fmt / "twelve_bit.jpg").write_bytes(iw.retag_frame(base, precision=12))
     (fmt / "hierarchical.jpg").write_bytes(iw.retag_frame(base, marker=0xC5))
+    make_webp_files(out)
+
+
+# WebP files of formats/: (file name, the committed crop or page it is made
+# from, how).  "libwebp" options go to libwebp's advanced encoder API (the
+# simple loop filter and the filter sharpness, raw alpha), which PIL's save
+# does not reach; "pad" adds a flat margin (at method 0 libwebp then turns
+# the macroblock skip flag on); "colors" quantizes first (colour indexing with 2, 4 or 16
+# colours bundles 8, 4 or 2 pixels a byte); "alpha" adds an alpha plane of
+# 255, 128 and 0 bands; "anim" saves the crop and its mirror as two frames;
+# "small_first" builds an animation by hand whose first frame is smaller
+# than its canvas.
+WEBP_FILES = (
+    ("webp_lossless_m0.webp", "crop_13.jpg", dict(lossless=True, method=0)),
+    ("webp_lossless_m3.webp", "crop_09.jpg", dict(lossless=True, method=3, quality=50)),
+    ("webp_lossless_m6.webp", "crop_01.jpg", dict(lossless=True, method=6, quality=100)),
+    ("webp_lossless_rgba_exact.webp", "crop_08.jpg", dict(lossless=True, exact=True, alpha=True)),
+    ("webp_palette_2.webp", "crop_12.jpg", dict(lossless=True, colors=2)),
+    ("webp_palette_4.webp", "crop_06.jpg", dict(lossless=True, colors=4)),
+    ("webp_palette_16.webp", "crop_03.jpg", dict(lossless=True, colors=16)),
+    ("webp_lossy_q10.webp", "crop_00.jpg", dict(quality=10)),
+    ("webp_lossy_q50.webp", "crop_02.jpg", dict(quality=50)),
+    ("webp_lossy_q95.webp", "crop_13.jpg", dict(quality=95)),
+    ("webp_lossy_skip.webp", "crop_10.jpg", dict(quality=40, method=0, pad=40)),
+    ("webp_alpha_raw.webp", "crop_06.jpg",
+     dict(alpha=True, libwebp=dict(quality=60, alpha_compression=0))),
+    ("webp_alpha_lossless.webp", "crop_08.jpg", dict(quality=60, alpha=True, alpha_quality=100)),
+    ("webp_alpha_q20.webp", "crop_03.jpg", dict(quality=60, alpha=True, alpha_quality=20)),
+    ("webp_simple_filter.webp", "crop_05.jpg",
+     dict(libwebp=dict(quality=70, filter_type=0, filter_strength=80, filter_sharpness=3))),
+    ("webp_sharpness_7.webp", "crop_11.jpg",
+     dict(libwebp=dict(quality=35, filter_strength=100, filter_sharpness=7, sns_strength=100))),
+    ("webp_vp8x_meta.webp", "crop_09.jpg",
+     dict(quality=75, icc_profile=b"\0" * 131, exif=b"Exif\0\0" + bytes(range(40)),
+          xmp=b"<x:xmpmeta/>")),
+    ("webp_anim.webp", "crop_04.jpg", dict(quality=70, anim=True)),
+    ("webp_anim_small_first.webp", "crop_12.jpg", dict(small_first=True)),
+)
+WEBP_PAGES = (("page_0_lossy.webp", "page_0.jpg", dict(quality=50)),)
+# a lossy crop cut in half, and a lossless one with a byte of its image data
+# flipped (libwebp, and PIL, refuse both)
+WEBP_REFUSED = ("webp_truncated.webp", "webp_corrupt.webp")
+# the 192 crops that chip_smoke.py recognizes from a folder, as lossy WebP
+WEBP_CROPS, WEBP_CROPS_N, WEBP_CROPS_QUALITY = "webp_crops_q30.npz", 192, 30
+
+# the fields of libwebp's WebPConfig, in order (4 bytes each)
+_WEBP_CONFIG = ("lossless", "quality", "method", "image_hint", "target_size", "target_PSNR",
+                "segments", "sns_strength", "filter_strength", "filter_sharpness", "filter_type",
+                "autofilter", "alpha_compression", "alpha_filtering", "alpha_quality", "pass",
+                "show_compressed", "preprocessing", "partitions", "partition_limit",
+                "emulate_jpeg_size", "thread_level", "low_memory", "near_lossless", "exact",
+                "use_delta_palette", "use_sharp_yuv", "qmin", "qmax")
+
+
+def libwebp_encode(rgb: np.ndarray, **config) -> bytes:
+    """``rgb`` (uint8 [H, W, 3] or [H, W, 4]) encoded by the libwebp that
+    Pillow bundles, through its advanced API (``WebPConfig`` fields by name)
+    by ``ctypes``: the options PIL's save does not pass on."""
+    import ctypes
+    from pathlib import Path as P
+
+    import PIL
+
+    libs = P(PIL.__file__).parent.parent / "pillow.libs"
+    for dep in sorted(libs.glob("libsharpyuv*.so*")):
+        ctypes.CDLL(str(dep), mode=ctypes.RTLD_GLOBAL)
+    lib = ctypes.CDLL(str(sorted(libs.glob("libwebp-*.so*"))[0]))
+    abi = 0x0210
+    cfg = (ctypes.c_int32 * 64)()
+    if not lib.WebPConfigInitInternal(cfg, 0, ctypes.c_float(75.0), abi):
+        raise RuntimeError("libwebp: WebPConfigInit failed")
+    for key, value in config.items():
+        typ = ctypes.c_float if key in ("quality", "target_PSNR") else ctypes.c_int32
+        ctypes.cast(ctypes.byref(cfg, 4 * _WEBP_CONFIG.index(key)), ctypes.POINTER(typ))[0] = value
+    if not lib.WebPValidateConfig(cfg):
+        raise ValueError(f"libwebp refuses the config {config}")
+
+    class Writer(ctypes.Structure):
+        _fields_ = [("mem", ctypes.POINTER(ctypes.c_uint8)), ("size", ctypes.c_size_t),
+                    ("max_size", ctypes.c_size_t), ("pad", ctypes.c_uint32)]
+
+    pic = (ctypes.c_uint64 * 64)()  # WebPPicture, zeroed and set by its init
+    if not lib.WebPPictureInitInternal(pic, abi):
+        raise RuntimeError("libwebp: WebPPictureInit failed")
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    h, w, c = rgb.shape
+    ints = ctypes.cast(pic, ctypes.POINTER(ctypes.c_int32))
+    ints[0], ints[2], ints[3] = 0, w, h  # use_argb, width, height
+    importer = lib.WebPPictureImportRGBA if c == 4 else lib.WebPPictureImportRGB
+    writer = Writer()
+    lib.WebPMemoryWriterInit(ctypes.byref(writer))
+    try:
+        if not importer(pic, rgb.ctypes.data_as(ctypes.c_void_p), w * c):
+            raise RuntimeError("libwebp: import failed")
+        ptrs = ctypes.cast(pic, ctypes.POINTER(ctypes.c_void_p))
+        ptrs[12] = ctypes.cast(lib.WebPMemoryWrite, ctypes.c_void_p).value  # writer
+        ptrs[13] = ctypes.addressof(writer)  # custom_ptr
+        if not lib.WebPEncode(cfg, pic):
+            raise RuntimeError("libwebp: WebPEncode failed")
+        return ctypes.string_at(writer.mem, writer.size)
+    finally:
+        lib.WebPPictureFree(pic)
+        lib.WebPMemoryWriterClear(ctypes.byref(writer))
+
+
+def _alpha_bands(rgb: np.ndarray) -> np.ndarray:
+    """``rgb`` with an alpha plane: 255 on the left half, then bands of 128
+    and 0."""
+    h, w = rgb.shape[:2]
+    alpha = np.full((h, w), 255, np.uint8)
+    alpha[:, w // 2:] = np.where(np.arange(w - w // 2) % 6 < 3, 128, 0)
+    return np.dstack([rgb, alpha])
+
+
+def _riff_chunks(data: bytes):
+    """The (fourcc, payload) chunks of a WebP file."""
+    pos, out = 12, []
+    while pos + 8 <= len(data):
+        size = int.from_bytes(data[pos + 4:pos + 8], "little")
+        out.append((data[pos:pos + 4], data[pos + 8:pos + 8 + size]))
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def webp_encode(rgb: np.ndarray, how: dict) -> bytes:
+    """``rgb`` as a WebP file as ``how`` says (see WEBP_FILES)."""
+    import io
+
+    import image_writers as iw
+    from PIL import Image
+
+    how = dict(how)
+    pad = how.pop("pad", 0)
+    if pad:  # a flat margin: macroblocks without residuals
+        rgb = np.pad(rgb, ((pad, pad), (pad, pad), (0, 0)), constant_values=128)
+    if how.pop("alpha", False):
+        rgb = _alpha_bands(rgb)
+    colors = how.pop("colors", 0)
+    if colors:
+        rgb = np.asarray(Image.fromarray(rgb).quantize(colors).convert("RGB"))
+    if "libwebp" in how:
+        return libwebp_encode(rgb, **how["libwebp"])
+    if how.pop("anim", False):
+        buf = io.BytesIO()
+        Image.fromarray(rgb).save(buf, format="WEBP", save_all=True,
+                                  append_images=[Image.fromarray(rgb[::-1].copy())],
+                                  duration=100, loop=0, **how)
+        return buf.getvalue()
+    if how.pop("small_first", False):
+        # frame 0, lossy with alpha, at (4, 6) of a canvas 10 and 8 pixels
+        # larger; frame 1, lossless, over all of it
+        h, w = rgb.shape[:2]
+        buf = io.BytesIO()
+        Image.fromarray(_alpha_bands(rgb)).save(buf, format="WEBP", quality=60)
+        first = b"".join(iw.webp_chunk(t, p) for t, p in _riff_chunks(buf.getvalue())
+                         if t in (b"ALPH", b"VP8 "))
+        whole = np.pad(rgb, ((6, 2), (4, 6), (0, 0)), mode="edge")
+        buf = io.BytesIO()
+        Image.fromarray(whole).save(buf, format="WEBP", lossless=True)
+        second = b"".join(iw.webp_chunk(t, p) for t, p in _riff_chunks(buf.getvalue())
+                          if t == b"VP8L")
+        return iw.webp_file([iw.vp8x_chunk(w + 10, h + 8, 0x02 | 0x10),
+                             iw.webp_chunk(b"ANIM", bytes(6)),
+                             iw.anmf_chunk(4, 6, w, h, first),
+                             iw.anmf_chunk(0, 0, w + 10, h + 8, second)])
+    buf = io.BytesIO()
+    Image.fromarray(rgb).save(buf, format="WEBP", **how)
+    return buf.getvalue()
+
+
+def webp_crops(out: Path = OUT):
+    """The WebP files of ``formats/webp_crops_q30.npz``: a list of bytes."""
+    with np.load(out / "formats" / WEBP_CROPS) as z:
+        data, ends = z["data"].tobytes(), z["ends"]
+    return [data[a:b] for a, b in zip(np.concatenate([[0], ends[:-1]]), ends)]
+
+
+def gray_sha256(img: np.ndarray) -> np.ndarray:
+    """sha256 of a decoded image's shape and bytes, as uint8 [32]: the
+    expectation kept for the WebP pages and the 192 crops, whose arrays
+    would take the fixture directory past its 2 MB."""
+    import hashlib
+
+    img = np.ascontiguousarray(img, np.uint8)
+    digest = hashlib.sha256(str(img.shape).encode() + img.tobytes()).digest()
+    return np.frombuffer(digest, np.uint8).copy()
+
+
+def make_webp_files(out: Path = OUT) -> None:
+    """Write the WebP files of ``formats/`` from the committed pages and
+    crops, and the 192 lossy crops from the committed validation set."""
+    import io
+
+    from PIL import Image
+
+    fmt = out / "formats"
+    fmt.mkdir(parents=True, exist_ok=True)
+    for name, src, how in WEBP_FILES:
+        rgb = np.asarray(Image.open(out / "crops" / src).convert("RGB"))
+        (fmt / name).write_bytes(webp_encode(rgb, how))
+    for name, src, how in WEBP_PAGES:
+        rgb = np.asarray(Image.open(out / src).convert("RGB"))
+        (fmt / name).write_bytes(webp_encode(rgb, how))
+    lossy = webp_encode(np.asarray(Image.open(out / "crops" / "crop_07.jpg").convert("RGB")),
+                        dict(quality=80))
+    (fmt / "webp_truncated.webp").write_bytes(lossy[:len(lossy) // 2])
+    lossless = bytearray((fmt / "webp_lossless_m3.webp").read_bytes())
+    for pos in range(len(lossless) // 2, len(lossless)):  # the first flip PIL refuses
+        data = bytearray(lossless)
+        data[pos] ^= 0xff
+        try:
+            Image.open(io.BytesIO(bytes(data))).convert("L")
+        except OSError:
+            break
+    (fmt / "webp_corrupt.webp").write_bytes(bytes(data))
+    with np.load(VAL_SET) as z:
+        crops = z["image"][:WEBP_CROPS_N, ..., 0]
+    files = [webp_encode(np.repeat(c[..., None], 3, 2), dict(quality=WEBP_CROPS_QUALITY))
+             for c in crops]
+    np.savez(fmt / WEBP_CROPS, data=np.frombuffer(b"".join(files), np.uint8),
+             ends=np.cumsum([len(f) for f in files]))
 
 
 def format_files(out: Path = OUT):
     return [name for name, _, _ in FORMAT_PAGES + FORMAT_CROPS]
+
+
+def webp_files(out: Path = OUT):
+    return [name for name, _, _ in WEBP_FILES + WEBP_PAGES]
 
 
 def format_crop_files(out: Path = OUT):
@@ -380,6 +611,8 @@ def jax_flagship_read(images: np.ndarray):
 
 def expected(out: Path = OUT, strings: bool = True) -> dict:
     """What PIL and the JAX package read from the committed files."""
+    import io
+
     from PIL import Image
 
     from multimodal_scene_text_recognition_tpu.data.cocotext import get_cocotext_datasets
@@ -413,6 +646,10 @@ def expected(out: Path = OUT, strings: bool = True) -> dict:
         texts, gaps = jax_flagship_read(np.stack([folder[i].image for i in range(len(names))]))
         exp["format_crops/jax_f32_text"] = np.asarray(texts)
         exp["format_crops/jax_f32_top2_gap"] = gaps.astype(np.float32)
+    for name in webp_files(out):
+        exp[f"format_webp/{name}"] = gray_sha256(Image.open(fmt / name).convert("L"))
+    exp["format_webp_crops/sha256"] = np.stack(
+        [gray_sha256(Image.open(io.BytesIO(f)).convert("L")) for f in webp_crops(out)])
     return exp
 
 

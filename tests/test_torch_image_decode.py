@@ -1,10 +1,11 @@
 """The port's image decoding, resizing and cropping (``data/images``, the C++
-of ``native/imgdecode.cpp``) against PIL, which the JAX loaders call, and
-its numpy mirror (``data/images_plain``) against the C++: bit for bit on
-every case.  Images are made here from seeded arrays, by PIL or, in the
-kinds PIL does not write, by ``tests/image_writers.py``; the kinds the
-mirror does not cover (progressive and CMYK/YCCK JPEG, interlaced and
-16-bit PNG, the other BMPs and PNMs) are held to PIL alone."""
+of ``native/imgdecode.cpp`` and ``native/webpdecode.cpp``) against PIL,
+which the JAX loaders call, and its numpy mirror (``data/images_plain``)
+against the C++: bit for bit on every case.  Images are made here from
+seeded arrays, by PIL or, in the kinds PIL does not write, by
+``tests/image_writers.py``; the kinds the mirror does not cover
+(progressive and CMYK/YCCK JPEG, interlaced and 16-bit PNG, the other BMPs
+and PNMs, WebP) are held to PIL alone."""
 
 import io
 import struct
@@ -244,7 +245,6 @@ def test_broken_data_raises_oserror(name):
 UNSUPPORTED = {
     "arithmetic-coded JPEG": lambda: _jpeg().replace(b"\xff\xc0", b"\xff\xc9", 1),
     "lossless JPEG": lambda: iw.retag_frame(_jpeg(), marker=0xC3),
-    "WEBP": lambda: encoded(Image.fromarray(smooth(20, 30, 3, 2)), format="WEBP"),
     "GIF": lambda: encoded(Image.fromarray(smooth(20, 30, 1, 2)), format="GIF"),
     "TIFF": lambda: encoded(Image.fromarray(smooth(20, 30, 1, 2)), format="TIFF"),
 }
@@ -705,3 +705,297 @@ def test_decompression_bombs_raise_as_pil(kind):
     with pytest.raises(images.DecompressionBombError) as err:
         images.decode_gray(data)
     assert not isinstance(err.value, OSError)
+
+
+# --- WebP, held to PIL alone ----------------------------------------------------
+
+
+def webp(img: np.ndarray, **kw) -> bytes:
+    return encoded(Image.fromarray(img), format="WEBP", **kw)
+
+
+def webp_held(data: bytes):
+    """``decode_gray`` equals PIL's ``convert("L")`` and the decoder's RGB
+    output its ``convert("RGB")``, bit for bit, or both raise OSError."""
+    try:
+        im = Image.open(io.BytesIO(data))
+        want_l, want_rgb = np.asarray(im.convert("L")), np.asarray(im.convert("RGB"))
+    except OSError:
+        with pytest.raises(OSError) as err:
+            images.decode_gray(data)
+        assert not isinstance(err.value, NotImplementedError)
+        return False
+    got = images.decode_gray(data)
+    assert got.dtype == np.uint8 and got.shape == want_l.shape
+    np.testing.assert_array_equal(got, want_l)
+    np.testing.assert_array_equal(images._decode_webp(data, 3), want_rgb)
+    return True
+
+
+def _webp_case(seed: int):
+    """A small random image and PIL save options: lossless or lossy, method,
+    quality, exact, alpha; odd sizes and widths not a multiple of 16."""
+    rng = np.random.default_rng(seed)
+    h, w = int(rng.integers(1, 60)), int(rng.integers(1, 90))
+    kind = seed % 4
+    if kind == 0:
+        img = smooth(h + 8, w + 8, 3, seed)[:h, :w]
+    elif kind == 1:
+        img = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+    elif kind == 2:  # few colours: colour indexing
+        pal = rng.integers(0, 256, (int(rng.integers(1, 20)), 3))
+        img = pal[rng.integers(0, len(pal), (h, w))].astype(np.uint8)
+    else:
+        img = np.repeat(smooth(h + 8, w + 8, 3, seed)[:h, :1], w, 1)
+    if rng.random() < 0.4:
+        alpha = rng.choice([0, 128, 255], (h, w)) if rng.random() < 0.5 else \
+            rng.integers(0, 256, (h, w))
+        img = np.dstack([img, alpha]).astype(np.uint8)
+    if seed % 2:
+        kw = dict(lossless=True, method=int(rng.integers(0, 7)),
+                  quality=int(rng.integers(0, 101)), exact=bool(rng.random() < 0.5))
+    else:
+        kw = dict(quality=int(rng.integers(0, 101)), method=int(rng.integers(0, 7)),
+                  alpha_quality=int(rng.integers(0, 101)))
+    return img, kw
+
+
+@pytest.mark.parametrize("seed", range(48))
+def test_webp_sweep_matches_pil(seed):
+    """Small random images written by PIL across lossless and lossy,
+    ``method``, ``quality``, ``exact`` and alpha, at odd heights and widths
+    that are not multiples of 16: L and RGB as PIL's."""
+    img, kw = _webp_case(seed)
+    assert webp_held(webp(img, **kw))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (16, 16), (17, 33), (32, 100), (48, 129)])
+@pytest.mark.parametrize("quality", [5, 40, 75, 100])
+def test_webp_lossy_sizes_match_pil(shape, quality):
+    """Lossy RGB at sizes around the 16-pixel macroblock and 2x2 chroma:
+    the fancy upsampler's last odd row and column, the right-most
+    macroblock's 4x4 predictors."""
+    assert webp_held(webp(smooth(*shape, 3, quality), quality=quality))
+
+
+@pytest.mark.parametrize("method", [0, 1, 2])
+@pytest.mark.parametrize("quality", [10, 60, 95])
+def test_webp_fast_methods_match_pil(method, quality):
+    """Flat areas around some detail at methods 0-2: there libwebp turns the
+    macroblocks' skip flag on (at its default method 4 it leaves it off),
+    and method 0 keeps segments without a segment map."""
+    img = np.full((64, 96, 3), 120, np.uint8)
+    img[20:30, 10:50] = smooth(10, 40, 3, method)
+    assert webp_held(webp(img, quality=quality, method=method))
+
+
+@pytest.mark.parametrize("config", [
+    dict(filter_type=0, filter_strength=60), dict(filter_type=0, filter_sharpness=4),
+    dict(filter_strength=100, filter_sharpness=7), dict(filter_strength=30, filter_sharpness=1),
+    dict(filter_strength=0), dict(segments=1, sns_strength=0), dict(segments=4, sns_strength=100),
+    dict(segments=2, quality=5.0), dict(method=0, quality=90.0), dict(preprocessing=4),
+    dict(use_sharp_yuv=1), dict(alpha_compression=0), dict(alpha_filtering=0),
+    dict(alpha_filtering=2, alpha_quality=40)],
+    ids=lambda c: ",".join(f"{k}={v}" for k, v in c.items()))
+def test_webp_libwebp_options_match_pil(config):
+    """Options PIL's save does not pass on, through libwebp's advanced
+    encoder API: the simple loop filter, filter sharpness and strength,
+    segments, raw and filtered alpha."""
+    import loader_fixtures as lf
+
+    img = smooth(37, 70, 3, 7)
+    if "alpha_compression" in config or "alpha_filtering" in config:
+        img = np.dstack([img, smooth(37, 70, 1, 8)])
+    assert webp_held(lf.libwebp_encode(img, **config))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (5, 3), (32, 100), (17, 33, 3), (20, 9, 4)])
+def test_webp_writer_reads_back_in_pil(shape):
+    """``image_writers.webp_lossless`` (subtract-green, predictor, Huffman
+    literals): PIL and the decoder read back the written pixels."""
+    rng = np.random.default_rng(len(shape) + shape[0])
+    img = rng.integers(0, 256, shape).astype(np.uint8)
+    data = iw.webp_lossless(img)
+    want = img if img.ndim == 2 else np.asarray(Image.fromarray(img).convert("L"))
+    np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(data)).convert("L")), want)
+    assert webp_held(data)
+
+
+def _webp_damaged():
+    """(name, data): lossless, lossy and lossy-with-alpha files cut at
+    several offsets and with single bytes flipped."""
+    rng = np.random.default_rng(5)
+    rgb = smooth(40, 56, 3, 5)
+    rgba = np.dstack([rgb, np.where(np.arange(56) % 3, 255, 90) * np.ones((40, 1))]).astype(
+        np.uint8)
+    files = {"lossless": webp(rgb, lossless=True), "lossy": webp(rgb, quality=70),
+             "lossy+alpha": webp(rgba, quality=70, alpha_quality=60)}
+    cases = []
+    for name, data in files.items():
+        for cut in (8, 15, 19, 30, len(data) // 2, len(data) - 1):
+            cases.append((f"{name} cut at {cut}", data[:cut]))
+        for pos in sorted(rng.choice(np.arange(12, len(data)), 8, replace=False)):
+            d = bytearray(data)
+            d[pos] ^= int(rng.integers(1, 256))
+            cases.append((f"{name} byte {pos} flipped", bytes(d)))
+    return cases
+
+
+WEBP_DAMAGED = dict(_webp_damaged())
+
+
+@pytest.mark.parametrize("name", list(WEBP_DAMAGED))
+def test_webp_damage_matches_pil(name):
+    """Truncations and single-byte flips: OSError where PIL raises, PIL's
+    pixels where libwebp decodes the damaged data."""
+    webp_held(WEBP_DAMAGED[name])
+
+
+def _container(kind: str) -> bytes:
+    """WebP containers built by hand around PIL-written bitstreams."""
+    import loader_fixtures as lf
+
+    rgb = smooth(24, 40, 3, 9)
+    lossless = dict(lf._riff_chunks(webp(rgb, lossless=True)))[b"VP8L"]
+    lossy = lf._riff_chunks(webp(np.dstack([rgb, np.full((24, 40), 77, np.uint8)]), quality=60))
+    alph, vp8 = dict(lossy)[b"ALPH"], dict(lossy)[b"VP8 "]
+    c = iw.webp_chunk
+    still = [iw.vp8x_chunk(40, 24, 0x10), c(b"ALPH", alph), c(b"VP8 ", vp8)]
+    anim = [iw.vp8x_chunk(64, 40, 0x02), c(b"ANIM", bytes(6))]
+    return {
+        "trailing bytes after the RIFF chunk": iw.webp_file([c(b"VP8L", lossless)]) + b"junk!",
+        "unknown chunk after the image": iw.webp_file([c(b"VP8L", lossless), c(b"ABCD", b"xyz")]),
+        "VP8X with unknown and metadata chunks": iw.webp_file(
+            [iw.vp8x_chunk(40, 24, 0x2c), c(b"ICCP", b"icc"), c(b"ABCD", b"1"),
+             c(b"VP8L", lossless), c(b"EXIF", b"exif"), c(b"XMP ", b"<x/>")]),
+        "ALPH without the alpha flag": iw.webp_file(
+            [iw.vp8x_chunk(40, 24, 0), c(b"ALPH", b"\x03broken"), c(b"VP8 ", vp8)]),
+        "ALPH and VP8": iw.webp_file(still),
+        "raw ALPH": iw.webp_file([iw.vp8x_chunk(40, 24, 0x10), c(b"ALPH", b"\x00" + bytes(
+            range(240)) * 4), c(b"VP8 ", vp8)]),
+        "raw ALPH too short": iw.webp_file([iw.vp8x_chunk(40, 24, 0x10),
+                                            c(b"ALPH", b"\x00" + bytes(959)), c(b"VP8 ", vp8)]),
+        "ALPH with a reserved bit": iw.webp_file([iw.vp8x_chunk(40, 24, 0x10),
+                                                  c(b"ALPH", bytes([alph[0] | 0x40]) + alph[1:]),
+                                                  c(b"VP8 ", vp8)]),
+        "ALPH after VP8": iw.webp_file([still[0], still[2], still[1]]),
+        "VP8X reserved flag": iw.webp_file([iw.vp8x_chunk(40, 24, 0x11)] + still[1:]),
+        "VP8X canvas not the frame's": iw.webp_file([iw.vp8x_chunk(41, 24, 0x10)] + still[1:]),
+        "two images": iw.webp_file([iw.vp8x_chunk(40, 24, 0), c(b"VP8L", lossless),
+                                    c(b"VP8L", lossless)]),
+        "frames at offsets": iw.webp_file(anim + [
+            iw.anmf_chunk(10, 4, 40, 24, c(b"VP8L", lossless)),
+            iw.anmf_chunk(0, 0, 40, 24, c(b"ALPH", alph) + c(b"VP8 ", vp8))]),
+        "first frame lossy with alpha at an odd place": iw.webp_file(anim + [
+            iw.anmf_chunk(24, 16, 40, 24, c(b"ALPH", alph) + c(b"VP8 ", vp8))]),
+        "frame past the canvas": iw.webp_file(anim + [
+            iw.anmf_chunk(26, 0, 40, 24, c(b"VP8L", lossless))]),
+        "ANMF without ANIM": iw.webp_file([anim[0], iw.anmf_chunk(0, 0, 40, 24,
+                                                                   c(b"VP8L", lossless))]),
+        "animation flag, a still image": iw.webp_file([anim[0], c(b"VP8L", lossless)]),
+        "frames without the animation flag": iw.webp_file(
+            [iw.vp8x_chunk(64, 40, 0), anim[1], iw.anmf_chunk(0, 0, 40, 24, c(b"VP8L", lossless))]),
+        "RIFF size odd": iw.webp_file([c(b"VP8L", lossless)])[:4] + struct.pack(
+            "<I", 4 + 8 + len(lossless) + (len(lossless) & 1) - 1)
+        + iw.webp_file([c(b"VP8L", lossless)])[8:],
+        "VP8L with a version": iw.webp_file([c(b"VP8L", lossless[:4] + bytes(
+            [lossless[4] | 0x20]) + lossless[5:])]),
+        "VP8 not a key frame": iw.webp_file([c(b"VP8 ", bytes([vp8[0] | 1]) + vp8[1:])]),
+        "VP8 chunk size past the RIFF": iw.webp_file([c(b"VP8 ", vp8)])[:16] + struct.pack(
+            "<I", len(vp8) + 9) + vp8,
+    }[kind]
+
+
+WEBP_CONTAINERS = ["trailing bytes after the RIFF chunk", "unknown chunk after the image",
+                   "VP8X with unknown and metadata chunks", "ALPH without the alpha flag",
+                   "ALPH and VP8", "raw ALPH", "raw ALPH too short", "ALPH with a reserved bit",
+                   "ALPH after VP8", "VP8X reserved flag", "VP8X canvas not the frame's",
+                   "two images", "frames at offsets",
+                   "first frame lossy with alpha at an odd place", "frame past the canvas",
+                   "ANMF without ANIM", "animation flag, a still image",
+                   "frames without the animation flag", "RIFF size odd", "VP8L with a version",
+                   "VP8 not a key frame", "VP8 chunk size past the RIFF"]
+
+
+@pytest.mark.parametrize("kind", WEBP_CONTAINERS)
+def test_webp_containers_match_pil(kind):
+    """The simple, extended and animated containers as libwebp's demuxer
+    reads them for PIL: chunks skipped, alpha ignored without its flag,
+    frame 0 on a transparent black canvas at its offset; and the layouts it
+    refuses (OSError)."""
+    webp_held(_container(kind))
+
+
+def vp8_tables():
+    """RFC 6386's coefficient update and default probabilities and the
+    key-frame 4x4 mode probabilities, as ``native/webpdecode.cpp`` types
+    them (the writer's and the decoder's tables; PIL, reading the frames,
+    holds both to libwebp's)."""
+    import re
+
+    text = images.WEBP_SOURCE.read_text()
+
+    def table(name):
+        body = re.search(name + r"[^=]*= \{(.*?)\};", text, re.S).group(1)
+        return [int(v) for v in re.findall(r"\d+", body)]
+
+    upd, p0, bm = (np.asarray(table(n)) for n in ("kCoeffsUpdateProba", "kCoeffsProba0",
+                                                    "kBModesProba"))
+    return (upd.reshape(4, 8, 3, 11).tolist(), p0.reshape(4, 8, 3, 11).tolist(),
+            bm.reshape(10, 10, 9).tolist())
+
+
+@pytest.mark.parametrize("seed", range(40))
+def test_webp_vp8_syntax_matches_pil(seed):
+    """Hand-written VP8 key frames of random syntax (``image_writers.
+    vp8_random_frame``): what libwebp's encoder never writes (2, 4 and 8
+    token partitions, segment quantizers out of range, relative segment
+    deltas, mode and reference filter deltas, blocks ending in a run of
+    zeros, levels up to DCT_CAT6's that wrap int16 when dequantized, every
+    mode in any place) and what it rarely does, at sizes that are not
+    multiples of 16; decoded as PIL decodes them."""
+    rng = np.random.default_rng(1000 + seed)
+    w, h = int(rng.integers(1, 70)), int(rng.integers(1, 70))
+    opts = {"partitions": seed % 4} if seed < 8 else {}
+    frame = iw.vp8_random_frame(w, h, seed, vp8_tables(), **opts)
+    assert webp_held(iw.webp_file([iw.webp_chunk(b"VP8 ", frame)]))
+
+
+def test_webp_unknown_fourcc_cannot_be_identified():
+    """A RIFF/WEBP file whose first chunk is not VP8, VP8L or VP8X: PIL's
+    WebP plugin does not take it ("cannot identify image file")."""
+    data = webp(smooth(8, 8, 3, 1), lossless=True)
+    data = data[:12] + b"VP8Y" + data[16:]
+    with pytest.raises(OSError, match="cannot identify"):
+        Image.open(io.BytesIO(data))
+    with pytest.raises(OSError, match="cannot identify"):
+        images.decode_gray(data)
+    assert images.sniff(data) == ""
+
+
+def test_webp_canvas_bomb_raises_as_pil():
+    """An animation's canvas of more than twice MAX_IMAGE_PIXELS (a small
+    first frame): PIL's DecompressionBombError, and the decoder's own."""
+    side = 13400  # 1.8e8 pixels
+    lossless = dict(__import__("loader_fixtures")._riff_chunks(
+        webp(smooth(8, 8, 3, 1), lossless=True)))[b"VP8L"]
+    data = iw.webp_file([iw.vp8x_chunk(side, side, 0x02), iw.webp_chunk(b"ANIM", bytes(6)),
+                         iw.anmf_chunk(0, 0, 8, 8, iw.webp_chunk(b"VP8L", lossless))])
+    with pytest.raises(Image.DecompressionBombError):
+        Image.open(io.BytesIO(data)).convert("L")
+    with pytest.raises(images.DecompressionBombError) as err:
+        images.decode_gray(data)
+    assert not isinstance(err.value, OSError)
+
+
+def test_webp_decoder_raises_when_it_cannot_be_built(monkeypatch, tmp_path):
+    """The WebP decoder's own library: a source that does not compile
+    raises RuntimeError, no quiet fallback."""
+    bad = tmp_path / "webpdecode.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(images, "_webp_lib", None)
+    monkeypatch.setattr(images, "WEBP_SOURCE", bad)
+    monkeypatch.setattr(images, "BUILD_DIR", tmp_path / "_build")
+    with pytest.raises(RuntimeError, match="failed"):
+        images.decode_gray(webp(smooth(8, 8, 3, 1)))
+    assert not list((tmp_path / "_build").glob("*.so"))

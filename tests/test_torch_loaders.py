@@ -320,23 +320,27 @@ def _word(name="crop_04.jpg"):
 
 
 def format_records():
-    """LMDB records in the kinds the decoder gained, the kinds PIL refuses
-    with an OSError, and one kind left to a later slice: (label, bytes),
-    and the index (from 0) of that last one."""
+    """LMDB records in the kinds the decoder gained (progressive and CMYK
+    JPEG, interlaced and 16-bit PNG, 32-bit BMP; lossy, lossy-with-alpha
+    and lossless WebP) and the kinds PIL refuses with an OSError (12-bit
+    and hierarchical JPEG, a truncated JPEG and a truncated WebP):
+    (label, bytes)."""
     import io
 
     from PIL import Image
 
-    def jpeg(img, **kw):
+    def encode(img, fmt, **kw):
         buf = io.BytesIO()
-        img.save(buf, format="JPEG", **kw)
+        img.save(buf, format=fmt, **kw)
         return buf.getvalue()
 
     rgb, grey = _word(), np.asarray(Image.fromarray(_word("crop_07.jpg")).convert("L"))
-    base = jpeg(Image.fromarray(_word("crop_02.jpg")), quality=90)
-    records = [
-        ("progressive", jpeg(Image.fromarray(rgb), quality=85, progressive=True)),
-        ("cmyk", jpeg(Image.fromarray(_word("crop_05.jpg")).convert("CMYK"), quality=90)),
+    base = encode(Image.fromarray(_word("crop_02.jpg")), "JPEG", quality=90)
+    lossy = encode(Image.fromarray(_word("crop_09.jpg")), "WEBP", quality=60)
+    return [
+        ("progressive", encode(Image.fromarray(rgb), "JPEG", quality=85, progressive=True)),
+        ("cmyk", encode(Image.fromarray(_word("crop_05.jpg")).convert("CMYK"), "JPEG",
+                        quality=90)),
         ("interlaced", iw.png(rgb, interlace=True)),
         ("sixteen", iw.png(grey.astype(np.uint16) * 3, 16)),  # above 255: clipped, as PIL
         ("bitmap", iw.bmp(rgb.shape[1], rgb.shape[0], 32, [np.concatenate(
@@ -344,23 +348,24 @@ def format_records():
         ("twelve", iw.retag_frame(base, precision=12)),
         ("hierarchical", iw.retag_frame(base, marker=0xC5)),
         ("truncated", base[:len(base) // 2]),
-        ("webp", None),
+        ("webp", encode(Image.fromarray(rgb), "WEBP")),
+        ("webplossy", lossy),
+        ("webpalpha", encode(Image.fromarray(lf._alpha_bands(_word("crop_11.jpg"))), "WEBP",
+                              quality=50, alpha_quality=40)),
+        ("webplossless", encode(Image.fromarray(_word("crop_13.jpg")), "WEBP", lossless=True)),
+        ("webptruncated", lossy[:len(lossy) * 2 // 3]),
     ]
-    buf = io.BytesIO()
-    Image.fromarray(rgb).save(buf, format="WEBP")
-    records[-1] = ("webp", buf.getvalue())
-    return records, len(records) - 1
 
 
 @pytest.mark.parametrize("keep_ratio", [False, True], ids=["squash", "keep ratio"])
 def test_lmdb_reader_on_new_formats_matches_jax(tmp_path, lmdb_env, keep_ratio):
-    """The fault this slice repairs: a corpus of a progressive JPEG, a CMYK
-    JPEG, an interlaced PNG, a 16-bit PNG and a 32-bit BMP (all of which
-    PIL decodes), a 12-bit JPEG, a SOF5 (hierarchical) JPEG and a truncated
-    JPEG (which PIL refuses with an OSError): the port's samples are JAX's,
-    the dummies at the same records.  The WebP record, a kind left to a
-    later slice, raises NotImplementedError naming it."""
-    records, refused = format_records()
+    """A corpus of a progressive JPEG, a CMYK JPEG, an interlaced PNG, a
+    16-bit PNG, a 32-bit BMP and lossy, lossy-with-alpha and lossless WebP
+    (all of which PIL decodes), a 12-bit JPEG, a SOF5 (hierarchical) JPEG, a
+    truncated JPEG and a truncated WebP (which PIL refuses with an
+    OSError): the port's samples are JAX's, the dummies at the same
+    records."""
+    records = format_records()
     write_lmdb(tmp_path / "formats", records)
     chars = ModelConfig().chars
     got = lmdb_data.LmdbReader(str(tmp_path / "formats"), chars, keep_ratio=keep_ratio)
@@ -368,14 +373,10 @@ def test_lmdb_reader_on_new_formats_matches_jax(tmp_path, lmdb_env, keep_ratio):
     assert got.index == want.index and len(got) == len(records)
     dummies = []
     for i in range(len(records)):
-        if i == refused:
-            with pytest.raises(NotImplementedError, match="WEBP"):
-                got[i]
-            continue
         same_samples([got[i]], [want[i]])
         if want[i].label == "[dummy_label]":
             dummies.append(records[i][0])
-    assert dummies == ["twelve", "hierarchical", "truncated"]
+    assert dummies == ["twelve", "hierarchical", "truncated", "webptruncated"]
 
 
 # --- the image folder -------------------------------------------------------------
@@ -417,13 +418,19 @@ def test_raw_image_folder_reads_progressive_and_interlaced_as_jax(tmp_path):
 
 
 def test_raw_image_folder_raises_for_webp(tmp_path):
-    """A WebP crop (one of the folder's extensions) is not decoded: its
-    NotImplementedError reaches the caller."""
+    """A folder holding ``.webp`` crops (one of its extensions) beside a JPEG:
+    lossy, lossless and an animation, read as JAX's folder reads them (the
+    WebP kinds no longer raise)."""
     from PIL import Image
 
-    Image.open(lf.OUT / "crops" / "crop_03.jpg").save(tmp_path / "w.webp")
-    with pytest.raises(NotImplementedError, match="WEBP"):
-        raw.RawImageFolder(str(tmp_path))[0]
+    img = Image.open(lf.OUT / "crops" / "crop_03.jpg")
+    img.save(tmp_path / "w1.webp")
+    img.save(tmp_path / "w2.webp", lossless=True)
+    img.save(tmp_path / "w3.webp", save_all=True, append_images=[img.rotate(180)], quality=40)
+    img.save(tmp_path / "w4.jpg")
+    got, want = raw.RawImageFolder(str(tmp_path)), jraw.RawImageFolder(str(tmp_path))
+    assert got.paths == want.paths and len(got) == 4
+    same_samples(got, want)
 
 
 # --- api.get_dataset, the loop ----------------------------------------------------
@@ -527,6 +534,75 @@ def test_format_fixtures_decode_as_pil(name):
 
     want = np.load(lf.OUT / "expected.npz")[f"format/{name}"]
     np.testing.assert_array_equal(images.read_gray(str(lf.FORMATS / name)), want)
+
+
+@pytest.mark.parametrize("name", lf.webp_files())
+def test_webp_fixtures_decode_as_pil(name):
+    """Each WebP file of formats/ (lossless at methods 0, 3 and 6, RGBA with
+    ``exact``, palettes of 2, 4 and 16 colours; lossy at qualities 10, 50
+    and 95, with raw, lossless and quantized alpha, with the simple loop
+    filter and with sharpness 7; VP8X with ICC, EXIF and XMP; a PIL
+    animation and one built by hand whose first frame is smaller than its
+    canvas; page 0 lossy) decodes to PIL's ``convert("L")``, bit for bit,
+    and to the sha256 ``expected.npz`` keeps of it."""
+    from PIL import Image
+
+    from multimodal_scene_text_recognition_tpu_torch.data import images
+
+    got = images.read_gray(str(lf.FORMATS / name))
+    np.testing.assert_array_equal(got, np.asarray(Image.open(lf.FORMATS / name).convert("L")))
+    np.testing.assert_array_equal(lf.gray_sha256(got),
+                                  np.load(lf.OUT / "expected.npz")[f"format_webp/{name}"])
+
+
+def test_webp_crops_decode_as_pil():
+    """The 192 committed crops as lossy WebP (the folder chip_smoke.py
+    recognizes): each decodes to PIL's array, whose sha256 ``expected.npz``
+    keeps."""
+    import io
+
+    from PIL import Image
+
+    from multimodal_scene_text_recognition_tpu_torch.data import images
+
+    files = lf.webp_crops()
+    want = np.load(lf.OUT / "expected.npz")["format_webp_crops/sha256"]
+    assert len(files) == len(want) == lf.WEBP_CROPS_N
+    for data, digest in zip(files, want):
+        got = images.decode_gray(data)
+        np.testing.assert_array_equal(got, np.asarray(Image.open(io.BytesIO(data)).convert("L")))
+        np.testing.assert_array_equal(lf.gray_sha256(got), digest)
+
+
+def test_webp_lossless_page_reads_back_page_0():
+    """Page 0 written as a lossless WebP by ``image_writers.webp_lossless``
+    (the page chip_smoke.py times) reads back as page 0 in PIL and in the
+    port."""
+    import io
+
+    from PIL import Image
+
+    from multimodal_scene_text_recognition_tpu_torch.data import images
+
+    page = np.load(lf.OUT / "expected.npz")["page/page_0.jpg"]
+    data = iw.webp_lossless(page)
+    np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(data)).convert("L")), page)
+    np.testing.assert_array_equal(images.decode_gray(data), page)
+
+
+@pytest.mark.parametrize("name", lf.WEBP_REFUSED)
+def test_webp_fixtures_pil_refuses_raise_oserror(name):
+    """The truncated and the corrupt WebP of formats/: OSError in PIL and in
+    the port."""
+    from PIL import Image
+
+    from multimodal_scene_text_recognition_tpu_torch.data import images
+
+    with pytest.raises(OSError):
+        Image.open(lf.FORMATS / name).convert("L")
+    with pytest.raises(OSError) as err:
+        images.read_gray(str(lf.FORMATS / name))
+    assert not isinstance(err.value, NotImplementedError)
 
 
 @pytest.mark.parametrize("name", lf.FORMAT_REFUSED)
