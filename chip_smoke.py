@@ -3668,6 +3668,12 @@ ADAM7_PAGE = "page_5.png (Adam7)"  # written here from page_5's array: PNG is lo
 WEBP_REFUSED = ("webp_truncated.webp", "webp_corrupt.webp")
 WEBP_CROPS = "webp_crops_q30.npz"
 WEBP_LOSSLESS_PAGE = "page_0 (lossless WebP)"  # written here from page 0's array
+# GIF and TIFF: expected.npz keeps PIL's outcome for each fixture
+# (format_gif_tiff/name, /outcome, /sha256); the files are those of formats/
+# or, for the rest, image_writers.gif_tiff_fixtures of GIF_TIFF_CROP (as
+# decoded here) and page_0.jpg.  PIL decodes the CCITT file; the port names it
+GIF_TIFF_CROP = "crop_02.jpg"
+GIF_TIFF_NAMED = {"tiff_ccitt_g4.tif": "TIFF of Compression 4"}
 
 
 def gray_sha256(img: np.ndarray) -> np.ndarray:
@@ -3689,14 +3695,16 @@ _DECODER_BUILD: dict = {}
 
 
 def start_decoder_build() -> None:
-    """Build the host image decoders (``native/imgdecode.cpp`` and
-    ``native/webpdecode.cpp``, ``g++``) in threads while the kernels build;
-    decode_check joins them and reports the seconds they took."""
-    from multimodal_scene_text_recognition_tpu_torch.data import images
+    """Build the host image decoders (``native/imgdecode.cpp``,
+    ``webpdecode.cpp``, ``gifdecode.cpp`` and ``tiffdecode.cpp``, ``g++``) in
+    threads while the kernels build; decode_check joins them and reports the
+    seconds they took."""
+    from multimodal_scene_text_recognition_tpu_torch.data import gif, images, tiff
 
     def run():
         t = time.perf_counter()
-        builds = [threading.Thread(target=f) for f in (images._library, images._webp_library)]
+        builds = [threading.Thread(target=f) for f in (images._library, images._webp_library,
+                                                        gif._library, tiff._library)]
         for b in builds:
             b.start()
         for b in builds:
@@ -3717,14 +3725,19 @@ def decode_check():
     ``formats/`` and each of the 192 lossy crops against the sha256 of PIL's
     decode, page 0 written here as a lossless WebP against page 0, the
     truncated and the corrupt WebP an OSError, page 0 timed as lossy and
-    as lossless WebP."""
-    from multimodal_scene_text_recognition_tpu_torch.data import images
+    as lossless WebP.  GIF and TIFF: every fixture (gif_tiff_files) against
+    PIL's outcome in ``expected.npz`` (the sha256 of its decode, or its
+    error class; the CCITT TIFF refused by name), page 0 timed as a GIF and
+    as an LZW, a Deflate and a JPEG-compressed TIFF (the first three read
+    back as page 0)."""
+    from multimodal_scene_text_recognition_tpu_torch.data import gif, images, tiff
 
     exp = np.load(os.path.join(FIXTURES, "expected.npz"))
     if "thread" not in _DECODER_BUILD:
         start_decoder_build()
     _DECODER_BUILD["thread"].join()
-    images._library(), images._webp_library()  # either raises here if its build failed
+    for build in (images._library, images._webp_library, gif._library, tiff._library):
+        build()  # raises here if its build failed
     build_s = _DECODER_BUILD["s"]
     worst, page_ms, n = 0, {}, 0
     t_formats = time.perf_counter()
@@ -3776,6 +3789,40 @@ def decode_check():
             images.decode_gray(data)
             times.append((time.perf_counter() - t) * 1e3)
         page_ms[name] = statistics.median(times)
+    gt_files = gif_tiff_files(images)
+    gt_bad = []
+    for name, want_out, want_sha in zip(exp["format_gif_tiff/name"], exp["format_gif_tiff/outcome"],
+                                        exp["format_gif_tiff/sha256"]):
+        name = str(name)
+        try:
+            got_out = gray_sha256(images.decode_gray(gt_files[name]))
+        except NotImplementedError as e:
+            got_out = "named" if GIF_TIFF_NAMED.get(name, "?") in str(e) else repr(e)
+        except OSError:
+            got_out = "OSError"
+        if name in GIF_TIFF_NAMED:
+            ok = got_out == "named"
+        elif want_out == "ok":
+            ok = isinstance(got_out, np.ndarray) and np.array_equal(got_out, want_sha)
+        else:
+            ok = isinstance(got_out, str) and got_out == str(want_out)
+        if not ok:
+            gt_bad.append(name)
+    page0 = exp["page/page_0.jpg"]
+    gt_pages = {"page_0 (GIF)": iw.gif(page0.shape[1], page0.shape[0], [iw.gif_frame(page0)],
+                                       palette=iw.grey_ramp(256)),
+                "page_0 (LZW TIFF)": iw.tiff(page0, compression=5, rows_per_strip=64),
+                "page_0 (Deflate TIFF)": iw.tiff(page0, compression=8, rows_per_strip=64),
+                "page_0 (JPEG TIFF)": gt_files["tiff_jpeg_page_tables.tif"]}
+    for name, data in gt_pages.items():
+        if "JPEG" not in name and not np.array_equal(images.decode_gray(data), page0):
+            gt_bad.append(name)
+        times = []
+        for _ in range(DECODE_REPS):
+            t = time.perf_counter()
+            images.decode_gray(data)
+            times.append((time.perf_counter() - t) * 1e3)
+        page_ms[name] = statistics.median(times)
     refused = [os.path.join("crops", "truncated.jpg")] + [
         os.path.join("formats", r) for r in FORMAT_REFUSED + WEBP_REFUSED]
     for name in refused:
@@ -3795,26 +3842,45 @@ def decode_check():
         f"files of formats/ and the {len(crops)} lossy WebP crops against the sha256 of PIL's "
         f"decode, {len(webp_bad)} differ {webp_bad[:4]} (limit 0), {WEBP_LOSSLESS_PAGE} read "
         f"back as page 0; the truncated crop, the 12-bit and the hierarchical JPEG, the "
-        f"truncated and the corrupt WebP raised OSError; ms a 640x480 page (median of "
+        f"truncated and the corrupt WebP raised OSError; {len(gt_files)} GIF and TIFF files "
+        f"against PIL's outcome, {len(gt_bad)} differ {gt_bad[:4]} (limit 0), page 0 read back "
+        f"from GIF, LZW and Deflate TIFF; ms a 640x480 page (median of "
         f"{DECODE_REPS}): " + ", ".join(f"{k} {v:.2f}" for k, v in page_ms.items())
         + f"; the decoders' g++ builds (beside the kernels' nvcc) {build_s:.2f} s; the decode "
         f"loop {formats_s:.2f} s")
-    if worst or webp_bad:
+    if worst or webp_bad or gt_bad:
         raise AssertionError(f"decode_gray differs from PIL by {worst}; WebP differing: "
-                             f"{webp_bad}")
+                             f"{webp_bad}; GIF and TIFF differing: {gt_bad}")
     return {"files": n, "max_abs_diff": worst, "webp_files": len(webp_names) + len(crops),
-            "webp_differing": len(webp_bad), "page_ms": page_ms, "build_s": build_s,
+            "webp_differing": len(webp_bad), "gif_tiff_files": len(gt_files),
+            "gif_tiff_differing": len(gt_bad), "page_ms": page_ms, "build_s": build_s,
             "decode_loop_s": formats_s}
+
+
+def gif_tiff_files(images) -> dict:
+    """tests/loader_fixtures.gif_tiff_files without PIL: {name: bytes} of
+    the GIF and TIFF fixtures, the hand-made ones from GIF_TIFF_CROP as the
+    port decodes it (PIL's pixels: decode_check holds them so)."""
+    fmt = os.path.join(FIXTURES, "formats")
+    with open(os.path.join(FIXTURES, "page_0.jpg"), "rb") as f:
+        files = image_writers().gif_tiff_fixtures(
+            images.read_gray(os.path.join(FIXTURES, "crops", GIF_TIFF_CROP)), f.read())
+    for name in os.listdir(fmt):
+        if name.endswith((".gif", ".tif")):
+            with open(os.path.join(fmt, name), "rb") as f:
+                files[name] = f.read()
+    return files
 
 
 def webp_recognize(api, cli, counted, tmp: str, pth: str, fused, val_set, png_texts, secs,
                    launches) -> dict:
     """``recognize`` of the 192 committed crops as lossless WebP, written
-    here by ``image_writers.webp_lossless`` (the PNG run's pixels: its
-    strings must be the PNG run's ``png_texts``), and as lossy WebP from
-    ``formats/`` (its strings those of ``Recognizer.recognize`` on the
-    decoded arrays, which decode_check holds to PIL's by their sha256):
-    K1 1 and K2 1 a call."""
+    here by ``image_writers.webp_lossless``, and as GIF and as LZW TIFF
+    under ``.png`` names (``image_writers.gif``, ``image_writers.tiff``):
+    the PNG run's pixels, so their strings must be the PNG run's
+    ``png_texts``; and as lossy WebP from ``formats/`` (its strings those of
+    ``Recognizer.recognize`` on the decoded arrays, which decode_check
+    holds to PIL's by their sha256): K1 1 and K2 1 a call."""
     from multimodal_scene_text_recognition_tpu_torch.config import FLAGSHIP
     from multimodal_scene_text_recognition_tpu_torch.data import raw
     from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
@@ -3825,6 +3891,12 @@ def webp_recognize(api, cli, counted, tmp: str, pth: str, fused, val_set, png_te
                                            for i in range(B)],
                "recognize_webp_lossy": webp_crop_files()}
     write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    crops = [val_set.image[i][..., 0] for i in range(B)]
+    folders["recognize_gif"] = [iw.gif(c.shape[1], c.shape[0], [iw.gif_frame(c)],
+                                       palette=iw.grey_ramp(256)) for c in crops]
+    folders["recognize_lzw_tiff"] = [iw.tiff(c, compression=5) for c in crops]
+    write_gt_s = time.perf_counter() - t
     want_names = [f"w{i}.webp" for i in range(B)]
     want_k = {"K1": 1, "K2": 1, "K3": 0, "K4": 0}
     cfg_m = dataclasses.replace(FLAGSHIP, decode_beam_fused=False, decode_early_stop=False)
@@ -3832,6 +3904,8 @@ def webp_recognize(api, cli, counted, tmp: str, pth: str, fused, val_set, png_te
     for name, files in folders.items():
         folder = os.path.join(tmp, name)
         os.makedirs(folder)
+        if name in ("recognize_gif", "recognize_lzw_tiff"):  # under .png names
+            want_names = [f"w{i}.png" for i in range(B)]
         for file_name, data in zip(want_names, files):
             with open(os.path.join(folder, file_name), "wb") as f:
                 f.write(data)
@@ -3839,7 +3913,7 @@ def webp_recognize(api, cli, counted, tmp: str, pth: str, fused, val_set, png_te
             cli.main, ["recognize", folder, "--checkpoint", pth] + fused, counted)
         rows = [x.split("\t") for x in lines if "\t" in x]
         texts = [t for _, t in rows]
-        if name == "recognize_webp_lossless":
+        if name != "recognize_webp_lossy":
             want, against = png_texts, "the PNG run's"
         else:
             arrays = [s.image for s in raw.RawImageFolder(folder)]
@@ -3847,7 +3921,10 @@ def webp_recognize(api, cli, counted, tmp: str, pth: str, fused, val_set, png_te
                 arrays)
             against = "Recognizer.recognize's on the decoded arrays"
         differ = sum(a != b for a, b in zip(texts, want))
-        log(f"cli {name} <{B} crops as {name.rpartition('_')[2]} WebP>: {len(rows)} rows in "
+        kind = {"recognize_gif": "GIF (.png names)",
+                "recognize_lzw_tiff": "LZW TIFF (.png names)"}.get(
+            name, f"{name.rpartition('_')[2]} WebP")
+        log(f"cli {name} <{B} crops as {kind}>: {len(rows)} rows in "
             f"{secs[name]:.2f} s (launches {launches[name]}); strings differing from {against}: "
             f"{differ}; accuracy "
             f"{100.0 * sum(a == b for a, b in zip(texts, val_set.labels)) / B:.5f}%")
@@ -3857,6 +3934,7 @@ def webp_recognize(api, cli, counted, tmp: str, pth: str, fused, val_set, png_te
                                  f"{against}, launches {launches[name]} (expected {want_k})")
         out[name] = {"crops": B, "strings_differing": differ}
     out["write_lossless_s"] = write_s
+    out["write_gif_tiff_s"] = write_gt_s
     return out
 
 
@@ -4041,7 +4119,7 @@ def loaders_phase(api, fd, fb, gs, bn, smi: str):
     from multimodal_scene_text_recognition_tpu_torch import cli
     from multimodal_scene_text_recognition_tpu_torch.config import (FLAGSHIP, Config, DataConfig,
                                                                       apply_overrides)
-    from multimodal_scene_text_recognition_tpu_torch.data import lmdb_data, raw
+    from multimodal_scene_text_recognition_tpu_torch.data import images, lmdb_data, raw
     from multimodal_scene_text_recognition_tpu_torch.eval import evaluate
     from multimodal_scene_text_recognition_tpu_torch.eval.serve import Recognizer
     from multimodal_scene_text_recognition_tpu_torch.train.steps import TrainStep
@@ -4140,7 +4218,8 @@ def loaders_phase(api, fd, fb, gs, bn, smi: str):
         torch.cuda.empty_cache()
         out["cocotext"]["crops_per_s"] = loader_rates(api, cfg)
 
-        # synth: MJ and ST from the fixture crops, the truncated one in MJ
+        # synth: MJ and ST from the fixture crops, the truncated one in MJ, ST
+        # with 4 of them as GIF and as LZW TIFF records too
         crop_dir = os.path.join(FIXTURES, "crops")
         with open(os.path.join(crop_dir, "labels.json")) as f:
             labels_of = json.load(f)
@@ -4149,6 +4228,12 @@ def loaders_phase(api, fd, fb, gs, bn, smi: str):
             with open(os.path.join(crop_dir, name), "rb") as f:
                 recs[name] = (labels_of[name], f.read())
         good = [recs[k] for k in sorted(recs) if k != "truncated.jpg"]
+        iw = image_writers()
+        for label, data in good[:4]:  # some records as GIF and as LZW TIFF
+            page = images.decode_gray(data)
+            good += [(label, iw.gif(page.shape[1], page.shape[0], [iw.gif_frame(page >> 4)],
+                                    palette=bytes(range(48)))),
+                     (label, iw.tiff(page, compression=5, rows_per_strip=8))]
         root = os.path.join(tmp, "lmdb")
         parts = {"training/MJ/MJ_train/": good[0:6], "training/MJ/MJ_test/": good[6:10],
                  "training/MJ/MJ_valid/": good[10:13] + [recs["truncated.jpg"]],

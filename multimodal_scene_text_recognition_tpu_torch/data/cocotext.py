@@ -13,10 +13,12 @@ data/cocotext.py).
   (an LRU of 64 pages), then a bilinear crop resize to 32x100
   (``ops/resize``), or with ``use_native=False`` PIL's crop-then-resize.
 
-Pages are decoded by ``data/images`` (no PIL): a page PIL refuses raises
-its ``OSError``, as in JAX; a page of a kind left to a later slice (GIF,
-TIFF, arithmetic-coded or lossless JPEG) raises ``NotImplementedError``
-naming it.
+Pages are decoded by ``data/images`` (no PIL; JPEG, PNG, BMP, PNM, WebP,
+GIF and TIFF): a page PIL refuses raises its ``OSError``, as in JAX; a page
+of a kind PIL opens and the port does not decode (arithmetic-coded or
+lossless JPEG, the TIFF compressions and layouts ``data/tiff`` names, and
+the formats ``data/identify`` names: DIB, ICO, TGA, PCX, SGI, ...) raises
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations

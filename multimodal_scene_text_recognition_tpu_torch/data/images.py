@@ -3,16 +3,18 @@ loaders read image files (JAX counterpart: the PIL calls of
 data/cocotext.py, data/lmdb_data.py, data/raw.py).
 
 The port does not use PIL.  These functions give what PIL gives, bit for
-bit, through ``native/imgdecode.cpp`` and ``native/webpdecode.cpp`` beside
-this package, built at first use with ``g++`` (``utils.native``; a failed
-build raises, there is no fallback):
+bit, through ``native/imgdecode.cpp``, ``native/webpdecode.cpp``,
+``native/gifdecode.cpp`` and ``native/tiffdecode.cpp`` beside this package,
+built at first use with ``g++`` (``utils.native``; a failed build raises,
+there is no fallback):
 
 * :func:`decode_gray`: ``Image.open(io.BytesIO(data)).convert("L")``:
 
   - JPEG: baseline and progressive Huffman (8-bit; 1, 3 or 4 components:
     grey, YCbCr or RGB, CMYK or YCCK as PIL reads them; any integer
     sampling factors; restart intervals; libjpeg-turbo's block smoothing
-    where a progressive file's scans leave low bits unsent; what libjpeg
+    where a progressive file's scans leave low bits unsent; its SIMD IDCT,
+    whose 16-bit lanes wrap and saturate on corrupt data; what libjpeg
     does with a scan cut before its EOI);
   - PNG of every colour type and depth, 1 to 16 bits, plain or Adam7
     (inflated by ``zlib`` here, unfiltered in the C++);
@@ -20,17 +22,28 @@ build raises, there is no fallback):
   - PNM P1 to P6 at any maxval;
   - WebP, lossless (VP8L) and lossy (VP8), with or without alpha, in the
     simple, extended (VP8X) and animated containers: frame 0 on the
-    canvas, as libwebp's WebPAnimDecoder gives it to PIL.
+    canvas, as libwebp's WebPAnimDecoder gives it to PIL;
+  - GIF, frame 0 (``data/gif``, ``native/gifdecode.cpp``);
+  - TIFF, the first directory: raw, PackBits, LZW, Deflate, LZMA and JPEG
+    strips or tiles, as PIL and libtiff decode them (``data/tiff``,
+    ``native/tiffdecode.cpp``; JPEG strips through this JPEG decoder as
+    libtiff drives libjpeg, :func:`_decode_jpeg_strip`), its EXIF
+    orientation applied as PIL's TIFF reader applies it.
 
-  Where PIL raises an ``OSError`` (broken or truncated data, and its own
-  refusals: 12-bit or hierarchical JPEG, the BMP layouts and PNM headers
-  it does not read, a WebP that libwebp fails) the decoder raises an
-  ``OSError``; where PIL's Python raises ``ValueError`` (a short RLE or
-  plain PNM), ``ValueError``; over twice PIL's ``MAX_IMAGE_PIXELS``,
-  :class:`DecompressionBombError`.  A file PIL decodes and this decoder
-  does not raises ``NotImplementedError`` naming its kind: GIF, TIFF,
-  arithmetic-coded or lossless JPEG.  EXIF orientation is not applied, as
-  ``convert`` does not apply it.
+  Which format a file is follows ``PIL.Image.open``'s walk over its
+  plugins (``data/identify``).  Where PIL raises an ``OSError`` (broken or
+  truncated data, a file no plugin takes, and its own refusals: 12-bit or
+  hierarchical JPEG, the BMP layouts and PNM headers it does not read, a
+  WebP that libwebp fails, EPS without Ghostscript and the stub formats)
+  the decoder raises an ``OSError``; where PIL's Python raises
+  ``ValueError`` (a short RLE or plain PNM), ``ValueError``; over twice
+  PIL's ``MAX_IMAGE_PIXELS``, :class:`DecompressionBombError`.  A file PIL
+  decodes and this decoder does not raises ``NotImplementedError`` naming
+  its kind: arithmetic-coded or lossless JPEG, the TIFF compressions and
+  layouts ``data/tiff`` names, and every format ``data/identify`` names
+  (DIB, ICO/CUR, TGA, PCX, SGI, IM, SPIDER, PIL's PNM extensions, DDS,
+  ICNS, JPEG 2000, AVIF, ...).  EXIF orientation is not applied to other
+  formats, as ``convert`` does not apply it.
 * :func:`resize_gray`: ``Image.resize`` of a mode-L image with ``BILINEAR``
   or ``BICUBIC``.
 * :func:`crop_gray`: ``Image.crop`` (coordinates rounded half to even,
@@ -51,6 +64,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 
 from ..utils import native
+from . import gif, identify, tiff
 
 SOURCE = native.NATIVE_DIR / "imgdecode.cpp"
 WEBP_SOURCE = native.NATIVE_DIR / "webpdecode.cpp"
@@ -58,7 +72,6 @@ BUILD_DIR = native.BUILD_DIR
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 FILTERS = {"bilinear": 2, "bicubic": 3}  # PIL's numbers
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-WEBP_CHUNKS = (b"VP8 ", b"VP8L", b"VP8X")  # the first chunks PIL's WebP plugin accepts
 _CHUNK_TYPE = re.compile(rb"\w\w\w\w").match  # PngImagePlugin's is_cid
 
 MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3  # PIL's Image.MAX_IMAGE_PIXELS
@@ -90,6 +103,9 @@ def _library() -> ctypes.CDLL:
     lib.decode_gray.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(u8p), i32p, i32p,
                                 ctypes.c_char_p, ctypes.c_int]
     lib.decode_gray.restype = ctypes.c_int
+    lib.decode_jpeg_strip.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                                      ctypes.POINTER(u8p), i32p, i32p, ctypes.c_char_p, ctypes.c_int]
+    lib.decode_jpeg_strip.restype = ctypes.c_int
     lib.image_free.argtypes = [u8p]
     lib.image_free.restype = None
     lib.png_to_gray.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
@@ -129,29 +145,6 @@ def _raise(code: int, msg: bytes) -> None:
     if code == 4:
         raise DecompressionBombError(text)
     raise OSError(text)
-
-
-def sniff(data: bytes) -> str:
-    """The format of an image file from its first bytes: "jpeg", "png",
-    "bmp", "pnm", "webp" (a RIFF/WEBP file whose first chunk is VP8, VP8L or
-    VP8X, as PIL's WebP plugin accepts it), or the name of a format that is
-    recognised but not decoded ("gif", "tiff"); "" for anything else (PIL's
-    own PNM extensions, Pf, P0CMYK and Py*, among these)."""
-    if data[:3] == b"\xff\xd8\xff":
-        return "jpeg"
-    if data[:8] == PNG_MAGIC:
-        return "png"
-    if data[:2] == b"BM":
-        return "bmp"
-    if data[:1] == b"P" and b"1" <= data[1:2] <= b"7":
-        return "pnm"
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in WEBP_CHUNKS:
-        return "webp"
-    if data[:6] in (b"GIF87a", b"GIF89a"):
-        return "gif"
-    if data[:4] in (b"II*\x00", b"MM\x00*"):
-        return "tiff"
-    return ""
 
 
 class PngImage(NamedTuple):
@@ -234,16 +227,16 @@ def read_png(data: bytes) -> PngImage:
 def decode_gray(data: bytes) -> np.ndarray:
     """``Image.open(io.BytesIO(data)).convert("L")`` as uint8 [H, W]."""
     data = bytes(data)
-    kind = sniff(data)
-    if kind in ("gif", "tiff"):
-        raise NotImplementedError(f"image decoding: {kind.upper()} files are not decoded")
-    if not kind:
-        raise OSError("cannot identify image file")
-    if kind == "webp":
+    kind, info = identify.identify(data, _check_size)
+    if kind == "GIF":
+        return gif.decode_gif(data, info)
+    if kind == "TIFF":
+        return tiff.decode_tiff(data, info, _decode_jpeg_strip)
+    if kind == "WEBP":
         return _decode_webp(data)
     lib = _library()
     msg = ctypes.create_string_buffer(_MSG)
-    if kind == "png":
+    if kind == "PNG":
         png = read_png(data)
         out = np.empty((png.height, png.width), np.uint8)
         code = lib.png_to_gray(png.raw, len(png.raw), png.width, png.height, png.color_type,
@@ -256,6 +249,25 @@ def decode_gray(data: bytes) -> np.ndarray:
     w, h = ctypes.c_int(), ctypes.c_int()
     code = lib.decode_gray(data, len(data), ctypes.byref(buf), ctypes.byref(w), ctypes.byref(h),
                            msg, _MSG)
+    if code:
+        _raise(code, msg.value)
+    try:
+        return np.ctypeslib.as_array(buf, shape=(h.value, w.value)).copy()
+    finally:
+        lib.image_free(buf)
+
+
+def _decode_jpeg_strip(strip: bytes, ycc: bool) -> np.ndarray:
+    """A JPEG-compressed TIFF strip or tile, its JPEGTables spliced in, as
+    libtiff has libjpeg decode it: uint8 [H, W] (``native/imgdecode.cpp``,
+    ``decode_jpeg_strip``: SOI first, nothing read after a single scan,
+    three components converted from YCbCr if ``ycc``, else as they are)."""
+    lib = _library()
+    msg = ctypes.create_string_buffer(_MSG)
+    buf = ctypes.POINTER(ctypes.c_uint8)()
+    w, h = ctypes.c_int(), ctypes.c_int()
+    code = lib.decode_jpeg_strip(strip, len(strip), int(ycc), ctypes.byref(buf),
+                                 ctypes.byref(w), ctypes.byref(h), msg, _MSG)
     if code:
         _raise(code, msg.value)
     try:

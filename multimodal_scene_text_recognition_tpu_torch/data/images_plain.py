@@ -15,7 +15,8 @@ from typing import List, Sequence
 
 import numpy as np
 
-from .images import FILTERS, crop_box, read_png, sniff
+from . import identify
+from .images import FILTERS, _check_size, crop_box, read_png
 
 NATURAL = np.array([
     0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33,
@@ -132,32 +133,42 @@ def _limit(x: np.ndarray) -> np.ndarray:
     return np.clip(x + 128, 0, 255).astype(np.uint8)
 
 
+def _wrap16(x: np.ndarray) -> np.ndarray:
+    return x.astype(np.int16).astype(np.int64)
+
+
 def _idct_1d(v: List[np.ndarray]):
-    """The even and odd parts of jidctint.c's pass on eight int64 inputs."""
+    """One pass of libjpeg-turbo's SIMD ISLOW IDCT on eight int64 inputs:
+    jidctint.c's constants paired as pmaddwd takes them, its four 16-bit
+    sums wrapped."""
     z2, z3 = v[2], v[6]
-    z1 = (z2 + z3) * 4433
-    tmp2 = z1 + z3 * -15137
-    tmp3 = z1 + z2 * 6270
-    tmp0 = (v[0] + v[4]) * 8192
-    tmp1 = (v[0] - v[4]) * 8192
+    tmp3 = z2 * (4433 + 6270) + z3 * 4433
+    tmp2 = z2 * 4433 + z3 * (4433 - 15137)
+    tmp0 = _wrap16(v[0] + v[4]) * 8192
+    tmp1 = _wrap16(v[0] - v[4]) * 8192
     t10, t13, t11, t12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
     tmp0, tmp1, tmp2, tmp3 = v[7], v[5], v[3], v[1]
-    z1, z2, z3, z4 = tmp0 + tmp3, tmp1 + tmp2, tmp0 + tmp2, tmp1 + tmp3
-    z5 = (z3 + z4) * 9633
-    tmp0, tmp1, tmp2, tmp3 = tmp0 * 2446, tmp1 * 16819, tmp2 * 25172, tmp3 * 12299
-    z1, z2, z3, z4 = z1 * -7373, z2 * -20995, z3 * -16069 + z5, z4 * -3196 + z5
-    tmp0, tmp1, tmp2, tmp3 = tmp0 + z1 + z3, tmp1 + z2 + z4, tmp2 + z2 + z3, tmp3 + z1 + z4
-    return [t10 + tmp3, t11 + tmp2, t12 + tmp1, t13 + tmp0,
-            t13 - tmp0, t12 - tmp1, t11 - tmp2, t10 - tmp3]
+    z3, z4 = _wrap16(tmp0 + tmp2), _wrap16(tmp1 + tmp3)
+    z3, z4 = z3 * (9633 - 16069) + z4 * 9633, z3 * 9633 + z4 * (9633 - 3196)
+    o0 = tmp0 * (2446 - 7373) - tmp3 * 7373 + z3
+    o1 = tmp1 * (16819 - 20995) - tmp2 * 20995 + z4
+    o2 = tmp2 * (25172 - 20995) - tmp1 * 20995 + z3
+    o3 = tmp3 * (12299 - 7373) - tmp0 * 7373 + z4
+    return [t10 + o3, t11 + o2, t12 + o1, t13 + o0, t13 - o0, t12 - o1, t11 - o2, t10 - o3]
 
 
 def idct_islow(coef: np.ndarray, q: np.ndarray) -> np.ndarray:
-    """libjpeg's ISLOW IDCT of blocks ``coef`` int [N, 8, 8] (natural order)
-    dequantized by ``q`` [8, 8]: uint8 [N, 8, 8].  Its DC-only shortcuts
-    give the full computation's values, so none is taken here."""
-    x = coef.astype(np.int64) * q.astype(np.int64)
+    """libjpeg-turbo's SIMD ISLOW IDCT, which PIL's x86-64 build runs, of
+    blocks ``coef`` int [N, 8, 8] (natural order) dequantized by ``q``
+    [8, 8] to 16 bits: uint8 [N, 8, 8].  A block whose rows 1 to 7 are zero
+    takes the DC shortcut (each DC shifted in 16 bits); the columns' results
+    saturate to 16 bits, the rows' to 8.  Equal to jidctint.c wherever no
+    16-bit value overflows."""
+    x = _wrap16(coef.astype(np.int64) * q.astype(np.int64))
     cols = _idct_1d([x[:, r, :] for r in range(8)])  # pass 1 down each column
-    ws = np.stack([_descale(c, 11) for c in cols], axis=1)
+    ws = np.clip(np.stack([_descale(c, 11) for c in cols], axis=1), -32768, 32767)
+    dc_only = ~coef[:, 1:, :].any(axis=(1, 2))
+    ws[dc_only] = _wrap16(x[dc_only, :1, :] * 4)
     rows = _idct_1d([ws[:, :, c] for c in range(8)])  # pass 2 along each row
     return np.stack([_limit(_descale(r, 18)) for r in rows], axis=2)
 
@@ -528,22 +539,20 @@ def decode_pnm_plain(d: bytes) -> np.ndarray:
 def decode_gray_plain(data: bytes) -> np.ndarray:
     """The mirror of ``images.decode_gray``."""
     data = bytes(data)
-    kind = sniff(data)
-    if kind in ("webp", "gif", "tiff"):
-        raise NotImplementedError(f"image decoding: {kind.upper()} files are not decoded")
-    if kind == "jpeg":
+    kind = identify.identify(data, _check_size).name
+    if kind in ("WEBP", "GIF", "TIFF"):
+        raise NotImplementedError(f"image decoding: {kind} files are not decoded")
+    if kind == "JPEG":
         return decode_jpeg_plain(data)
-    if kind == "png":
+    if kind == "PNG":
         png = read_png(data)
         if png.interlace or png.depth == 16:
             raise NotImplementedError("image decoding: interlaced or 16-bit PNG (not mirrored)")
         return png_to_gray_plain(png.raw, png.width, png.height, png.color_type, png.depth,
                                  png.palette)
-    if kind == "bmp":
+    if kind == "BMP":
         return decode_bmp_plain(data)
-    if kind == "pnm":
-        return decode_pnm_plain(data)
-    raise OSError("cannot identify image file")
+    return decode_pnm_plain(data)  # identify names every other kind
 
 
 # ---------------------------------------------------------------- resize, crop

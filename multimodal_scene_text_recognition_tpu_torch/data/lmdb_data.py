@@ -7,9 +7,11 @@
   :func:`keep_ratio_resize`; a record PIL would refuse with an
   ``OSError`` (broken or truncated data, a 12-bit or hierarchical JPEG)
   is a black crop labelled "[dummy_label]", as in JAX.  A record of a kind
-  ``data/images`` leaves to a later slice (GIF, TIFF, arithmetic-coded or
-  lossless JPEG) raises ``NotImplementedError``: it is no dummy, since JAX
-  reads it.
+  PIL opens and ``data/images`` does not decode (arithmetic-coded or
+  lossless JPEG, a TIFF compression or layout ``data/tiff`` names, a
+  format ``data/identify`` names: DIB, ICO, TGA, ...) raises
+  ``NotImplementedError``: it is no dummy, since JAX reads it.  GIF and
+  TIFF records are decoded as PIL decodes them.
 * :class:`ConcatSamples`: sample sequences end to end.
 * :class:`BalancedMixture`: batches that take a fixed quota from each
   source, each source reshuffled by one generator when it runs out.

@@ -34,9 +34,11 @@ def list_images(root: str) -> List[str]:
 class RawImageFolder:
     """The images under ``root`` as :class:`Sample`s, decoded when read.
     What PIL refuses raises its ``OSError``, as in JAX; a file of a kind
-    ``data/images`` leaves to a later slice (GIF, TIFF, arithmetic-coded or
-    lossless JPEG under one of these extensions) raises
-    ``NotImplementedError`` naming it."""
+    PIL opens and ``data/images`` does not decode (arithmetic-coded or
+    lossless JPEG, or a format ``data/identify`` names, under one of these
+    extensions) raises ``NotImplementedError`` naming it.  GIF and TIFF
+    files come here only misnamed (``IMAGE_EXTS`` is JAX's list) and are
+    decoded as PIL decodes them."""
 
     def __init__(self, root: str, img_h: int = 32, img_w: int = 100):
         self.paths = list_images(root)

@@ -339,107 +339,66 @@ inline uint8_t idct_limit(long x) {
 #define FIX_3_072711026 25172L
 #define DESCALE(x, n) (((x) + (1L << ((n) - 1))) >> (n))
 
-// libjpeg's jpeg_idct_islow (jidctint.c): CONST_BITS 13, PASS1_BITS 2
+// One 8-point pass of libjpeg-turbo's SIMD ISLOW IDCT (jidctint-avx2.asm,
+// dodct), which PIL's x86-64 build runs: the products of jidctint.c's
+// constants paired as pmaddwd takes them, and the sums its 16-bit lanes
+// make (in0 + in4, in0 - in4, in7 + in3, in5 + in1) wrapped to 16 bits.
+// Exact integer arithmetic otherwise, so equal to the C code wherever no
+// 16-bit value overflows.
+inline long wrap16(long v) { return (int16_t)(uint16_t)(v & 0xFFFF); }
+inline long sat16(long v) { return v < -32768 ? -32768 : v > 32767 ? 32767 : v; }
+
+void idct_pass(const long* in, int step, long* out) {
+  const long z2 = in[2 * step], z3 = in[6 * step];
+  const long tmp3 = z2 * (FIX_0_541196100 + FIX_0_765366865) + z3 * FIX_0_541196100;
+  const long tmp2 = z2 * FIX_0_541196100 + z3 * (FIX_0_541196100 - FIX_1_847759065);
+  const long tmp0 = wrap16(in[0] + in[4 * step]) * 8192;
+  const long tmp1 = wrap16(in[0] - in[4 * step]) * 8192;
+  const long tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2,
+             tmp12 = tmp1 - tmp2;
+  const long t0 = in[7 * step], t1 = in[5 * step], t2 = in[3 * step], t3 = in[step];
+  const long z3o = wrap16(t0 + t2), z4o = wrap16(t1 + t3);
+  const long z3n = z3o * (FIX_1_175875602 - FIX_1_961570560) + z4o * FIX_1_175875602;
+  const long z4n = z3o * FIX_1_175875602 + z4o * (FIX_1_175875602 - FIX_0_390180644);
+  const long o0 = t0 * (FIX_0_298631336 - FIX_0_899976223) - t3 * FIX_0_899976223 + z3n;
+  const long o1 = t1 * (FIX_2_053119869 - FIX_2_562915447) - t2 * FIX_2_562915447 + z4n;
+  const long o2 = t2 * (FIX_3_072711026 - FIX_2_562915447) - t1 * FIX_2_562915447 + z3n;
+  const long o3 = t3 * (FIX_1_501321110 - FIX_0_899976223) - t0 * FIX_0_899976223 + z4n;
+  out[0] = tmp10 + o3;
+  out[7] = tmp10 - o3;
+  out[1] = tmp11 + o2;
+  out[6] = tmp11 - o2;
+  out[2] = tmp12 + o1;
+  out[5] = tmp12 - o1;
+  out[3] = tmp13 + o0;
+  out[4] = tmp13 - o0;
+}
+
+// libjpeg-turbo's SIMD jpeg_idct_islow (CONST_BITS 13, PASS1_BITS 2): each
+// coefficient dequantized to 16 bits (pmullw); the columns, or, where rows
+// 1 to 7 of the block are all zero, each DC shifted left by PASS1_BITS in
+// 16 bits; the column results descaled and saturated to 16 bits
+// (packssdw); the rows descaled, saturated and recentred (idct_limit).
 void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
-  long ws[64];
+  long deq[64], ws[64], col[8];
+  bool ac = false;
+  for (int k = 0; k < 64; ++k) {
+    deq[k] = wrap16((long)in[k] * q[k]);
+    ac |= k >= 8 && in[k] != 0;
+  }
   for (int c = 0; c < 8; ++c) {
-    const int16_t* ip = in + c;
-    const uint16_t* qp = q + c;
-    long* wp = ws + c;
-    if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 && ip[40] == 0 && ip[48] == 0 &&
-        ip[56] == 0) {
-      long dc = ((long)ip[0] * qp[0]) * 4;
-      for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
+    if (!ac) {
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = wrap16(deq[c] * 4);
       continue;
     }
-    long z2 = (long)ip[16] * qp[16], z3 = (long)ip[48] * qp[48];
-    long z1 = (z2 + z3) * FIX_0_541196100;
-    long tmp2 = z1 + z3 * -FIX_1_847759065;
-    long tmp3 = z1 + z2 * FIX_0_765366865;
-    z2 = (long)ip[0] * qp[0];
-    z3 = (long)ip[32] * qp[32];
-    long tmp0 = (z2 + z3) * 8192;
-    long tmp1 = (z2 - z3) * 8192;
-    long tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = (long)ip[56] * qp[56];
-    tmp1 = (long)ip[40] * qp[40];
-    tmp2 = (long)ip[24] * qp[24];
-    tmp3 = (long)ip[8] * qp[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    long z4 = tmp1 + tmp3;
-    long z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    wp[0] = DESCALE(tmp10 + tmp3, 11);
-    wp[56] = DESCALE(tmp10 - tmp3, 11);
-    wp[8] = DESCALE(tmp11 + tmp2, 11);
-    wp[48] = DESCALE(tmp11 - tmp2, 11);
-    wp[16] = DESCALE(tmp12 + tmp1, 11);
-    wp[40] = DESCALE(tmp12 - tmp1, 11);
-    wp[24] = DESCALE(tmp13 + tmp0, 11);
-    wp[32] = DESCALE(tmp13 - tmp0, 11);
+    idct_pass(deq + c, 8, col);
+    for (int r = 0; r < 8; ++r) ws[8 * r + c] = sat16(DESCALE(col[r], 11));
   }
   for (int r = 0; r < 8; ++r) {
-    const long* wp = ws + 8 * r;
+    long row[8];
+    idct_pass(ws + 8 * r, 1, row);
     uint8_t* op = out + (size_t)r * stride;
-    if (wp[1] == 0 && wp[2] == 0 && wp[3] == 0 && wp[4] == 0 && wp[5] == 0 && wp[6] == 0 &&
-        wp[7] == 0) {
-      uint8_t dc = idct_limit(DESCALE(wp[0], 5));
-      for (int c = 0; c < 8; ++c) op[c] = dc;
-      continue;
-    }
-    long z2 = wp[2], z3 = wp[6];
-    long z1 = (z2 + z3) * FIX_0_541196100;
-    long tmp2 = z1 + z3 * -FIX_1_847759065;
-    long tmp3 = z1 + z2 * FIX_0_765366865;
-    long tmp0 = (wp[0] + wp[4]) * 8192;
-    long tmp1 = (wp[0] - wp[4]) * 8192;
-    long tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = wp[7];
-    tmp1 = wp[5];
-    tmp2 = wp[3];
-    tmp3 = wp[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    long z4 = tmp1 + tmp3;
-    long z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    op[0] = idct_limit(DESCALE(tmp10 + tmp3, 18));
-    op[7] = idct_limit(DESCALE(tmp10 - tmp3, 18));
-    op[1] = idct_limit(DESCALE(tmp11 + tmp2, 18));
-    op[6] = idct_limit(DESCALE(tmp11 - tmp2, 18));
-    op[2] = idct_limit(DESCALE(tmp12 + tmp1, 18));
-    op[5] = idct_limit(DESCALE(tmp12 - tmp1, 18));
-    op[3] = idct_limit(DESCALE(tmp13 + tmp0, 18));
-    op[4] = idct_limit(DESCALE(tmp13 - tmp0, 18));
+    for (int c = 0; c < 8; ++c) op[c] = idct_limit(DESCALE(row[c], 18));
   }
 }
 
@@ -665,7 +624,14 @@ inline int muldiv255(int a, int b) {
   return ((t >> 8) + t) >> 8;
 }
 
-void decode_jpeg(const uint8_t* d, size_t n, std::vector<uint8_t>& out, int& W, int& H) {
+// A JPEG as PIL's JPEG plugin decodes it or, with `strip` 0 or 1, a
+// JPEG-compressed TIFF strip or tile as libtiff has libjpeg decode it for
+// PIL: libtiff ignores what jpeg_finish_decompress reports, so once a
+// single-scan image has its lines nothing after its scan is read, and it
+// sets the colour space itself: three components taken as they are (0) or
+// converted from YCbCr (1), whatever the markers say.
+void decode_jpeg(const uint8_t* d, size_t n, std::vector<uint8_t>& out, int& W, int& H,
+                 int strip = -1) {
   uint16_t qt[4][64];
   bool qt_present[4] = {false, false, false, false};
   HuffSpec dc_spec[4], ac_spec[4];
@@ -681,6 +647,7 @@ void decode_jpeg(const uint8_t* d, size_t n, std::vector<uint8_t>& out, int& W, 
     // after the one scan of a single-scan image PIL has its lines: data
     // that runs out before EOI is no fault there (libjpeg suspends)
     const bool lines_done = scans && !multi;
+    if (strip >= 0 && lines_done) break;
     // the next marker (libjpeg skips garbage before it with a warning)
     while (pos < n && d[pos] != 0xFF) ++pos;
     while (pos < n && d[pos] == 0xFF) ++pos;
@@ -695,15 +662,27 @@ void decode_jpeg(const uint8_t* d, size_t n, std::vector<uint8_t>& out, int& W, 
     if (m < 0xC0 || m == 0xDE || m == 0xDF || (m >= 0xF0 && m <= 0xFD))
       fail(BROKEN, "broken data stream (unknown JPEG marker " + std::to_string(m) + ")");
     const bool skipped = (m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xDC;  // APPn, COM, DNL
+    if (lines_done && m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC)
+      fail(BROKEN, "duplicate JPEG frame header");  // libjpeg's saw_SOF, before the length
     if (pos + 2 > n) {
       if (lines_done) break;
       fail(BROKEN, "image file is truncated");
     }
     const int len = u16(d + pos);
+    if (m == 0xDD && len != 4) fail(BROKEN, "corrupt JPEG restart interval");  // read first
     if (len < 2) {
       if (!skipped) fail(BROKEN, "corrupt JPEG marker length");
       pos += 2;  // libjpeg skips nothing more
       continue;
+    }
+    if (m == 0xCC) {  // DAC (jdmarker.c get_dac): each pair is checked as it is read
+      long left = len - 2;
+      size_t p = pos + 2;
+      for (; left > 0 && p + 2 <= n; p += 2, left -= 2) {
+        if (d[p] >= 32) fail(BROKEN, "bad JPEG DAC index");
+        if (d[p] < 16 && (d[p + 1] & 15) > (d[p + 1] >> 4)) fail(BROKEN, "bad JPEG DAC value");
+      }
+      if (left < 0) fail(BROKEN, "corrupt JPEG DAC length");
     }
     if (pos + len > n) {
       if (lines_done) break;
@@ -787,7 +766,6 @@ void decode_jpeg(const uint8_t* d, size_t n, std::vector<uint8_t>& out, int& W, 
         p += 1 + 64 * wide;
       }
     } else if (m == 0xDD) {  // DRI
-      if (sl != 2) fail(BROKEN, "corrupt JPEG restart interval");
       restart_interval = u16(s);
     } else if (m == 0xE0) {
       if (sl >= 5 && std::memcmp(s, "JFIF\0", 5) == 0) jfif = true;
@@ -833,6 +811,8 @@ void decode_jpeg(const uint8_t* d, size_t n, std::vector<uint8_t>& out, int& W, 
         for (size_t ci = 0; ci < comps.size() && ci < 4 && !c; ++ci)
           if (comps[ci].id == s[1 + 2 * i] && !taken[ci]) c = &comps[ci];
         if (!c) fail(BROKEN, "JPEG scan names an unknown component");
+        for (int pi = 0; pi < i; ++pi)  // and one the scan named before is refused
+          if (taken[pi] == c) fail(BROKEN, "JPEG scan names a component twice");
         taken[i] = c;
         blocks += c->h * c->v;
         td.push_back(s[2 + 2 * i] >> 4);
@@ -1081,7 +1061,9 @@ void decode_jpeg(const uint8_t* d, size_t n, std::vector<uint8_t>& out, int& W, 
     return;
   }
   bool ycc;
-  if (jfif) {
+  if (strip >= 0) {
+    ycc = strip == 1;
+  } else if (jfif) {
     ycc = true;
   } else if (adobe) {
     ycc = adobe_transform != 0;
@@ -1543,6 +1525,37 @@ int decode_gray(const uint8_t* data, size_t n, uint8_t** out, int* w, int* h, ch
     } else {
       fail(BROKEN, "cannot identify image file");
     }
+    *out = (uint8_t*)std::malloc(img.size() ? img.size() : 1);
+    if (!*out) fail(BROKEN, "out of memory");
+    std::memcpy(*out, img.data(), img.size());
+    *w = W;
+    *h = H;
+    return OK;
+  } catch (const Failure& f) {
+    std::snprintf(msg, msg_len, "%s", f.msg.c_str());
+    return f.code;
+  } catch (const std::bad_alloc&) {
+    std::snprintf(msg, msg_len, "out of memory");
+    return BROKEN;
+  }
+}
+
+// A JPEG-compressed TIFF strip or tile (the JPEGTables spliced in) as
+// libtiff decodes it: libjpeg's first marker must be SOI; `ycc` 1 converts
+// three components from YCbCr, 0 takes them as they are; see decode_jpeg.
+int decode_jpeg_strip(const uint8_t* data, size_t n, int ycc, uint8_t** out, int* w, int* h,
+                      char* msg, int msg_len) {
+  *out = nullptr;
+  try {
+    std::vector<uint8_t> img;
+    int W = 0, H = 0;
+    if (n < 2 || data[0] != 0xFF || data[1] != 0xD8) {
+      char text[64];
+      std::snprintf(text, sizeof(text), "Not a JPEG file: starts with 0x%02x 0x%02x",
+                    n > 0 ? data[0] : 0, n > 1 ? data[1] : 0);
+      fail(BROKEN, text);
+    }
+    decode_jpeg(data, n, img, W, H, ycc ? 1 : 0);
     *out = (uint8_t*)std::malloc(img.size() ? img.size() : 1);
     if (!*out) fail(BROKEN, "out of memory");
     std::memcpy(*out, img.data(), img.size());

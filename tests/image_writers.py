@@ -744,3 +744,461 @@ def vp8_random_frame(width: int, height: int, seed: int, tables, **opts) -> byte
     head = struct.pack("<I", tag)[:3] + b"\x9d\x01\x2a" + struct.pack("<HH", width, height)
     sizes = b"".join(struct.pack("<I", len(p))[:3] for p in token_parts[:-1])
     return head + first_part + sizes + b"".join(token_parts)
+
+
+# --- GIF --------------------------------------------------------------------------
+
+
+def gif_lzw(indices, bits: int, clear_after: Optional[int] = None, defer: bool = False,
+            eoi: bool = True, lead_clear: bool = True) -> bytes:
+    """GIF's LZW code stream of ``indices`` (ints below ``2**bits``) at the
+    minimum code size ``bits``, packed LSB first: a clear code first
+    (``lead_clear``), another after every ``clear_after`` codes (an early
+    clear), and at a full table of 4096 codes either a clear or, with
+    ``defer``, none (the deferred clear: 12-bit codes go on, no entry is
+    added); the end code last (``eoi``)."""
+    clear, end = 1 << bits, (1 << bits) + 1
+    acc = nacc = 0
+    out = bytearray()
+
+    def emit(code, size):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += size
+        while nacc >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nacc -= 8
+
+    idx = [int(v) for v in np.asarray(indices).ravel()]
+    table, nxt, size, since = {}, end + 1, bits + 1, 0
+    if lead_clear:
+        emit(clear, size)
+    prefix = idx[0] if idx else None
+    for px in idx[1:]:
+        key = (prefix, px)
+        if key in table:
+            prefix = table[key]
+            continue
+        emit(prefix, size)
+        since += 1
+        if clear_after is not None and since >= clear_after:
+            emit(clear, size)
+            table, nxt, size, since = {}, end + 1, bits + 1, 0
+        elif nxt < 4096:
+            if nxt >= (1 << size) and size < 12:
+                size += 1
+            table[key] = nxt
+            nxt += 1
+        elif not defer:
+            emit(clear, size)
+            table, nxt, size, since = {}, end + 1, bits + 1, 0
+        prefix = px
+    if prefix is not None:
+        emit(prefix, size)
+        if nxt < 4096 and nxt >= (1 << size) and size < 12:
+            size += 1
+    if eoi:
+        emit(end, size)
+    if nacc:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def gif_blocks(data: bytes, size: int = 255, terminator: bool = True) -> bytes:
+    """``data`` in GIF sub-blocks of at most ``size`` bytes, and the empty
+    block that ends them."""
+    out = b"".join(bytes([len(data[i:i + size])]) + data[i:i + size]
+                   for i in range(0, len(data), size))
+    return out + (b"\x00" if terminator else b"")
+
+
+def _gif_table(palette: bytes) -> int:
+    n = len(palette) // 3
+    bits = max(1, (n - 1).bit_length())
+    if 3 << bits != len(palette) - len(palette) % 3 or len(palette) % 3:
+        raise ValueError(f"a GIF colour table holds 2**k RGB entries, got {len(palette)} bytes")
+    return bits - 1
+
+
+def gif_frame(indices: np.ndarray, x: int = 0, y: int = 0, palette: Optional[bytes] = None,
+              interlace: bool = False, transparency: Optional[int] = None,
+              code_size: Optional[int] = None, data: Optional[bytes] = None,
+              block: int = 255, **lzw) -> bytes:
+    """One GIF image: a graphic-control extension where ``transparency`` is
+    given, the image descriptor at (x, y) with ``indices``' size, a local
+    colour table (``palette``, RGB bytes of 2**k entries), the minimum code
+    size (``code_size``, else the table's bits, at least 2) and the LZW
+    data (``data`` instead of ``indices`` coded, in sub-blocks of
+    ``block`` bytes).  Interlaced frames are coded in GIF's four passes."""
+    indices = np.asarray(indices)
+    h, w = indices.shape
+    out = b""
+    if transparency is not None:
+        out += b"!\xf9\x04" + bytes([1]) + struct.pack("<H", 10) + bytes([transparency]) + b"\x00"
+    flags = (0x40 if interlace else 0)
+    if palette is not None:
+        flags |= 0x80 | _gif_table(palette)
+    out += b"," + struct.pack("<HHHHB", x, y, w, h, flags) + (palette or b"")
+    if code_size is None:
+        code_size = max(2, int(indices.max(initial=0)).bit_length())
+    if data is None:
+        rows = indices
+        if interlace:
+            order = [r for start, step in ((0, 8), (4, 8), (2, 4), (1, 2))
+                     for r in range(start, h, step)]
+            rows = indices[order]
+        data = gif_lzw(rows, code_size, **lzw)
+    return out + bytes([code_size]) + gif_blocks(data, block)
+
+
+def gif_extension(label: int, *blocks: bytes) -> bytes:
+    """An extension: its label and ``blocks`` as sub-blocks, then the end."""
+    return b"!" + bytes([label]) + b"".join(bytes([len(b)]) + b for b in blocks) + b"\x00"
+
+
+def gif(width: int, height: int, frames: Sequence[bytes], palette: Optional[bytes] = None,
+        version: bytes = b"GIF89a", background: int = 0, trailer: bool = True) -> bytes:
+    """A GIF file: the screen of width x height with a global colour table
+    (``palette``), then ``frames`` (:func:`gif_frame`, :func:`gif_extension`
+    or any bytes) and the trailer."""
+    flags = 0x70
+    if palette is not None:
+        flags |= 0x80 | _gif_table(palette)
+    head = version + struct.pack("<HHBBB", width, height, flags, background, 0)
+    return head + (palette or b"") + b"".join(frames) + (b";" if trailer else b"")
+
+
+def grey_ramp(n: int) -> bytes:
+    """The identity grey palette of ``n`` entries, which PIL's GIF reader
+    drops (the indices become the pixels)."""
+    return bytes(v for i in range(n) for v in (i, i, i))
+
+
+# --- TIFF -------------------------------------------------------------------------
+
+
+def tiff_lzw(data: bytes) -> bytes:
+    """TIFF's LZW of ``data`` as libtiff writes it: a clear code first,
+    codes MSB first from 9 bits (one entry ahead of the decoder, so the
+    decoder's early change), a clear when the table reaches 4094, and the
+    end code."""
+    acc = nacc = 0
+    out = bytearray()
+
+    def emit(code, size):
+        nonlocal acc, nacc
+        acc = (acc << size) | code
+        nacc += size
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 0xFF)
+
+    table, nxt, size = {}, 258, 9
+    emit(256, size)
+    prefix = None
+    for b in data:
+        key = (prefix, b)
+        if prefix is None:
+            prefix = b
+            continue
+        if key in table:
+            prefix = table[key]
+            continue
+        emit(prefix, size)
+        table[key] = nxt
+        nxt += 1
+        if nxt == 4094:
+            emit(256, size)
+            table, nxt, size = {}, 258, 9
+        elif nxt >= (1 << size):
+            size += 1
+        prefix = b
+    if prefix is not None:
+        emit(prefix, size)
+        nxt += 1
+        if nxt != 4094 and nxt >= (1 << size):
+            size += 1
+    emit(257, size)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits: runs of 3 to 128 equal bytes, literals of up to 128."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([257 - (j - i), data[i]])
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _tiff_compress(raw: bytes, compression: int) -> bytes:
+    if compression == 1:
+        return raw
+    if compression == 5:
+        return tiff_lzw(raw)
+    if compression in (8, 32946):
+        return zlib.compress(raw)
+    if compression == 32773:
+        return packbits(raw)
+    if compression == 34925:
+        import lzma
+
+        return lzma.compress(raw, format=lzma.FORMAT_XZ)
+    raise ValueError(f"compression {compression}")
+
+
+def _tiff_rows(samples: np.ndarray, bits: int, order: str, predictor: int) -> np.ndarray:
+    """[H, W, S] samples -> packed row bytes [H, B], horizontal differences
+    taken first for predictor 2."""
+    h, w, s = samples.shape
+    v = samples.astype(np.int64)
+    if predictor == 2:
+        v = np.concatenate([v[:, :1], np.diff(v, axis=1)], axis=1) % (1 << bits)
+    flat = v.reshape(h, w * s)
+    if bits == 16:
+        return flat.astype(order + "u2").view(np.uint8).reshape(h, -1)
+    if bits == 8:
+        return flat.astype(np.uint8)
+    msb = (flat[:, :, None] >> np.arange(bits - 1, -1, -1)) & 1  # each sample's bits, high first
+    return np.packbits(msb.reshape(h, -1).astype(np.uint8), axis=1)
+
+
+def tiff(samples: np.ndarray, bits: int = 8, photometric: int = 1, compression: int = 1,
+         order: str = "<", bigtiff: bool = False, magic: Optional[bytes] = None,
+         rows_per_strip: Optional[int] = None, tile: Optional[Tuple[int, int]] = None,
+         planar: int = 1, predictor: int = 1, fill_order: int = 1,
+         colormap: Optional[np.ndarray] = None, extra_samples: Sequence[int] = (),
+         tags: Optional[dict] = None, strips: Optional[List[bytes]] = None) -> bytes:
+    """A TIFF of one image: ``samples`` [H, W] or [H, W, S] (uint8 or uint16
+    values below ``2**bits``) as strips of ``rows_per_strip`` rows or tiles
+    of ``tile`` = (width, length), chunky or planar (``planar`` 2),
+    compressed (1 none, 5 LZW, 8 / 32946 Deflate, 32773 PackBits, 34925
+    LZMA), with horizontal differencing (``predictor`` 2) and the bits of
+    each compressed byte reversed (``fill_order`` 2); II (``order`` "<") or
+    MM (">"), classic or BigTIFF, its first four bytes ``magic`` where
+    given; ``colormap`` [3, 2**bits] of 16-bit values; ``tags`` {tag: (type,
+    values)} added or put in place; ``strips`` instead of the coded
+    samples."""
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[:, :, None]
+    h, w, s = samples.shape
+    tw, th = tile if tile else (w, rows_per_strip or h)
+    planes = [samples[:, :, i:i + 1] for i in range(s)] if planar == 2 else [samples]
+    segments = []
+    for plane in planes:
+        if tile:
+            padded = np.zeros((-(-h // th) * th, -(-w // tw) * tw, plane.shape[2]), plane.dtype)
+            padded[:h, :w] = plane
+            for ty in range(0, padded.shape[0], th):
+                for tx in range(0, padded.shape[1], tw):
+                    segments.append(padded[ty:ty + th, tx:tx + tw])
+        else:
+            for y in range(0, h, th):
+                segments.append(plane[y:y + th])
+    if strips is None:
+        strips = []
+        for seg in segments:
+            raw = _tiff_rows(seg, bits, order, predictor).tobytes()
+            data = _tiff_compress(raw, compression)
+            if fill_order == 2:
+                data = bytes(int(f"{b:08b}"[::-1], 2) for b in data)
+            strips.append(data)
+    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * s), 259: (3, [compression]),
+               262: (3, [photometric]), 277: (3, [s]), 284: (3, [planar])}
+    if fill_order != 1:
+        entries[266] = (3, [fill_order])
+    if predictor != 1:
+        entries[317] = (3, [predictor])
+    if colormap is not None:
+        entries[320] = (3, list(np.asarray(colormap).ravel()))
+    if extra_samples:
+        entries[338] = (3, list(extra_samples))
+    off_tag, count_tag = (324, 325) if tile else (273, 279)
+    if tile:
+        entries[322], entries[323] = (4, [tw]), (4, [th])
+    else:
+        entries[278] = (4, [th])
+    entries.update(tags or {})
+    head = 16 if bigtiff else 8
+    body = bytearray()
+    offsets = []
+    for data in strips:
+        offsets.append(head + len(body))
+        body += data + b"\0" * (len(data) & 1)
+    long_type = 16 if bigtiff else 4
+    entries[off_tag] = (long_type, offsets)
+    entries[count_tag] = (long_type, [len(d) for d in strips])
+    sizes = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 7: 1, 16: 8}
+    codes = {1: "B", 2: "B", 3: "H", 4: "L", 16: "Q", 7: "B"}
+    ifd_at = head + len(body)
+    entry_size, inline = (20, 8) if bigtiff else (12, 4)
+    extra_at = ifd_at + (8 if bigtiff else 2) + entry_size * len(entries) + (8 if bigtiff else 4)
+    ifd, extra = bytearray(), bytearray()
+    ifd += struct.pack(order + ("Q" if bigtiff else "H"), len(entries))
+    for tag in sorted(entries):
+        typ, values = entries[tag]
+        if isinstance(values, (bytes, bytearray)):
+            blob = bytes(values)
+        elif typ == 5:
+            blob = b"".join(struct.pack(order + "LL", *v) for v in values)
+        else:
+            blob = struct.pack(f"{order}{len(values)}{codes[typ]}", *values)
+        count = len(blob) // sizes[typ]
+        if len(blob) <= inline:
+            value = blob + b"\0" * (inline - len(blob))
+        else:
+            value = struct.pack(order + ("Q" if bigtiff else "L"), extra_at + len(extra))
+            extra += blob + b"\0" * (len(blob) & 1)
+        ifd += struct.pack(order + ("HHQ" if bigtiff else "HHL"), tag, typ, count) + value
+    ifd += b"\0" * (8 if bigtiff else 4)
+    if bigtiff:
+        header = (b"II" if order == "<" else b"MM") + struct.pack(order + "HHHQ", 43, 8, 0, ifd_at)
+    else:
+        header = (b"II" if order == "<" else b"MM") + struct.pack(order + "HL", 42, ifd_at)
+    if magic is not None:
+        header = magic + header[4:]
+    return bytes(header + body + ifd + extra)
+
+
+def jpeg_tables(jpeg: bytes) -> Tuple[bytes, bytes]:
+    """A JPEG split as TIFF stores it: the tables (SOI, its DQT and DHT
+    segments, EOI: the JPEGTables tag) and the abbreviated stream (SOI and
+    the rest: a strip)."""
+    tables, rest = bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8")
+    for m, start, end in jpeg_segments(jpeg):
+        if m == 0xD8:
+            continue
+        (tables if m in (0xDB, 0xC4) else rest).extend(jpeg[start:end])
+    if not rest.endswith(b"\xff\xd9"):
+        rest += b"\xff\xd9"
+    return bytes(tables) + b"\xff\xd9", bytes(rest)
+
+
+def jpeg_tiff(strips: Sequence[bytes], width: int, height: int, rows_per_strip: int,
+              order: str = "<", split_tables: bool = True) -> bytes:
+    """A JPEG-compressed TIFF (compression 7) of baseline JPEG ``strips``,
+    each ``rows_per_strip`` rows of the image (the last one may be cut):
+    YCbCr (PhotometricInterpretation 6, YCbCrSubSampling from the first
+    component's sampling) for 3 components, grey for 1; with the tables of
+    the first strip in JPEGTables and taken out of every strip
+    (``split_tables``), or each strip whole."""
+    frame = next(s for s in jpeg_segments(strips[0]) if s[0] in (0xC0, 0xC1))
+    sof = strips[0][frame[1]:frame[2]]
+    nc = sof[9]
+    tags = {}
+    if split_tables:
+        tags[347] = (7, jpeg_tables(strips[0])[0])
+        strips = [jpeg_tables(s)[1] for s in strips]
+    if nc == 3:
+        tags[530] = (3, [sof[11] >> 4, sof[11] & 15])
+    shape = (height, width) if nc == 1 else (height, width, 3)
+    return tiff(np.zeros(shape, np.uint8), photometric=6 if nc == 3 else 1, compression=7,
+                order=order, rows_per_strip=rows_per_strip, tags=tags, strips=list(strips))
+
+
+def gif_tiff_fixtures(g: np.ndarray, page_jpeg: bytes = b"") -> dict:
+    """The GIF and TIFF fixtures made by hand from the grey crop ``g`` (and
+    a JPEG-compressed TIFF around the baseline 4:2:0 JPEG ``page_jpeg``):
+    {name: file bytes}, the same on any machine (numpy, zlib, lzma and
+    struct only)."""
+    g = np.asarray(g, np.uint8)
+    h, w = g.shape
+    rng = np.random.default_rng(24)
+    pal256 = bytes(rng.integers(0, 256, 768, dtype=np.uint8))
+    pal16 = bytes(rng.integers(0, 256, 48, dtype=np.uint8))
+    rgb = np.stack([g, 255 - g, (g.astype(np.int64) * 3 % 256).astype(np.uint8)], -1)
+    noise = rng.integers(0, 256, (80, 90))
+    out = {
+        "gif87a_global_256.gif": gif(w, h, [gif_frame(g)], palette=pal256, version=b"GIF87a"),
+        "gif_local_16_interlaced.gif": gif(w, h, [gif_frame(g >> 4, palette=pal16,
+                                                            interlace=True)]),
+        "gif_grey_ramp.gif": gif(w, h, [gif_frame(g)], palette=grey_ramp(256)),
+        "gif_ramp_2.gif": gif(w, h, [gif_frame(g >> 7, code_size=2)],
+                              palette=grey_ramp(2)),
+        "gif_local_ramp_over_global.gif": gif(w, h, [gif_frame(g >> 4, palette=grey_ramp(16))],
+                                              palette=pal256),
+        "gif_small_frame_transparent.gif": gif(w + 10, h + 6, [gif_frame(
+            g >> 4, x=4, y=3, transparency=5)], palette=pal16),
+        "gif_small_frame.gif": gif(w + 7, h + 5, [gif_frame(g >> 4, x=6, y=1)], palette=pal16),
+        "gif_frame_past_screen.gif": gif(w // 2, h // 2, [gif_frame(g >> 4, x=3, y=2)],
+                                         palette=pal16),
+        "gif_code_size_3_clears.gif": gif(w, h, [gif_frame(g >> 5, code_size=3, clear_after=40)],
+                                          palette=pal256[:24]),
+        "gif_code_size_5_no_eoi.gif": gif(w, h, [gif_frame(g >> 3, code_size=5, eoi=False)],
+                                          palette=pal256[:96]),
+        "gif_code_size_7_no_lead_clear.gif": gif(w, h, [gif_frame(g >> 1, code_size=7,
+                                                                  lead_clear=False)],
+                                                 palette=pal256[:384]),
+        "gif_index_past_palette.gif": gif(w, h, [gif_frame(g >> 6)], palette=pal16[:6]),
+        "gif_table_full_cleared.gif": gif(90, 80, [gif_frame(noise)], palette=pal256),
+        "gif_table_full_deferred.gif": gif(90, 80, [gif_frame(noise, defer=True)],
+                                           palette=pal256),
+        "gif_extensions_two_frames.gif": gif(w, h, [
+            gif_extension(254, b"a comment", b"in two blocks"),
+            gif_extension(255, b"NETSCAPE2.0", b"\x01\x00\x00"),
+            gif_extension(1, bytes(12), b"plain text"),
+            gif_frame(g >> 4, transparency=3, block=17),
+            gif_frame(255 - g, palette=pal256)], palette=pal16),
+        "tiff_raw_strips.tif": tiff(g, rows_per_strip=7),
+        "tiff_raw_mm_tiles.tif": tiff(g, order=">", tile=(16, 16)),
+        "tiff_raw_rgb_planar.tif": tiff(rgb, photometric=2, planar=2, rows_per_strip=9),
+        "tiff_raw_min_is_white_4bit.tif": tiff(g >> 4, bits=4, photometric=0),
+        "tiff_raw_1bit_fill2.tif": tiff(g >> 7, bits=1, fill_order=2),
+        "tiff_raw_16bit_mm.tif": tiff(g.astype(np.uint16) * 3, bits=16, order=">"),
+        "tiff_lzw.tif": tiff(g, compression=5, rows_per_strip=10),
+        "tiff_lzw_rgb_predictor.tif": tiff(rgb, photometric=2, compression=5, predictor=2),
+        "tiff_lzw_bigtiff.tif": tiff(g, compression=5, bigtiff=True),
+        "tiff_lzw_fill2.tif": tiff(g, compression=5, fill_order=2),
+        "tiff_lzw_palette_4bit.tif": tiff(g >> 4, bits=4, photometric=3, compression=5,
+                                          colormap=rng.integers(0, 65536, (3, 16))),
+        "tiff_lzw_cmyk.tif": tiff(np.concatenate([rgb, g[..., None]], -1), photometric=5,
+                                  compression=5),
+        "tiff_lzw_rgba_associated.tif": tiff(np.concatenate([rgb, (g | 1)[..., None]], -1),
+                                             photometric=2, compression=5, extra_samples=[1]),
+        "tiff_deflate_tiles.tif": tiff(g, compression=8, tile=(32, 16)),
+        "tiff_deflate_16bit_mm_predictor.tif": tiff(g.astype(np.uint16) * 257, bits=16,
+                                                    order=">", compression=32946, predictor=2),
+        "tiff_deflate_2bit.tif": tiff(g >> 6, bits=2, compression=8),
+        "tiff_packbits_rgb_planar.tif": tiff(rgb, photometric=2, compression=32773, planar=2,
+                                             rows_per_strip=5),
+        "tiff_lzma.tif": tiff(g, compression=34925, rows_per_strip=16),
+        "tiff_orientation_6.tif": tiff(g, compression=5, tags={274: (3, [6])}),
+        "tiff_lzw_min_is_white_8bit.tif": tiff(g, photometric=0, compression=5),
+        "tiff_lzw_min_is_white_1bit.tif": tiff(g >> 7, bits=1, photometric=0, compression=5),
+        "tiff_deflate_min_is_white_16bit.tif": tiff(g.astype(np.uint16) * 2, bits=16,
+                                                    photometric=0, compression=8),
+        "tiff_lzw_12bit.tif": tiff(g.astype(np.uint16) * 16 + 7, bits=12, compression=5),
+        "tiff_packbits_palette_1bit.tif": tiff(g >> 7, bits=1, photometric=3, compression=32773,
+                                               colormap=rng.integers(0, 65536, (3, 2))),
+        "tiff_deflate_palette_8bit.tif": tiff(g, photometric=3, compression=8, tile=(16, 32),
+                                              colormap=rng.integers(0, 65536, (3, 256))),
+        "tiff_packbits_rgba.tif": tiff(np.concatenate([rgb, (255 - g)[..., None]], -1),
+                                       photometric=2, compression=32773, extra_samples=[2]),
+        "tiff_deflate_rgba_16bit_predictor.tif": tiff(
+            np.concatenate([rgb, g[..., None]], -1).astype(np.uint16) * 257, bits=16,
+            photometric=2, compression=8, predictor=2, extra_samples=[2]),
+        "tiff_mm_bigtiff.tif": tiff(g, order=">", bigtiff=True),  # PIL cannot identify it
+    }
+    out["tiff_lzw_strip_cut.tif"] = tiff(g, compression=5, strips=[tiff_lzw(g.tobytes())[:200]])
+    out["gif_truncated.gif"] = out["gif87a_global_256.gif"][:-40]
+    if page_jpeg:
+        frame = next(s for s in jpeg_segments(page_jpeg) if s[0] == 0xC0)
+        hh, ww = struct.unpack(">HH", page_jpeg[frame[1] + 5:frame[1] + 9])
+        out["tiff_jpeg_page_tables.tif"] = jpeg_tiff([page_jpeg], ww, hh, hh)
+        out["tiff_jpeg_page_whole.tif"] = jpeg_tiff([page_jpeg], ww, hh, hh,
+                                                    split_tables=False)
+    return out

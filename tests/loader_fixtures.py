@@ -311,6 +311,7 @@ def make_format_files(out: Path = OUT) -> None:
     (fmt / "twelve_bit.jpg").write_bytes(iw.retag_frame(base, precision=12))
     (fmt / "hierarchical.jpg").write_bytes(iw.retag_frame(base, marker=0xC5))
     make_webp_files(out)
+    make_gif_tiff_files(out)
 
 
 # WebP files of formats/: (file name, the committed crop or page it is made
@@ -533,6 +534,73 @@ def make_webp_files(out: Path = OUT) -> None:
              ends=np.cumsum([len(f) for f in files]))
 
 
+# GIF and TIFF: the files of formats/ that need PIL's encoders (JPEG strips,
+# CCITT), and the rest made by image_writers.gif_tiff_fixtures from CROP_GT
+# and page_0.jpg wherever they are read.  expected.npz keeps, for every one,
+# what PIL's open().convert("L") gives: "ok" and the sha256 of the array, or
+# the class of its error (format_gif_tiff/...)
+GIF_TIFF_STORED = ("tiff_jpeg_libtiff.tif", "tiff_jpeg_444_strips.tif", "tiff_ccitt_g4.tif")
+CROP_GT = "crop_02.jpg"
+
+
+def make_gif_tiff_files(out: Path = OUT) -> None:
+    """Write the GIF and TIFF files of ``formats/`` that only PIL's
+    encoders make: a JPEG-compressed TIFF by PIL's libtiff save (YCbCr
+    4:2:0 strips, JPEGTables), one of 4:4:4 JPEG strips of PIL's JPEG
+    encoder with their tables spliced out, and a CCITT group 4 TIFF (the
+    port refuses it by name)."""
+    import io
+
+    import image_writers as iw
+    from PIL import Image
+
+    fmt = out / "formats"
+    rgb = np.asarray(Image.open(out / "crops" / "crop_01.jpg").convert("RGB"))
+    buf = io.BytesIO()
+    Image.fromarray(rgb).save(buf, format="TIFF", compression="jpeg")
+    (fmt / "tiff_jpeg_libtiff.tif").write_bytes(buf.getvalue())
+    rows, strips = 8, []
+    for y in range(0, rgb.shape[0], rows):
+        buf = io.BytesIO()
+        Image.fromarray(rgb[y:y + rows]).save(buf, format="JPEG", quality=85, subsampling=0)
+        strips.append(buf.getvalue())
+    (fmt / "tiff_jpeg_444_strips.tif").write_bytes(
+        iw.jpeg_tiff(strips, rgb.shape[1], rgb.shape[0], rows))
+    buf = io.BytesIO()
+    Image.fromarray(rgb[..., 0] > 128).save(buf, format="TIFF", compression="group4")
+    (fmt / "tiff_ccitt_g4.tif").write_bytes(buf.getvalue())
+
+
+def gif_tiff_files(out: Path = OUT, decode=None) -> dict:
+    """{name: bytes} of every GIF and TIFF fixture: the stored ones and
+    those made by hand from the committed crop and page (``decode`` reads
+    the crop: PIL's by default)."""
+    import image_writers as iw
+
+    if decode is None:
+        from PIL import Image
+
+        decode = lambda path: np.asarray(Image.open(path).convert("L"))  # noqa: E731
+    files = iw.gif_tiff_fixtures(decode(out / "crops" / CROP_GT),
+                                 (out / "page_0.jpg").read_bytes())
+    for name in GIF_TIFF_STORED:
+        files[name] = (out / "formats" / name).read_bytes()
+    return files
+
+
+def pil_outcome(data: bytes):
+    """("ok", sha256 of PIL's decode) or (the class of its error, zeros)."""
+    import io
+
+    from PIL import Image
+
+    try:
+        return "ok", gray_sha256(Image.open(io.BytesIO(data)).convert("L"))
+    except Exception as e:  # noqa: BLE001 - the class is what is kept
+        name = "OSError" if isinstance(e, OSError) else type(e).__name__
+        return name, np.zeros(32, np.uint8)
+
+
 def format_files(out: Path = OUT):
     return [name for name, _, _ in FORMAT_PAGES + FORMAT_CROPS]
 
@@ -650,6 +718,11 @@ def expected(out: Path = OUT, strings: bool = True) -> dict:
         exp[f"format_webp/{name}"] = gray_sha256(Image.open(fmt / name).convert("L"))
     exp["format_webp_crops/sha256"] = np.stack(
         [gray_sha256(Image.open(io.BytesIO(f)).convert("L")) for f in webp_crops(out)])
+    files = gif_tiff_files(out)
+    outcomes = [pil_outcome(files[n]) for n in sorted(files)]
+    exp["format_gif_tiff/name"] = np.asarray(sorted(files))
+    exp["format_gif_tiff/outcome"] = np.asarray([o for o, _ in outcomes])
+    exp["format_gif_tiff/sha256"] = np.stack([h for _, h in outcomes])
     return exp
 
 

@@ -16,7 +16,7 @@ import pytest
 from PIL import Image
 
 import image_writers as iw
-from multimodal_scene_text_recognition_tpu_torch.data import images
+from multimodal_scene_text_recognition_tpu_torch.data import identify, images
 from multimodal_scene_text_recognition_tpu_torch.data import images_plain as plain
 from multimodal_scene_text_recognition_tpu_torch.utils import images as uimages
 from multimodal_scene_text_recognition_tpu_torch.utils import native
@@ -246,18 +246,27 @@ UNSUPPORTED = {
     "arithmetic-coded JPEG": lambda: _jpeg().replace(b"\xff\xc0", b"\xff\xc9", 1),
     "lossless JPEG": lambda: iw.retag_frame(_jpeg(), marker=0xC3),
     "GIF": lambda: encoded(Image.fromarray(smooth(20, 30, 1, 2)), format="GIF"),
-    "TIFF": lambda: encoded(Image.fromarray(smooth(20, 30, 1, 2)), format="TIFF"),
+    "TIFF": lambda: encoded(Image.fromarray(smooth(20, 30, 1, 2) > 128), format="TIFF",
+                            compression="group4"),
 }
+DECODED_NOT_MIRRORED = {"GIF"}  # the C++ decodes these; the numpy mirror does not
 
 
 @pytest.mark.parametrize("name", list(UNSUPPORTED))
 def test_formats_not_covered_raise_not_implemented(name):
-    """A file of a kind the decoder does not cover raises
-    NotImplementedError naming it (not OSError: no loader takes it for a
-    broken record).  The lossless JPEG is a baseline file retagged SOF3:
-    its frame marker is what is refused."""
+    """A file of a kind a decoder does not cover raises NotImplementedError
+    naming it (not OSError: no loader takes it for a broken record).  The
+    lossless JPEG is a baseline file retagged SOF3: its frame marker is
+    what is refused.  GIF is decoded by the C++ (equal to PIL) and not
+    mirrored; a CCITT (group 4) TIFF is decoded by neither."""
     data = UNSUPPORTED[name]()
-    for decode in (images.decode_gray, plain.decode_gray_plain):
+    decoders = [plain.decode_gray_plain]
+    if name in DECODED_NOT_MIRRORED:
+        np.testing.assert_array_equal(images.decode_gray(data),
+                                      np.asarray(Image.open(io.BytesIO(data)).convert("L")))
+    else:
+        decoders.append(images.decode_gray)
+    for decode in decoders:
         with pytest.raises(NotImplementedError, match=name):
             decode(data)
 
@@ -970,7 +979,8 @@ def test_webp_unknown_fourcc_cannot_be_identified():
         Image.open(io.BytesIO(data))
     with pytest.raises(OSError, match="cannot identify"):
         images.decode_gray(data)
-    assert images.sniff(data) == ""
+    with pytest.raises(OSError, match="cannot identify"):
+        identify.identify(data, images._check_size)
 
 
 def test_webp_canvas_bomb_raises_as_pil():
@@ -999,3 +1009,46 @@ def test_webp_decoder_raises_when_it_cannot_be_built(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="failed"):
         images.decode_gray(webp(smooth(8, 8, 3, 1)))
     assert not list((tmp_path / "_build").glob("*.so"))
+
+
+def _jpeg_flips():
+    """(name, data): baseline 4:2:0, 4:4:4 and grey JPEGs and a progressive
+    one, each with single bits flipped in its entropy-coded data (after its
+    first scan header, before its EOI)."""
+    rng = np.random.default_rng(11)
+    rgb = smooth(48, 64, 3, 21)
+    files = {"4:2:0": dict(quality=90), "4:4:4": dict(quality=95, subsampling=0),
+             "grey": dict(quality=80), "progressive": dict(quality=85, progressive=True)}
+    cases = []
+    for name, kw in files.items():
+        buf = io.BytesIO()
+        Image.fromarray(rgb).convert("L" if name == "grey" else "RGB").save(buf, "JPEG", **kw)
+        data = buf.getvalue()
+        start = data.index(b"\xff\xda") + 14
+        for pos in sorted(rng.choice(np.arange(start, len(data) - 2), 8, replace=False)):
+            bit = int(rng.integers(0, 8))
+            cases.append((f"{name} byte {pos} bit {bit}",
+                          data[:pos] + bytes([data[pos] ^ (1 << bit)]) + data[pos + 1:]))
+    return cases
+
+
+JPEG_FLIPS = dict(_jpeg_flips())
+
+
+@pytest.mark.parametrize("name", list(JPEG_FLIPS))
+def test_jpeg_entropy_flips_match_pil(name):
+    """Corrupt entropy-coded data: PIL's class, and PIL's pixels where it
+    decodes, from the C++ and (baseline files) its numpy mirror.  Such data
+    makes coefficients whose dequantized values overflow 16 bits; PIL's
+    libjpeg-turbo runs its SIMD IDCT, whose 16-bit lanes wrap and saturate
+    where jidctint.c's C does not."""
+    data = JPEG_FLIPS[name]
+    try:
+        want = np.asarray(Image.open(io.BytesIO(data)).convert("L"))
+    except OSError:
+        with pytest.raises(OSError):
+            images.decode_gray(data)
+        return
+    np.testing.assert_array_equal(images.decode_gray(data), want)
+    if not name.startswith("progressive"):
+        np.testing.assert_array_equal(plain.decode_gray_plain(data), want)
